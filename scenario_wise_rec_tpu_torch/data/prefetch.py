@@ -1,0 +1,81 @@
+"""Background-thread batch prefetch.
+
+The port's copy of the JAX package's ``data/prefetch.py``. The reference
+overlaps host batch assembly with device compute via DataLoader worker
+processes (reference utils/data.py:59-61, num_workers=8). The columnar
+pipeline's per-batch host work is tiny (pure numpy slicing) but not free:
+at device step times of well under a millisecond the host-side slice sits
+on the critical path between launches. A single daemon thread with a
+bounded queue hides it behind device execution; no worker processes, no
+serialization.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator
+
+
+class Prefetcher:
+    """Iterate ``iterable`` on a daemon thread, ``depth`` items ahead.
+
+    Preserves order and exceptions: an exception raised by the producer is
+    re-raised in the consumer at the position it occurred. Each ``__iter__``
+    spawns a fresh thread, so one Prefetcher can wrap a re-iterable loader
+    (e.g. ``BatchIterable``) across epochs. If the consumer abandons the
+    iterator early, the thread parks on the bounded queue and is released by
+    ``close()`` (also called by the generator's ``finally``).
+    """
+
+    def __init__(self, iterable: Iterable, depth: int = 2):
+        assert depth >= 1
+        self.iterable = iterable
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.iterable)
+
+    def __iter__(self) -> Iterator:
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        _END = object()
+
+        def produce():
+            try:
+                for item in self.iterable:
+                    while not stop.is_set():
+                        try:
+                            q.put(("item", item), timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+                q.put(("end", _END))
+            except BaseException as e:  # re-raised consumer-side
+                q.put(("error", e))
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()  # eager: production overlaps work done before first next()
+
+        def consume():
+            try:
+                while True:
+                    kind, payload = q.get()
+                    if kind == "end":
+                        return
+                    if kind == "error":
+                        raise payload
+                    yield payload
+            finally:
+                stop.set()
+
+        return consume()
+
+
+def prefetch(iterable: Iterable, depth: int = 2) -> Iterable:
+    """Wrap ``iterable`` in a Prefetcher; ``depth=0`` returns it unchanged."""
+    if depth <= 0:
+        return iterable
+    return Prefetcher(iterable, depth)

@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels and the plain PyTorch code around them.
+
+- ``folding``: eval-time Linear→BatchNorm constant folding (plain torch; the
+  precondition of the fused kernels).
+- ``mmoe_infer``: the whole post-embedding MMOE eval stack in one CUDA
+  kernel (``csrc/mmoe_infer.cu``), with its plain version.
+- ``_build``: compiles ``csrc/*.cu`` with nvcc at first use, loads with ctypes.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
+"""
+
+from .folding import fold_bn_linear_eval, fold_stacked_mlp_eval
+from .mmoe_infer import mmoe_fused_infer, mmoe_fused_infer_ref
+
+__all__ = ["fold_bn_linear_eval", "fold_stacked_mlp_eval",
+           "mmoe_fused_infer", "mmoe_fused_infer_ref"]

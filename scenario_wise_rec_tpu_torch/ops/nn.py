@@ -1,0 +1,198 @@
+"""NN building blocks as ``nn.Module``s with optional stacked members.
+
+The counterpart of the JAX package's ``ops/nn.py``:
+
+- ``linear``          — y = x @ W + b, W stored (in, out)
+- ``batchnorm``       — torch BatchNorm1d semantics (batch stats in train,
+                        running stats in eval, unbiased-var running update),
+                        with the weight-masked ``batch_stats`` so padded rows
+                        stay invisible
+- ``MLP``             — [Linear -> BN -> act -> Dropout]* (+ optional (·,1) head)
+
+A stacked bank (the JAX package's ``stacked_mlp_init``/``stacked_mlp_apply``)
+is ``MLP(..., members=n)``: every parameter and running stat gains a leading
+``[n, ...]`` axis and each layer is one batched matmul over it. Activations
+are ``[..., B, H]``: ``[B, H]`` for a plain MLP, ``[n, B, H]`` inside a
+bank; statistics reduce over the batch axis ``-2``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..core import config as compute_config
+from ..core import init as initializers
+from ..core.activations import activation as activation_factory
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+
+def _row(t: torch.Tensor) -> torch.Tensor:
+    """A per-feature vector ``[..., H]`` as ``[..., 1, H]`` (broadcast over B)."""
+    return t.unsqueeze(-2)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b``; a shared ``x [B, in]`` broadcasts over stacked ``w``."""
+    return compute_config.matmul(x, w) + _row(b)
+
+
+def batch_stats(x: torch.Tensor, w: Optional[torch.Tensor] = None):
+    """(mean, biased var, n) over the batch axis -2, excluding rows with
+    ``w == 0``.
+
+    Static-shape batches are padded with weight-0 rows (data/dataset.py);
+    the reference never sees those rows, so every batch-statistics op must
+    exclude them or train/eval semantics diverge on ragged batches.
+    """
+    if w is None:
+        mean = torch.mean(x, dim=-2)
+        var = torch.mean((x - _row(mean)) ** 2, dim=-2)
+        return mean, var, torch.tensor(float(x.shape[-2]), device=x.device)
+    wc = w.reshape(-1, 1).to(x.dtype)
+    n = torch.clamp(torch.sum(wc), min=1.0)
+    mean = torch.sum(x * wc, dim=-2) / n
+    var = torch.sum(((x - _row(mean)) ** 2) * wc, dim=-2) / n
+    return mean, var, n
+
+
+def batchnorm(x, gamma, beta, mean, var, train: bool, w=None):
+    """torch BatchNorm1d: batch stats (biased var) normalize in train mode,
+    running stats update with the *unbiased* var; eval uses running stats.
+    ``w``: optional [B] 0/1 mask; padded rows are excluded from the stats
+    (their outputs are garbage and must be discarded by the caller).
+
+    Returns ``(y, new_mean, new_var)``.
+    """
+    if train:
+        bmean, bvar, n = batch_stats(x, w)
+        y = (x - _row(bmean)) * torch.rsqrt(_row(bvar) + BN_EPS)
+        unbiased = bvar * (n / torch.clamp(n - 1.0, min=1.0))
+        new_mean = (1 - BN_MOMENTUM) * mean + BN_MOMENTUM * bmean
+        new_var = (1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased
+    else:
+        y = (x - _row(mean)) * torch.rsqrt(_row(var) + BN_EPS)
+        new_mean, new_var = mean, var
+    return y * _row(gamma) + _row(beta), new_mean, new_var
+
+
+def dropout(x, p: float, train: bool, generator: Optional[torch.Generator]):
+    """torch semantics: inverted scaling at train time."""
+    if not train or p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+class Linear(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator,
+                 lead=()):
+        super().__init__()
+        p = initializers.linear_params(generator, in_dim, out_dim, lead)
+        self.w = nn.Parameter(p["w"])
+        self.b = nn.Parameter(p["b"])
+
+    def forward(self, x):
+        return linear(x, self.w, self.b)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm1d with ``gamma``/``beta`` parameters and ``mean``/``var``
+    running-stat buffers, all ``[*lead, dim]``. A train-mode forward updates
+    the buffers in place, as torch's BatchNorm1d does."""
+
+    def __init__(self, dim: int, lead=(), device=None):
+        super().__init__()
+        shape = tuple(lead) + (dim,)
+        self.gamma = nn.Parameter(torch.ones(shape, device=device))
+        self.beta = nn.Parameter(torch.zeros(shape, device=device))
+        self.register_buffer("mean", torch.zeros(shape, device=device))
+        self.register_buffer("var", torch.ones(shape, device=device))
+
+    def forward(self, x, train: bool = False, w=None):
+        y, new_mean, new_var = batchnorm(x, self.gamma, self.beta, self.mean,
+                                         self.var, train, w)
+        if train:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.var.copy_(new_var)
+        return y
+
+
+class _Layer(nn.Module):
+    def __init__(self, in_dim, out_dim, act, generator, lead):
+        super().__init__()
+        self.lin = Linear(in_dim, out_dim, generator, lead)
+        self.bn = BatchNorm(out_dim, lead, device=generator.device)
+        self.act = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in act.init(generator, lead).items()})
+
+
+class MLP(nn.Module):
+    """MLP matching the reference block: [Linear -> BatchNorm1d -> act ->
+    Dropout]* then an optional ``(·, 1)`` head.
+
+    ``members=n`` stacks ``n`` independent MLPs on a leading axis; the
+    forward then returns ``[n, B, out]``.
+    """
+
+    def __init__(
+        self,
+        input_dim: int,
+        dims: Optional[Sequence[int]] = None,
+        output_layer: bool = True,
+        activation: str = "relu",
+        dropout: float = 0.0,
+        members: Optional[int] = None,
+        *,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        self.input_dim = int(input_dim)
+        self.dims = tuple(dims or ())
+        self.output_layer = bool(output_layer)
+        self.act = activation_factory(activation)
+        self.dropout_p = float(dropout)
+        self.members = members
+        self.output_dim = 1 if self.output_layer else (
+            self.dims[-1] if self.dims else self.input_dim
+        )
+        lead = () if members is None else (int(members),)
+        layers = []
+        in_dim = self.input_dim
+        for d in self.dims:
+            layers.append(_Layer(in_dim, d, self.act, generator, lead))
+            in_dim = d
+        self.layers = nn.ModuleList(layers)
+        self.out = (Linear(in_dim, 1, generator, lead) if self.output_layer
+                    else None)
+
+    def forward(self, x, train: bool = False, w=None,
+                generator: Optional[torch.Generator] = None,
+                per_member_x: bool = False):
+        """``x`` is ``[B, in]``, shared by every member of a bank, or with
+        ``per_member_x=True`` ``[n, B, in]`` fed member-wise. ``w`` ([B]
+        padding mask) is shared across members."""
+        if per_member_x and (self.members is None or x.ndim != 3
+                             or x.shape[0] != self.members):
+            raise ValueError(
+                f"per_member_x needs x [{self.members}, B, in], got "
+                f"{tuple(x.shape)}")
+        for layer in self.layers:
+            x = layer.lin(x)
+            x = layer.bn(x, train, w)
+            act_p = {k: (_row(v) if self.members is not None else v)
+                     for k, v in layer.act.items()}
+            x = self.act.apply(act_p, x)
+            x = dropout(x, self.dropout_p, train, generator)
+        if self.out is not None:
+            x = self.out(x)
+        if self.members is not None and x.ndim == 2:
+            x = x.expand((self.members,) + tuple(x.shape))
+        return x
