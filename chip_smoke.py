@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one card and check its kernels.
+"""Drive the PyTorch/CUDA port's serving and training paths on one card and
+check its kernels.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -11,12 +12,22 @@ Phases; each asserts, and any failure exits non-zero:
 1. Card and build: the card's name and power limit (nvidia-smi), then every
    ``scenario_wise_rec_tpu_torch/csrc/*.cu`` built with nvcc (one process per
    source, all started together), with the compiler's register report.
-2. Kernel vs plain on the card: ``mmoe_fused_infer`` against
-   ``mmoe_fused_infer_ref`` at (a) the Ali-CCP shape, B = 4096, (b) ragged
-   B = 4095 and B = 1, (c) a narrow configuration, (d) domain ids -1, D and
-   D+5; max |error| <= 1e-5 (f32 FMA order differs from cuBLAS). Times with
-   CUDA events (warm-up, median of repeats) and the bound of the work.
-3. Main path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
+2. Kernels vs plain on the card, each timed with CUDA events (warm-up,
+   median of repeats) beside the bound of its work:
+   - ``mmoe_fused_infer`` against ``mmoe_fused_infer_ref`` at (a) the
+     Ali-CCP shape, B = 4096, (b) ragged B = 4095 and B = 1, (c) a narrow
+     configuration, (d) domain ids -1, D and D+5; max |error| <= 1e-5 (f32
+     FMA order differs from cuBLAS);
+   - ``sorted_dense_adam_apply`` against ``sorted_dense_adam_apply_ref``
+     over 3 steps at (a) the Ali-CCP table (V = 10,741,000, D = 16,
+     K = 94,208 uniform ids), (b) a hot row (one feature's 4096 ids one
+     row, the rest Zipf), (c) V not a multiple of the tile, empty tiles and
+     ids -1, -7, V, V+3, (d) K = 0; |error| <= 1e-6 + 1e-5 |plain| (the
+     plain version's index_add_ sums duplicates with atomics in a varying
+     order), plus the nearest PyTorch composition (index_add_ + fused
+     torch.optim.Adam) and a ``block_rows`` sweep on uniform and on hot-row
+     ids.
+3. Serving path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
    experts [256,128,64,32,16,8], tower [16]) with 467,000 ids per feature
    (a packed [10.74M, 16] f32 table) built on the card from ``--seed``;
    ``CTRTrainer(fused_inference=True).evaluate_multi_domain_loss`` and
@@ -25,7 +36,18 @@ Phases; each asserts, and any failure exits non-zero:
    kernel must have launched once per batch. Predictions are held against
    the op-by-op path (``fused_inference=False``) and a narrow model against
    the CPU's plain path.
-4. The card line, one ``{"kernels": [...]}`` line, and last the line
+4. Training path: the same model trained by ``CTRTrainer(
+   sparse_embedding_updates=True, sparse_update_impl="sorted",
+   fused_inference=True).fit`` for one epoch over 16*4096+123 rows with a
+   validation loader, then ``evaluate_multi_domain_loss``; the counters are
+   set to 0 before and read after: the sorted kernel once per train step,
+   the eval kernel once per eval batch. Then train examples/s over a second
+   epoch, a profile of train steps, the sorted trainer against the plain
+   dense trainer (torch.optim.Adam over the whole table) for 2 steps at
+   full width, beside two planted faults that this check must catch, and a
+   narrow model trained 3 steps on the card and the CPU. Each gated step
+   starts both sides from one state (``sorted_vs_dense``).
+5. The card line, one ``{"kernels": [...]}`` line, and last the line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,9 +56,12 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +78,29 @@ PEAKS = {  # name fragment -> (f32 FLOP/s, bytes/s)
 VOCAB, N_SPARSE, N_DENSE, DOMAINS, BATCH = 467_000, 23, 8, 3, 4096
 EXPERT_DIMS, TOWER_DIMS = [256, 128, 64, 32, 16, 8], [16]
 TOL = 1e-5
+# sorted_dense_adam_apply vs its plain version, per element: both round each
+# elementwise step alike; three or more duplicate gradients sum in another
+# order (the plain index_add_ uses atomics)
+SA_RTOL, SA_ATOL = 1e-5, 1e-6
+# One train step of the sorted trainer against the plain dense trainer
+# (torch.optim.Adam over the whole table) at full width, and of the card
+# against the CPU on a narrow model, from one state. Every element of the
+# table and the dense parameters must lie within STEP_ATOL + STEP_RTOL |v| (lr
+# is 1e-3). The table's moments are judged the same way by the step they
+# imply, lr * mu_hat / (sqrt(nu_hat) + eps): a raw mu element whose gradient
+# sum cancels carries the backward's rounding as a large relative gap that
+# moves no parameter (the card's and the CPU's BLAS round differently). A
+# Linear bias before a train-mode BatchNorm, and the running mean that
+# follows it, has an exactly zero gradient, all noise: those are held to
+# NOISE_ATOL = 10 x lr.
+# A step that starts from states that already differ by rounding is held to
+# NOISE_ATOL only: Adam maps a relative gap in a gradient near eps into a
+# step gap of up to ~lr (PERF.md, Findings).
+STEP_RTOL, STEP_ATOL, NOISE_ATOL = 1e-4, 1e-6, 1e-2
+BN_BIAS = re.compile(r"layers\.\d+\.(lin\.b|bn\.mean)$")
+GROUP_TOL = {"table": (STEP_ATOL, STEP_RTOL), "table moments": (STEP_ATOL, STEP_RTOL),
+             "dense": (STEP_ATOL, STEP_RTOL), "BN-cancelled": (NOISE_ATOL, 0.0)}
+N_TRAIN = 16 * BATCH + 123
 
 
 def check(cond, what):
@@ -193,6 +241,420 @@ def phase_kernels(gen, peak):
             "library_ms": None}
 
 
+def kernel_wrappers():
+    from scenario_wise_rec_tpu_torch.ops.kernels.mmoe_infer import mmoe_fused_infer
+    from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import sorted_dense_adam_apply
+
+    return {"mmoe_fused_infer": mmoe_fused_infer,
+            "sorted_dense_adam_apply": sorted_dense_adam_apply}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def build_ali_model(seed, perturb=False):
+    """MMOE at the Ali-CCP width with 467k ids per feature, on the card."""
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.models import MMOE
+
+    t0 = time.perf_counter()
+    feats = ([DenseFeature(f"d{i}") for i in range(N_DENSE)]
+             + [SparseFeature(f"s{i}", vocab_size=VOCAB, embed_dim=16)
+                for i in range(N_SPARSE)])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = MMOE(feats, DOMAINS, n_expert=DOMAINS,
+                 expert_params={"dims": EXPERT_DIMS},
+                 tower_params={"dims": TOWER_DIMS}, device="cuda", generator=gen)
+    if perturb:
+        perturb_running_stats(model, gen)
+    torch.cuda.synchronize()
+    check(tuple(model.embedding.packed.shape) == (N_SPARSE * VOCAB, 16), "table shape")
+    log(f"  model built on the card in {time.perf_counter() - t0:.2f} s: packed table "
+        f"{tuple(model.embedding.packed.shape)}, "
+        f"{model.embedding.packed.numel() * 4 / 1e6:.1f} MB")
+    return model
+
+
+def narrow_model_and_data(seed, n=300):
+    """A narrow MMOE on the CPU and ``n`` labelled rows for it."""
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.models import MMOE
+
+    feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 100, embed_dim=8)
+                                    for i in range(3)]
+    cpu_gen = torch.Generator(device="cpu").manual_seed(seed)
+    model = MMOE(feats, 2, n_expert=2, expert_params={"dims": [16, 8]},
+                 tower_params={"dims": [4]}, device="cpu", generator=cpu_gen)
+    perturb_running_stats(model, cpu_gen)
+    r = np.random.default_rng(seed)
+    x = {f"s{i}": r.integers(0, 100, n) for i in range(3)}
+    x["d0"] = r.normal(size=n).astype(np.float32)
+    x["domain_indicator"] = r.integers(0, 2, n)
+    return model, x, (r.random(n) < 0.4).astype(np.float32)
+
+
+def trainer_groups(t):
+    """The tensors the trainer checks compare, by group of ``GROUP_TOL``."""
+    from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import adam_hparams
+
+    sd = dict(t.model.state_dict())
+    table = sd.pop("embedding.packed")
+    if t.emb_opt_state is not None:
+        mu, nu, step = t.emb_opt_state["mu"], t.emb_opt_state["nu"], t.emb_opt_state["step"]
+    else:
+        st = t.optimizer.state[t.model.embedding.packed]
+        mu, nu, step = st["exp_avg"], st["exp_avg_sq"], int(st["step"])
+    p = t._opt_params
+    lr, _, _, _, bc1r, bc2r, eps = adam_hparams(
+        step, t._lr_now, 0.0, p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8))
+    implied = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
+    return {"table": {"table": table}, "table moments": {"implied step": implied},
+            "dense": {k: v for k, v in sd.items() if not BN_BIAS.search(k)},
+            "BN-cancelled": {k: v for k, v in sd.items() if BN_BIAS.search(k)}}
+
+
+def group_gaps(a, b):
+    """``{group: (elements outside its tolerance, elements, max |a - b|,
+    {tensor: elements outside})}`` of ``trainer_groups`` a against b."""
+    out = {}
+    for grp, tensors in a.items():
+        atol, rtol = GROUP_TOL[grp]
+        loose, total, worst, where = 0, 0, 0.0, {}
+        for k, va in tensors.items():
+            vb = b[grp][k].to(va.device)
+            check(bool(torch.isfinite(va).all()), f"{k} not finite")
+            gap = (va - vb).abs()
+            n = int((gap > atol + rtol * vb.abs()).sum())
+            if n:
+                where[k] = n
+            loose, total = loose + n, total + gap.numel()
+            worst = max(worst, gap.max().item() if gap.numel() else 0.0)
+        out[grp] = (loose, total, worst, where)
+    return out
+
+
+def gaps_line(gaps):
+    return "; ".join(f"{g} {n}/{t} outside, max gap {w:.3e}"
+                     for g, (n, t, w, _) in gaps.items())
+
+
+def outside(gaps):
+    """The groups with an element outside its tolerance."""
+    return [g for g, (n, _, _, _) in gaps.items() if n]
+
+
+def adopt_state(dst, src):
+    """Hand trainer ``dst`` the weights and optimizer state of ``src``
+    (sorted or dense mode, any device), so that their next steps start from
+    one state."""
+    def table_moments(t):
+        if t.emb_opt_state is not None:
+            return t.emb_opt_state["mu"], t.emb_opt_state["nu"]
+        st = t.optimizer.state[t.model.embedding.packed]
+        return st["exp_avg"], st["exp_avg_sq"]
+
+    src_sd = src.model.state_dict()
+    src_opt = {n: src.optimizer.state[p] for n, p in src._dense_named}
+    with torch.no_grad():
+        for k, v in dst.model.state_dict().items():
+            v.copy_(src_sd[k])
+        for n, p in dst._dense_named:
+            if p is dst.model.embedding.packed:
+                continue
+            for k in ("exp_avg", "exp_avg_sq"):
+                dst.optimizer.state[p][k].copy_(src_opt[n][k])
+        for a, b in zip(table_moments(dst), table_moments(src)):
+            a.copy_(b)
+
+
+def phase_sorted_adam(gen, peak):
+    """``sorted_dense_adam_apply`` against its plain version over 3 steps at
+    four shapes, then its time, bound and block_rows sweep at the Ali-CCP
+    shape beside the plain version and the nearest PyTorch composition."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
+
+    V, D, K = N_SPARSE * VOCAB, 16, N_SPARSE * BATCH
+    r = np.random.default_rng(1)
+
+    def per_feature(draw):
+        return torch.as_tensor(np.concatenate(
+            [f * VOCAB + draw(f) for f in range(N_SPARSE)]))
+
+    zipf = lambda: np.minimum(r.zipf(1.2, BATCH) - 1, VOCAB - 1)
+    v_odd = 1_000_003  # not a multiple of any tile
+    cases = {
+        "a_alicpp_uniform": (V, per_feature(lambda f: r.integers(0, VOCAB, BATCH))),
+        "b_hot_row_zipf": (V, per_feature(
+            lambda f: np.full(BATCH, 17) if f == 0 else zipf())),
+        "c_odd_v_empty_tiles_oob": (v_odd, torch.cat([
+            torch.as_tensor(r.integers(0, v_odd // 3, 20_000)),
+            torch.tensor([-1, -7, v_odd, v_odd + 3])])),
+        "d_no_ids": (v_odd, torch.zeros(0, dtype=torch.long)),
+    }
+    hps = [sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8) for t in (1, 2, 3)]
+    max_err = 0.0
+    for name, (v, ids) in cases.items():
+        ids = ids.cuda()
+        table = torch.randn(v, D, generator=gen, device="cuda")
+        mu, nu = torch.zeros_like(table), torch.zeros_like(table)
+        ref = [table.clone(), mu.clone(), nu.clone()]
+        err = 0.0
+        for t, hp in enumerate(hps, 1):
+            g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+            sid, gs = sa.owner_sorted_grads(ids, g)
+            sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp)
+            torch.cuda.synchronize()
+            sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+            for got, want, what in zip((table, mu, nu), ref, ("table", "mu", "nu")):
+                check(bool(torch.isfinite(got).all()), f"{name}: {what} not finite")
+                check(bool(((got - want).abs() <= SA_ATOL + SA_RTOL * want.abs()).all()),
+                      f"{name} step {t}: {what} disagrees with the plain version")
+                err = max(err, (got - want).abs().max().item())
+        log(f"  sorted_dense_adam_apply {name}: V {v}, K {ids.shape[0]}, 3 steps, "
+            f"max_abs_err {err:.3e}")
+        max_err = max(max_err, err)
+        del table, mu, nu, ref
+
+    # times at the Ali-CCP shape, with uniform ids (the main path's) and with
+    # the hot row plus Zipf ids, where a few tiles hold thousands of positions
+    table = torch.randn(V, D, generator=gen, device="cuda")
+    mu, nu = torch.zeros_like(table), torch.zeros_like(table)
+    hp = hps[0]
+    sweep = {}
+    for name in ("a_alicpp_uniform", "b_hot_row_zipf"):
+        ids = cases[name][1].cuda()
+        g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        counts = torch.unique_consecutive(sid, return_counts=True)[1]
+        tiles = torch.bincount(sid.long() // sa.DEFAULT_BLOCK_ROWS)
+        log(f"  {name}: {counts.numel()} distinct ids, longest run {counts.max().item()}, "
+            f"fullest {sa.DEFAULT_BLOCK_ROWS}-row tile {tiles.max().item()} positions")
+        ref = [t.clone() for t in (table, mu, nu)]
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        sweep[name] = {}
+        for rows in (64, 128, 256, 512, 1024, 2048):
+            out = [t.clone() for t in (table, mu, nu)]
+            sa.sorted_dense_adam_apply(*out, sid, gs, hp, block_rows=rows)
+            check(all(bool(((o - w).abs() <= SA_ATOL + SA_RTOL * w.abs()).all())
+                      for o, w in zip(out, ref)), f"{name} block_rows={rows} disagrees")
+            sweep[name][rows] = time_ms(lambda: sa.sorted_dense_adam_apply(
+                *out, sid, gs, hp, block_rows=rows))
+            del out
+        log(f"  {name} block_rows sweep, ms: "
+            + ", ".join(f"{r} -> {t:.4f}" for r, t in sweep[name].items()))
+        del ref
+    hot_ms = time_ms(lambda: sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp))
+    ids = cases["a_alicpp_uniform"][1].cuda()
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, g)
+    kernel_ms = time_ms(lambda: sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp))
+    plain_ms = time_ms(lambda: sa.sorted_dense_adam_apply_ref(table, mu, nu, sid, gs, hp),
+                       reps=3, inner=5)
+    sort_ms = time_ms(lambda: sa.owner_sorted_grads(ids, g))
+    # the nearest PyTorch composition (timed here only; the port never calls it)
+    param = torch.nn.Parameter(table.clone())
+    param.grad = torch.zeros_like(table)
+    opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=1e-5, fused=True)
+    sid_long = sid.long()
+
+    def library():
+        param.grad.zero_()
+        param.grad.index_add_(0, sid_long, gs)
+        opt.step()
+
+    library_ms = time_ms(library, reps=3, inner=10)
+    del param, opt
+    nbytes = 6.0 * V * D * 4 + K * 4 + K * D * 4  # table, mu, nu in and out; ids; grads
+    flops = 16.0 * V * D + K * D                  # the Adam chain per element; the sums
+    t_ops, t_bytes = flops / peak[0] * 1e3, nbytes / peak[1] * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  b_hot_row_zipf: kernel {hot_ms:.4f} ms")
+    log(f"  a_alicpp_uniform: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_add_ + torch.optim.Adam(fused=True) {library_ms:.4f} ms, id sort + "
+        f"row gather {sort_ms:.4f} ms; {nbytes / 1e9:.4f} GB, bound {bound:.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{nbytes / kernel_ms / 1e9:.3f} TB/s achieved ({100 * bound / kernel_ms:.1f}% of bound)")
+    return {"name": "sorted_dense_adam_apply", "route": "cuda",
+            "source": "scenario_wise_rec_tpu_torch/csrc/sorted_adam.cu",
+            "replaces": "scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:281",
+            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "hot_row_zipf_ms": hot_ms,
+            "block_rows_sweep_ms": sweep}
+
+
+def phase_train(seed, card):
+    """The training path at Ali-CCP width: fit (one epoch, validation,
+    checkpoint), evaluate_multi_domain_loss, examples/s, a profile, the
+    sorted trainer against the plain dense trainer, and the card against
+    the CPU on a narrow model."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    model = build_ali_model(seed + 1)
+    x, y = synthetic_eval_set(seed + 2, N_TRAIN)
+    vx, vy = synthetic_eval_set(seed + 3, 2 * BATCH + 7)
+    train_loader = BatchIterable(ColumnarDataset(x, y), BATCH, shuffle=True, seed=seed)
+    val_loader = BatchIterable(ColumnarDataset(vx, vy), BATCH)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    trainer = CTRTrainer(model, sparse_embedding_updates=True,
+                         sparse_update_impl="sorted", fused_inference=True,
+                         n_epoch=1, data_set_type="smoke", seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.model_path = tmp
+        reset_counts()
+        t0 = time.perf_counter()
+        path = trainer.fit(train_loader, val_loader)
+        t1 = time.perf_counter()
+        ll, auc, tll, tauc = trainer.evaluate_multi_domain_loss(model, val_loader, DOMAINS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ckpt_mb = os.path.getsize(path) / 1e6
+    log(f"  training path launches {counts}: {n_steps} train steps, {n_val} eval "
+        f"batches x 2 passes; fit {t1 - t0:.2f} s (one epoch, validation, "
+        f"{ckpt_mb:.1f} MB checkpoint)")
+    check(counts["sorted_dense_adam_apply"] == n_steps,
+          "the sorted kernel did not launch once per train step")
+    check(counts["mmoe_fused_infer"] == 2 * n_val,
+          "the eval kernel did not launch once per eval batch")
+    check(trainer.emb_opt_state["step"] == n_steps, "sorted step count")
+    check(all(v is not None and np.isfinite(v) for v in ll + auc + [tll, tauc]),
+          "eval metrics not finite")
+    log(f"  after one epoch: per-domain auc {[round(a, 6) for a in auc]}, total auc "
+        f"{tauc:.6f}, total logloss {tll:.6f}")
+
+    batches = list(train_loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_one_epoch(train_loader)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(loss is not None and np.isfinite(loss), f"train loss {loss}")
+    for k, v in list(model.state_dict().items()) + list(trainer.emb_opt_state.items()):
+        if torch.is_tensor(v):
+            check(bool(torch.isfinite(v).all()), f"{k} not finite after training")
+    log(f"  train examples/s on {card}: {N_TRAIN / (t1 - t0):,.0f} (second epoch, "
+        f"{n_steps} steps of {BATCH}, {1e3 * (t1 - t0) / n_steps:.2f} ms per step, "
+        f"host clock, synchronised); last loss {loss:.5f}")
+    profile_device(lambda: [trainer._train_step(*trainer._device_batch(*b))
+                            for b in batches[:5]], "5 sorted train steps")
+
+    sorted_vs_dense(model, batches[:2])
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # a narrow model: 3 sorted train steps on the card and on the CPU, the
+    # card handed the CPU's state before each
+    small, sx, sy = narrow_model_and_data(seed, n=3 * 128)
+    cpu_t = CTRTrainer(small, device="cpu", sparse_embedding_updates=True,
+                       sparse_update_impl="sorted")
+    gpu_t = CTRTrainer(copy.deepcopy(small), sparse_embedding_updates=True,
+                       sparse_update_impl="sorted")
+    for step, b in enumerate(BatchIterable(ColumnarDataset(sx, sy), 128), 1):
+        if step > 1:
+            adopt_state(gpu_t, cpu_t)
+        lc = float(cpu_t._train_step(*cpu_t._device_batch(*b)))
+        lg = float(gpu_t._train_step(*gpu_t._device_batch(*b)))
+        gaps = group_gaps(trainer_groups(gpu_t), trainer_groups(cpu_t))
+        log(f"  narrow model, sorted train step {step}, card vs CPU: loss {lg:.7f} vs "
+            f"{lc:.7f}; {gaps_line(gaps)}")
+        check(abs(lc - lg) <= 1e-5 * abs(lc), f"card loss {lg} vs CPU {lc}")
+        check(not outside(gaps), f"narrow model, step {step}, card vs CPU: "
+              f"{outside(gaps)} outside their tolerance")
+    return counts
+
+
+def drop_duplicate_sums(update):
+    """A planted fault for the trainer check: the sorted update receives
+    only the first occurrence's gradient row of each id."""
+    def faulty(table, state, g_rows, ids, **kw):
+        s, perm = torch.sort(ids, stable=True)
+        later = torch.zeros_like(ids, dtype=torch.bool)
+        later[perm[1:]] = s[1:] == s[:-1]
+        return update(table, state, g_rows.masked_fill(later[:, None], 0.0), ids, **kw)
+
+    return faulty
+
+
+RESYNCED = "sorted, handed the dense state after step 1"
+
+
+def sorted_vs_dense(model, batches):
+    """Train copies of ``model`` two steps on ``batches``: the plain dense
+    trainer; the sorted trainer; a sorted trainer handed the dense one's
+    whole state after step 1, so that its step 2 starts from the dense
+    trainer's state; two sorted trainers with a planted fault (duplicate
+    gradient rows dropped; the table stored in bf16); and a second copy of
+    the sorted and of the dense trainer (run-to-run noise). Gates: the
+    sorted trainer's step 1 and the handed-over trainer's step 2 lie within
+    ``GROUP_TOL`` everywhere, each fault does not at step 1, the sorted
+    trainer's own step 2 lies within NOISE_ATOL, and the second sorted copy
+    is bit-identical."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+    from scenario_wise_rec_tpu_torch.train import trainer as trainer_mod
+
+    sparse = dict(sparse_embedding_updates=True, sparse_update_impl="sorted")
+    against = {"sorted": "dense", RESYNCED: "dense",
+               "fault: duplicate sums dropped": "dense", "fault: bf16 table": "dense",
+               "sorted, second copy": "sorted", "dense, second copy": "dense"}
+    ts = {name: CTRTrainer(copy.deepcopy(model),
+                           **({} if name.startswith("dense") else sparse))
+          for name in ["dense"] + list(against)}
+    update, gaps, loss = trainer_mod.sorted_dense_adam_update, {}, {}
+    for step, b in enumerate(batches, 1):
+        xb = ts["sorted"]._device_batch(*b)[0]
+        touched = torch.unique(ts["sorted"].model.embedding.touched_ids(xb))
+        for name, t in ts.items():
+            if name == "fault: duplicate sums dropped":
+                trainer_mod.sorted_dense_adam_update = drop_duplicate_sums(update)
+            try:
+                loss[name, step] = float(t._train_step(*t._device_batch(*b)))
+            finally:
+                trainer_mod.sorted_dense_adam_update = update
+            if name == "fault: bf16 table":
+                with torch.no_grad():
+                    p = t.model.embedding.packed
+                    p.copy_(p.bfloat16().float())
+        for name, ref in against.items():
+            if name == RESYNCED and step == 1:
+                continue
+            want = trainer_groups(ts[ref])
+            gaps[name, step] = g = group_gaps(trainer_groups(ts[name]), want)
+            log(f"  {name} vs {ref} trainer, step {step} at full width: loss "
+                f"{loss[name, step]:.7f} vs {loss[ref, step]:.7f}; {gaps_line(g)}")
+            if name == "sorted":
+                table = want["table"]["table"]
+                rows = ((ts[name].model.embedding.packed.detach() - table).abs()
+                        > STEP_ATOL + STEP_RTOL * table.abs()).any(1)
+                hit = torch.zeros_like(rows)
+                hit[touched] = True
+                top = sorted(g["dense"][3].items(), key=lambda kv: -kv[1])[:4]
+                log(f"    outside: table rows {int(rows.sum())} ({int((rows & hit).sum())} "
+                    f"touched by this step's batch); dense, most: {top}")
+        if step == 1:
+            adopt_state(ts[RESYNCED], ts["dense"])
+    for name, step in (("sorted", 1), (RESYNCED, 2), ("sorted", 2)):
+        ls, ld = loss[name, step], loss["dense", step]
+        check(abs(ls - ld) <= 1e-5 * abs(ld), f"{name}, step {step}: loss {ls} vs dense {ld}")
+    for name, step in (("sorted", 1), (RESYNCED, 2)):
+        check(not outside(gaps[name, step]), f"{name} vs dense trainer, step {step}: "
+              f"{outside(gaps[name, step])} outside their tolerance")
+    check(all(w <= NOISE_ATOL for _, _, w, _ in gaps["sorted", 2].values()),
+          f"sorted vs dense trainer, step 2: a gap above {NOISE_ATOL}")
+    for name in ("fault: duplicate sums dropped", "fault: bf16 table"):
+        check(outside(gaps[name, 1]), f"the trainer check does not see the planted {name}")
+    check(all(w == 0 for step in (1, 2)
+              for _, _, w, _ in gaps["sorted, second copy", step].values()),
+          "two copies of the sorted trainer differ")
+
+
 def synthetic_eval_set(seed, n):
     r = np.random.default_rng(seed)
     x = {f"s{i}": r.integers(0, VOCAB, n).astype(np.int64) for i in range(N_SPARSE)}
@@ -216,23 +678,11 @@ def perturb_running_stats(model, gen):
 
 
 def phase_main_path(seed, card):
-    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
-    from scenario_wise_rec_tpu_torch.models import MMOE
-    from scenario_wise_rec_tpu_torch.ops.kernels.mmoe_infer import mmoe_fused_infer
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
     # a narrow model on the card against the same model on the CPU
-    small_feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 100, embed_dim=8)
-                                          for i in range(3)]
-    cpu_gen = torch.Generator(device="cpu").manual_seed(seed)
-    small = MMOE(small_feats, 2, n_expert=2, expert_params={"dims": [16, 8]},
-                 tower_params={"dims": [4]}, device="cpu", generator=cpu_gen)
-    perturb_running_stats(small, cpu_gen)
-    r = np.random.default_rng(seed)
-    sx = {f"s{i}": r.integers(0, 100, 300) for i in range(3)}
-    sx["d0"] = r.normal(size=300).astype(np.float32)
-    sx["domain_indicator"] = r.integers(0, 2, 300)
+    small, sx, _ = narrow_model_and_data(seed)
     sl = BatchIterable(ColumnarDataset(sx, None), 128)
     want = np.asarray(CTRTrainer(small, device="cpu", fused_inference=True).predict(small, sl))
     small_gpu = copy.deepcopy(small)
@@ -241,20 +691,7 @@ def phase_main_path(seed, card):
     log(f"  narrow model, card vs CPU: max_abs_err {err:.3e}")
     check(got.shape == (300,) and err <= TOL, "card disagrees with the CPU")
 
-    t0 = time.perf_counter()
-    feats = ([DenseFeature(f"d{i}") for i in range(N_DENSE)]
-             + [SparseFeature(f"s{i}", vocab_size=VOCAB, embed_dim=16)
-                for i in range(N_SPARSE)])
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = MMOE(feats, DOMAINS, n_expert=DOMAINS,
-                 expert_params={"dims": EXPERT_DIMS},
-                 tower_params={"dims": TOWER_DIMS}, device="cuda", generator=gen)
-    perturb_running_stats(model, gen)
-    torch.cuda.synchronize()
-    check(tuple(model.embedding.packed.shape) == (N_SPARSE * VOCAB, 16), "table shape")
-    log(f"  model built on the card in {time.perf_counter() - t0:.2f} s: packed table "
-        f"{tuple(model.embedding.packed.shape)}, "
-        f"{model.embedding.packed.numel() * 4 / 1e6:.1f} MB")
+    model = build_ali_model(seed, perturb=True)
     n = 8 * BATCH + 123
     x, y = synthetic_eval_set(seed, n)
     loader = BatchIterable(ColumnarDataset(x, y), batch_size=BATCH)
@@ -262,22 +699,25 @@ def phase_main_path(seed, card):
     fused = CTRTrainer(model, fused_inference=True)
     plain = CTRTrainer(model, fused_inference=False)
 
-    mmoe_fused_infer.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     f_ll, f_auc, f_tll, f_tauc = fused.evaluate_multi_domain_loss(model, loader, DOMAINS)
     t1 = time.perf_counter()
     p_fused = np.asarray(fused.predict(model, loader))
     t2 = time.perf_counter()
-    launches = mmoe_fused_infer.launches
-    log(f"  fused path: {launches} kernel launches over {2 * n_batches} batches")
+    counts = read_counts()
+    launches = counts["mmoe_fused_infer"]
+    log(f"  serving path launches {counts} over {2 * n_batches} batches")
     check(launches == 2 * n_batches, "the main path did not launch the kernel once per batch")
+    check(counts["sorted_dense_adam_apply"] == 0, "serving launched the training kernel")
 
     t3 = time.perf_counter()
     o_ll, o_auc, o_tll, o_tauc = plain.evaluate_multi_domain_loss(model, loader, DOMAINS)
     t4 = time.perf_counter()
     p_plain = np.asarray(plain.predict(model, loader))
     t5 = time.perf_counter()
-    check(mmoe_fused_infer.launches == launches, "the op-by-op path launched the kernel")
+    check(read_counts()["mmoe_fused_infer"] == launches,
+          "the op-by-op path launched the kernel")
 
     check(p_fused.shape == p_plain.shape == (n,), "prediction shape")
     check(bool(np.isfinite(p_fused).all()) and 0 < p_fused.min() and p_fused.max() < 1,
@@ -294,34 +734,44 @@ def phase_main_path(seed, card):
     log(f"  eval examples/s on {card}: fused predict {n / (t2 - t1):,.0f}, "
         f"op-by-op predict {n / (t5 - t4):,.0f}; evaluate_multi_domain_loss "
         f"fused {n / (t1 - t0):,.0f}, op-by-op {n / (t4 - t3):,.0f}")
-    profile_predict(fused, model, loader)
-    return launches
+    profile_device(lambda: fused.predict(model, loader),
+                   f"one fused predict pass ({n_batches} batches)")
+    return counts
 
 
-def profile_predict(trainer, model, loader):
-    """Device time by kernel over one ``predict`` pass, under torch.profiler
-    (which adds host overhead, so the busy share is a lower bound)."""
+def profile_device(fn, what):
+    """Device time by kernel over ``fn()`` and the host ops that cost the
+    most, under torch.profiler (which adds host overhead, so the busy share
+    is a lower bound). Only device-side events (kernels, copies) count as
+    busy time: an op's row, and a user annotation's such as
+    ``Optimizer.step``, repeats the time of the kernels inside it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.predict(model, loader)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)) / 1e3
-    events = [e for e in prof.key_averages() if dev(e) > 0]
-    busy_ms = sum(dev(e) for e in events)
-    if not events:
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type != DeviceType.CPU and dev(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
         log("  profile: the profiler saw no device time (not measured)")
         return
-    top = sorted(events, key=dev, reverse=True)[:8]
-    log(f"  profile of one fused predict pass ({len(loader)} batches): wall "
-        f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%)")
-    for e in top:
-        log(f"    {dev(e):8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    busy_ms = sum(dev(e) for e in kernels)
+    log(f"  profile of {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels "
+        f"and copies; top device time:")
+    for e in sorted(kernels, key=dev, reverse=True)[:8]:
+        log(f"    {dev(e):8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    log("   top host self time:")
+    host = [e for e in averages if e.device_type == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        log(f"    {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def main(argv=None):
@@ -351,13 +801,16 @@ def main(argv=None):
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     log("[2] kernels vs plain versions on the card")
-    entry = phase_kernels(gen, peak)
+    infer = phase_kernels(gen, peak)
+    sorted_adam = phase_sorted_adam(gen, peak)
 
-    log("[3] main path: MMOE serving at Ali-CCP width, 467k ids per feature")
-    entry["launches"] = phase_main_path(args.seed, card)
-    log(f"[4] done in {time.perf_counter() - t_start:.1f} s")
+    log("[3] serving path: MMOE eval at Ali-CCP width, 467k ids per feature")
+    infer["launches"] = phase_main_path(args.seed, card)["mmoe_fused_infer"]
+    log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
+    sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
+    log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [infer, sorted_adam]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

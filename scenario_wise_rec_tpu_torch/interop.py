@@ -14,6 +14,11 @@ every leaf into the module entry of the same path:
 Paths are matched generically, so later models reuse it as long as their
 modules are laid out like their JAX trees. Any shape mismatch, and any
 entry missing or left over on either side, raises. No JAX is imported.
+
+:func:`load_jax_trainer_state` carries a JAX ``CTRTrainer``'s training
+state across as well: optax's ``scale_by_adam`` state becomes the
+``torch.optim.Adam`` state, and the sorted mode's packed ``[V2/r, 128]``
+table and moments become the port's ``[V, D]`` table and moments.
 """
 
 from __future__ import annotations
@@ -46,14 +51,21 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def load_jax_params(module: nn.Module, params, state=None) -> None:
-    """Copy the JAX ``(params, state)`` trees into ``module`` in place."""
+def jax_state_dict(params, state=None) -> Dict[str, np.ndarray]:
+    """The JAX ``(params, state)`` trees as ``{state_dict key: array}`` of a
+    port module laid out like them."""
     src = flatten_tree(params)
     for path, arr in flatten_tree(state).items():
         key = _BN_STAT.sub(r"\1\2.bn.\3", path)
         if key in src:
             raise ValueError(f"state entry {path} collides with a parameter")
         src[key] = arr
+    return src
+
+
+def load_jax_params(module: nn.Module, params, state=None) -> None:
+    """Copy the JAX ``(params, state)`` trees into ``module`` in place."""
+    src = jax_state_dict(params, state)
     dst = module.state_dict()
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
@@ -68,3 +80,62 @@ def load_jax_params(module: nn.Module, params, state=None) -> None:
     with torch.no_grad():
         for key, arr in src.items():
             dst[key].copy_(torch.tensor(np.asarray(arr), dtype=dst[key].dtype))
+
+
+def _find_adam_state(tree):
+    """optax's ``ScaleByAdamState`` inside an optimizer state (found by its
+    ``count``/``mu``/``nu`` fields, so optax need not be imported)."""
+    if all(hasattr(tree, f) for f in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            found = _find_adam_state(t)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
+    """Carry a JAX ``CTRTrainer``'s ``(params, state, opt_state)``, with
+    numpy leaves, into a port ``CTRTrainer`` built for the same model and
+    update mode, in place.
+
+    - optax's ``scale_by_adam`` ``count``/``mu``/``nu`` trees become the
+      ``torch.optim.Adam`` ``step``/``exp_avg``/``exp_avg_sq`` of the
+      parameter of the same path;
+    - in the sorted mode, ``opt_state["emb"]`` (packed ``[V2/r, 128]``
+      ``table``/``mu``/``nu`` padded past V, and ``step``) becomes the
+      model's ``[V, D]`` table, the trainer's moments and its step: a
+      reshape and a ``[:V]`` slice.
+    """
+    model = trainer.model
+    base = opt_state
+    if trainer._sorted_mode:
+        emb = opt_state["emb"]
+        base = opt_state["base"]
+        col = model.embedding
+        v, d = col.packed_vocab, col.packed_dim
+        unpack = lambda a: np.asarray(a).reshape(-1, d)[:v]
+        params = {**params, "embedding": {**params["embedding"],
+                                          "packed": unpack(emb["table"])}}
+    load_jax_params(model, params, state)
+    adam_state = _find_adam_state(base)
+    if adam_state is None:
+        raise ValueError("no scale_by_adam state (count, mu, nu) in opt_state")
+    mu, nu = flatten_tree(adam_state.mu), flatten_tree(adam_state.nu)
+    names = [n for n, _ in trainer._dense_named]
+    if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
+        raise KeyError(f"optax moments {sorted(mu)} do not match the trainer's "
+                       f"parameters {sorted(names)}")
+    step = torch.tensor(float(np.asarray(adam_state.count)), dtype=torch.float32)
+    as_t = lambda a, p: torch.tensor(np.asarray(a), dtype=p.dtype, device=p.device)
+    for name, p in trainer._dense_named:
+        trainer.optimizer.state[p] = {"step": step.clone(),
+                                      "exp_avg": as_t(mu[name], p),
+                                      "exp_avg_sq": as_t(nu[name], p)}
+    if trainer._sorted_mode:
+        st = trainer.emb_opt_state
+        with torch.no_grad():
+            for k in ("mu", "nu"):
+                st[k].copy_(torch.tensor(unpack(emb[k])))
+        st["step"] = int(np.asarray(emb["step"]))

@@ -3,11 +3,12 @@
 Every model is an ``nn.Module`` built on an explicit device from an explicit
 ``torch.Generator`` and exposing
 
-- ``apply(x, train=False, w=None, generator=None) -> probs[B]``
+- ``apply(x, train=False, w=None, generator=None, rows=None) -> probs[B]``
   (``w`` = optional [B] 0/1 padding mask: static-shape batches pad ragged
   tails with weight-0 rows, and every batch-statistics op excludes them;
-  padded rows' outputs are discarded host-side). A train-mode call updates
-  the BatchNorm running stats in place.
+  padded rows' outputs are discarded host-side; ``rows`` = optional
+  pre-gathered packed embedding rows, see ``EmbeddingCollection.forward``).
+  A train-mode call updates the BatchNorm running stats in place.
 
 ``x`` is a dict of per-column tensors; ``probs`` are post-sigmoid click
 probabilities. The multi-scenario contract: read ``x["domain_indicator"]``,
@@ -46,11 +47,11 @@ def model_generator(device, generator: Optional[torch.Generator]) -> torch.Gener
 class Model(nn.Module):
     """Base class (also the user template)."""
 
-    def apply(self, x, train: bool = False, w=None, generator=None):
+    def apply(self, x, train: bool = False, w=None, generator=None, rows=None):
         raise NotImplementedError
 
-    def forward(self, x, train: bool = False, w=None, generator=None):
-        return self.apply(x, train=train, w=w, generator=generator)
+    def forward(self, x, train: bool = False, w=None, generator=None, rows=None):
+        return self.apply(x, train=train, w=w, generator=generator, rows=rows)
 
 
 class Base(Model):
@@ -68,8 +69,8 @@ class Base(Model):
         self.input_dim = sum_embed_dims(features)
         self.embedding = EmbeddingCollection(features, gen)
 
-    def apply(self, x, train: bool = False, w=None, generator=None):
+    def apply(self, x, train: bool = False, w=None, generator=None, rows=None):
         did = domain_ids(x)
-        emb = self.embedding(x, self.features, squeeze_dim=True)
+        emb = self.embedding(x, self.features, squeeze_dim=True, rows=rows)
         ys = emb[None].expand((self.num_domains,) + tuple(emb.shape))
         return domain_select(ys[..., :1], did)

@@ -43,9 +43,9 @@ class MMOE(Model):
         self.towers = MLP(expert_params["dims"][-1], members=domain_num,
                           generator=gen, **tower_params)
 
-    def apply(self, x, train: bool = False, w=None, generator=None):
+    def apply(self, x, train: bool = False, w=None, generator=None, rows=None):
         did = domain_ids(x)
-        emb = self.embedding(x, self.features, squeeze_dim=True)
+        emb = self.embedding(x, self.features, squeeze_dim=True, rows=rows)
         expert_outs = self.experts(emb, train, w, generator)  # [E, B, H]
         gate_outs = self.gates(emb, train, w, generator)  # [D, B, E] softmax over E
         # per-domain mixture: sum_e gate[d,b,e] * expert[e,b,h]

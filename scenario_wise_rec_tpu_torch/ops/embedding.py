@@ -21,7 +21,7 @@ them instead.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -99,7 +99,7 @@ class EmbeddingCollection(nn.Module):
         self.packed_vocab = total
         self.loose_names = [n for n in owned if n not in self.offsets]
 
-        device = generator.device
+        device = self._init_device = generator.device
         packed = (torch.empty((total, self.packed_dim), device=device)
                   if self.packed_names else None)
         tables = {}
@@ -134,30 +134,74 @@ class EmbeddingCollection(nn.Module):
         here (``clip(ids, 0, vocab - 1) + offset``); the sorted embedding
         update relies on this.
         """
-        feats = self.features if features is None else tuple(features)
         parts: List[torch.Tensor] = []
-        for f in feats:
-            if not isinstance(f, (SparseFeature, SequenceFeature)):
-                continue
+        for f in self._packed_features(features):
             owner = self._owner(f)
-            if owner not in self.offsets:
-                continue
             ids = _ids(x, f).reshape(-1)
             vocab = self.owned[owner].vocab_size
             parts.append(ids.clamp(0, vocab - 1) + self.offsets[owner])
         if not parts:
-            return torch.zeros((0,), dtype=torch.long)
+            # on the collection's device (where its tables live now)
+            p = next(self.parameters(), None)
+            device = p.device if p is not None else self._init_device
+            return torch.zeros((0,), dtype=torch.long, device=device)
         return torch.cat(parts)
 
+    def _packed_features(self, features=None) -> List[Feature]:
+        """The sparse/sequence features whose owner is in the packed table,
+        in order: the layout of :meth:`touched_ids`."""
+        feats = self.features if features is None else tuple(features)
+        return [f for f in feats
+                if isinstance(f, (SparseFeature, SequenceFeature))
+                and self._owner(f) in self.offsets]
+
+    def _packed_layout(self, x: Dict[str, torch.Tensor]) -> List[Tuple[Feature, int, int]]:
+        """``(feature, start, size)`` of each packed feature's ids in the
+        canonical :meth:`touched_ids` order (``self.features`` order, each
+        feature's ids flattened row-major): the contract between
+        ``touched_ids`` and the ``rows`` cache :meth:`forward` slices."""
+        layout, pos = [], 0
+        for f in self._packed_features():
+            size = x[f.name].numel()
+            layout.append((f, pos, size))
+            pos += size
+        return layout
+
+    def touched_owner_segments(
+            self, x: Dict[str, torch.Tensor]) -> Tuple[Tuple[str, int, int], ...]:
+        """Static ``(owner, start, size)`` layout of :meth:`touched_ids`.
+
+        One entry per packed sparse/sequence feature, in concatenation
+        order. Segments sharing an ``owner`` draw ids from the same packed
+        span (``shared_with`` aliases), so a row id can recur across them.
+        Python ints only (shapes), so reading it costs no device sync.
+        """
+        return tuple((self._owner(f), start, size)
+                     for f, start, size in self._packed_layout(x))
+
     def forward(self, x: Dict[str, torch.Tensor], features: Sequence[Feature],
-                squeeze_dim: bool = False) -> torch.Tensor:
-        """Embed ``features`` from batch ``x``."""
+                squeeze_dim: bool = False,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Embed ``features`` from batch ``x``.
+
+        ``rows``: optional pre-gathered packed rows ``packed[touched_ids(x)]``
+        (``[K, D]``). Packed lookups then slice this cache instead of
+        gathering the table, so the trainer's sorted mode can differentiate
+        with respect to the rows: the embedding gradient is ``[K, D]``, never
+        a dense ``[V, D]``.
+        """
         features = list(features)
+        layout = ({f.name: (start, size) for f, start, size in self._packed_layout(x)}
+                  if rows is not None else None)
         # all packed plain-sparse features in ONE gather
         plain = [f for f in features
                  if isinstance(f, SparseFeature) and self._owner(f) in self.offsets]
         packed_cols: Dict[str, torch.Tensor] = {}
-        if plain:
+        if plain and rows is not None:
+            for f in plain:
+                start, size = layout[f.name]
+                packed_cols[f.name] = rows[start:start + size]
+        elif plain:
             off = torch.tensor([self.offsets[self._owner(f)] for f in plain],
                                dtype=torch.long, device=self.packed.device)
             ids = torch.stack([_ids(x, f) for f in plain], dim=1) + off
@@ -174,7 +218,12 @@ class EmbeddingCollection(nn.Module):
                 else:
                     sparse_out.append(self._rows(self._owner(f), _ids(x, f)))
             elif isinstance(f, SequenceFeature):
-                emb = self._rows(self._owner(f), _ids(x, f))  # [B, L, D]
+                if rows is not None and self._owner(f) in self.offsets:
+                    start, size = layout[f.name]
+                    emb = rows[start:start + size].reshape(
+                        tuple(x[f.name].shape) + (rows.shape[-1],))
+                else:
+                    emb = self._rows(self._owner(f), _ids(x, f))  # [B, L, D]
                 sparse_out.append(_pool(emb, input_mask(x, f), f.pooling))
             elif isinstance(f, DenseFeature):
                 dense_out.append(x[f.name].float().reshape(-1, 1))

@@ -1,0 +1,213 @@
+"""Sorted dense Adam on the packed embedding table: the CUDA kernel
+``csrc/sorted_adam.cu`` and its plain PyTorch version.
+
+The sorted embedding update of the training step. The batch's embedding
+gradient arrives as one row per id occurrence (``[K, D]``, the gradient with
+respect to the gathered rows); the update sums the rows of duplicate ids and
+applies exact torch-Adam, weight decay folded into the gradient, to **every**
+row of the ``[V, D]`` table and its two moments, touched or not. That is the
+reference's ``torch.optim.Adam`` over ``nn.Embedding.weight``, computed
+without a dense ``[V, D]`` gradient. It replaces the TPU kernel
+``scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:sorted_dense_adam_apply``
+(the design note is at the top of the source).
+
+The port's layout is the plain ``[V, D]`` table: the TPU's packed
+``[V2/r, 128]`` tiles and whole-block padding are not carried over. The
+kernel updates ``table``, ``mu`` and ``nu`` **in place** (the JAX kernel
+aliases its inputs to its outputs); so does the plain version.
+
+:func:`sorted_dense_adam_apply` takes the plain version for a tensor on the
+CPU and launches the kernel for one on a CUDA device, or raises; it never
+falls back. ``sorted_dense_adam_apply.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+# Vocab rows one thread block owns on the card: the fastest of 64..2048 in
+# chip_smoke.py's sweep at the Ali-CCP shape (V = 10,741,000, D = 16,
+# K = 94,208) on an H100 SXM, both with uniform ids and with one 4096-long
+# hot row plus Zipf ids; 64..1024 lie within 4 % of each other there.
+DEFAULT_BLOCK_ROWS = 128
+PRECISIONS = (None, "fast", "split", "highest")
+_SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
+
+
+def adam_hparams(step: int, lr: float, weight_decay: float, b1: float,
+                 b2: float, eps: float) -> Tuple[float, ...]:
+    """``(lr, wd, b1, b2, 1/(1-b1^t), 1/(1-b2^t), eps)`` for step ``t``,
+    computed on the host in float32 as the JAX package computes its ``hp``
+    vector. Each is a Python float that float32 represents exactly, so the
+    kernel and the plain version see the same values; no device sync."""
+    f = np.float32
+    t = f(step)
+    bc1r = f(1.0) / (f(1.0) - f(b1) ** t)
+    bc2r = f(1.0) / (f(1.0) - f(b2) ** t)
+    return tuple(float(f(v)) for v in (lr, weight_decay, b1, b2, bc1r, bc2r, eps))
+
+
+def _hp32(hp: Sequence[float]) -> Tuple[float, ...]:
+    if len(hp) != 7:
+        raise ValueError(f"hp must hold 7 numbers, got {len(hp)}")
+    return tuple(float(np.float32(v)) for v in hp)
+
+
+def owner_sorted_grads(ids: torch.Tensor, g_rows: torch.Tensor, segments=(),
+                       offsets=None, reorder: str = "gather"):
+    """Globally sorted ``(ids int32 [K], grads [K, D])``.
+
+    The JAX package sorts each owner's ids separately (``segments``: the
+    ``(owner, start, size)`` layout of ``EmbeddingCollection.touched_ids``)
+    and concatenates the owners in ``offsets`` order. Every id lies in its
+    owner's span (``touched_ids`` clips it there) and the spans are disjoint
+    and ascending, so one stable sort of all the ids gives the same order;
+    both sorts are stable, so duplicates keep their order of occurrence and
+    the outputs are equal bit for bit. ``reorder`` ("gather" | "payload")
+    chose how the TPU moved the gradient rows; here both are one stable sort
+    and one row gather.
+    """
+    check_jax_dials(reorder=reorder)
+    if ids.ndim != 1 or g_rows.ndim != 2 or g_rows.shape[0] != ids.shape[0]:
+        raise ValueError(f"ids [K] and g_rows [K, D] expected, got "
+                         f"{tuple(ids.shape)} and {tuple(g_rows.shape)}")
+    if segments and sum(size for _, _, size in segments) != ids.shape[0]:
+        raise ValueError("segments do not cover the ids")
+    sorted_ids, perm = torch.sort(ids.to(torch.int32), stable=True)
+    return sorted_ids, g_rows[perm]
+
+
+def _check(table, mu, nu, sorted_ids, g_sorted):
+    if table.ndim != 2:
+        raise ValueError(f"table must be [V, D], got {tuple(table.shape)}")
+    V, D = table.shape
+    if mu.shape != table.shape or nu.shape != table.shape:
+        raise ValueError("mu and nu must have the table's shape")
+    if sorted_ids.ndim != 1 or sorted_ids.dtype != torch.int32:
+        raise ValueError(f"sorted_ids must be int32 [K], got {sorted_ids.dtype} "
+                         f"{tuple(sorted_ids.shape)}")
+    if g_sorted.shape != (sorted_ids.shape[0], D):
+        raise ValueError(f"g_sorted must be [{sorted_ids.shape[0]}, {D}], got "
+                         f"{tuple(g_sorted.shape)}")
+    for t in (table, mu, nu, g_sorted):
+        if t.dtype != torch.float32:
+            raise ValueError(f"sorted_dense_adam_apply takes float32, got {t.dtype}")
+    return V, D
+
+
+def check_jax_dials(chunk_ids: int = 128, precision=None, reorder: str = "gather"):
+    """Check the JAX kernel's dials, accepted for its signature and unused
+    on the card: ``chunk_ids`` (a positive multiple of 128), ``precision``
+    (one of :data:`PRECISIONS`) and ``reorder`` ("gather" | "payload")."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if chunk_ids <= 0 or chunk_ids % 128:
+        raise ValueError(f"chunk_ids must be a positive multiple of 128, got {chunk_ids}")
+    if reorder not in ("gather", "payload"):
+        raise ValueError(f"reorder must be 'gather' or 'payload', got {reorder!r}")
+
+
+def sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp,
+                                **dials):
+    """The plain PyTorch version: the math of the JAX package's
+    ``fused_dense_adam_ref`` (``ops/pallas/fused_adam.py:172-183``), a dense
+    ``index_add_`` of the gradient rows and vectorised Adam, each step of the
+    chain one elementwise op. Ids outside ``[0, V)`` add nothing. In place;
+    returns ``(table, mu, nu)``. ``dials`` are the kernel's and mean nothing
+    here."""
+    V, _ = _check(table, mu, nu, sorted_ids, g_sorted)
+    lr, wd, b1, b2, bc1r, bc2r, eps = _hp32(hp)
+    omb1 = float(np.float32(1.0) - np.float32(b1))
+    omb2 = float(np.float32(1.0) - np.float32(b2))
+    ids = sorted_ids.long()
+    keep = (ids >= 0) & (ids < V)
+    with torch.no_grad():
+        g = torch.zeros_like(table).index_add_(
+            0, ids.clamp(0, V - 1), torch.where(keep[:, None], g_sorted, 0.0))
+        g = g + wd * table
+        mu.mul_(b1).add_(omb1 * g)
+        nu.mul_(b2).add_(omb2 * (g * g))
+        table.sub_(lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps))
+    return table, mu, nu
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from . import _build
+
+    lib = _build.load("sorted_adam")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sorted_dense_adam_f32.argtypes = [
+        p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, f, f, f, f, f, f, p]
+    lib.sorted_dense_adam_f32.restype = ctypes.c_int
+    lib.sorted_dense_adam_smem_bytes.argtypes = [i, i]
+    lib.sorted_dense_adam_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
+                            nu: torch.Tensor, sorted_ids: torch.Tensor,
+                            g_sorted: torch.Tensor, hp: Sequence[float], *,
+                            block_rows: int = DEFAULT_BLOCK_ROWS,
+                            chunk_ids: int = 128,
+                            precision=None):
+    """One dense-Adam pass over ``table``, ``mu``, ``nu`` (``[V, D]`` f32),
+    in place. Returns ``(table, mu, nu)``.
+
+    Args:
+        sorted_ids: ``[K]`` int32, ascending (:func:`owner_sorted_grads`).
+            Duplicates sum; ids outside ``[0, V)`` contribute nothing (the
+            sharded path relies on it). ``K == 0`` still decays every row.
+        g_sorted: ``[K, D]`` f32 gradient rows aligned with ``sorted_ids``.
+        hp: 7 host numbers ``(lr, wd, b1, b2, 1/(1-b1^t), 1/(1-b2^t), eps)``
+            (:func:`adam_hparams`), passed to the kernel by value.
+        block_rows: vocab rows one thread block owns on the card.
+        chunk_ids: the TPU kernel's id-chunk width; it means nothing on the
+            card and is only checked (a positive multiple of 128).
+        precision: "fast" | "split" | "highest" | None. On the TPU these set
+            how the one-hot segment sum rounds its gradient operand to bf16;
+            on the card no operand is rounded and all four sum in f32.
+    """
+    check_jax_dials(chunk_ids, precision)
+    if block_rows <= 0:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if table.device.type == "cpu":
+        return sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp)
+    if table.device.type != "cuda":
+        raise ValueError(f"sorted_dense_adam_apply runs on cuda or cpu, not {table.device}")
+    V, D = _check(table, mu, nu, sorted_ids, g_sorted)
+    for t in (mu, nu, sorted_ids, g_sorted):
+        if t.device != table.device:
+            raise ValueError(f"tensor on {t.device}, table on {table.device}")
+    for t in (table, mu, nu, sorted_ids, g_sorted):
+        if not t.is_contiguous():
+            raise ValueError("sorted_dense_adam_apply takes contiguous tensors")
+    if V >= 2 ** 31 - 1:
+        raise ValueError(f"int32 ids address at most 2^31 - 2 rows, got V = {V}")
+    lib = _lib()
+    smem = lib.sorted_dense_adam_smem_bytes(D, block_rows)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"block_rows={block_rows} at D={D} needs {smem} bytes of "
+                         f"shared memory per block, more than {_SMEM_LIMIT}")
+    nb = -(-V // block_rows)
+    starts = torch.empty(nb + 1, dtype=torch.int32, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        err = lib.sorted_dense_adam_f32(
+            table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
+            g_sorted.data_ptr(), starts.data_ptr(), V, D, sorted_ids.shape[0],
+            block_rows, *_hp32(hp), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sorted_dense_adam_apply launch failed with cudaError {err} "
+            f"({smem} bytes of shared memory per block, block_rows={block_rows})")
+    sorted_dense_adam_apply.launches += 1
+    return table, mu, nu
+
+
+sorted_dense_adam_apply.launches = 0

@@ -1,0 +1,69 @@
+"""Checkpoint save/restore: path-keyed tensors in one ``.npz`` (the JAX
+package's ``train/checkpoint.py``).
+
+A checkpoint is a flat ``{path: tensor}`` dict written as numpy arrays, plus
+JSON metadata under ``__metadata__``. No pickle is written or read
+(``allow_pickle=False``), so a checkpoint is portable across hosts and safe
+to open. The reference can only ``torch.save`` a final state dict and has no
+load path (ctr_trainer.py:94-97).
+
+This is the port's own format; reading a checkpoint the JAX package wrote
+(``__bf16__`` leaves, sorted-mode packed tiles) is not supported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save(path: str, tensors: Dict[str, torch.Tensor],
+         metadata: Dict[str, Any] | None = None) -> str:
+    """Write ``tensors`` (+ JSON-able ``metadata``) to ``path`` (``.npz``
+    appended). Returns the file's path."""
+    flat = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    if "__metadata__" in flat:
+        raise ValueError("'__metadata__' is reserved")
+    flat["__metadata__"] = np.frombuffer(json.dumps(metadata or {}).encode(),
+                                         dtype=np.uint8)
+    out = _npz_path(path)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez(out, **flat)
+    return out
+
+
+def read_metadata(path: str) -> Dict[str, Any]:
+    """Only the JSON metadata (npz members load lazily), so a caller can
+    check compatibility before it reads the tensors."""
+    with np.load(_npz_path(path), allow_pickle=False) as data:
+        if "__metadata__" not in data:
+            return {}
+        return json.loads(bytes(data["__metadata__"]).decode())
+
+
+def load(path: str, expected: Dict[str, torch.Tensor]
+         ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """``(arrays, metadata)`` for exactly the keys of ``expected``, each
+    checked against the expected tensor's shape; a missing key or a shape
+    mismatch raises."""
+    with np.load(_npz_path(path), allow_pickle=False) as data:
+        meta = (json.loads(bytes(data["__metadata__"]).decode())
+                if "__metadata__" in data else {})
+        out = {}
+        for key, ref in expected.items():
+            if key not in data:
+                raise KeyError(f"checkpoint {path} has no entry {key}")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"checkpoint entry {key}: shape {arr.shape} != "
+                                 f"expected {tuple(ref.shape)}")
+            out[key] = arr
+    return out, meta

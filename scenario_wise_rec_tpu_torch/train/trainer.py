@@ -1,44 +1,92 @@
-"""CTR trainer: the serving subset of the JAX package's ``CTRTrainer``.
+"""CTR trainer (the JAX package's ``train/trainer.py``): train steps, ``fit``
+with early stopping and a final checkpoint, and the reference's eval
+protocol.
 
-``predict``, ``evaluate`` and ``evaluate_multi_domain_loss`` (the
-reference's per-domain slicing protocol, the acceptance metric of the
-benchmark) run the model's eval forward batch by batch on ``device`` and
-score on the host with sklearn-parity AUC/logloss. With
-``fused_inference=True`` a model that has ``apply_fused_eval`` (MMOE) runs
-everything after the embedding in one CUDA kernel, its BatchNorm folded
-once per eval pass.
-
-Training (``fit``, the train steps, the embedding-update modes) arrives
-with the next slice of the port; the constructor keeps the JAX signature
-and raises ``NotImplementedError`` for options that would change what this
-slice does.
+- **Train step**: forward + BCE on probabilities + backward + torch-Adam.
+  With ``sparse_embedding_updates=True, sparse_update_impl="sorted"`` the
+  packed embedding table leaves the autograd graph: the step gathers the
+  batch's rows ``packed[touched_ids]``, differentiates with respect to those
+  ``[K, D]`` rows, steps ``torch.optim.Adam`` on every other parameter and
+  updates the whole table with exact dense Adam through the sorted kernel
+  (``ops/kernels/sorted_adam.py``): no dense ``[V, D]`` gradient exists. The
+  plain step (``sparse_embedding_updates=False``) differentiates the table
+  itself and leaves it to ``torch.optim.Adam``. Both compute the
+  reference's ``torch.optim.Adam`` semantics.
+- **Eval**: ``predict``, ``evaluate`` and ``evaluate_multi_domain_loss``
+  (the reference's per-domain slicing protocol, the acceptance metric of
+  the benchmark) run the eval forward batch by batch and score on the host
+  with sklearn-parity AUC/logloss. With ``fused_inference=True`` a model
+  that has ``apply_fused_eval`` (MMOE) runs everything after the embedding
+  in one CUDA kernel, its BatchNorm folded once per eval pass.
+- **fit**: per-epoch StepLR, ``train_one_epoch``, validation AUC, early
+  stopping that restores the best weights only on a stop, and a final
+  checkpoint (reference ctr_trainer.py:62-97).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.config import resolve_device
+from . import checkpoint as ckpt_lib
+from ..core.config import make_generator, resolve_device
 from ..data.prefetch import prefetch
+from ..ops.kernels.sorted_adam import DEFAULT_BLOCK_ROWS, check_jax_dials
+from .callback import EarlyStopper
+from .loss import bce_loss
 from .metrics import auc_score, log_loss_score
+from .optim import adam, sorted_dense_adam_init, sorted_dense_adam_update
+
+# ROADMAP items of the options the port does not run yet
+_IMPL_TODO = {"occurrence": "A13, B12", "dense": "A13, B13", "winner": "A13"}
 
 
 class CTRTrainer:
     """General single-task CTR trainer (reference ctr_trainer.py:10-60 API).
 
     Args:
-        model: an ``nn.Module`` exposing ``apply(x, train, w) -> probs``.
+        model: an ``nn.Module`` exposing ``apply(x, train, w, generator,
+            rows) -> probs``.
+        optimizer_fn / optimizer_params: ``optimizer_fn(**optimizer_params)``
+            returns a ``params -> torch.optim.Optimizer`` factory; default
+            :func:`optim.adam` with ``{"lr": 1e-3, "weight_decay": 1e-5}``
+            (torch-Adam, ctr_trainer.py:50-52).
+        scheduler_fn / scheduler_params: optional epoch-level lr multiplier,
+            e.g. ``optim.step_lr``; the reference never instantiates one.
+        n_epoch / earlystop_patience / model_path / data_set_type: as the
+            reference; ``fit`` saves ``<model_path>/<Model>_<data_set_type>_
+            <time>.npz``.
         device: where the model and batches live; default ``"cuda"``. With
             no card present this raises unless the caller passes ``"cpu"``.
+        seed: seeds the generator that dropout draws from.
+        sparse_embedding_updates / sparse_update_impl: ``True, "sorted"``
+            runs the sorted embedding update (see the module docstring).
         fused_inference: ``True`` runs eval through ``apply_fused_eval``.
+        scan_steps: the JAX package's optimizer steps per device dispatch;
+            accepted (a positive int) for its signature. The port runs one
+            step per batch whatever its value; fusing S steps is the work
+            of CUDA graphs (ROADMAP).
         prefetch_depth: host batches prepared ahead on a thread (0: none).
-        The other arguments are the JAX trainer's. Those of training are
-        accepted for its coming port and do nothing yet; ``mesh``,
-        ``sparse_embedding_updates=True``, ``fused_inference="auto"`` and
-        more than one entry in ``gpus`` raise ``NotImplementedError``.
+        sorted_block_rows: the sorted kernel's vocab tile (default: the
+            port's own, ``ops/kernels/sorted_adam.DEFAULT_BLOCK_ROWS``).
+        sorted_reorder / sorted_chunk_ids / sorted_precision: the JAX dials,
+            checked here and not used: on the card one stable sort orders
+            the ids, no operand is rounded to bf16 and there are no id
+            chunks (``sorted_dense_adam_apply``'s docstring).
+        donate_buffers / sorted_kernel / resident_gather: accepted for the
+            JAX signature; the port updates in place and picks the kernel by
+            the tensor's device (``sorted_kernel=False`` is refused).
+
+    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+    item: ``mesh`` and more than one entry in ``gpus`` (A15);
+    ``sparse_update_impl`` ``"occurrence"`` / ``"dense"`` / ``"winner"``
+    (A13, B12, B13); ``sorted_dtype="bf16"`` and training with frozen
+    ``Pretrained`` tables (A13); a ``DeviceResidentLoader`` (A14);
+    ``fused_inference="auto"`` (A10); ``on_device=True`` evaluation (A14).
     """
 
     def __init__(
@@ -71,30 +119,84 @@ class CTRTrainer:
         resident_gather: str = "step",
     ):
         if mesh is not None:
-            raise NotImplementedError("multi-GPU training (mesh) is not ported yet")
+            raise NotImplementedError("multi-GPU training (mesh) is ROADMAP A15")
         if gpus is not None and len(gpus) > 1:
-            raise NotImplementedError("more than one GPU is not ported yet")
-        if sparse_embedding_updates:
-            raise NotImplementedError(
-                "sparse_embedding_updates arrives with the training port")
+            raise NotImplementedError("more than one GPU is ROADMAP A15")
         if fused_inference == "auto":
             raise NotImplementedError(
                 "fused_inference='auto' needs the port's own measured win "
-                "table; pass True or False")
+                "table (ROADMAP A10); pass True or False")
         if not isinstance(fused_inference, bool):
             # a stray string like "false"/"off" would otherwise coerce to True
             raise ValueError(
                 f"fused_inference must be True, False or 'auto', got "
                 f"{fused_inference!r}")
+        if sparse_update_impl not in ("dense", "winner", "occurrence", "sorted"):
+            raise ValueError(f"unknown sparse_update_impl {sparse_update_impl!r}")
+        emb = getattr(model, "embedding", None)
+        self._sparse_emb = bool(sparse_embedding_updates and emb is not None
+                                and emb.packed_names)
+        if self._sparse_emb and sparse_update_impl != "sorted":
+            raise NotImplementedError(
+                f"sparse_update_impl={sparse_update_impl!r} is ROADMAP "
+                f"{_IMPL_TODO[sparse_update_impl]}; the port runs 'sorted'")
+        if sorted_dtype not in (None, "float32", "bf16"):
+            raise ValueError(f"sorted_dtype must be None, 'float32' or 'bf16', "
+                             f"got {sorted_dtype!r}")
+        if sorted_dtype == "bf16":
+            raise NotImplementedError("bf16 storage of the sorted table is ROADMAP A13")
+        check_jax_dials(sorted_chunk_ids, sorted_precision, sorted_reorder)
+        if int(scan_steps) < 1:
+            raise ValueError(f"scan_steps must be a positive int, got {scan_steps!r}")
+        if sorted_kernel not in (None, True):
+            raise ValueError("the port picks the sorted kernel by the table's "
+                             "device: the CPU runs the plain version, the card "
+                             "the kernel; sorted_kernel=False has no meaning")
+        if resident_gather not in ("step", "dispatch"):
+            raise ValueError(f"unknown resident_gather {resident_gather!r}")
+        self._sparse_impl = sparse_update_impl
+        if self._sorted_mode and 128 % emb.packed_dim:
+            # the JAX package's rule, kept so both accept the same configs
+            raise ValueError(
+                "sparse_update_impl='sorted' requires the packed embed_dim to "
+                f"divide 128, got {emb.packed_dim}")
+        self._sorted_block_rows = int(sorted_block_rows or DEFAULT_BLOCK_ROWS)
+        self._frozen = emb is not None and any(
+            getattr(f.initializer, "freeze", False) for f in emb.owned.values())
+
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.data_set_type = data_set_type
+        if optimizer_params is None:
+            optimizer_params = {"lr": 1e-3, "weight_decay": 1e-5}
+        self._opt_params = dict(optimizer_params)
+        self._base_lr = self._opt_params.get("lr", 1e-3)
+        self._lr_now = self._base_lr
+        self._epoch_schedule = (scheduler_fn(**(scheduler_params or {}))
+                                if scheduler_fn is not None else None)
+        # the sorted mode keeps the packed table out of torch.optim
+        self._dense_named = [
+            (n, p) for n, p in self.model.named_parameters()
+            if not (self._sorted_mode and p is self.model.embedding.packed)]
+        factory = (optimizer_fn or adam)(**self._opt_params)
+        self.optimizer = (factory([p for _, p in self._dense_named])
+                          if self._dense_named else None)
+        self.emb_opt_state = (sorted_dense_adam_init(self.model.embedding.packed.detach())
+                              if self._sorted_mode else None)
         self.n_epoch = n_epoch
+        self.early_stopper = EarlyStopper(patience=earlystop_patience)
         self.model_path = model_path
         self.seed = seed
+        self.generator = make_generator(self.device, seed)
+        self.epoch_i = 0
+        self.scan_steps = int(scan_steps)
         self._fused_inference = fused_inference and hasattr(model, "apply_fused_eval")
         self.prefetch_depth = max(0, int(prefetch_depth))
         self._eval_step = self._build_eval_step()
+
+    @property
+    def _sorted_mode(self) -> bool:
+        return self._sparse_emb and self._sparse_impl == "sorted"
 
     def _build_eval_step(self):
         model = self.model
@@ -117,7 +219,90 @@ class CTRTrainer:
         wb = torch.as_tensor(np.asarray(w), device=self.device)
         return xb, yb, wb
 
-    # ------------------------------------------------------------------
+    # -- training ---------------------------------------------------------
+
+    def _train_step(self, x, y, w) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss (on the
+        device: reading it is the caller's sync)."""
+        model = self.model
+        rows = None
+        if self._sorted_mode:
+            col = model.embedding
+            ids = col.touched_ids(x)
+            # a gathered copy: the kernel may update the live table in place
+            rows = col.packed.detach()[ids].requires_grad_()
+        probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
+        loss = bce_loss(probs, y, w)
+        if self.optimizer is not None:
+            self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.optimizer is not None:
+            self.optimizer.step()
+        if self._sorted_mode:
+            p = self._opt_params
+            sorted_dense_adam_update(
+                col.packed, self.emb_opt_state, rows.grad, ids, lr=self._lr_now,
+                weight_decay=p.get("weight_decay", 1e-5), b1=p.get("b1", 0.9),
+                b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
+                block_rows=self._sorted_block_rows)
+        return loss.detach()
+
+    def _check_trainable(self, data_loader):
+        if type(data_loader).__name__ == "DeviceResidentLoader":
+            raise NotImplementedError("device-resident epochs are ROADMAP A14")
+        if self._frozen:
+            raise NotImplementedError(
+                "training with frozen Pretrained tables is ROADMAP A13")
+
+    def train_one_epoch(self, data_loader, log_interval: int = 10):
+        """One pass over ``data_loader``; returns the mean loss of the last
+        logged window (None for an empty loader)."""
+        self._check_trainable(data_loader)
+        # Losses stay on the device until a log boundary: reading one every
+        # step would sync the host with the card each step.
+        pending, done, last = [], 0, None
+        n_total = len(data_loader)
+
+        def flush():
+            nonlocal pending, last
+            if pending:
+                last = float(torch.stack([l.mean() for l in pending]).mean())
+                print(f"  step {done}/{n_total} loss {last:.5f}", flush=True)
+                pending = []
+
+        for x, y, w in prefetch(data_loader, self.prefetch_depth):
+            pending.append(self._train_step(*self._device_batch(x, y, w)))
+            done += 1
+            if done % log_interval == 0:
+                flush()
+        flush()
+        return last
+
+    def fit(self, train_dataloader, val_dataloader=None):
+        for epoch_i in range(self.epoch_i, self.n_epoch):
+            print("epoch:", epoch_i)
+            self.epoch_i = epoch_i
+            if self._epoch_schedule is not None:
+                # epoch-level StepLR: the moments carry over, the lr changes
+                self._lr_now = self._base_lr * float(self._epoch_schedule(epoch_i))
+                for group in getattr(self.optimizer, "param_groups", []):
+                    group["lr"] = self._lr_now
+            self.train_one_epoch(train_dataloader)
+            if val_dataloader:
+                auc, logloss = self.evaluate(self.model, val_dataloader)
+                print(f"epoch:{epoch_i} | val auc: {auc} | val logloss: {logloss}")
+                if self.early_stopper.stop_training(auc, self.model.state_dict()):
+                    print(f"validation: best auc: {self.early_stopper.best_auc}")
+                    self.model.load_state_dict(self.early_stopper.best_weights)
+                    break
+        # like the reference, best weights are restored only on an early
+        # stop; a natural end of the epoch loop keeps the last weights
+        # (ctr_trainer.py:88-93)
+        time_now = time.strftime("%m_%d_%H_%M", time.localtime())
+        name = type(self.model).__name__ + "_" + self.data_set_type + "_" + time_now
+        return self.save(os.path.join(self.model_path, name))
+
+    # -- eval -------------------------------------------------------------
 
     def _predict_loader(self, data_loader):
         """Run the eval step over a loader; returns (y, p, domain, w) with
@@ -143,7 +328,7 @@ class CTRTrainer:
                  on_device: bool = False):
         """Overall AUC + logloss (reference ctr_trainer.py:99-111)."""
         if on_device:
-            raise NotImplementedError("on-device AUC is not ported yet")
+            raise NotImplementedError("on-device AUC is ROADMAP A14")
         y, p, _, _ = self._predict_loader(data_loader)
         return auc_score(y, p), log_loss_score(y, p)
 
@@ -155,7 +340,7 @@ class CTRTrainer:
         total_auc)`` with ``None`` for empty domains, exactly as reference.
         """
         if on_device:
-            raise NotImplementedError("on-device AUC is not ported yet")
+            raise NotImplementedError("on-device AUC is ROADMAP A14")
         y, p, d, _ = self._predict_loader(data_loader)
         domain_logloss_list, domain_auc_list = [], []
         for dom in range(domain_num):
@@ -173,3 +358,59 @@ class CTRTrainer:
     def predict(self, model, data_loader):
         _, p, _, _ = self._predict_loader(data_loader)
         return list(p)
+
+    # -- checkpoints ------------------------------------------------------
+
+    def _checkpoint_tensors(self):
+        """Everything a resume needs, path-keyed: the model's state dict,
+        the torch optimizer's moments and step per parameter name (zeros
+        before the first step) and the sorted table's moments and step."""
+        out = {f"model/{k}": v for k, v in self.model.state_dict().items()}
+        for name, p in self._dense_named:
+            st = self.optimizer.state.get(p, {})
+            out[f"opt/base/{name}/step"] = torch.as_tensor(
+                float(st.get("step", 0.0)), dtype=torch.float32)
+            out[f"opt/base/{name}/exp_avg"] = st.get("exp_avg", torch.zeros_like(p))
+            out[f"opt/base/{name}/exp_avg_sq"] = st.get("exp_avg_sq", torch.zeros_like(p))
+        if self._sorted_mode:
+            out["opt/emb/mu"] = self.emb_opt_state["mu"]
+            out["opt/emb/nu"] = self.emb_opt_state["nu"]
+            out["opt/emb/step"] = torch.tensor(self.emb_opt_state["step"])
+        return out
+
+    def save(self, path: str) -> str:
+        """Write the checkpoint; returns the ``.npz`` path."""
+        return ckpt_lib.save(path, self._checkpoint_tensors(), metadata={
+            "epoch": self.epoch_i,
+            "best_auc": self.early_stopper.best_auc,
+            "model": type(self.model).__name__,
+            "sparse_embedding_updates": bool(self._sparse_emb),
+            "sparse_update_impl": self._sparse_impl if self._sparse_emb else None,
+        })
+
+    def load(self, path: str):
+        meta = ckpt_lib.read_metadata(path)
+        if "sparse_update_impl" in meta:
+            mine = self._sparse_impl if self._sparse_emb else None
+            if meta["sparse_update_impl"] != mine:
+                raise ValueError(
+                    f"checkpoint was written with sparse_update_impl="
+                    f"{meta['sparse_update_impl']!r} but this trainer uses "
+                    f"{mine!r}; construct CTRTrainer with the matching "
+                    "sparse_embedding_updates/sparse_update_impl to resume")
+        arrays, meta = ckpt_lib.load(path, self._checkpoint_tensors())
+        t = lambda key, like: torch.as_tensor(arrays[key]).to(like.device)
+        sd = self.model.state_dict()
+        self.model.load_state_dict({k: t(f"model/{k}", v) for k, v in sd.items()})
+        for name, p in self._dense_named:
+            self.optimizer.state[p] = {
+                "step": torch.as_tensor(arrays[f"opt/base/{name}/step"]),
+                "exp_avg": t(f"opt/base/{name}/exp_avg", p),
+                "exp_avg_sq": t(f"opt/base/{name}/exp_avg_sq", p)}
+        if self._sorted_mode:
+            for k in ("mu", "nu"):
+                self.emb_opt_state[k].copy_(t(f"opt/emb/{k}", self.emb_opt_state[k]))
+            self.emb_opt_state["step"] = int(arrays["opt/emb/step"])
+        self.epoch_i = int(meta.get("epoch", 0))
+        self.early_stopper.best_auc = float(meta.get("best_auc", 0.0))
+        return meta

@@ -7,6 +7,7 @@ a card:
     python -m pytest tests/test_torch_port_cuda.py -q
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -87,3 +88,136 @@ def test_mmoe_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(RuntimeError, match="shared memory"):
         k.mmoe_fused_infer(torch.randn(16, 9000, device="cuda"), did[:1].expand(16).contiguous(),
                            *big)
+
+
+# -- sorted_dense_adam_apply ------------------------------------------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa  # noqa: E402
+
+# The kernel and its plain version round every elementwise step alike; they
+# differ only in the order in which three or more duplicate gradients are
+# summed (the plain version's index_add_ uses atomics, in a varying order).
+# f32 sums of n terms in two orders differ by at most (n-1) * 2^-24 * sum|g|,
+# which with gradients of 1e-3 and the hot row's 4096 duplicates stays well
+# inside this bound on the moments and the table.
+SA_RTOL, SA_ATOL = 1e-5, 1e-6
+
+
+def _sa_close(got, want):
+    return bool(((got - want).abs() <= SA_ATOL + SA_RTOL * want.abs()).all())
+
+
+def _sa_case(gen, V, D, ids):
+    table = torch.randn(V, D, generator=gen, device="cuda")
+    mu = 1e-3 * torch.randn(V, D, generator=gen, device="cuda")
+    nu = 1e-6 * torch.rand(V, D, generator=gen, device="cuda")
+    return table, mu, nu, ids.to("cuda")
+
+
+def _zipf_ids(r, n, V):
+    return np.minimum(r.zipf(1.3, n) - 1, V - 1)
+
+
+def _run_steps(gen, V, D, ids, block_rows=sa.DEFAULT_BLOCK_ROWS, steps=3):
+    table, mu, nu, ids = _sa_case(gen, V, D, ids)
+    table0 = table.clone()
+    ref = [t.clone() for t in (table, mu, nu)]
+    for t in range(1, steps + 1):
+        g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        hp = sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+        before = sa.sorted_dense_adam_apply.launches
+        sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp, block_rows=block_rows)
+        torch.cuda.synchronize()
+        assert sa.sorted_dense_adam_apply.launches == before + 1
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        for got, want in zip((table, mu, nu), ref):
+            assert bool(torch.isfinite(got).all())
+            assert _sa_close(got, want), (got - want).abs().max().item()
+    return table0, table
+
+
+def test_sorted_adam_hot_row(gen):
+    r = np.random.default_rng(0)
+    V, per = 23 * 5000, 4096
+    parts = [np.full(per, 17)]  # one feature's 4096 ids all one row
+    parts += [f * 5000 + _zipf_ids(r, per, 5000) for f in range(1, 23)]
+    _run_steps(gen, V, 16, torch.as_tensor(np.concatenate(parts)))
+
+
+@pytest.mark.parametrize("D,block_rows", [(16, 256), (8, 100), (3, 64), (16, 1024)])
+def test_sorted_adam_empty_tiles_and_out_of_range_ids(gen, D, block_rows):
+    V = 1000 * block_rows // 100 + 37  # not a multiple of the tile
+    ids = torch.randint(0, V // 3, (600,), generator=gen, device="cuda")  # upper tiles empty
+    ids = torch.cat([ids, torch.tensor([-1, -7, V, V + 3], device="cuda")])
+    _run_steps(gen, V, D, ids, block_rows=block_rows)
+
+
+def test_sorted_adam_no_ids_still_decays(gen):
+    table0, table = _run_steps(gen, 5000, 16, torch.zeros(0, dtype=torch.long))
+    assert bool((table != table0).any(dim=1).all())  # every row moved
+
+
+def test_sorted_adam_precision_dials_agree_and_bad_input_raises(gen):
+    V, D = 3000, 16
+    ids = torch.randint(0, V, (500,), generator=gen, device="cuda")
+    g = torch.randn(500, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, g)
+    hp = sa.adam_hparams(1, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    base = _sa_case(gen, V, D, ids)[:3]
+    outs = []
+    for precision in (None, "fast", "split", "highest"):
+        t = [x.clone() for x in base]
+        sa.sorted_dense_adam_apply(*t, sid, gs, hp, precision=precision, chunk_ids=256)
+        outs.append(t)
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(*base, sid.long(), gs, hp)
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(*base, sid, gs.cpu(), hp)
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(*base, sid, gs, hp, block_rows=100_000)
+
+
+def test_sorted_trainer_two_in_place_steps_on_a_live_parameter(gen):
+    """Two back-to-back sorted train steps on the card: the kernel updates
+    the live ``embedding.packed`` parameter in place while autograd holds
+    only the gathered rows, so nothing trips; the result matches the CPU."""
+    import copy
+
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.models import MMOE
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 60, embed_dim=8)
+                                    for i in range(3)]
+    cpu_model = MMOE(feats, 2, n_expert=2, expert_params={"dims": [16]},
+                     tower_params={"dims": [4]}, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model)
+    kw = dict(sparse_embedding_updates=True, sparse_update_impl="sorted")
+    tc = CTRTrainer(cpu_model, device="cpu", **kw)
+    tg = CTRTrainer(gpu_model, **kw)
+    packed = gpu_model.embedding.packed
+    before = packed.detach().clone()
+    r = np.random.default_rng(0)
+    launches = sa.sorted_dense_adam_apply.launches
+    for _ in range(2):
+        x = {f"s{i}": r.integers(0, 60, 64) for i in range(3)}
+        x["d0"] = r.normal(size=64).astype(np.float32)
+        x["domain_indicator"] = r.integers(0, 2, 64)
+        y = (r.random(64) < 0.5).astype(np.float32)
+        w = np.ones(64, np.float32)
+        lc = float(tc._train_step(*tc._device_batch(x, y, w)))
+        lg = float(tg._train_step(*tg._device_batch(x, y, w)))
+        assert abs(lc - lg) <= 1e-5 * abs(lc)
+    torch.cuda.synchronize()
+    assert sa.sorted_dense_adam_apply.launches == launches + 2
+    assert gpu_model.embedding.packed is packed  # updated in place
+    assert bool((packed.detach() != before).any(dim=1).all())  # every row moved
+    # as test_torch_port_train.py: Adam steps, BN-cancelled biases at 10 x lr
+    for k, v in gpu_model.state_dict().items():
+        want = cpu_model.state_dict()[k]
+        atol = 1e-2 if k.endswith(("lin.b", "bn.mean")) and ".layers." in f".{k}" else 1e-6
+        assert torch.allclose(v.cpu(), want, rtol=1e-4, atol=atol), k
