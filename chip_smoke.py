@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one card and
-check its kernels.
+check its kernels: MMOE, SharedBottom, STAR and PLE, each built at its
+Ali-CCP width through ``configs.build_model``.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -26,7 +27,14 @@ Phases; each asserts, and any failure exits non-zero:
      plain version's index_add_ sums duplicates with atomics in a varying
      order), plus the nearest PyTorch composition (index_add_ + fused
      torch.optim.Adam) and a ``block_rows`` sweep on uniform and on hot-row
-     ids.
+     ids;
+   - ``trunk_towers_fused_infer``, ``star_fused_infer`` and
+     ``ple_fused_infer`` against their plain versions at (a) their model's
+     Ali-CCP shape, B = 4096, (b) ragged B = 4095 and B = 1, (c) a narrow
+     configuration, (d) domain ids -1, D and D+5, and (e) SharedBottom
+     without a head, STAR on a batch padded with weight-0 rows (its norm's
+     statistics masked), PLE at 2 levels with the Ali-CCP expert widths;
+     max |error| <= 1e-5, with a ``block_rows`` sweep.
 3. Serving path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
    experts [256,128,64,32,16,8], tower [16]) with 467,000 ids per feature
    (a packed [10.74M, 16] f32 table) built on the card from ``--seed``;
@@ -35,7 +43,8 @@ Phases; each asserts, and any failure exits non-zero:
    launch counter is set to 0 just before and read just after; the fused
    kernel must have launched once per batch. Predictions are held against
    the op-by-op path (``fused_inference=False``) and a narrow model against
-   the CPU's plain path.
+   the CPU's plain path. Then the same for SharedBottom, STAR and PLE,
+   each with its own kernel and no other launched.
 4. Training path: the same model trained by ``CTRTrainer(
    sparse_embedding_updates=True, sparse_update_impl="sorted",
    fused_inference=True).fit`` for one epoch over 16*4096+123 rows with a
@@ -77,7 +86,19 @@ PEAKS = {  # name fragment -> (f32 FLOP/s, bytes/s)
 }
 VOCAB, N_SPARSE, N_DENSE, DOMAINS, BATCH = 467_000, 23, 8, 3, 4096
 EXPERT_DIMS, TOWER_DIMS = [256, 128, 64, 32, 16, 8], [16]
+# Every fused eval kernel against its plain version: f32 FMA order differs
+# from cuBLAS and from PyTorch's separate multiply and add, by a few ulp of
+# the logits; the MMOE kernel meets it too.
 TOL = 1e-5
+# each model's fused eval kernel (wrapper name), source and TPU original
+EVAL_KERNELS = {
+    "mmoe": ("mmoe_fused_infer", "mmoe_infer", "scenario_wise_rec_tpu/ops/pallas/mmoe_infer.py:34"),
+    "sharedbottom": ("trunk_towers_fused_infer", "tower_infer",
+                     "scenario_wise_rec_tpu/ops/pallas/tower_infer.py:29"),
+    "star": ("star_fused_infer", "star_infer", "scenario_wise_rec_tpu/ops/pallas/star_infer.py:35"),
+    "ple": ("ple_fused_infer", "ple_infer", "scenario_wise_rec_tpu/ops/pallas/ple_infer.py:58"),
+}
+NEW_MODELS = ("sharedbottom", "star", "ple")
 # sorted_dense_adam_apply vs its plain version, per element: both round each
 # elementwise step alike; three or more duplicate gradients sum in another
 # order (the plain index_add_ uses atomics)
@@ -92,15 +113,18 @@ SA_RTOL, SA_ATOL = 1e-5, 1e-6
 # moves no parameter (the card's and the CPU's BLAS round differently). A
 # Linear bias before a train-mode BatchNorm, and the running mean that
 # follows it, has an exactly zero gradient, all noise: those are held to
-# NOISE_ATOL = 10 x lr.
+# NOISE_ATOL = 10 x lr. In STAR the FCN biases and the domain norm's betas
+# are cancelled the same way (a per-domain constant before a BatchNorm).
 # A step that starts from states that already differ by rounding is held to
 # NOISE_ATOL only: Adam maps a relative gap in a gradient near eps into a
 # step gap of up to ~lr (PERF.md, Findings).
 STEP_RTOL, STEP_ATOL, NOISE_ATOL = 1e-4, 1e-6, 1e-2
-BN_BIAS = re.compile(r"layers\.\d+\.(lin\.b|bn\.mean)$")
+BN_BIAS = re.compile(r"(layers\.\d+\.(lin\.b|bn\.mean)|fcn\.(share_b|dom_b)\.\d+"
+                     r"|fcn\.bn\.\d+\.mean|dn\.(share_)?beta)$")
 GROUP_TOL = {"table": (STEP_ATOL, STEP_RTOL), "table moments": (STEP_ATOL, STEP_RTOL),
              "dense": (STEP_ATOL, STEP_RTOL), "BN-cancelled": (NOISE_ATOL, 0.0)}
 N_TRAIN = 16 * BATCH + 123
+N_TRAIN_NEW = 8 * BATCH + 123  # the new models' fit: fewer steps than MMOE's
 
 
 def check(cond, what):
@@ -232,21 +256,240 @@ def phase_kernels(gen, peak):
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {max(t_ops, t_bytes):.4f} ms "
         f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
-    return {"name": "mmoe_fused_infer", "route": "cuda",
-            "source": "scenario_wise_rec_tpu_torch/csrc/mmoe_infer.cu",
-            "replaces": "scenario_wise_rec_tpu/ops/pallas/mmoe_infer.py:34",
+    fn, source, replaces = EVAL_KERNELS["mmoe"]
+    return {"name": fn, "route": "cuda",
+            "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu", "replaces": replaces,
             "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
 
-def kernel_wrappers():
-    from scenario_wise_rec_tpu_torch.ops.kernels.mmoe_infer import mmoe_fused_infer
-    from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import sorted_dense_adam_apply
+def affines(gen, lead, dims):
+    """Stages (W [*lead, in, out], b [*lead, out]) between the widths
+    ``dims``, scaled like torch's Linear init (std ~ 1/sqrt(in))."""
+    return [(torch.randn(*lead, i, o, generator=gen, device="cuda") * i ** -0.5,
+             torch.randn(*lead, o, generator=gen, device="cuda") * 0.1)
+            for i, o in zip(dims[:-1], dims[1:])]
 
-    return {"mmoe_fused_infer": mmoe_fused_infer,
-            "sorted_dense_adam_apply": sorted_dense_adam_apply}
+
+def macs(stages):
+    """Multiply-adds per row of one member's path through ``stages``."""
+    return sum(w.shape[-2] * w.shape[-1] for w, _ in stages)
+
+
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def flat(*groups):
+    """Every tensor of a nest of stage lists, LevelSpecs and tensors."""
+    out = []
+    for g in groups:
+        if torch.is_tensor(g):
+            out.append(g)
+        elif g is None:
+            continue
+        elif hasattr(g, "spec_stages"):
+            out += flat(g.spec_stages, g.shared_stages, g.gate_stages, g.gate_shared_stages)
+        else:
+            out += flat(*g)
+    return out
+
+
+def tower_work(emb, did, trunk, towers, head):
+    """(FLOPs, bytes): 2 per multiply-add of the trunk and the row's own
+    tower and head; each input read once, the output written once."""
+    per_row = macs(trunk) + macs(towers) + (macs([head]) if head is not None else 0)
+    B = emb.shape[0]
+    return 2.0 * B * per_row, nbytes(emb, did, *flat(trunk, towers, head)) + B * 4
+
+
+def star_work(emb, did, mean, rstd, g, b, fcn, aux, aux_out):
+    """(FLOPs, bytes): the row's own FCN, the aux MLP and head (2 per
+    multiply-add) and the domain norm (3 per element)."""
+    B, F = emb.shape
+    per_row = 2.0 * (macs(fcn) + macs(aux) + macs([aux_out])) + 3.0 * F
+    return B * per_row, nbytes(emb, did, mean, rstd, g, b, *flat(fcn, aux, aux_out)) + B * 4
+
+
+def ple_work(emb, did, levels, towers, head):
+    """(FLOPs, bytes): at the last level the row's own S specific experts,
+    the shared ones, its own gate and mixture; at a level before it every
+    domain's experts and gates, the shared gate and all D + 1 mixtures; then
+    the own tower and head. 2 per multiply-add."""
+    D, S = levels[0].spec_stages[0][0].shape[:2]
+    n_sh = levels[0].shared_stages[0][0].shape[0]
+    E, per_row = S + n_sh, 0
+    for i, lv in enumerate(levels):
+        H = lv.spec_stages[-1][0].shape[-1]
+        if i < len(levels) - 1:
+            per_row += D * S * macs(lv.spec_stages) + n_sh * macs(lv.shared_stages)
+            per_row += D * macs(lv.gate_stages) + macs(lv.gate_shared_stages)
+            per_row += (D * E + D * S + n_sh) * H
+        else:
+            per_row += S * macs(lv.spec_stages) + n_sh * macs(lv.shared_stages)
+            per_row += macs(lv.gate_stages) + E * H
+    per_row += macs(towers) + macs([head])
+    B = emb.shape[0]
+    return 2.0 * B * per_row, nbytes(emb, did, *flat(levels, towers, head)) + B * 4
+
+
+def run_cases(label, wrapper, ref, cases):
+    """Each case's kernel output against the plain version's, and the
+    out-of-range ids against the same ids clipped; returns the max error."""
+    max_err = 0.0
+    for name, (emb, did, args) in cases.items():
+        got = wrapper(emb, did, *args)
+        torch.cuda.synchronize()
+        want = ref(emb, did, *args)
+        check(got.shape == want.shape == (emb.shape[0],) and bool(torch.isfinite(got).all()),
+              f"{label} {name}: bad output")
+        err = (got - want).abs().max().item()
+        log(f"  {label} {name}: max_abs_err {err:.3e}")
+        check(err <= TOL, f"{label} {name}: kernel disagrees with plain ({err} > {TOL})")
+        max_err = max(max_err, err)
+        if "oob" in name:
+            clipped = wrapper(emb, did.clamp(0, DOMAINS - 1), *args)
+            check(torch.equal(wrapper(emb, did, *args), clipped),
+                  f"{label}: out-of-range domain ids are not clipped")
+    return max_err
+
+
+def time_entry(label, model, wrapper, ref, emb, did, args, work_fn, peak, max_err):
+    """The kernel beside its plain version and its bound at the main path's
+    shape, with a ``block_rows`` sweep; the kernels-line entry."""
+    sweep = {}
+    want = ref(emb, did, *args)
+    for rows in (8, 16, 24, 32, 48):
+        check((wrapper(emb, did, *args, block_rows=rows) - want).abs().max().item() <= TOL,
+              f"{label} block_rows={rows} disagrees")
+        sweep[rows] = time_ms(lambda: wrapper(emb, did, *args, block_rows=rows))
+    log(f"  {label} block_rows sweep, ms: " + ", ".join(f"{r} -> {t:.4f}" for r, t in sweep.items()))
+    kernel_ms = time_ms(lambda: wrapper(emb, did, *args))
+    plain_ms = time_ms(lambda: ref(emb, did, *args))
+    flops, moved = work_fn(emb, did, *args)
+    t_ops, t_bytes = flops / peak[0] * 1e3, moved / peak[1] * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  {label} a_alicpp_b4096: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, bound {bound:.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved ({100 * bound / kernel_ms:.1f}% of bound)")
+    fn, source, replaces = EVAL_KERNELS[model]
+    return {"name": fn, "route": "cuda",
+            "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "block_rows_sweep_ms": sweep}
+
+
+def phase_new_kernels(gen, peak):
+    """``trunk_towers_fused_infer``, ``star_fused_infer`` and
+    ``ple_fused_infer`` against their plain versions at every case, then
+    timed at their model's Ali-CCP shape."""
+    from scenario_wise_rec_tpu_torch.ops import kernels as k
+    from scenario_wise_rec_tpu_torch.ops.nn import batch_stats
+
+    F, D = N_SPARSE * 16 + N_DENSE, DOMAINS
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ids = lambda B, d=D: torch.randint(0, d, (B,), generator=gen, device="cuda")
+    oob = torch.tensor([-1, D, D + 5, 0, 1, 2], device="cuda")
+    emb4096 = randn(4096, F)
+
+    def shaped(args_ali, args_narrow, extra):
+        """The cases (a)-(d) with the kernel's arguments, plus ``extra``."""
+        cases = {"a_alicpp_b4096": (emb4096, ids(4096), args_ali),
+                 "b_ragged_b4095": (randn(4095, F), ids(4095), args_ali),
+                 "b_ragged_b1": (randn(1, F), ids(1), args_ali),
+                 "c_narrow_b1000": (randn(1000, 42), ids(1000, 2), args_narrow),
+                 "d_domain_oob_b4096": (emb4096, oob[ids(4096, len(oob))], args_ali)}
+        return {**cases, **extra}
+
+    entries = {}
+    # SharedBottom: trunk [512], towers [256,...,8], a 1-unit head
+    tower_dims = [512, 256, 128, 64, 32, 16, 8]
+    ali = (affines(gen, (), [F, 512]), affines(gen, (D,), tower_dims),
+           affines(gen, (D,), [8, 1])[0])
+    narrow = (affines(gen, (), [42, 24]), affines(gen, (2,), [24, 8, 4]),
+              affines(gen, (2,), [4, 1])[0])
+    no_head = (ali[0], affines(gen, (D,), tower_dims + [1]), None)
+    cases = shaped(ali, narrow, {"f_no_head_b4096": (emb4096, ids(4096), no_head)})
+    err = run_cases("trunk_towers_fused_infer", k.trunk_towers_fused_infer,
+                    k.trunk_towers_fused_infer_ref, cases)
+    emb, did, args = cases["a_alicpp_b4096"]
+    entries["sharedbottom"] = time_entry(
+        "trunk_towers_fused_infer", "sharedbottom", k.trunk_towers_fused_infer,
+        k.trunk_towers_fused_infer_ref, emb, did, args, tower_work, peak, err)
+
+    # STAR: FCN [256,...,8,1] per domain, aux [16]; mean/rstd of each batch
+    def star_args(emb, Dn, fcn, aux, w=None):
+        mean, var, _ = batch_stats(emb, w)
+        g, b = 0.5 + torch.rand(Dn, emb.shape[1], generator=gen, device="cuda"), 0.1 * randn(Dn, emb.shape[1])
+        return (mean, torch.rsqrt(var + 1e-6), g, b, affines(gen, (Dn,), [emb.shape[1]] + fcn + [1]),
+                affines(gen, (), [emb.shape[1]] + aux), affines(gen, (), [aux[-1], 1])[0])
+
+    fcn_dims = [256, 128, 64, 32, 16, 8]
+    cases = {}
+    for name, (emb, did, _) in shaped(None, None, {}).items():
+        narrow_case = name.startswith("c_")
+        cases[name] = (emb, did, star_args(emb, 2 if narrow_case else D,
+                                           [8, 4] if narrow_case else fcn_dims,
+                                           [4] if narrow_case else [16]))
+    # a batch padded past row 3000 with copies of row 0 and weight 0: the
+    # domain norm's statistics come from the 3000 real rows only
+    real = 3000
+    padded = torch.cat([emb4096[:real], emb4096[:1].expand(4096 - real, F)]).contiguous()
+    w = torch.cat([torch.ones(real, device="cuda"), torch.zeros(4096 - real, device="cuda")])
+    pad_args = star_args(padded, D, fcn_dims, [16], w)
+    pad_ids = ids(4096)
+    cases["e_padded_rows_b4096"] = (padded, pad_ids, pad_args)
+    err = run_cases("star_fused_infer", k.star_fused_infer, k.star_fused_infer_ref, cases)
+    mean, var, _ = batch_stats(emb4096[:real])
+    unpadded = k.star_fused_infer_ref(emb4096[:real].contiguous(), pad_ids[:real], mean,
+                                      torch.rsqrt(var + 1e-6), *pad_args[2:])
+    pad_err = (k.star_fused_infer(padded, pad_ids, *pad_args)[:real] - unpadded).abs().max().item()
+    log(f"  star_fused_infer e_padded_rows_b4096: real rows vs the unpadded batch, "
+        f"max_abs_err {pad_err:.3e}")
+    check(pad_err <= TOL, "STAR's padded rows move its real rows")
+    emb, did, args = cases["a_alicpp_b4096"]
+    entries["star"] = time_entry("star_fused_infer", "star", k.star_fused_infer,
+                                 k.star_fused_infer_ref, emb, did, args, star_work, peak,
+                                 max(err, pad_err))
+
+    # PLE: 1 level of 2 specific + 1 shared experts [256,...,8], tower [16];
+    # and 2 levels at the same expert widths (the shared gate's path)
+    def ple_args(F_in, Dn, S, n_sh, levels, towers):
+        out, width = [], F_in
+        for i, dims in enumerate(levels):
+            gs = None if i == len(levels) - 1 else affines(gen, (), [width, Dn * S + n_sh])
+            out.append(k.LevelSpec(affines(gen, (Dn, S), [width] + dims),
+                                   affines(gen, (n_sh,), [width] + dims),
+                                   affines(gen, (Dn,), [width, S + n_sh]), gs))
+            width = dims[-1]
+        tw = affines(gen, (Dn,), [width] + towers)
+        return out, tw, affines(gen, (Dn,), [towers[-1] if towers else width, 1])[0]
+
+    ali = ple_args(F, D, 2, 1, [EXPERT_DIMS], TOWER_DIMS)
+    narrow = ple_args(42, 2, 2, 1, [[16, 8], [8]], [4])
+    two = ple_args(F, D, 2, 1, [EXPERT_DIMS, EXPERT_DIMS], TOWER_DIMS)
+    cases = shaped(ali, narrow, {"e_two_levels_b4096": (emb4096, ids(4096), two)})
+    err = run_cases("ple_fused_infer", k.ple_fused_infer, k.ple_fused_infer_ref, cases)
+    two_ms = time_ms(lambda: k.ple_fused_infer(emb4096, cases["e_two_levels_b4096"][1], *two))
+    flops, _ = ple_work(emb4096, cases["e_two_levels_b4096"][1], *two)
+    log(f"  ple_fused_infer e_two_levels_b4096: kernel {two_ms:.4f} ms, {flops / 1e9:.3f} GFLOP, "
+        f"{flops / two_ms / 1e9:.2f} TFLOP/s achieved")
+    emb, did, args = cases["a_alicpp_b4096"]
+    entries["ple"] = time_entry("ple_fused_infer", "ple", k.ple_fused_infer,
+                                k.ple_fused_infer_ref, emb, did, args, ple_work, peak, err)
+    entries["ple"]["two_levels_ms"] = two_ms
+    return entries
+
+
+def kernel_wrappers():
+    from scenario_wise_rec_tpu_torch.ops import kernels
+
+    return {name: getattr(kernels, name) for name in
+            [k for k, _, _ in EVAL_KERNELS.values()] + ["sorted_dense_adam_apply"]}
 
 
 def reset_counts():
@@ -258,39 +501,59 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def build_ali_model(seed, perturb=False):
-    """MMOE at the Ali-CCP width with 467k ids per feature, on the card."""
+def ali_data(vocab=VOCAB):
+    """The Ali-CCP feature set as ``build_model`` takes it: 8 dense and 23
+    sparse features of width 16."""
     from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
-    from scenario_wise_rec_tpu_torch.models import MMOE
+
+    return {"dense_feas": [DenseFeature(f"d{i}") for i in range(N_DENSE)],
+            "sparse_feas": [SparseFeature(f"s{i}", vocab_size=vocab, embed_dim=16)
+                            for i in range(N_SPARSE)],
+            "domain_num": DOMAINS}
+
+
+def build_ali_model(seed, perturb=False, name="mmoe"):
+    """``name`` at its Ali-CCP width with 467k ids per feature, on the card,
+    through the ladder users build it with."""
+    from scenario_wise_rec_tpu_torch.configs import build_model
 
     t0 = time.perf_counter()
-    feats = ([DenseFeature(f"d{i}") for i in range(N_DENSE)]
-             + [SparseFeature(f"s{i}", vocab_size=VOCAB, embed_dim=16)
-                for i in range(N_SPARSE)])
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = MMOE(feats, DOMAINS, n_expert=DOMAINS,
-                 expert_params={"dims": EXPERT_DIMS},
-                 tower_params={"dims": TOWER_DIMS}, device="cuda", generator=gen)
-    if perturb:
+    model = build_model("ali_ccp", name, ali_data(), device="cuda", generator=gen)
+    if perturb and name == "star":
+        settle_running_stats(model, seed)
+        perturb_running_stats(model, gen, relative=True)
+    elif perturb:
         perturb_running_stats(model, gen)
     torch.cuda.synchronize()
     check(tuple(model.embedding.packed.shape) == (N_SPARSE * VOCAB, 16), "table shape")
-    log(f"  model built on the card in {time.perf_counter() - t0:.2f} s: packed table "
+    log(f"  {name} built on the card in {time.perf_counter() - t0:.2f} s: packed table "
         f"{tuple(model.embedding.packed.shape)}, "
-        f"{model.embedding.packed.numel() * 4 / 1e6:.1f} MB")
+        f"{model.embedding.packed.numel() * 4 / 1e6:.1f} MB, "
+        f"{sum(p.numel() for n, p in model.named_parameters() if 'embedding' not in n):,} "
+        "dense parameters")
     return model
 
 
-def narrow_model_and_data(seed, n=300):
-    """A narrow MMOE on the CPU and ``n`` labelled rows for it."""
+# narrow copies of each model, for the card against the CPU
+NARROW = {
+    "mmoe": dict(n_expert=2, expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+    "sharedbottom": dict(bottom_params={"dims": [16]}, tower_params={"dims": [8, 4]}),
+    "star": dict(fcn_dims=[8, 4], aux_dims=[4]),
+    "ple": dict(n_level=2, n_expert_specific=2, n_expert_shared=1,
+                expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+}
+
+
+def narrow_model_and_data(seed, n=300, name="mmoe"):
+    """A narrow ``name`` on the CPU and ``n`` labelled rows for it."""
     from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
-    from scenario_wise_rec_tpu_torch.models import MMOE
+    from scenario_wise_rec_tpu_torch.models import get_model
 
     feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 100, embed_dim=8)
                                     for i in range(3)]
     cpu_gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = MMOE(feats, 2, n_expert=2, expert_params={"dims": [16, 8]},
-                 tower_params={"dims": [4]}, device="cpu", generator=cpu_gen)
+    model = get_model(name)(feats, 2, device="cpu", generator=cpu_gen, **NARROW[name])
     perturb_running_stats(model, cpu_gen)
     r = np.random.default_rng(seed)
     x = {f"s{i}": r.integers(0, 100, n) for i in range(3)}
@@ -550,9 +813,17 @@ def phase_train(seed, card):
     del trainer, model
     torch.cuda.empty_cache()
 
-    # a narrow model: 3 sorted train steps on the card and on the CPU, the
-    # card handed the CPU's state before each
-    small, sx, sy = narrow_model_and_data(seed, n=3 * 128)
+    narrow_train_card_vs_cpu(seed, "mmoe")
+    return counts
+
+
+def narrow_train_card_vs_cpu(seed, name):
+    """A narrow ``name``: 3 sorted train steps on the card and on the CPU,
+    the card handed the CPU's state before each."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    small, sx, sy = narrow_model_and_data(seed, n=3 * 128, name=name)
     cpu_t = CTRTrainer(small, device="cpu", sparse_embedding_updates=True,
                        sparse_update_impl="sorted")
     gpu_t = CTRTrainer(copy.deepcopy(small), sparse_embedding_updates=True,
@@ -563,11 +834,66 @@ def phase_train(seed, card):
         lc = float(cpu_t._train_step(*cpu_t._device_batch(*b)))
         lg = float(gpu_t._train_step(*gpu_t._device_batch(*b)))
         gaps = group_gaps(trainer_groups(gpu_t), trainer_groups(cpu_t))
-        log(f"  narrow model, sorted train step {step}, card vs CPU: loss {lg:.7f} vs "
+        log(f"  narrow {name}, sorted train step {step}, card vs CPU: loss {lg:.7f} vs "
             f"{lc:.7f}; {gaps_line(gaps)}")
-        check(abs(lc - lg) <= 1e-5 * abs(lc), f"card loss {lg} vs CPU {lc}")
-        check(not outside(gaps), f"narrow model, step {step}, card vs CPU: "
+        check(abs(lc - lg) <= 1e-5 * abs(lc), f"{name}: card loss {lg} vs CPU {lc}")
+        check(not outside(gaps), f"narrow {name}, step {step}, card vs CPU: "
               f"{outside(gaps)} outside their tolerance")
+
+
+def phase_train_model(seed, card, name):
+    """``name``'s training path at Ali-CCP width: fit for one epoch with the
+    sorted update and fused validation, evaluate_multi_domain_loss, a timed
+    second epoch, and a narrow copy on the card against the CPU. Returns the
+    launch counts of the fit and the evaluation."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    kernel = EVAL_KERNELS[name][0]
+    model = build_ali_model(seed + 1, name=name)
+    x, y = synthetic_eval_set(seed + 2, N_TRAIN_NEW)
+    vx, vy = synthetic_eval_set(seed + 3, 2 * BATCH + 7)
+    train_loader = BatchIterable(ColumnarDataset(x, y), BATCH, shuffle=True, seed=seed)
+    val_loader = BatchIterable(ColumnarDataset(vx, vy), BATCH)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    trainer = CTRTrainer(model, sparse_embedding_updates=True,
+                         sparse_update_impl="sorted", fused_inference=True,
+                         n_epoch=1, data_set_type="smoke", seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.model_path = tmp
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(train_loader, val_loader)
+        t1 = time.perf_counter()
+        ll, auc, tll, tauc = trainer.evaluate_multi_domain_loss(model, val_loader, DOMAINS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"  {name} training path launches {counts}: {n_steps} train steps, {n_val} eval "
+        f"batches x 2 passes; fit {t1 - t0:.2f} s (one epoch, validation, checkpoint)")
+    check(counts["sorted_dense_adam_apply"] == n_steps,
+          f"{name}: the sorted kernel did not launch once per train step")
+    check(counts[kernel] == 2 * n_val, f"{name}: the eval kernel did not launch once per "
+          "eval batch")
+    check(all(v == 0 for k, v in counts.items() if k not in (kernel, "sorted_dense_adam_apply")),
+          f"{name}: another model's kernel launched")
+    check(all(v is not None and np.isfinite(v) for v in ll + auc + [tll, tauc]),
+          f"{name}: eval metrics not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_one_epoch(train_loader)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(loss is not None and np.isfinite(loss), f"{name}: train loss {loss}")
+    for k, v in list(model.state_dict().items()) + list(trainer.emb_opt_state.items()):
+        if torch.is_tensor(v):
+            check(bool(torch.isfinite(v).all()), f"{name}: {k} not finite after training")
+    log(f"  {name} after one epoch: total auc {tauc:.6f}, total logloss {tll:.6f}; train "
+        f"examples/s on {card}: {N_TRAIN_NEW / (t1 - t0):,.0f} (second epoch, {n_steps} "
+        f"steps, {1e3 * (t1 - t0) / n_steps:.2f} ms per step, host clock, synchronised); "
+        f"last loss {loss:.5f}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    narrow_train_card_vs_cpu(seed, name)
     return counts
 
 
@@ -667,31 +993,57 @@ def synthetic_eval_set(seed, n):
     return x, y
 
 
-def perturb_running_stats(model, gen):
-    """Random BatchNorm running stats, so the eval folding does real work."""
+def perturb_running_stats(model, gen, relative=False):
+    """Random BatchNorm running stats, so the eval folding does real work;
+    ``relative``: moved by a tenth of their own std and scaled by U(0.5,
+    1.5) instead of replaced."""
+    bufs = dict(model.named_buffers())
     with torch.no_grad():
-        for name, buf in model.named_buffers():
+        for name, buf in bufs.items():
+            noise = lambda f: f(buf.shape, generator=gen, device=buf.device)
             if name.endswith(".mean"):
-                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen, device=buf.device))
+                if relative:
+                    buf.add_(0.1 * bufs[name[:-len("mean")] + "var"].sqrt() * noise(torch.randn))
+                else:
+                    buf.copy_(0.1 * noise(torch.randn))
             elif name.endswith(".var"):
-                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen, device=buf.device))
+                buf.copy_((buf if relative else 1.0) * (0.5 + noise(torch.rand)))
 
 
-def phase_main_path(seed, card):
+def settle_running_stats(model, seed, passes=30):
+    """Train-mode forwards over one synthetic batch, so that each BatchNorm's
+    running stats are its own activations' (momentum 0.1: 0.9^30, 4 %, of
+    the initial ones left), as a trained model's are. STAR needs it: its
+    kaiming weights (fan from the output width, bound sqrt(6) at the width-1
+    layer), U(0, 1) biases and a relu after every layer make its random
+    activations grow layer by layer, and with running stats that do not
+    match them every eval probability rounds to 1.0 in f32."""
+    x, _ = synthetic_eval_set(seed + 7, BATCH)
+    xb = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    with torch.no_grad():
+        for _ in range(passes):
+            model.apply(xb, train=True)
+
+
+def phase_main_path(seed, card, name="mmoe"):
+    """``name``'s serving path at Ali-CCP width, fused and op by op, and a
+    narrow copy on the card against the CPU; returns the launch counts of
+    the fused passes."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
     # a narrow model on the card against the same model on the CPU
-    small, sx, _ = narrow_model_and_data(seed)
+    kernel = EVAL_KERNELS[name][0]
+    small, sx, _ = narrow_model_and_data(seed, name=name)
     sl = BatchIterable(ColumnarDataset(sx, None), 128)
     want = np.asarray(CTRTrainer(small, device="cpu", fused_inference=True).predict(small, sl))
     small_gpu = copy.deepcopy(small)
     got = np.asarray(CTRTrainer(small_gpu, fused_inference=True).predict(small_gpu, sl))
     err = float(np.abs(got - want).max())
-    log(f"  narrow model, card vs CPU: max_abs_err {err:.3e}")
+    log(f"  narrow {name}, card vs CPU: max_abs_err {err:.3e}")
     check(got.shape == (300,) and err <= TOL, "card disagrees with the CPU")
 
-    model = build_ali_model(seed, perturb=True)
+    model = build_ali_model(seed, perturb=True, name=name)
     n = 8 * BATCH + 123
     x, y = synthetic_eval_set(seed, n)
     loader = BatchIterable(ColumnarDataset(x, y), batch_size=BATCH)
@@ -706,18 +1058,19 @@ def phase_main_path(seed, card):
     p_fused = np.asarray(fused.predict(model, loader))
     t2 = time.perf_counter()
     counts = read_counts()
-    launches = counts["mmoe_fused_infer"]
-    log(f"  serving path launches {counts} over {2 * n_batches} batches")
-    check(launches == 2 * n_batches, "the main path did not launch the kernel once per batch")
-    check(counts["sorted_dense_adam_apply"] == 0, "serving launched the training kernel")
+    launches = counts[kernel]
+    log(f"  {name} serving path launches {counts} over {2 * n_batches} batches")
+    check(launches == 2 * n_batches, f"{name}: the main path did not launch the kernel "
+          "once per batch")
+    check(all(v == 0 for k, v in counts.items() if k != kernel),
+          f"{name}: serving launched another kernel")
 
     t3 = time.perf_counter()
     o_ll, o_auc, o_tll, o_tauc = plain.evaluate_multi_domain_loss(model, loader, DOMAINS)
     t4 = time.perf_counter()
     p_plain = np.asarray(plain.predict(model, loader))
     t5 = time.perf_counter()
-    check(read_counts()["mmoe_fused_infer"] == launches,
-          "the op-by-op path launched the kernel")
+    check(read_counts()[kernel] == launches, "the op-by-op path launched the kernel")
 
     check(p_fused.shape == p_plain.shape == (n,), "prediction shape")
     check(bool(np.isfinite(p_fused).all()) and 0 < p_fused.min() and p_fused.max() < 1,
@@ -731,11 +1084,13 @@ def phase_main_path(seed, card):
         f"total logloss {f_tll:.6f}")
     check(err <= TOL, f"fused and op-by-op predictions differ by {err}")
     check(auc_gap <= 1e-4, f"AUC differs by {auc_gap}")
-    log(f"  eval examples/s on {card}: fused predict {n / (t2 - t1):,.0f}, "
+    log(f"  {name} eval examples/s on {card}: fused predict {n / (t2 - t1):,.0f}, "
         f"op-by-op predict {n / (t5 - t4):,.0f}; evaluate_multi_domain_loss "
         f"fused {n / (t1 - t0):,.0f}, op-by-op {n / (t4 - t3):,.0f}")
     profile_device(lambda: fused.predict(model, loader),
-                   f"one fused predict pass ({n_batches} batches)")
+                   f"one fused {name} predict pass ({n_batches} batches)")
+    del fused, plain, model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -803,14 +1158,22 @@ def main(argv=None):
     log("[2] kernels vs plain versions on the card")
     infer = phase_kernels(gen, peak)
     sorted_adam = phase_sorted_adam(gen, peak)
+    new = phase_new_kernels(gen, peak)
 
     log("[3] serving path: MMOE eval at Ali-CCP width, 467k ids per feature")
     infer["launches"] = phase_main_path(args.seed, card)["mmoe_fused_infer"]
+    for name in NEW_MODELS:
+        log(f"[3] serving path: {name} eval at Ali-CCP width, 467k ids per feature")
+        new[name]["launches"] = phase_main_path(args.seed, card, name)[EVAL_KERNELS[name][0]]
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
     sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
+    for name in NEW_MODELS:
+        log(f"[4] training path: {name} fit at Ali-CCP width, 467k ids per feature")
+        counts = phase_train_model(args.seed, card, name)
+        new[name]["train_path_launches"] = {k: v for k, v in counts.items() if v}
     log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam]}))
+    print(json.dumps({"kernels": [infer, sorted_adam] + [new[n] for n in NEW_MODELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

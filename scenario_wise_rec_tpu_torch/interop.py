@@ -7,13 +7,21 @@ every leaf into the module entry of the same path:
 
 - ``embedding/packed`` and ``embedding/tables/<name>``;
 - ``<bank>/layers[i]/{lin/{w,b}, bn/{gamma,beta}, act/...}`` and
-  ``<bank>/out/{w,b}``;
+  ``<bank>/out/{w,b}``, for every bank of MMOE, SharedBottom and PLE
+  (``levels[l]/{spec,shared,gates,gate_shared}`` and ``towers``) and
+  STAR's ``aux``;
 - ``state/<bank>/layers[i]/{mean,var}``, the BatchNorm running stats,
-  which the port keeps as ``layers.i.bn.{mean,var}`` buffers.
+  which the port keeps as ``layers.i.bn.{mean,var}`` buffers;
+- STAR's other leaves by their own paths (``dn/*``, ``fcn/{share_w,
+  share_b, dom_w, dom_b}[i]``, ``fcn/bn[i]/{gamma,beta}``). Its FCN
+  BatchNorm's running stats sit at ``state/bn[i]/{mean,var}`` in the JAX
+  tree and beside their parameters, at ``fcn.bn.i.{mean,var}``, in the
+  module: a module whose layout departs from its JAX tree says so in a
+  ``jax_state_map`` of ``(pattern, replacement)`` rules over state paths,
+  applied before the generic rule.
 
-Paths are matched generically, so later models reuse it as long as their
-modules are laid out like their JAX trees. Any shape mismatch, and any
-entry missing or left over on either side, raises. No JAX is imported.
+Any shape mismatch, and any entry missing or left over on either side,
+raises. No JAX is imported.
 
 :func:`load_jax_trainer_state` carries a JAX ``CTRTrainer``'s training
 state across as well: optax's ``scale_by_adam`` state becomes the
@@ -51,12 +59,16 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def jax_state_dict(params, state=None) -> Dict[str, np.ndarray]:
+def jax_state_dict(params, state=None, state_map=()) -> Dict[str, np.ndarray]:
     """The JAX ``(params, state)`` trees as ``{state_dict key: array}`` of a
-    port module laid out like them."""
+    port module laid out like them; ``state_map``: the module's
+    ``jax_state_map`` rules for state paths."""
     src = flatten_tree(params)
     for path, arr in flatten_tree(state).items():
-        key = _BN_STAT.sub(r"\1\2.bn.\3", path)
+        key = path
+        for pattern, repl in state_map:
+            key = re.sub(pattern, repl, key)
+        key = _BN_STAT.sub(r"\1\2.bn.\3", key)
         if key in src:
             raise ValueError(f"state entry {path} collides with a parameter")
         src[key] = arr
@@ -65,7 +77,7 @@ def jax_state_dict(params, state=None) -> Dict[str, np.ndarray]:
 
 def load_jax_params(module: nn.Module, params, state=None) -> None:
     """Copy the JAX ``(params, state)`` trees into ``module`` in place."""
-    src = jax_state_dict(params, state)
+    src = jax_state_dict(params, state, getattr(module, "jax_state_map", ()))
     dst = module.state_dict()
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))

@@ -1,4 +1,46 @@
+"""Model registry (the JAX package's ``models/__init__.py``).
+
+``MODEL_REGISTRY`` holds the models the port has, under every alias the
+JAX registry gives them; :func:`get_model` resolves any casing of a name
+(the reference scripts spell "sharedbottom" three ways). A name the JAX
+registry knows that the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item, not ``KeyError``.
+"""
+
 from .base import Base, Model, domain_ids
 from .mmoe import MMOE
+from .ple import PLE
+from .sharedbottom import SharedBottom
+from .star import Star
 
-__all__ = ["Base", "Model", "domain_ids", "MMOE"]
+MODEL_REGISTRY = {
+    "sharedbottom": SharedBottom,
+    "sharebottom": SharedBottom,
+    "mmoe": MMOE,
+    "ple": PLE,
+    "star": Star,
+    "base": Base,
+}
+
+# the JAX registry's other names, each with the ROADMAP item that ports it
+NOT_PORTED = {name: "A11" for name in (
+    "sarnet", "epnet", "ppnet", "adasparse", "m2m", "adaptdhm", "hamur",
+    "hamurlarge", "hamur_small", "hamursmall", "m3oe", "mlpn")}
+
+
+def get_model(name: str):
+    """Resolve a model class from any casing of its name."""
+    key = name.lower().replace("-", "")
+    for k in (key, key.replace("_", "")):
+        if k in MODEL_REGISTRY:
+            return MODEL_REGISTRY[k]
+        if k in NOT_PORTED:
+            raise NotImplementedError(
+                f"model '{name}' is not ported yet (ROADMAP {NOT_PORTED[k]}; "
+                f"the port has {sorted(MODEL_REGISTRY)})")
+    raise KeyError(f"unknown model '{name}' (known: "
+                   f"{sorted(MODEL_REGISTRY) + sorted(NOT_PORTED)})")
+
+
+__all__ = ["Base", "Model", "domain_ids", "MMOE", "PLE", "SharedBottom", "Star",
+           "MODEL_REGISTRY", "NOT_PORTED", "get_model"]

@@ -1,0 +1,111 @@
+"""What the fused eval wrappers of ``tower_infer``, ``star_infer`` and
+``ple_infer`` share: the checks of what their kernels take, the stage list
+they pass (``csrc/fused_mlp.cuh``), and the ctypes launch. ``mmoe_infer``
+uses its batch check and its ctypes arrays.
+
+Nothing here builds or loads a kernel until :func:`launch` is called.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import torch
+
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+MAX_STAGES = 96       # affine stages one launch takes (csrc kMaxStages)
+MAX_BLOCK_ROWS = 64   # csrc kMaxBlockRows
+ROW_GROUP = 8         # csrc kSharedRows: block_rows is a multiple of it
+DEFAULT_BLOCK_ROWS = 16
+
+
+def check_batch(emb: torch.Tensor, domain_id: torch.Tensor):
+    """``(B, F)`` of ``emb [B, F]`` with an integer ``domain_id [B]``."""
+    if emb.ndim != 2:
+        raise ValueError(f"emb must be [B, F], got {tuple(emb.shape)}")
+    B, F = emb.shape
+    if domain_id.shape != (B,):
+        raise ValueError(f"domain_id must be [{B}], got {tuple(domain_id.shape)}")
+    if domain_id.dtype.is_floating_point or domain_id.dtype == torch.bool:
+        raise ValueError(f"domain_id must be integer, got {domain_id.dtype}")
+    return B, F
+
+
+def check_chain(what: str, stages: Sequence[Affine], lead: tuple, width: int) -> int:
+    """Checks that ``stages`` (each ``W [*lead, in, out]``, ``b [*lead, out]``)
+    chain from ``width``; returns the width they end at."""
+    for w, b in stages:
+        if (tuple(w.shape[:-2]) != lead or w.shape[-2] != width
+                or tuple(b.shape) != lead + (w.shape[-1],)):
+            raise ValueError(f"{what} stage W {tuple(w.shape)} b {tuple(b.shape)} does "
+                             f"not follow width {width} with members {lead}")
+        width = w.shape[-1]
+    return width
+
+
+def check_launch(name: str, emb: torch.Tensor, domain_id: torch.Tensor,
+                 tensors: Sequence[torch.Tensor], n_stages: int, block_rows: int):
+    """What the kernels take beyond shapes: one CUDA device, contiguous
+    float32 tensors, at most ``MAX_STAGES`` stages and a ``block_rows`` that
+    is a multiple of ``ROW_GROUP`` up to ``MAX_BLOCK_ROWS``."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {emb.device}")
+    if n_stages > MAX_STAGES:
+        raise ValueError(f"{name} takes at most {MAX_STAGES} stages, got {n_stages}")
+    if not (ROW_GROUP <= block_rows <= MAX_BLOCK_ROWS and block_rows % ROW_GROUP == 0):
+        raise ValueError(f"block_rows must be a multiple of {ROW_GROUP} up to "
+                         f"{MAX_BLOCK_ROWS}, got {block_rows}")
+    for t in [emb, domain_id, *tensors]:
+        if t.device != emb.device:
+            raise ValueError(f"tensor on {t.device}, emb on {emb.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    for t in [emb, *tensors]:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32, got {t.dtype}")
+
+
+def ptrs(tensors: List[torch.Tensor]):
+    """A host array of device pointers (passed to C as ``void*``)."""
+    return (ctypes.c_void_p * max(1, len(tensors)))(*[t.data_ptr() for t in tensors])
+
+
+def ints(values: List[int]):
+    return (ctypes.c_int * max(1, len(values)))(*values)
+
+
+def stage_args(stages: Sequence[Affine]):
+    """The three arrays a kernel reads its stages from: W pointers, b
+    pointers and ``(K, N)`` per stage."""
+    return (ptrs([w for w, _ in stages]), ptrs([b for _, b in stages]),
+            ints([n for w, _ in stages for n in (w.shape[-2], w.shape[-1])]))
+
+
+@functools.lru_cache(maxsize=None)
+def _function(source: str, symbol: str, argtypes: tuple):
+    from . import _build
+
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(source: str, symbol: str, argtypes: tuple, args: tuple, emb: torch.Tensor,
+           block_rows: int) -> None:
+    """Calls ``symbol`` of ``csrc/<source>.cu`` with ``args``, then
+    ``block_rows``, the current stream and the shared-memory report, on
+    ``emb``'s device; raises if the launch fails."""
+    fn = _function(source, symbol, argtypes)
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(emb.device):
+        err = fn(*args, block_rows, stream, ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows})")

@@ -21,9 +21,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
+
+from ._fused import check_batch, ints, ptrs
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
@@ -34,13 +36,7 @@ ROWS_PER_THREAD = 8
 
 def _check_shapes(emb, domain_id, expert_stages, gate_stage, tower_stages,
                   tower_out):
-    if emb.ndim != 2:
-        raise ValueError(f"emb must be [B, F], got {tuple(emb.shape)}")
-    B, F = emb.shape
-    if domain_id.shape != (B,):
-        raise ValueError(f"domain_id must be [{B}], got {tuple(domain_id.shape)}")
-    if domain_id.dtype.is_floating_point or domain_id.dtype == torch.bool:
-        raise ValueError(f"domain_id must be integer, got {domain_id.dtype}")
+    B, F = check_batch(emb, domain_id)
     if not expert_stages:
         raise ValueError("need at least one expert stage")
     E = expert_stages[0][0].shape[0]
@@ -114,15 +110,6 @@ def _lib():
     return lib
 
 
-def _ptrs(tensors: List[torch.Tensor]):
-    """A host array of device pointers (passed to C as ``void*``)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
-def _ints(values: List[int]):
-    return (ctypes.c_int * len(values))(*values)
-
-
 def mmoe_fused_infer(
     emb: torch.Tensor,
     domain_id: torch.Tensor,
@@ -170,17 +157,17 @@ def mmoe_fused_infer(
         return out
     lib = _lib()
     did = domain_id.to(torch.int32).contiguous()
-    ed = _ints([F] + [w.shape[2] for w, _ in expert_stages])
-    td = _ints([ed[-1]] + [w.shape[2] for w, _ in tower_stages])
+    ed = ints([F] + [w.shape[2] for w, _ in expert_stages])
+    td = ints([ed[-1]] + [w.shape[2] for w, _ in tower_stages])
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):
         err = lib.mmoe_fused_infer_f32(
             emb.data_ptr(), did.data_ptr(), out.data_ptr(), B, F, E, D,
-            len(expert_stages), _ptrs([w for w, _ in expert_stages]),
-            _ptrs([b for _, b in expert_stages]), ed,
+            len(expert_stages), ptrs([w for w, _ in expert_stages]),
+            ptrs([b for _, b in expert_stages]), ed,
             gate_stage[0].data_ptr(), gate_stage[1].data_ptr(),
-            len(tower_stages), _ptrs([w for w, _ in tower_stages]),
-            _ptrs([b for _, b in tower_stages]), td,
+            len(tower_stages), ptrs([w for w, _ in tower_stages]),
+            ptrs([b for _, b in tower_stages]), td,
             tower_out[0].data_ptr(), tower_out[1].data_ptr(), block_rows,
             stream)
     if err != 0:

@@ -11,9 +11,11 @@ The counterpart of the JAX package's ``ops/nn.py``:
 
 A stacked bank (the JAX package's ``stacked_mlp_init``/``stacked_mlp_apply``)
 is ``MLP(..., members=n)``: every parameter and running stat gains a leading
-``[n, ...]`` axis and each layer is one batched matmul over it. Activations
-are ``[..., B, H]``: ``[B, H]`` for a plain MLP, ``[n, B, H]`` inside a
-bank; statistics reduce over the batch axis ``-2``.
+``[n, ...]`` axis and each layer is one batched matmul over it. A tuple
+``members=(D, S)`` stacks twice, as PLE's per-domain specific experts
+(the JAX package's two nested vmaps). Activations are ``[..., B, H]``:
+``[B, H]`` for a plain MLP, ``[*members, B, H]`` inside a bank; statistics
+reduce over the batch axis ``-2`` only.
 """
 
 from __future__ import annotations
@@ -138,8 +140,9 @@ class MLP(nn.Module):
     """MLP matching the reference block: [Linear -> BatchNorm1d -> act ->
     Dropout]* then an optional ``(·, 1)`` head.
 
-    ``members=n`` stacks ``n`` independent MLPs on a leading axis; the
-    forward then returns ``[n, B, out]``.
+    ``members=n`` stacks ``n`` independent MLPs on a leading axis, and
+    ``members=(n0, n1, ...)`` on several; the forward then returns
+    ``[*members, B, out]``.
     """
 
     def __init__(
@@ -149,7 +152,7 @@ class MLP(nn.Module):
         output_layer: bool = True,
         activation: str = "relu",
         dropout: float = 0.0,
-        members: Optional[int] = None,
+        members=None,
         *,
         generator: torch.Generator,
     ):
@@ -163,7 +166,10 @@ class MLP(nn.Module):
         self.output_dim = 1 if self.output_layer else (
             self.dims[-1] if self.dims else self.input_dim
         )
-        lead = () if members is None else (int(members),)
+        lead = () if members is None else tuple(
+            int(m) for m in (members if isinstance(members, (tuple, list))
+                             else (members,)))
+        self.lead = lead
         layers = []
         in_dim = self.input_dim
         for d in self.dims:
@@ -177,22 +183,28 @@ class MLP(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 per_member_x: bool = False):
         """``x`` is ``[B, in]``, shared by every member of a bank, or with
-        ``per_member_x=True`` ``[n, B, in]`` fed member-wise. ``w`` ([B]
-        padding mask) is shared across members."""
-        if per_member_x and (self.members is None or x.ndim != 3
-                             or x.shape[0] != self.members):
-            raise ValueError(
-                f"per_member_x needs x [{self.members}, B, in], got "
-                f"{tuple(x.shape)}")
+        ``per_member_x=True`` ``[*lead[:k], B, in]`` fed member-wise over the
+        first ``k`` member axes and shared over the rest (PLE feeds its
+        ``[D, S]`` bank ``x [D, B, in]``: row ``d``'s ``S`` members all read
+        ``x[d]``). ``w`` ([B] padding mask) is shared across members."""
+        lead = self.lead
+        if per_member_x:
+            k = x.ndim - 2
+            if not lead or not 1 <= k <= len(lead) or tuple(x.shape[:k]) != lead[:k]:
+                raise ValueError(
+                    f"per_member_x needs x [{', '.join(map(str, lead))}"
+                    f"{'' if lead else '?'}, B, in] or a prefix of those member "
+                    f"axes, got {tuple(x.shape)}")
+            x = x.reshape(tuple(x.shape[:k]) + (1,) * (len(lead) - k)
+                          + tuple(x.shape[k:]))
         for layer in self.layers:
             x = layer.lin(x)
             x = layer.bn(x, train, w)
-            act_p = {k: (_row(v) if self.members is not None else v)
-                     for k, v in layer.act.items()}
+            act_p = {k: (_row(v) if lead else v) for k, v in layer.act.items()}
             x = self.act.apply(act_p, x)
             x = dropout(x, self.dropout_p, train, generator)
         if self.out is not None:
             x = self.out(x)
-        if self.members is not None and x.ndim == 2:
-            x = x.expand((self.members,) + tuple(x.shape))
+        if tuple(x.shape[:-2]) != lead:
+            x = x.expand(lead + tuple(x.shape[-2:]))
         return x

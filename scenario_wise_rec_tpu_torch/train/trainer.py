@@ -16,8 +16,10 @@ protocol.
   (the reference's per-domain slicing protocol, the acceptance metric of
   the benchmark) run the eval forward batch by batch and score on the host
   with sklearn-parity AUC/logloss. With ``fused_inference=True`` a model
-  that has ``apply_fused_eval`` (MMOE) runs everything after the embedding
-  in one CUDA kernel, its BatchNorm folded once per eval pass.
+  that has ``apply_fused_eval`` (MMOE, SharedBottom, STAR, PLE) runs
+  everything after the embedding in one CUDA kernel, its BatchNorm folded
+  once per eval pass. The step passes each batch's padding mask ``w``:
+  STAR's domain norm reads the batch's own statistics at eval too.
 - **fit**: per-epoch StepLR, ``train_one_epoch``, validation AUC, early
   stopping that restores the best weights only on a stop, and a final
   checkpoint (reference ctr_trainer.py:62-97).

@@ -221,3 +221,124 @@ def test_sorted_trainer_two_in_place_steps_on_a_live_parameter(gen):
         want = cpu_model.state_dict()[k]
         atol = 1e-2 if k.endswith(("lin.b", "bn.mean")) and ".layers." in f".{k}" else 1e-6
         assert torch.allclose(v.cpu(), want, rtol=1e-4, atol=atol), k
+
+
+# -- trunk_towers_fused_infer, star_fused_infer, ple_fused_infer --------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import ple_infer as kp  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import star_infer as ks  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import tower_infer as kt  # noqa: E402
+
+
+def _affines(gen, lead, dims):
+    """Stages (W [*lead, in, out], b [*lead, out]) between the widths
+    ``dims``, scaled like a Linear's init."""
+    return [(torch.randn(*lead, i, o, generator=gen, device="cuda") * i ** -0.5,
+             torch.randn(*lead, o, generator=gen, device="cuda") * 0.1)
+            for i, o in zip(dims[:-1], dims[1:])]
+
+
+def _launch_and_compare(gen, wrapper, ref, emb, did, *args, rows=16):
+    before = wrapper.launches
+    got = wrapper(emb, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = ref(emb, did, *args)
+    assert got.shape == (emb.shape[0],) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, trunk dims, tower dims, head, block_rows)
+    (4096, 376, 3, [512], [256, 128, 64, 32, 16, 8], True, 16),  # Ali-CCP
+    (333, 41, 2, [7], [3], True, 8),           # widths not multiples of 4
+    (130, 50, 5, [33, 20], [40, 70, 1], False, 24),  # no head: width-1 last stage
+    (64, 12, 1, [], [5] * 8, True, 64),        # no trunk; deep towers; widest tile
+    (17, 9, 3, [6], [], True, 16),             # head on the trunk
+])
+def test_tower_kernel_matches_plain(gen, cfg):
+    B, F, D, trunk, towers, head, rows = cfg
+    tr = _affines(gen, (), [F] + trunk)
+    w_in = trunk[-1] if trunk else F
+    tw = _affines(gen, (D,), [w_in] + towers)
+    out = _affines(gen, (D,), [towers[-1] if towers else w_in, 1])[0] if head else None
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    _launch_and_compare(gen, kt.trunk_towers_fused_infer, kt.trunk_towers_fused_infer_ref,
+                        emb, did, tr, tw, out, rows=rows)
+
+
+def _star_args(gen, B, F, D, fcn, aux):
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    var, mean = torch.var_mean(emb, dim=0, unbiased=False)
+    g = 0.5 + torch.rand(D, F, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(D, F, generator=gen, device="cuda")
+    return emb, (mean, torch.rsqrt(var + 1e-6), g, b, _affines(gen, (D,), [F] + fcn + [1]),
+                 _affines(gen, (), [F] + aux),
+                 _affines(gen, (), [aux[-1] if aux else F, 1])[0])
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, fcn dims, aux dims, block_rows)
+    (4096, 376, 3, [256, 128, 64, 32, 16, 8], [16], 16),  # Ali-CCP
+    (333, 41, 2, [7], [3], 8),
+    (130, 50, 6, [33, 20, 9], [], 40),          # aux head on the raw row
+    (1, 20, 3, [8], [4, 4], 64),
+])
+def test_star_kernel_matches_plain(gen, cfg):
+    B, F, D, fcn, aux, rows = cfg
+    emb, args = _star_args(gen, B, F, D, fcn, aux)
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    _launch_and_compare(gen, ks.star_fused_infer, ks.star_fused_infer_ref, emb, did, *args,
+                        rows=rows)
+
+
+def _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden=()):
+    out, width = [], F
+    for li, dims in enumerate(levels):
+        last = li == len(levels) - 1
+        gs = None if last else _affines(gen, (), [width, *gate_hidden, D * S + n_sh])
+        out.append(kp.LevelSpec(_affines(gen, (D, S), [width] + dims),
+                                _affines(gen, (n_sh,), [width] + dims),
+                                _affines(gen, (D,), [width, *gate_hidden, S + n_sh]), gs))
+        width = dims[-1]
+    tw = _affines(gen, (D,), [width] + towers)
+    return out, tw, _affines(gen, (D,), [towers[-1] if towers else width, 1])[0]
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, S, n_sh, levels' expert dims, tower dims, gate hidden, block_rows)
+    (4096, 376, 3, 2, 1, [[256, 128, 64, 32, 16, 8]], [16], (), 16),  # Ali-CCP
+    (1000, 376, 3, 2, 1, [[256, 128, 64, 32, 16, 8]] * 2, [16], (), 16),  # 2 levels
+    (333, 41, 2, 1, 2, [[7], [5], [3]], [], (6,), 8),  # 3 levels, 2-stage gates
+    (130, 30, 4, 3, 1, [[9, 6], [10]], [4, 3], (), 24),
+])
+def test_ple_kernel_matches_plain(gen, cfg):
+    B, F, D, S, n_sh, levels, towers, gate_hidden, rows = cfg
+    args = _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden)
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    _launch_and_compare(gen, kp.ple_fused_infer, kp.ple_fused_infer_ref, emb, did, *args,
+                        rows=rows)
+
+
+def test_new_kernels_reject_what_they_do_not_take(gen):
+    tr, tw = _affines(gen, (), [20, 8]), _affines(gen, (2,), [8, 4])
+    out = _affines(gen, (2,), [4, 1])[0]
+    emb = torch.randn(10, 20, generator=gen, device="cuda")
+    did = torch.zeros(10, dtype=torch.long, device="cuda")
+    for rows in (12, 0, 72):
+        with pytest.raises(ValueError):
+            kt.trunk_towers_fused_infer(emb, did, tr, tw, out, block_rows=rows)
+    with pytest.raises(ValueError):
+        kt.trunk_towers_fused_infer(emb.double(), did, tr, tw, out)
+    with pytest.raises(ValueError):
+        kt.trunk_towers_fused_infer(emb, did.cpu(), tr, tw, out)
+    assert kt.trunk_towers_fused_infer(emb[:0], did[:0], tr, tw, out).shape == (0,)
+    wide = _affines(gen, (), [20, 2000])  # two 64 x 2000 buffers exceed shared memory
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kt.trunk_towers_fused_infer(emb, did, wide, _affines(gen, (2,), [2000, 1]), None,
+                                    block_rows=64)
+    levels, ptw, pout = _ple_args(gen, 20, 2, 2, 1, [[8]] * 5, [4])
+    with pytest.raises(ValueError, match="levels"):
+        kp.ple_fused_infer(emb, did, levels, ptw, pout)
