@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one card and
-check its kernels: MMOE, SharedBottom, STAR and PLE, each built at its
-Ali-CCP width through ``configs.build_model``.
+check its kernels: MMOE, SharedBottom, STAR, PLE, SAR-Net, EPNet, PPNet and
+AdaSparse, each built at its Ali-CCP width through ``configs.build_model``
+(EPNet and AdaSparse from the scenario loader's features, PPNet from the
+ppnet loader's, as ``scripts/run_ali_ccp.py`` builds them).
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -34,7 +36,18 @@ Phases; each asserts, and any failure exits non-zero:
      configuration, (d) domain ids -1, D and D+5, and (e) SharedBottom
      without a head, STAR on a batch padded with weight-0 rows (its norm's
      statistics masked), PLE at 2 levels with the Ali-CCP expert widths;
-     max |error| <= 1e-5, with a ``block_rows`` sweep.
+     max |error| <= 1e-5, with a ``block_rows`` sweep;
+   - ``sarnet_fused_infer``, ``epnet_fused_infer``, ``ppnet_fused_infer``
+     and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
+     (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
+     S = 16, A = 352), ragged, narrow and (SAR-Net, PPNet: the others have
+     no domain ids) out-of-range domain ids; PPNet also with domain 1
+     absent; AdaSparse in all three forms, alpha = 1.37 folded into its
+     pruners, and (e) pruner inputs that are exact integers, so that a few
+     percent of the factors are negative. AdaSparse's hard threshold: a row
+     in which some pruner element lies within 1e-5 of epsilon is excused
+     from the 1e-5 check, and such rows are counted, printed and held to
+     0.01 % of the batch.
 3. Serving path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
    experts [256,128,64,32,16,8], tower [16]) with 467,000 ids per feature
    (a packed [10.74M, 16] f32 table) built on the card from ``--seed``;
@@ -43,7 +56,9 @@ Phases; each asserts, and any failure exits non-zero:
    launch counter is set to 0 just before and read just after; the fused
    kernel must have launched once per batch. Predictions are held against
    the op-by-op path (``fused_inference=False``) and a narrow model against
-   the CPU's plain path. Then the same for SharedBottom, STAR and PLE,
+   the CPU's plain path. Then the same for SharedBottom, STAR, PLE,
+   SAR-Net, EPNet, PPNet and AdaSparse (the last four with their tables
+   drawn from N(0, 0.5), AdaSparse's alpha at 1.37 and its threshold rule),
    each with its own kernel and no other launched.
 4. Training path: the same model trained by ``CTRTrainer(
    sparse_embedding_updates=True, sparse_update_impl="sorted",
@@ -55,9 +70,14 @@ Phases; each asserts, and any failure exits non-zero:
    dense trainer (torch.optim.Adam over the whole table) for 2 steps at
    full width, beside two planted faults that this check must catch, and a
    narrow model trained 3 steps on the card and the CPU. Each gated step
-   starts both sides from one state (``sorted_vs_dense``).
-5. The card line, one ``{"kernels": [...]}`` line, and last the line
-   ``{"ok": true, "device": {...}}``.
+   starts both sides from one state (``sorted_vs_dense``). Then each other
+   model's ``fit`` (8*4096+123 rows), evaluation, a timed second epoch and a
+   narrow card-vs-CPU copy: the sorted kernel launches once per step for
+   the models with one ``embedding`` collection, and never for EPNet, PPNet
+   and AdaSparse, which take the dense step.
+5. ``[5] done in ... s``, the card line, one ``{"kernels": [...]}`` line
+   with all nine kernels, and last the line ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -97,8 +117,24 @@ EVAL_KERNELS = {
                      "scenario_wise_rec_tpu/ops/pallas/tower_infer.py:29"),
     "star": ("star_fused_infer", "star_infer", "scenario_wise_rec_tpu/ops/pallas/star_infer.py:35"),
     "ple": ("ple_fused_infer", "ple_infer", "scenario_wise_rec_tpu/ops/pallas/ple_infer.py:58"),
+    "sarnet": ("sarnet_fused_infer", "sarnet_infer",
+               "scenario_wise_rec_tpu/ops/pallas/sarnet_infer.py:33"),
+    "epnet": ("epnet_fused_infer", "gated_infer",
+              "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:47"),
+    "ppnet": ("ppnet_fused_infer", "gated_infer",
+              "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:91"),
+    "adasparse": ("adasparse_fused_infer", "gated_infer",
+                  "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:174"),
 }
 NEW_MODELS = ("sharedbottom", "star", "ple")
+GATED_MODELS = ("sarnet", "epnet", "ppnet", "adasparse")
+# AdaSparse's pruners threshold sign(beta * sigmoid(v) - eps): a kernel and a
+# plain version that differ in the last ulp of v can flip one factor. A row is
+# held to TOL unless some pruner element of it lies within THRESHOLD_GAP of
+# eps (by the plain version: a flip needs both versions within rounding of
+# it); such rows are counted, printed, and may be at most THRESHOLD_ROWS of
+# the batch.
+THRESHOLD_GAP, THRESHOLD_ROWS = 1e-5, 1e-4
 # sorted_dense_adam_apply vs its plain version, per element: both round each
 # elementwise step alike; three or more duplicate gradients sum in another
 # order (the plain index_add_ uses atomics)
@@ -113,8 +149,10 @@ SA_RTOL, SA_ATOL = 1e-5, 1e-6
 # moves no parameter (the card's and the CPU's BLAS round differently). A
 # Linear bias before a train-mode BatchNorm, and the running mean that
 # follows it, has an exactly zero gradient, all noise: those are held to
-# NOISE_ATOL = 10 x lr. In STAR the FCN biases and the domain norm's betas
-# are cancelled the same way (a per-domain constant before a BatchNorm).
+# NOISE_ATOL = 10 x lr (the first pattern also takes SAR-Net's final MLP,
+# PPNet's tower layers and AdaSparse's layers). In STAR the FCN biases and
+# the domain norm's betas are cancelled the same way (a per-domain constant
+# before a BatchNorm).
 # A step that starts from states that already differ by rounding is held to
 # NOISE_ATOL only: Adam maps a relative gap in a gradient near eps into a
 # step gap of up to ~lr (PERF.md, Findings).
@@ -335,40 +373,65 @@ def ple_work(emb, did, levels, towers, head):
     return 2.0 * B * per_row, nbytes(emb, did, *flat(levels, towers, head)) + B * 4
 
 
-def run_cases(label, wrapper, ref, cases):
+def near_threshold(margin_fn, inputs, args):
+    """AdaSparse's threshold rule: the rows whose pruners lie within
+    THRESHOLD_GAP of epsilon (``margin_fn`` gives each row's least gap, by
+    the plain version); None for a kernel without a hard threshold."""
+    return None if margin_fn is None else margin_fn(*inputs, *args) <= THRESHOLD_GAP
+
+
+def kernel_gap(got, want, near):
+    """max |got - want| over the rows not ``near`` the threshold."""
+    diff = (got - want).abs()
+    if near is not None:
+        diff = diff[~near]
+    return diff.max().item() if diff.numel() else 0.0
+
+
+def run_cases(label, wrapper, ref, cases, margin_fn=None):
     """Each case's kernel output against the plain version's, and the
-    out-of-range ids against the same ids clipped; returns the max error."""
+    out-of-range ids (the last input) against the same ids clipped; returns
+    the max error. ``margin_fn``: the threshold rule, whose excused rows are
+    counted, printed and held to THRESHOLD_ROWS of the batch."""
     max_err = 0.0
-    for name, (emb, did, args) in cases.items():
-        got = wrapper(emb, did, *args)
+    for name, (inputs, args) in cases.items():
+        got = wrapper(*inputs, *args)
         torch.cuda.synchronize()
-        want = ref(emb, did, *args)
-        check(got.shape == want.shape == (emb.shape[0],) and bool(torch.isfinite(got).all()),
+        want = ref(*inputs, *args)
+        B = inputs[0].shape[0]
+        check(got.shape == want.shape == (B,) and bool(torch.isfinite(got).all()),
               f"{label} {name}: bad output")
-        err = (got - want).abs().max().item()
-        log(f"  {label} {name}: max_abs_err {err:.3e}")
+        near = near_threshold(margin_fn, inputs, args)
+        err = kernel_gap(got, want, near)
+        rule = "" if near is None else f", {int(near.sum())} of {B} rows at the threshold"
+        log(f"  {label} {name}: max_abs_err {err:.3e}{rule}")
         check(err <= TOL, f"{label} {name}: kernel disagrees with plain ({err} > {TOL})")
+        if near is not None:
+            check(int(near.sum()) <= THRESHOLD_ROWS * B,
+                  f"{label} {name}: {int(near.sum())} rows at the threshold")
         max_err = max(max_err, err)
         if "oob" in name:
-            clipped = wrapper(emb, did.clamp(0, DOMAINS - 1), *args)
-            check(torch.equal(wrapper(emb, did, *args), clipped),
+            clipped = wrapper(*inputs[:-1], inputs[-1].clamp(0, DOMAINS - 1), *args)
+            check(torch.equal(wrapper(*inputs, *args), clipped),
                   f"{label}: out-of-range domain ids are not clipped")
     return max_err
 
 
-def time_entry(label, model, wrapper, ref, emb, did, args, work_fn, peak, max_err):
+def time_entry(label, model, wrapper, ref, inputs, args, work_fn, peak, max_err,
+               margin_fn=None):
     """The kernel beside its plain version and its bound at the main path's
     shape, with a ``block_rows`` sweep; the kernels-line entry."""
     sweep = {}
-    want = ref(emb, did, *args)
+    want = ref(*inputs, *args)
+    near = near_threshold(margin_fn, inputs, args)
     for rows in (8, 16, 24, 32, 48):
-        check((wrapper(emb, did, *args, block_rows=rows) - want).abs().max().item() <= TOL,
-              f"{label} block_rows={rows} disagrees")
-        sweep[rows] = time_ms(lambda: wrapper(emb, did, *args, block_rows=rows))
+        got = wrapper(*inputs, *args, block_rows=rows)
+        check(kernel_gap(got, want, near) <= TOL, f"{label} block_rows={rows} disagrees")
+        sweep[rows] = time_ms(lambda: wrapper(*inputs, *args, block_rows=rows))
     log(f"  {label} block_rows sweep, ms: " + ", ".join(f"{r} -> {t:.4f}" for r, t in sweep.items()))
-    kernel_ms = time_ms(lambda: wrapper(emb, did, *args))
-    plain_ms = time_ms(lambda: ref(emb, did, *args))
-    flops, moved = work_fn(emb, did, *args)
+    kernel_ms = time_ms(lambda: wrapper(*inputs, *args))
+    plain_ms = time_ms(lambda: ref(*inputs, *args))
+    flops, moved = work_fn(*inputs, *args)
     t_ops, t_bytes = flops / peak[0] * 1e3, moved / peak[1] * 1e3
     bound = max(t_ops, t_bytes)
     log(f"  {label} a_alicpp_b4096: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -398,11 +461,11 @@ def phase_new_kernels(gen, peak):
 
     def shaped(args_ali, args_narrow, extra):
         """The cases (a)-(d) with the kernel's arguments, plus ``extra``."""
-        cases = {"a_alicpp_b4096": (emb4096, ids(4096), args_ali),
-                 "b_ragged_b4095": (randn(4095, F), ids(4095), args_ali),
-                 "b_ragged_b1": (randn(1, F), ids(1), args_ali),
-                 "c_narrow_b1000": (randn(1000, 42), ids(1000, 2), args_narrow),
-                 "d_domain_oob_b4096": (emb4096, oob[ids(4096, len(oob))], args_ali)}
+        cases = {"a_alicpp_b4096": ((emb4096, ids(4096)), args_ali),
+                 "b_ragged_b4095": ((randn(4095, F), ids(4095)), args_ali),
+                 "b_ragged_b1": ((randn(1, F), ids(1)), args_ali),
+                 "c_narrow_b1000": ((randn(1000, 42), ids(1000, 2)), args_narrow),
+                 "d_domain_oob_b4096": ((emb4096, oob[ids(4096, len(oob))]), args_ali)}
         return {**cases, **extra}
 
     entries = {}
@@ -413,13 +476,12 @@ def phase_new_kernels(gen, peak):
     narrow = (affines(gen, (), [42, 24]), affines(gen, (2,), [24, 8, 4]),
               affines(gen, (2,), [4, 1])[0])
     no_head = (ali[0], affines(gen, (D,), tower_dims + [1]), None)
-    cases = shaped(ali, narrow, {"f_no_head_b4096": (emb4096, ids(4096), no_head)})
+    cases = shaped(ali, narrow, {"f_no_head_b4096": ((emb4096, ids(4096)), no_head)})
     err = run_cases("trunk_towers_fused_infer", k.trunk_towers_fused_infer,
                     k.trunk_towers_fused_infer_ref, cases)
-    emb, did, args = cases["a_alicpp_b4096"]
     entries["sharedbottom"] = time_entry(
         "trunk_towers_fused_infer", "sharedbottom", k.trunk_towers_fused_infer,
-        k.trunk_towers_fused_infer_ref, emb, did, args, tower_work, peak, err)
+        k.trunk_towers_fused_infer_ref, *cases["a_alicpp_b4096"], tower_work, peak, err)
 
     # STAR: FCN [256,...,8,1] per domain, aux [16]; mean/rstd of each batch
     def star_args(emb, Dn, fcn, aux, w=None):
@@ -430,11 +492,11 @@ def phase_new_kernels(gen, peak):
 
     fcn_dims = [256, 128, 64, 32, 16, 8]
     cases = {}
-    for name, (emb, did, _) in shaped(None, None, {}).items():
+    for name, ((emb, did), _) in shaped(None, None, {}).items():
         narrow_case = name.startswith("c_")
-        cases[name] = (emb, did, star_args(emb, 2 if narrow_case else D,
-                                           [8, 4] if narrow_case else fcn_dims,
-                                           [4] if narrow_case else [16]))
+        cases[name] = ((emb, did), star_args(emb, 2 if narrow_case else D,
+                                             [8, 4] if narrow_case else fcn_dims,
+                                             [4] if narrow_case else [16]))
     # a batch padded past row 3000 with copies of row 0 and weight 0: the
     # domain norm's statistics come from the 3000 real rows only
     real = 3000
@@ -442,7 +504,7 @@ def phase_new_kernels(gen, peak):
     w = torch.cat([torch.ones(real, device="cuda"), torch.zeros(4096 - real, device="cuda")])
     pad_args = star_args(padded, D, fcn_dims, [16], w)
     pad_ids = ids(4096)
-    cases["e_padded_rows_b4096"] = (padded, pad_ids, pad_args)
+    cases["e_padded_rows_b4096"] = ((padded, pad_ids), pad_args)
     err = run_cases("star_fused_infer", k.star_fused_infer, k.star_fused_infer_ref, cases)
     mean, var, _ = batch_stats(emb4096[:real])
     unpadded = k.star_fused_infer_ref(emb4096[:real].contiguous(), pad_ids[:real], mean,
@@ -451,10 +513,9 @@ def phase_new_kernels(gen, peak):
     log(f"  star_fused_infer e_padded_rows_b4096: real rows vs the unpadded batch, "
         f"max_abs_err {pad_err:.3e}")
     check(pad_err <= TOL, "STAR's padded rows move its real rows")
-    emb, did, args = cases["a_alicpp_b4096"]
     entries["star"] = time_entry("star_fused_infer", "star", k.star_fused_infer,
-                                 k.star_fused_infer_ref, emb, did, args, star_work, peak,
-                                 max(err, pad_err))
+                                 k.star_fused_infer_ref, *cases["a_alicpp_b4096"], star_work,
+                                 peak, max(err, pad_err))
 
     # PLE: 1 level of 2 specific + 1 shared experts [256,...,8], tower [16];
     # and 2 levels at the same expert widths (the shared gate's path)
@@ -472,16 +533,172 @@ def phase_new_kernels(gen, peak):
     ali = ple_args(F, D, 2, 1, [EXPERT_DIMS], TOWER_DIMS)
     narrow = ple_args(42, 2, 2, 1, [[16, 8], [8]], [4])
     two = ple_args(F, D, 2, 1, [EXPERT_DIMS, EXPERT_DIMS], TOWER_DIMS)
-    cases = shaped(ali, narrow, {"e_two_levels_b4096": (emb4096, ids(4096), two)})
+    cases = shaped(ali, narrow, {"e_two_levels_b4096": ((emb4096, ids(4096)), two)})
     err = run_cases("ple_fused_infer", k.ple_fused_infer, k.ple_fused_infer_ref, cases)
-    two_ms = time_ms(lambda: k.ple_fused_infer(emb4096, cases["e_two_levels_b4096"][1], *two))
-    flops, _ = ple_work(emb4096, cases["e_two_levels_b4096"][1], *two)
+    two_ids = cases["e_two_levels_b4096"][0][1]
+    two_ms = time_ms(lambda: k.ple_fused_infer(emb4096, two_ids, *two))
+    flops, _ = ple_work(emb4096, two_ids, *two)
     log(f"  ple_fused_infer e_two_levels_b4096: kernel {two_ms:.4f} ms, {flops / 1e9:.3f} GFLOP, "
         f"{flops / two_ms / 1e9:.2f} TFLOP/s achieved")
-    emb, did, args = cases["a_alicpp_b4096"]
     entries["ple"] = time_entry("ple_fused_infer", "ple", k.ple_fused_infer,
-                                k.ple_fused_infer_ref, emb, did, args, ple_work, peak, err)
+                                k.ple_fused_infer_ref, *cases["a_alicpp_b4096"], ple_work, peak,
+                                err)
     entries["ple"]["two_levels_ms"] = two_ms
+    return entries
+
+
+def sarnet_work(emb, did, dom_w, dom_b, shared, spec, gate, final, head):
+    """(FLOPs, bytes): the scale and shift (2 per element), the shared
+    experts, the row's own specific experts, the gate, the mixture and the
+    final MLP (2 per multiply-add)."""
+    B, F = emb.shape
+    n_sh, n_sp, H = shared[0].shape[0], spec[0].shape[1], shared[0].shape[-1]
+    per_row = 2.0 * F + 2.0 * ((n_sh + n_sp) * F * H + macs([gate]) + (n_sh + n_sp) * H
+                               + macs(final) + macs([head]))
+    return B * per_row, nbytes(emb, did, dom_w, dom_b, *flat(shared, spec, gate, final,
+                                                             head)) + B * 4
+
+
+def epnet_work(sce, agn, l1, l2, head, gemma):
+    """(FLOPs, bytes): the gate's two layers and the head (2 per
+    multiply-add), and the gating (2 per agnostic element)."""
+    B, A = agn.shape
+    per_row = 2.0 * macs([l1, l2, head]) + 2.0 * A
+    return B * per_row, nbytes(sce, agn, *flat(l1, l2, head)) + B * 4
+
+
+def ppnet_work(g, did, layers, g1s, g2s, final, gemma):
+    """(FLOPs, bytes): the row's own tower: each layer, its gate's two
+    layers (2 per multiply-add) and the gating (2 per element); the final
+    stage."""
+    B = g.shape[0]
+    per_row = 2.0 * (macs(layers) + macs(g1s) + macs(g2s) + macs([final]))
+    per_row += 2.0 * sum(w.shape[-1] for w, _ in layers)
+    return B * per_row, nbytes(g, did, *flat(layers, g1s, g2s, final)) + B * 4
+
+
+def adasparse_work(sce, agn, pruners, layers, final, form, eps, beta):
+    """(FLOPs, bytes): every pruner and layer and the head (2 per
+    multiply-add), and each pruned element (2 for its factor and product)."""
+    B = sce.shape[0]
+    per_row = 2.0 * (sum(p.shape[0] * p.shape[1] for p in pruners) + macs(layers)
+                     + macs([final])) + 2.0 * sum(p.shape[1] for p in pruners)
+    return B * per_row, nbytes(sce, agn, *pruners, *flat(layers, final)) + B * 4
+
+
+def adasparse_both_signs(gen, B, S, A, dims):
+    """Pruner inputs that are exact integers, -S/2 .. S/2: sce of +-1, the
+    pruners' sce rows +-0.5 and their other rows 0. Every sum is exact in
+    any order, far from every threshold, and a few percent of the factors
+    are negative (v <= -5 for Binarization, v <= -6 for the others)."""
+    sign = lambda *shape: torch.randint(0, 2, shape, generator=gen, device="cuda") * 2.0 - 1.0
+    pw = [torch.cat([0.5 * sign(S, h), torch.zeros(h, h, device="cuda")]) for h in [A] + dims]
+    lay = affines(gen, (), [S + A] + dims)
+    return (sign(B, S), torch.randn(B, A, generator=gen, device="cuda")), \
+        (pw, lay, affines(gen, (), [dims[-1] if dims else S + A, 1])[0])
+
+
+def phase_gated_kernels(gen, peak):
+    """``sarnet_fused_infer``, ``epnet_fused_infer``, ``ppnet_fused_infer``
+    and ``adasparse_fused_infer`` against their plain versions at every
+    case, then timed at their model's Ali-CCP shape."""
+    from scenario_wise_rec_tpu_torch.ops import kernels as k
+
+    D = DOMAINS
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ids = lambda B, d=D: torch.randint(0, d, (B,), generator=gen, device="cuda")
+    oob = torch.tensor([-1, D, D + 5, 0, 1, 2], device="cuda")
+    entries = {}
+
+    def shaped(F, args_ali, args_narrow, F_narrow=42, domains=True):
+        """The cases (a)-(d) with the kernel's inputs: one [B, F] tensor
+        and the domain ids, or (domains=False) sce [B, 16] and agn [B, F]."""
+        def inputs(B, Fi, d=D):
+            return (randn(B, Fi), ids(B, d)) if domains else (randn(B, 16), randn(B, Fi))
+        a = inputs(4096, F)
+        cases = {"a_alicpp_b4096": (a, args_ali),
+                 "b_ragged_b4095": (inputs(4095, F), args_ali),
+                 "b_ragged_b1": (inputs(1, F), args_ali),
+                 "c_narrow_b1000": (inputs(1000, F_narrow, 2), args_narrow)}
+        if domains:  # EPNet and AdaSparse have no domain ids
+            cases["d_domain_oob_b4096"] = ((a[0], oob[ids(4096, len(oob))]), args_ali)
+        return cases
+
+    # SAR-Net: default loader, F = 23 x 16; 8 shared + 2 specific experts
+    # of width 16, gate 368 -> 10, final [32, 32] and head
+    def sarnet_args(F, Dn, n_sh, n_sp, final):
+        return (2 * torch.rand(Dn, F, generator=gen, device="cuda") - 1,
+                torch.rand(Dn, F, generator=gen, device="cuda"),
+                affines(gen, (n_sh,), [F, 16])[0], affines(gen, (Dn, n_sp), [F, 16])[0],
+                affines(gen, (), [F, n_sh + n_sp])[0], affines(gen, (), [16] + final),
+                affines(gen, (), [final[-1] if final else 16, 1])[0])
+
+    F = N_SPARSE * 16
+    cases = shaped(F, sarnet_args(F, D, 8, 2, [32, 32]), sarnet_args(42, 2, 3, 1, [8]))
+    err = run_cases("sarnet_fused_infer", k.sarnet_fused_infer, k.sarnet_fused_infer_ref, cases)
+    entries["sarnet"] = time_entry("sarnet_fused_infer", "sarnet", k.sarnet_fused_infer,
+                                   k.sarnet_fused_infer_ref, *cases["a_alicpp_b4096"],
+                                   sarnet_work, peak, err)
+
+    # EPNet: scenario loader, S = 16, A = 22 x 16 + 8 = 360; gate 376 -> 360
+    # -> 360, head 360 -> 1
+    def epnet_args(A, H):
+        return (*affines(gen, (), [16 + A, H]), *affines(gen, (), [H, A]),
+                affines(gen, (), [A, 1])[0], 2.0)
+
+    A = (N_SPARSE - 1) * 16 + N_DENSE
+    cases = shaped(A, epnet_args(A, A), epnet_args(42, 24), domains=False)
+    err = run_cases("epnet_fused_infer", k.epnet_fused_infer, k.epnet_fused_infer_ref, cases)
+    entries["epnet"] = time_entry("epnet_fused_infer", "epnet", k.epnet_fused_infer,
+                                  k.epnet_fused_infer_ref, *cases["a_alicpp_b4096"], epnet_work,
+                                  peak, err)
+
+    # PPNet: ppnet loader, G = 2 x 16 ids + 20 x 16 + 8 + 16 = 376; towers
+    # [256, 128, 64, 32, 16, 8] with a GateNU per layer, 3 domains
+    def ppnet_args(G, Dn, dims):
+        return (affines(gen, (Dn,), [G] + dims),
+                [affines(gen, (Dn,), [G, o])[0] for o in dims],
+                [affines(gen, (Dn,), [o, o])[0] for o in dims],
+                affines(gen, (Dn,), [dims[-1], 1])[0], 2.0)
+
+    G = 2 * 16 + (N_SPARSE - 3) * 16 + N_DENSE + 16
+    ali = ppnet_args(G, D, EXPERT_DIMS)
+    cases = shaped(G, ali, ppnet_args(42, 2, [16, 8]))
+    absent = torch.tensor([0, 2], device="cuda")[ids(4096, 2)]  # domain 1 absent
+    cases["e_domain_1_absent_b4096"] = ((cases["a_alicpp_b4096"][0][0], absent), ali)
+    err = run_cases("ppnet_fused_infer", k.ppnet_fused_infer, k.ppnet_fused_infer_ref, cases)
+    entries["ppnet"] = time_entry("ppnet_fused_infer", "ppnet", k.ppnet_fused_infer,
+                                  k.ppnet_fused_infer_ref, *cases["a_alicpp_b4096"], ppnet_work,
+                                  peak, err)
+
+    # AdaSparse: scenario loader, S = 16, A = 22 x 16 = 352; layers [256,
+    # ..., 8], a pruner on [sce ‖ agn] and after each layer. Pruner weights at
+    # 0.6 x a Linear's scale, times alpha = 1.37 folded: the pruner inputs have
+    # a std near 0.6, and eps = 1e-2 lies 7 of them below 0, so rows near the
+    # threshold stay rare; the negative factors are case (e)'s work.
+    def adasparse_args(S, A, dims, form, alpha=1.37):
+        pw = [0.6 * alpha * (S + h) ** -0.5 * randn(S + h, h) for h in [A] + dims]
+        return (pw, affines(gen, (), [S + A] + dims),
+                affines(gen, (), [dims[-1] if dims else S + A, 1])[0], form, 1e-2, 2.0)
+
+    A = (N_SPARSE - 1) * 16
+    err = 0.0
+    for form in ("Binarization", "Scaling", "Fusion"):
+        ali = adasparse_args(16, A, EXPERT_DIMS, form)
+        cases = shaped(A, ali, adasparse_args(16, 42, [16, 8], form, alpha=1.0), domains=False)
+        inputs, args = adasparse_both_signs(gen, 4096, 16, A, EXPERT_DIMS)
+        cases["e_both_signs_b4096"] = (inputs, args + (form, 1e-2, 2.0))
+        v0 = inputs[0] @ args[0][0][:16]
+        check(bool((v0 <= (-5 if form == "Binarization" else -6)).any()),
+              "case e has no negative pruner factor")
+        label = f"adasparse_fused_infer {form}"
+        err = max(err, run_cases(label, k.adasparse_fused_infer, k.adasparse_fused_infer_ref,
+                                 cases, margin_fn=k.adasparse_threshold_margin))
+    # timed in the Fusion form, the Ali-CCP ladder's
+    entries["adasparse"] = time_entry(
+        "adasparse_fused_infer Fusion", "adasparse", k.adasparse_fused_infer,
+        k.adasparse_fused_infer_ref, *cases["a_alicpp_b4096"], adasparse_work, peak, err,
+        margin_fn=k.adasparse_threshold_margin)
     return entries
 
 
@@ -501,15 +718,44 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def ali_data(vocab=VOCAB):
-    """The Ali-CCP feature set as ``build_model`` takes it: 8 dense and 23
-    sparse features of width 16."""
+# the Ali-CCP loader each model's script uses (scripts/run_ali_ccp.py)
+LOADER = {"epnet": "scenario", "adasparse": "scenario", "ppnet": "ppnet"}
+
+
+def ali_data(loader="default", vocab=VOCAB):
+    """The Ali-CCP feature set as ``build_model`` takes it, from one of the
+    reference's three loaders: ``default``, 8 dense and 23 sparse features
+    of width 16; ``scenario``, one sparse feature fewer (``301`` dropped) and
+    the domain indicator embedded as the scenario feature; ``ppnet``, as
+    ``scenario`` with two of the sparse features (``101``, ``205``) split
+    out as id features."""
     from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
 
-    return {"dense_feas": [DenseFeature(f"d{i}") for i in range(N_DENSE)],
-            "sparse_feas": [SparseFeature(f"s{i}", vocab_size=vocab, embed_dim=16)
-                            for i in range(N_SPARSE)],
-            "domain_num": DOMAINS}
+    sparse = [SparseFeature(f"s{i}", vocab_size=vocab, embed_dim=16) for i in range(N_SPARSE)]
+    data = {"dense_feas": [DenseFeature(f"d{i}") for i in range(N_DENSE)],
+            "sparse_feas": sparse, "domain_num": DOMAINS}
+    if loader != "default":
+        data["sparse_feas"] = sparse[:-1]
+        data["scenario_feas"] = [SparseFeature("domain_indicator", vocab_size=DOMAINS,
+                                               embed_dim=16)]
+    if loader == "ppnet":
+        data["sparse_feas"], data["id_feas"] = sparse[:-3], sparse[-3:-1]
+    return data
+
+
+# each loader's packed tables: {collection: (rows, width)}
+TABLES = {"default": {"embedding": (N_SPARSE * VOCAB, 16)},
+          "scenario": {"sce_embedding": (DOMAINS, 16),
+                       "agn_embedding": ((N_SPARSE - 1) * VOCAB, 16)},
+          "ppnet": {"id_embedding": (2 * VOCAB, 16),
+                    "agn_embedding": ((N_SPARSE - 3) * VOCAB + DOMAINS, 16)}}
+
+
+def packed_tables(model):
+    from scenario_wise_rec_tpu_torch.ops.embedding import EmbeddingCollection
+
+    return {n: m.packed for n, m in model.named_modules()
+            if isinstance(m, EmbeddingCollection) and m.packed is not None}
 
 
 def build_ali_model(seed, perturb=False, name="mmoe"):
@@ -519,23 +765,28 @@ def build_ali_model(seed, perturb=False, name="mmoe"):
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = build_model("ali_ccp", name, ali_data(), device="cuda", generator=gen)
+    loader = LOADER.get(name, "default")
+    model = build_model("ali_ccp", name, ali_data(loader), device="cuda", generator=gen)
     if perturb and name == "star":
         settle_running_stats(model, seed)
         perturb_running_stats(model, gen, relative=True)
     elif perturb:
         perturb_running_stats(model, gen)
+    if perturb and name in GATED_MODELS:
+        spread_tables(model, gen)
     torch.cuda.synchronize()
-    check(tuple(model.embedding.packed.shape) == (N_SPARSE * VOCAB, 16), "table shape")
-    log(f"  {name} built on the card in {time.perf_counter() - t0:.2f} s: packed table "
-        f"{tuple(model.embedding.packed.shape)}, "
-        f"{model.embedding.packed.numel() * 4 / 1e6:.1f} MB, "
+    tables = packed_tables(model)
+    check({n: tuple(t.shape) for n, t in tables.items()} == TABLES[loader], "table shapes")
+    log(f"  {name} built on the card in {time.perf_counter() - t0:.2f} s: packed tables "
+        + ", ".join(f"{n} {tuple(t.shape)}" for n, t in tables.items())
+        + f", {sum(t.numel() for t in tables.values()) * 4 / 1e6:.1f} MB, "
         f"{sum(p.numel() for n, p in model.named_parameters() if 'embedding' not in n):,} "
         "dense parameters")
     return model
 
 
-# narrow copies of each model, for the card against the CPU
+# narrow copies of each model, for the card against the CPU: these take
+# (features, 2, **kwargs), the gated family narrow_kwargs
 NARROW = {
     "mmoe": dict(n_expert=2, expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
     "sharedbottom": dict(bottom_params={"dims": [16]}, tower_params={"dims": [8, 4]}),
@@ -545,39 +796,70 @@ NARROW = {
 }
 
 
+def narrow_kwargs(name, dense, sparse, sce, ids):
+    """The gated family's narrow constructor arguments (AdaSparse without
+    dropout: the card and the CPU draw different masks)."""
+    return {"sarnet": dict(features=dense + sparse, domain_num=2, domain_shared_expert_num=3,
+                           domain_specific_expert_num=2),
+            "epnet": dict(sce_features=sce, agn_features=sparse + dense, fcn_dims=[8]),
+            "ppnet": dict(id_features=ids, agn_features=sparse + dense + sce, domain_num=2,
+                          fcn_dims=[16, 8]),
+            "adasparse": dict(sce_features=sce, agn_features=sparse,
+                              mlp_params={"dims": [16, 8], "dropout": 0.0})}[name]
+
+
 def narrow_model_and_data(seed, n=300, name="mmoe"):
     """A narrow ``name`` on the CPU and ``n`` labelled rows for it."""
     from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
     from scenario_wise_rec_tpu_torch.models import get_model
 
-    feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 100, embed_dim=8)
-                                    for i in range(3)]
+    dense = [DenseFeature("d0")]
+    sparse = [SparseFeature(f"s{i}", 100, embed_dim=8) for i in range(3)]
+    sce = [SparseFeature("domain_indicator", 2, embed_dim=8)]
+    ids = [SparseFeature("uid", 100, embed_dim=8)]
     cpu_gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = get_model(name)(feats, 2, device="cpu", generator=cpu_gen, **NARROW[name])
+    if name in NARROW:
+        model = get_model(name)(dense + sparse, 2, device="cpu", generator=cpu_gen,
+                                **NARROW[name])
+    else:
+        model = get_model(name)(**narrow_kwargs(name, dense, sparse, sce, ids), device="cpu",
+                                generator=cpu_gen)
     perturb_running_stats(model, cpu_gen)
+    if name in GATED_MODELS:
+        spread_tables(model, cpu_gen)
     r = np.random.default_rng(seed)
     x = {f"s{i}": r.integers(0, 100, n) for i in range(3)}
+    x["uid"] = r.integers(0, 100, n)
     x["d0"] = r.normal(size=n).astype(np.float32)
     x["domain_indicator"] = r.integers(0, 2, n)
     return model, x, (r.random(n) < 0.4).astype(np.float32)
 
 
+def table_moments(t, table):
+    """``(mu, nu, step)`` of a packed table: the sorted update's state for
+    the table it owns, torch.optim's for one the dense step trains."""
+    if t._sorted_mode and table is t.model.embedding.packed:
+        return t.emb_opt_state["mu"], t.emb_opt_state["nu"], t.emb_opt_state["step"]
+    st = t.optimizer.state[table]
+    return st["exp_avg"], st["exp_avg_sq"], int(st["step"])
+
+
 def trainer_groups(t):
-    """The tensors the trainer checks compare, by group of ``GROUP_TOL``."""
+    """The tensors the trainer checks compare, by group of ``GROUP_TOL``:
+    every packed table, the step its moments imply, and the rest."""
     from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import adam_hparams
 
     sd = dict(t.model.state_dict())
-    table = sd.pop("embedding.packed")
-    if t.emb_opt_state is not None:
-        mu, nu, step = t.emb_opt_state["mu"], t.emb_opt_state["nu"], t.emb_opt_state["step"]
-    else:
-        st = t.optimizer.state[t.model.embedding.packed]
-        mu, nu, step = st["exp_avg"], st["exp_avg_sq"], int(st["step"])
     p = t._opt_params
-    lr, _, _, _, bc1r, bc2r, eps = adam_hparams(
-        step, t._lr_now, 0.0, p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8))
-    implied = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
-    return {"table": {"table": table}, "table moments": {"implied step": implied},
+    tables, implied = {}, {}
+    for name, table in packed_tables(t.model).items():
+        key = f"{name}.packed"
+        tables[key] = sd.pop(key)
+        mu, nu, step = table_moments(t, table)
+        lr, _, _, _, bc1r, bc2r, eps = adam_hparams(
+            step, t._lr_now, 0.0, p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8))
+        implied[key] = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
+    return {"table": tables, "table moments": implied,
             "dense": {k: v for k, v in sd.items() if not BN_BIAS.search(k)},
             "BN-cancelled": {k: v for k, v in sd.items() if BN_BIAS.search(k)}}
 
@@ -616,24 +898,20 @@ def adopt_state(dst, src):
     """Hand trainer ``dst`` the weights and optimizer state of ``src``
     (sorted or dense mode, any device), so that their next steps start from
     one state."""
-    def table_moments(t):
-        if t.emb_opt_state is not None:
-            return t.emb_opt_state["mu"], t.emb_opt_state["nu"]
-        st = t.optimizer.state[t.model.embedding.packed]
-        return st["exp_avg"], st["exp_avg_sq"]
-
     src_sd = src.model.state_dict()
     src_opt = {n: src.optimizer.state[p] for n, p in src._dense_named}
+    src_tables = packed_tables(src.model)
     with torch.no_grad():
         for k, v in dst.model.state_dict().items():
             v.copy_(src_sd[k])
         for n, p in dst._dense_named:
-            if p is dst.model.embedding.packed:
-                continue
-            for k in ("exp_avg", "exp_avg_sq"):
-                dst.optimizer.state[p][k].copy_(src_opt[n][k])
-        for a, b in zip(table_moments(dst), table_moments(src)):
-            a.copy_(b)
+            if n in src_opt:
+                for k in ("exp_avg", "exp_avg_sq"):
+                    dst.optimizer.state[p][k].copy_(src_opt[n][k])
+        for name, table in packed_tables(dst.model).items():
+            for a, b in zip(table_moments(dst, table)[:2],
+                            table_moments(src, src_tables[name])[:2]):
+                a.copy_(b)
 
 
 def phase_sorted_adam(gen, peak):
@@ -818,8 +1096,9 @@ def phase_train(seed, card):
 
 
 def narrow_train_card_vs_cpu(seed, name):
-    """A narrow ``name``: 3 sorted train steps on the card and on the CPU,
-    the card handed the CPU's state before each."""
+    """A narrow ``name``: 3 train steps with ``sparse_embedding_updates=True``
+    (sorted, or dense for a model without an ``embedding`` collection) on the
+    card and on the CPU, the card handed the CPU's state before each."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
@@ -834,18 +1113,22 @@ def narrow_train_card_vs_cpu(seed, name):
         lc = float(cpu_t._train_step(*cpu_t._device_batch(*b)))
         lg = float(gpu_t._train_step(*gpu_t._device_batch(*b)))
         gaps = group_gaps(trainer_groups(gpu_t), trainer_groups(cpu_t))
-        log(f"  narrow {name}, sorted train step {step}, card vs CPU: loss {lg:.7f} vs "
+        mode = "sorted" if gpu_t._sorted_mode else "dense"
+        log(f"  narrow {name}, {mode} train step {step}, card vs CPU: loss {lg:.7f} vs "
             f"{lc:.7f}; {gaps_line(gaps)}")
         check(abs(lc - lg) <= 1e-5 * abs(lc), f"{name}: card loss {lg} vs CPU {lc}")
         check(not outside(gaps), f"narrow {name}, step {step}, card vs CPU: "
-              f"{outside(gaps)} outside their tolerance")
+              f"{ {g: gaps[g][3] for g in outside(gaps)} } outside their tolerance")
 
 
 def phase_train_model(seed, card, name):
-    """``name``'s training path at Ali-CCP width: fit for one epoch with the
-    sorted update and fused validation, evaluate_multi_domain_loss, a timed
-    second epoch, and a narrow copy on the card against the CPU. Returns the
-    launch counts of the fit and the evaluation."""
+    """``name``'s training path at Ali-CCP width: fit for one epoch with
+    ``sparse_embedding_updates=True`` (the sorted update for a model with
+    one ``embedding`` collection; EPNet, PPNet and AdaSparse have none and
+    take the dense step, as the JAX trainer does) and fused validation,
+    evaluate_multi_domain_loss, a timed second epoch, and a narrow copy on
+    the card against the CPU. Returns the launch counts of the fit and the
+    evaluation."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
@@ -870,8 +1153,11 @@ def phase_train_model(seed, card, name):
         counts = read_counts()
     log(f"  {name} training path launches {counts}: {n_steps} train steps, {n_val} eval "
         f"batches x 2 passes; fit {t1 - t0:.2f} s (one epoch, validation, checkpoint)")
-    check(counts["sorted_dense_adam_apply"] == n_steps,
-          f"{name}: the sorted kernel did not launch once per train step")
+    sorted_steps = n_steps if hasattr(model, "embedding") else 0
+    check(trainer._sorted_mode == bool(sorted_steps), f"{name}: update mode")
+    check(counts["sorted_dense_adam_apply"] == sorted_steps,
+          f"{name}: the sorted kernel did not launch {sorted_steps} times, once per sorted "
+          "train step")
     check(counts[kernel] == 2 * n_val, f"{name}: the eval kernel did not launch once per "
           "eval batch")
     check(all(v == 0 for k, v in counts.items() if k not in (kernel, "sorted_dense_adam_apply")),
@@ -884,7 +1170,7 @@ def phase_train_model(seed, card, name):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     check(loss is not None and np.isfinite(loss), f"{name}: train loss {loss}")
-    for k, v in list(model.state_dict().items()) + list(trainer.emb_opt_state.items()):
+    for k, v in list(model.state_dict().items()) + list((trainer.emb_opt_state or {}).items()):
         if torch.is_tensor(v):
             check(bool(torch.isfinite(v).all()), f"{name}: {k} not finite after training")
     log(f"  {name} after one epoch: total auc {tauc:.6f}, total logloss {tll:.6f}; train "
@@ -956,7 +1242,7 @@ def sorted_vs_dense(model, batches):
             log(f"  {name} vs {ref} trainer, step {step} at full width: loss "
                 f"{loss[name, step]:.7f} vs {loss[ref, step]:.7f}; {gaps_line(g)}")
             if name == "sorted":
-                table = want["table"]["table"]
+                table = want["table"]["embedding.packed"]
                 rows = ((ts[name].model.embedding.packed.detach() - table).abs()
                         > STEP_ATOL + STEP_RTOL * table.abs()).any(1)
                 hit = torch.zeros_like(rows)
@@ -994,20 +1280,37 @@ def synthetic_eval_set(seed, n):
 
 
 def perturb_running_stats(model, gen, relative=False):
-    """Random BatchNorm running stats, so the eval folding does real work;
-    ``relative``: moved by a tenth of their own std and scaled by U(0.5,
-    1.5) instead of replaced."""
+    """Random BatchNorm running stats, and AdaSparse's alpha at 1.37, so the
+    eval folding does real work; ``relative``: moved by a tenth of their own
+    std and scaled by U(0.5, 1.5) instead of replaced."""
     bufs = dict(model.named_buffers())
     with torch.no_grad():
         for name, buf in bufs.items():
             noise = lambda f: f(buf.shape, generator=gen, device=buf.device)
-            if name.endswith(".mean"):
+            if name == "alpha":
+                buf.fill_(1.37)
+            elif name.endswith(".mean"):
                 if relative:
                     buf.add_(0.1 * bufs[name[:-len("mean")] + "var"].sqrt() * noise(torch.randn))
                 else:
                     buf.copy_(0.1 * noise(torch.randn))
             elif name.endswith(".var"):
                 buf.copy_((buf if relative else 1.0) * (0.5 + noise(torch.rand)))
+
+
+def spread_tables(model, gen, std=0.5):
+    """Embedding tables drawn from N(0, std) instead of the initial N(0,
+    1e-4). At 1e-4, SAR-Net's and AdaSparse's random models give every row
+    nearly the same probability, so the fused and the op-by-op paths'
+    last-ulp differences reorder near-ties and move the AUC by up to 2e-3;
+    and a train-mode BatchNorm right after the embedding (SAR-Net's debias
+    experts) divides row differences of 1e-4 by sqrt(eps), which turns the
+    card's and the CPU's rounding into gradient gaps that Adam makes ~lr
+    steps (14 parameters of a narrow SAR-Net on an H100). Spread out, both
+    measure the paths."""
+    with torch.no_grad():
+        for table in packed_tables(model).values():
+            table.normal_(0.0, std, generator=gen)
 
 
 def settle_running_stats(model, seed, passes=30):
@@ -1025,6 +1328,39 @@ def settle_running_stats(model, seed, passes=30):
             model.apply(xb, train=True)
 
 
+def serving_near_threshold(model, x):
+    """AdaSparse's threshold rule over the rows ``x`` of a serving pass:
+    ``[n]`` bools, True where some pruner element lies within THRESHOLD_GAP
+    of epsilon (from the plain version); None for another model."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import adasparse_threshold_margin
+
+    if not hasattr(model, "pruners"):
+        return None
+    device, p = model.alpha.device, model.pruners[0]
+    n = len(x["domain_indicator"])
+    margins = []
+    with torch.inference_mode():
+        folded = model.fold_eval()
+        for i in range(0, n, BATCH):
+            xb = {k: torch.as_tensor(np.asarray(v)[i:i + BATCH], device=device)
+                  for k, v in x.items()}
+            margins.append(adasparse_threshold_margin(
+                *model._embed(xb), *folded, p.form, p.epsilon, p.beta).cpu())
+    return (torch.cat(margins) <= THRESHOLD_GAP).numpy()
+
+
+def held_gap(label, got, want, near):
+    """max |got - want| over the rows not ``near`` AdaSparse's threshold;
+    the excused rows are counted, printed and held to THRESHOLD_ROWS."""
+    keep = np.ones(len(got), bool) if near is None else ~near
+    err = float(np.abs(got - want)[keep].max()) if keep.any() else 0.0
+    rule = "" if near is None else f", {int(near.sum())} of {len(got)} rows at the threshold"
+    log(f"  {label}: max_abs_err {err:.3e}{rule}")
+    if near is not None:
+        check(int(near.sum()) <= THRESHOLD_ROWS * len(got), f"{label}: rows at the threshold")
+    return err
+
+
 def phase_main_path(seed, card, name="mmoe"):
     """``name``'s serving path at Ali-CCP width, fused and op by op, and a
     narrow copy on the card against the CPU; returns the launch counts of
@@ -1039,8 +1375,7 @@ def phase_main_path(seed, card, name="mmoe"):
     want = np.asarray(CTRTrainer(small, device="cpu", fused_inference=True).predict(small, sl))
     small_gpu = copy.deepcopy(small)
     got = np.asarray(CTRTrainer(small_gpu, fused_inference=True).predict(small_gpu, sl))
-    err = float(np.abs(got - want).max())
-    log(f"  narrow {name}, card vs CPU: max_abs_err {err:.3e}")
+    err = held_gap(f"narrow {name}, card vs CPU", got, want, serving_near_threshold(small, sx))
     check(got.shape == (300,) and err <= TOL, "card disagrees with the CPU")
 
     model = build_ali_model(seed, perturb=True, name=name)
@@ -1075,11 +1410,11 @@ def phase_main_path(seed, card, name="mmoe"):
     check(p_fused.shape == p_plain.shape == (n,), "prediction shape")
     check(bool(np.isfinite(p_fused).all()) and 0 < p_fused.min() and p_fused.max() < 1,
           "predictions not finite probabilities")
-    err = float(np.abs(p_fused - p_plain).max())
+    err = held_gap(f"{name} fused vs op-by-op", p_fused, p_plain,
+                   serving_near_threshold(model, x))
     auc_gap = max(abs(a - b) for a, b in zip(f_auc + [f_tauc], o_auc + [o_tauc]))
     ll_gap = max(abs(a - b) for a, b in zip(f_ll + [f_tll], o_ll + [o_tll]))
-    log(f"  fused vs op-by-op: max_abs_err {err:.3e}, auc gap {auc_gap:.3e}, "
-        f"logloss gap {ll_gap:.3e}")
+    log(f"  fused vs op-by-op: auc gap {auc_gap:.3e}, logloss gap {ll_gap:.3e}")
     log(f"  per-domain auc {[round(a, 6) for a in f_auc]}, total auc {f_tauc:.6f}, "
         f"total logloss {f_tll:.6f}")
     check(err <= TOL, f"fused and op-by-op predictions differ by {err}")
@@ -1159,21 +1494,23 @@ def main(argv=None):
     infer = phase_kernels(gen, peak)
     sorted_adam = phase_sorted_adam(gen, peak)
     new = phase_new_kernels(gen, peak)
+    new.update(phase_gated_kernels(gen, peak))
 
     log("[3] serving path: MMOE eval at Ali-CCP width, 467k ids per feature")
     infer["launches"] = phase_main_path(args.seed, card)["mmoe_fused_infer"]
-    for name in NEW_MODELS:
+    for name in NEW_MODELS + GATED_MODELS:
         log(f"[3] serving path: {name} eval at Ali-CCP width, 467k ids per feature")
         new[name]["launches"] = phase_main_path(args.seed, card, name)[EVAL_KERNELS[name][0]]
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
     sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
-    for name in NEW_MODELS:
+    for name in NEW_MODELS + GATED_MODELS:
         log(f"[4] training path: {name} fit at Ali-CCP width, 467k ids per feature")
         counts = phase_train_model(args.seed, card, name)
         new[name]["train_path_launches"] = {k: v for k, v in counts.items() if v}
     log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam] + [new[n] for n in NEW_MODELS]}))
+    print(json.dumps({"kernels": [infer, sorted_adam]
+                      + [new[n] for n in NEW_MODELS + GATED_MODELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

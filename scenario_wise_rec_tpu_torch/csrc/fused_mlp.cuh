@@ -1,5 +1,6 @@
 // Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// tower_infer.cu, star_infer.cu and ple_infer.cu.
+// tower_infer.cu, star_infer.cu, ple_infer.cu, sarnet_infer.cu and
+// gated_infer.cu.
 //
 // Each of those kernels runs a model's whole eval stack after the embedding
 // for a tile of `tb` rows in one thread block, with every activation in
@@ -9,8 +10,9 @@
 // block sorts its rows by domain and cuts them into *groups*: rows that
 // share a weight matrix, at most R of them.
 //
-// - Shared-weight stages (a trunk, shared experts, an aux MLP) take the
-//   tile's rows in order, R = kSharedRows at a time, as one domain.
+// - Shared-weight stages (a trunk, shared experts, an aux MLP, every stage
+//   of a model without domains) take the tile's rows in order, R =
+//   kSharedRows at a time, as one domain.
 // - Per-domain stages (towers, STAR's FCN, PLE's own-domain experts) take
 //   the rows of one domain, R = kDomainRows at a time. A row computes only
 //   its own domain, where the TPU kernels compute every domain and select.
@@ -71,17 +73,24 @@ __host__ __device__ inline int group_ints(int tb) {
   return tb * (5 + kDomainRows + 2) + 2;
 }
 
-// Stages the tile: emb rows [row0, row0 + rows) into dst [tb, ld] (zeros
-// past the batch and in the pad columns) and the clipped domain ids.
+// Copies rows [row0, row0 + rows) of src [B, F] into dst [tb, ld], zeros
+// past the batch and in the pad columns.
+__device__ void stage_rows(const float* __restrict__ src, int row0, int rows, int F,
+                           float* dst, int ld, int tb) {
+  for (int i = threadIdx.x; i < tb * ld; i += blockDim.x) {
+    const int r = i / ld, c = i % ld;
+    dst[i] = (r < rows && c < F) ? src[(size_t)(row0 + r) * F + c] : 0.f;
+  }
+}
+
+// Stages the tile: emb rows [row0, row0 + rows) into dst [tb, ld] and the
+// domain ids clipped to [0, D) (all 0 when did is null: no domain).
 __device__ void stage_tile(const float* __restrict__ emb, const int* __restrict__ did,
                            int row0, int rows, int F, int D, float* dst, int ld,
                            int tb, int* did_s) {
-  for (int i = threadIdx.x; i < tb * ld; i += blockDim.x) {
-    const int r = i / ld, c = i % ld;
-    dst[i] = (r < rows && c < F) ? emb[(size_t)(row0 + r) * F + c] : 0.f;
-  }
+  stage_rows(emb, row0, rows, F, dst, ld, tb);
   for (int r = threadIdx.x; r < tb; r += blockDim.x) {
-    const int d = r < rows ? did[row0 + r] : 0;
+    const int d = (r < rows && did != nullptr) ? did[row0 + r] : 0;
     did_s[r] = min(max(d, 0), D - 1);
   }
 }
@@ -142,15 +151,35 @@ __device__ void build_groups(const int* did_s, int rows, int tb, int* ints,
   *domain_g = Groups{drows, dcnt, ddom, *dn};
 }
 
+// The epilogue of a dense stage: column j of the group's valid rows.
+template <int R, bool kRelu, bool kAccum>
+__device__ __forceinline__ void store(const Groups& G, int g, int d, int j, const float* acc,
+                                      const int* rr, const float* __restrict__ bias,
+                                      size_t b_dstride, float* out, int ld_out) {
+  const float bj = bias != nullptr ? __ldg(bias + (size_t)d * b_dstride + j) : 0.f;
+  const int c = G.cnt[g];
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+    if (m < c) {
+      float* o = out + (size_t)rr[m] * ld_out + j;
+      const float v = (kAccum ? *o + acc[m] : acc[m]) + bj;
+      *o = kRelu ? relu(v) : v;
+    }
+}
+
 // out[r, j] = act(sum_k in_d[r, k] * W_d[k, j] + b_d[j]) for every row r of
 // every group, d the group's domain, where in_d = in.p + d * in.dstride,
-// W_d = W + d * w_dstride and b_d = bias + d * b_dstride.
+// W_d = W + d * w_dstride and b_d = bias + d * b_dstride (a null bias adds
+// nothing). With kAccum the stage adds to what out holds,
+// out[r, j] = act((out[r, j] + sum_k ...) + b_d[j]): the second half of a
+// product split over two inputs, [s ‖ a] W = s W[:S] + a W[S:], so that no
+// concatenated activation is ever built.
 //
 // A narrow stage (fewer (group, column) items than half the block) splits k
 // over `ks` neighbouring lanes instead, ks a power of two up to 32, summed
 // by a shuffle: otherwise an aux layer of 16 columns would keep 32 of 256
 // threads busy, each walking all of k.
-template <int R, bool kRelu>
+template <int R, bool kRelu, bool kAccum = false>
 __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __restrict__ W,
                               size_t w_dstride, const float* __restrict__ bias,
                               size_t b_dstride, int N, float* out, int ld_out, int ks) {
@@ -194,19 +223,11 @@ __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __res
   for (int o = ks / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int m = 0; m < R; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
-  if (active && part == 0) {
-    const float bj = __ldg(bias + (size_t)d * b_dstride + j);
-    const int c = G.cnt[g];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-      if (m < c) {
-        const float v = acc[m] + bj;
-        out[(size_t)rr[m] * ld_out + j] = kRelu ? relu(v) : v;
-      }
-  }
+  if (active && part == 0)
+    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
 }
 
-template <int R, bool kRelu>
+template <int R, bool kRelu, bool kAccum = false>
 __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ W,
                       size_t w_dstride, const float* __restrict__ bias,
                       size_t b_dstride, int N, float* out, int ld_out) {
@@ -214,7 +235,7 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
   int ks = 1;
   while (ks < 32 && 2 * ks * items <= (int)blockDim.x) ks *= 2;
   if (ks > 1) {
-    dense_split_k<R, kRelu>(G, in, K, W, w_dstride, bias, b_dstride, N, out, ld_out, ks);
+    dense_split_k<R, kRelu, kAccum>(G, in, K, W, w_dstride, bias, b_dstride, N, out, ld_out, ks);
     return;
   }
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -251,14 +272,7 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
 #pragma unroll
       for (int m = 0; m < R; ++m) acc[m] = fmaf(ar[m][k], wk, acc[m]);
     }
-    const float bj = __ldg(bias + (size_t)d * b_dstride + j);
-    const int c = G.cnt[g];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-      if (m < c) {
-        const float v = acc[m] + bj;
-        out[(size_t)rr[m] * ld_out + j] = kRelu ? relu(v) : v;
-      }
+    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
   }
 }
 

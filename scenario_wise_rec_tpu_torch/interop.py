@@ -12,6 +12,14 @@ every leaf into the module entry of the same path:
   STAR's ``aux``;
 - ``state/<bank>/layers[i]/{mean,var}``, the BatchNorm running stats,
   which the port keeps as ``layers.i.bn.{mean,var}`` buffers;
+- ``<collection>/packed`` of the models with two embedding collections
+  (EPNet, AdaSparse: ``sce_embedding``/``agn_embedding``; PPNet:
+  ``id_embedding``/``agn_embedding``), and every other leaf of SAR-Net,
+  EPNet, PPNet and AdaSparse by its own path: ``dom_w``, ``dom_b``, the
+  debias banks ``{shared,spec}/{bn,lin}`` with ``state/{shared,spec}/bn``
+  and ``gate``; ``gatenu/{l1,l2}`` and ``mlp/out``; ``towers/{mlps[i],
+  gates[i]/{l1,l2}, final}``; ``layers[i]``, ``pruners[i]/w``, ``final``
+  and the scalar ``state/alpha``, which the port keeps as a buffer;
 - STAR's other leaves by their own paths (``dn/*``, ``fcn/{share_w,
   share_b, dom_w, dom_b}[i]``, ``fcn/bn[i]/{gamma,beta}``). Its FCN
   BatchNorm's running stats sit at ``state/bn[i]/{mean,var}`` in the JAX

@@ -7,9 +7,13 @@ registry knows that the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item, not ``KeyError``.
 """
 
+from .adasparse import AdaSparse
 from .base import Base, Model, domain_ids
+from .epnet import EPNet
 from .mmoe import MMOE
 from .ple import PLE
+from .ppnet import PPNet
+from .sarnet import Sarnet
 from .sharedbottom import SharedBottom
 from .star import Star
 
@@ -19,12 +23,16 @@ MODEL_REGISTRY = {
     "mmoe": MMOE,
     "ple": PLE,
     "star": Star,
+    "sarnet": Sarnet,
+    "epnet": EPNet,
+    "ppnet": PPNet,
+    "adasparse": AdaSparse,
     "base": Base,
 }
 
 # the JAX registry's other names, each with the ROADMAP item that ports it
 NOT_PORTED = {name: "A11" for name in (
-    "sarnet", "epnet", "ppnet", "adasparse", "m2m", "adaptdhm", "hamur",
+    "m2m", "adaptdhm", "hamur",
     "hamurlarge", "hamur_small", "hamursmall", "m3oe", "mlpn")}
 
 
@@ -42,5 +50,5 @@ def get_model(name: str):
                    f"{sorted(MODEL_REGISTRY) + sorted(NOT_PORTED)})")
 
 
-__all__ = ["Base", "Model", "domain_ids", "MMOE", "PLE", "SharedBottom", "Star",
-           "MODEL_REGISTRY", "NOT_PORTED", "get_model"]
+__all__ = ["AdaSparse", "Base", "EPNet", "Model", "domain_ids", "MMOE", "PLE", "PPNet",
+           "Sarnet", "SharedBottom", "Star", "MODEL_REGISTRY", "NOT_PORTED", "get_model"]

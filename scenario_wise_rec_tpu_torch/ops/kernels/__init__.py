@@ -4,9 +4,15 @@
   precondition of the fused kernels).
 - ``mmoe_infer``: the whole post-embedding MMOE eval stack in one CUDA
   kernel (``csrc/mmoe_infer.cu``), with its plain version.
-- ``tower_infer``, ``star_infer``, ``ple_infer``: the same for
-  SharedBottom, STAR and PLE (``csrc/{tower,star,ple}_infer.cu`` over the
-  shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side).
+- ``tower_infer``, ``star_infer``, ``ple_infer``, ``sarnet_infer``: the
+  same for SharedBottom, STAR, PLE and SAR-Net
+  (``csrc/{tower,star,ple,sarnet}_infer.cu``);
+- ``gated_infer``: the same for EPNet, PPNet and AdaSparse, three kernels
+  in ``csrc/gated_infer.cu`` (``epnet_fused_infer``, ``ppnet_fused_infer``,
+  ``adasparse_fused_infer``, with ``adasparse_threshold_margin`` for
+  comparing the last across its hard threshold). Every fused eval kernel
+  but MMOE's is built over the shared ``csrc/fused_mlp.cuh``; ``_fused``
+  holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort.
@@ -16,16 +22,24 @@ On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
 
-from .folding import fold_bn_linear_eval, fold_stacked_mlp_eval
+from .folding import fold_bn_linear_eval, fold_layers_eval, fold_stacked_mlp_eval
+from .gated_infer import (adasparse_fused_infer, adasparse_fused_infer_ref,
+                          adasparse_threshold_margin, epnet_fused_infer,
+                          epnet_fused_infer_ref, ppnet_fused_infer, ppnet_fused_infer_ref)
 from .mmoe_infer import mmoe_fused_infer, mmoe_fused_infer_ref
 from .ple_infer import LevelSpec, ple_fused_infer, ple_fused_infer_ref
+from .sarnet_infer import sarnet_fused_infer, sarnet_fused_infer_ref
 from .star_infer import star_fused_infer, star_fused_infer_ref
 from .tower_infer import trunk_towers_fused_infer, trunk_towers_fused_infer_ref
 from .sorted_adam import (owner_sorted_grads, sorted_dense_adam_apply,
                           sorted_dense_adam_apply_ref)
 
-__all__ = ["LevelSpec", "fold_bn_linear_eval", "fold_stacked_mlp_eval",
+__all__ = ["LevelSpec", "adasparse_fused_infer", "adasparse_fused_infer_ref",
+           "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
+           "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
            "mmoe_fused_infer", "mmoe_fused_infer_ref", "owner_sorted_grads",
-           "ple_fused_infer", "ple_fused_infer_ref", "sorted_dense_adam_apply",
-           "sorted_dense_adam_apply_ref", "star_fused_infer", "star_fused_infer_ref",
-           "trunk_towers_fused_infer", "trunk_towers_fused_infer_ref"]
+           "ple_fused_infer", "ple_fused_infer_ref", "ppnet_fused_infer",
+           "ppnet_fused_infer_ref", "sarnet_fused_infer", "sarnet_fused_infer_ref",
+           "sorted_dense_adam_apply", "sorted_dense_adam_apply_ref", "star_fused_infer",
+           "star_fused_infer_ref", "trunk_towers_fused_infer",
+           "trunk_towers_fused_infer_ref"]

@@ -1,6 +1,7 @@
-"""What the fused eval wrappers of ``tower_infer``, ``star_infer`` and
-``ple_infer`` share: the checks of what their kernels take, the stage list
-they pass (``csrc/fused_mlp.cuh``), and the ctypes launch. ``mmoe_infer``
+"""What the fused eval wrappers of ``tower_infer``, ``star_infer``,
+``ple_infer``, ``sarnet_infer`` and ``gated_infer`` share: the checks of
+what their kernels take, the stage list they pass (``csrc/fused_mlp.cuh``),
+the ctypes launch, and the plain versions' gate mixture. ``mmoe_infer``
 uses its batch check and its ctypes arrays.
 
 Nothing here builds or loads a kernel until :func:`launch` is called.
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,11 +47,12 @@ def check_chain(what: str, stages: Sequence[Affine], lead: tuple, width: int) ->
     return width
 
 
-def check_launch(name: str, emb: torch.Tensor, domain_id: torch.Tensor,
+def check_launch(name: str, emb: torch.Tensor, domain_id: Optional[torch.Tensor],
                  tensors: Sequence[torch.Tensor], n_stages: int, block_rows: int):
     """What the kernels take beyond shapes: one CUDA device, contiguous
     float32 tensors, at most ``MAX_STAGES`` stages and a ``block_rows`` that
-    is a multiple of ``ROW_GROUP`` up to ``MAX_BLOCK_ROWS``."""
+    is a multiple of ``ROW_GROUP`` up to ``MAX_BLOCK_ROWS``. ``domain_id``
+    is None for a kernel without domains."""
     if emb.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {emb.device}")
     if n_stages > MAX_STAGES:
@@ -58,7 +60,7 @@ def check_launch(name: str, emb: torch.Tensor, domain_id: torch.Tensor,
     if not (ROW_GROUP <= block_rows <= MAX_BLOCK_ROWS and block_rows % ROW_GROUP == 0):
         raise ValueError(f"block_rows must be a multiple of {ROW_GROUP} up to "
                          f"{MAX_BLOCK_ROWS}, got {block_rows}")
-    for t in [emb, domain_id, *tensors]:
+    for t in [emb, *([] if domain_id is None else [domain_id]), *tensors]:
         if t.device != emb.device:
             raise ValueError(f"tensor on {t.device}, emb on {emb.device}")
         if not t.is_contiguous():
@@ -68,9 +70,11 @@ def check_launch(name: str, emb: torch.Tensor, domain_id: torch.Tensor,
             raise ValueError(f"{name} takes float32, got {t.dtype}")
 
 
-def ptrs(tensors: List[torch.Tensor]):
-    """A host array of device pointers (passed to C as ``void*``)."""
-    return (ctypes.c_void_p * max(1, len(tensors)))(*[t.data_ptr() for t in tensors])
+def ptrs(tensors: List[Optional[torch.Tensor]]):
+    """A host array of device pointers (passed to C as ``void*``); ``None``
+    is a null pointer."""
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def ints(values: List[int]):
@@ -79,9 +83,17 @@ def ints(values: List[int]):
 
 def stage_args(stages: Sequence[Affine]):
     """The three arrays a kernel reads its stages from: W pointers, b
-    pointers and ``(K, N)`` per stage."""
+    pointers (``None`` for a stage without bias) and ``(K, N)`` per stage."""
     return (ptrs([w for w, _ in stages]), ptrs([b for _, b in stages]),
             ints([n for w, _ in stages for n in (w.shape[-2], w.shape[-1])]))
+
+
+def mix(gate: torch.Tensor, experts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sum_e gate[:, e] * experts[e]``, in order, as the TPU kernels sum."""
+    mixed = gate[:, 0:1] * experts[0]
+    for e in range(1, len(experts)):
+        mixed = mixed + gate[:, e:e + 1] * experts[e]
+    return mixed
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,19 +25,27 @@ Affine = Tuple[torch.Tensor, torch.Tensor]  # (W, b), possibly stacked [N, in, o
 
 
 @torch.no_grad()
+def fold_layers_eval(layers) -> List[Affine]:
+    """Fold Linear -> BatchNorm layers (each with ``lin`` and ``bn``, as an
+    ``MLP``'s) into affine stages ``(W, b)``."""
+    stages: List[Affine] = []
+    for layer in layers:
+        bn, lin = layer.bn, layer.lin
+        scale = bn.gamma / torch.sqrt(bn.var + BN_EPS)
+        w = lin.w * scale[..., None, :]
+        b = (lin.b - bn.mean) * scale + bn.beta
+        stages.append((w, b))
+    return stages
+
+
+@torch.no_grad()
 def fold_stacked_mlp_eval(mlp: MLP) -> Tuple[List[Affine], Optional[Affine]]:
     """Fold a (stacked) ``MLP``'s eval forward into affine stages.
 
     Returns ``(hidden_stages, out_stage)``; each stage is ``(W, b)``, and
     ``out_stage`` is ``None`` when the MLP has no output head.
     """
-    stages: List[Affine] = []
-    for layer in mlp.layers:
-        bn, lin = layer.bn, layer.lin
-        scale = bn.gamma / torch.sqrt(bn.var + BN_EPS)
-        w = lin.w * scale[..., None, :]
-        b = (lin.b - bn.mean) * scale + bn.beta
-        stages.append((w, b))
+    stages = fold_layers_eval(mlp.layers)
     out_stage = (mlp.out.w.detach(), mlp.out.b.detach()) if mlp.out is not None \
         else None
     return stages, out_stage

@@ -97,14 +97,6 @@ def _flat_stages(levels, tower_stages, tower_out) -> List[Affine]:
     return flat + list(tower_stages) + [tower_out]
 
 
-def _mix(gate, experts):
-    """``sum_e gate[:, e] * experts[e]``, in order, as the TPU kernel sums."""
-    mixed = gate[:, 0:1] * experts[0]
-    for e in range(1, len(experts)):
-        mixed = mixed + gate[:, e:e + 1] * experts[e]
-    return mixed
-
-
 def ple_fused_infer_ref(
     emb: torch.Tensor,
     domain_id: torch.Tensor,
@@ -139,12 +131,12 @@ def ple_fused_infer_ref(
             g = streams[d]
             for w, b in lv.gate_stages:
                 g = torch.softmax(g @ w[d] + b[d], dim=1)
-            mixed.append(_mix(g, spec[d] + shared))
+            mixed.append(_fused.mix(g, spec[d] + shared))
         if lv.gate_shared_stages is not None:
             g = shared_in
             for w, b in lv.gate_shared_stages:
                 g = torch.softmax(g @ w + b, dim=1)
-            shared_in = _mix(g, [x for per_d in spec for x in per_d] + shared)
+            shared_in = _fused.mix(g, [x for per_d in spec for x in per_d] + shared)
         streams = mixed
     did = torch.clamp(domain_id.to(torch.int32).long(), 0, D - 1)
     out = torch.zeros(emb.shape[0], dtype=torch.float32, device=emb.device)

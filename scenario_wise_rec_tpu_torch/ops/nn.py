@@ -8,6 +8,8 @@ The counterpart of the JAX package's ``ops/nn.py``:
                         with the weight-masked ``batch_stats`` so padded rows
                         stay invisible
 - ``MLP``             — [Linear -> BN -> act -> Dropout]* (+ optional (·,1) head)
+- ``GateNU``          — PEPNet's gate ``gemma·sigmoid(relu(x W1 + b1) W2 + b2)``
+- ``Pruner``          — AdaSparse's bias-free pruner on ``[sce ‖ h]``
 
 A stacked bank (the JAX package's ``stacked_mlp_init``/``stacked_mlp_apply``)
 is ``MLP(..., members=n)``: every parameter and running stat gains a leading
@@ -92,6 +94,14 @@ def dropout(x, p: float, train: bool, generator: Optional[torch.Generator]):
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
+def _lead(members) -> tuple:
+    """The member axes of ``members``: None, an int or a tuple of ints."""
+    if members is None:
+        return ()
+    return tuple(int(m) for m in (members if isinstance(members, (tuple, list))
+                                  else (members,)))
+
+
 class Linear(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator,
                  lead=()):
@@ -166,10 +176,7 @@ class MLP(nn.Module):
         self.output_dim = 1 if self.output_layer else (
             self.dims[-1] if self.dims else self.input_dim
         )
-        lead = () if members is None else tuple(
-            int(m) for m in (members if isinstance(members, (tuple, list))
-                             else (members,)))
-        self.lead = lead
+        self.lead = lead = _lead(members)
         layers = []
         in_dim = self.input_dim
         for d in self.dims:
@@ -208,3 +215,61 @@ class MLP(nn.Module):
         if tuple(x.shape[:-2]) != lead:
             x = x.expand(lead + tuple(x.shape[-2:]))
         return x
+
+
+class GateNU(nn.Module):
+    """PEPNet's gate (the JAX package's ``GateNU``):
+    ``gemma * sigmoid(relu(x W1 + b1) W2 + b2)``, the hidden width the
+    output width unless given. ``members=n`` stacks ``n`` gates, as MLP
+    does: a shared ``x [B, in]`` then gives ``[n, B, out]``."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden_dim: Optional[int] = None,
+                 gemma: float = 2.0, members=None, *, generator: torch.Generator):
+        super().__init__()
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.hidden_dim = self.output_dim if hidden_dim is None else int(hidden_dim)
+        self.gemma = float(gemma)
+        self.lead = _lead(members)
+        self.l1 = Linear(self.input_dim, self.hidden_dim, generator, self.lead)
+        self.l2 = Linear(self.hidden_dim, self.output_dim, generator, self.lead)
+
+    def forward(self, x):
+        return self.gemma * torch.sigmoid(self.l2(torch.relu(self.l1(x))))
+
+
+class Pruner(nn.Module):
+    """AdaSparse's pruner (the JAX package's ``Pruner``): a bias-free linear
+    ``v = [sce ‖ h] W``, then
+
+    - ``Binarization``: ``sign(sigmoid(v·alpha) - eps)``;
+    - ``Scaling``: ``beta·sigmoid(v) · sign(beta·sigmoid(v) - eps)``;
+    - ``Fusion``: ``beta·sigmoid(v·alpha) · sign(beta·sigmoid(v·alpha) - eps)``;
+
+    the sign term detached (it has no gradient anyway); ``sign(0)`` is 0.
+    """
+
+    FORMS = ("Binarization", "Scaling", "Fusion")
+
+    def __init__(self, sce_dims: int, agn_dims: int, form: str = "Binarization",
+                 epsilon: float = 1e-2, beta: float = 2.0, *, generator: torch.Generator):
+        super().__init__()
+        if form not in self.FORMS:
+            raise ValueError(f"The input 'form' must be one of {list(self.FORMS)}")
+        self.sce_dims = int(sce_dims)
+        self.agn_dims = int(agn_dims)
+        self.form = form
+        self.epsilon = float(epsilon)
+        self.beta = float(beta)
+        # bias=False linear: the weight of a Linear's draw
+        p = initializers.linear_params(generator, self.sce_dims + self.agn_dims, self.agn_dims)
+        self.w = nn.Parameter(p["w"])
+
+    def forward(self, sce, h, alpha):
+        vin = compute_config.matmul(torch.cat([sce, h], dim=1), self.w)
+        if self.form == "Binarization":
+            return torch.sign(torch.sigmoid(vin * alpha) - self.epsilon)
+        if self.form == "Fusion":
+            vin = vin * alpha
+        vout = self.beta * torch.sigmoid(vin)
+        return vout * torch.sign(vout - self.epsilon).detach()

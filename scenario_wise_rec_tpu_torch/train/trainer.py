@@ -11,12 +11,17 @@ protocol.
   (``ops/kernels/sorted_adam.py``): no dense ``[V, D]`` gradient exists. The
   plain step (``sparse_embedding_updates=False``) differentiates the table
   itself and leaves it to ``torch.optim.Adam``. Both compute the
-  reference's ``torch.optim.Adam`` semantics.
+  reference's ``torch.optim.Adam`` semantics. A model without an
+  ``embedding`` collection (EPNet, PPNet and AdaSparse keep two) runs the
+  plain step whatever ``sparse_embedding_updates`` says, as the JAX
+  trainer does. Every dense parameter takes its Adam step every step, one
+  the loss does not reach too (its gradient is zero, as in the JAX
+  package's optax chain).
 - **Eval**: ``predict``, ``evaluate`` and ``evaluate_multi_domain_loss``
   (the reference's per-domain slicing protocol, the acceptance metric of
   the benchmark) run the eval forward batch by batch and score on the host
   with sklearn-parity AUC/logloss. With ``fused_inference=True`` a model
-  that has ``apply_fused_eval`` (MMOE, SharedBottom, STAR, PLE) runs
+  that has ``apply_fused_eval`` (every registered model but ``Base``) runs
   everything after the embedding in one CUDA kernel, its BatchNorm folded
   once per eval pass. The step passes each batch's padding mask ``w``:
   STAR's domain norm reads the batch's own statistics at eval too.
@@ -239,6 +244,13 @@ class CTRTrainer:
             self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if self.optimizer is not None:
+            # torch.optim.Adam skips a parameter whose .grad is None; the JAX
+            # package's optax chain steps every leaf, a zero gradient
+            # included, so weight decay still moves it (PPNet's agnostic
+            # table, which the loss reaches only through detach)
+            for _, p in self._dense_named:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             self.optimizer.step()
         if self._sorted_mode:
             p = self._opt_params

@@ -342,3 +342,189 @@ def test_new_kernels_reject_what_they_do_not_take(gen):
     levels, ptw, pout = _ple_args(gen, 20, 2, 2, 1, [[8]] * 5, [4])
     with pytest.raises(ValueError, match="levels"):
         kp.ple_fused_infer(emb, did, levels, ptw, pout)
+
+
+# -- sarnet_fused_infer and the gated kernels ---------------------------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import gated_infer as kg  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import sarnet_infer as ksn  # noqa: E402
+
+# AdaSparse's pruners threshold sign(beta * sigmoid(v) - eps): a kernel and a
+# plain version that differ in the last ulp of v can flip one factor. A row
+# is held to TOL unless some pruner element of it lies within THRESHOLD_GAP
+# of eps (by the plain version; a flip needs both within rounding of it), and
+# such rows may be at most 0.01 % of the batch.
+THRESHOLD_GAP, THRESHOLD_ROWS = 1e-5, 1e-4
+
+
+def _sarnet_args(gen, B, F, D, n_sh, n_sp, H, final):
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    dom_w = 2 * torch.rand(D, F, generator=gen, device="cuda") - 1
+    dom_b = torch.rand(D, F, generator=gen, device="cuda")
+    return emb, (dom_w, dom_b, _affines(gen, (n_sh,), [F, H])[0],
+                 _affines(gen, (D, n_sp), [F, H])[0], _affines(gen, (), [F, n_sh + n_sp])[0],
+                 _affines(gen, (), [H] + final), _affines(gen, (), [final[-1] if final else H, 1])[0])
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, n_sh, n_sp, expert width, final dims, block_rows)
+    (4096, 368, 3, 8, 2, 16, [32, 32], 16),  # Ali-CCP
+    (333, 41, 2, 3, 1, 7, [5], 8),           # widths not multiples of 4
+    (130, 50, 5, 2, 3, 16, [], 24),          # head on the mixture
+    (1, 20, 3, 1, 1, 4, [8, 4], 64),
+])
+def test_sarnet_kernel_matches_plain(gen, cfg):
+    B, F, D, n_sh, n_sp, H, final, rows = cfg
+    emb, args = _sarnet_args(gen, B, F, D, n_sh, n_sp, H, final)
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    _launch_and_compare(gen, ksn.sarnet_fused_infer, ksn.sarnet_fused_infer_ref, emb, did,
+                        *args, rows=rows)
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, S, A, gate hidden, block_rows)
+    (4096, 16, 360, 360, 16),  # Ali-CCP
+    (333, 5, 41, 7, 8),        # widths not multiples of 4
+    (130, 16, 100, 300, 40),
+])
+def test_epnet_kernel_matches_plain(gen, cfg):
+    B, S, A, H, rows = cfg
+    sce = torch.randn(B, S, generator=gen, device="cuda")
+    agn = torch.randn(B, A, generator=gen, device="cuda")
+    args = (*_affines(gen, (), [S + A, H]), *_affines(gen, (), [H, A]),
+            _affines(gen, (), [A, 1])[0])
+    before = kg.epnet_fused_infer.launches
+    got = kg.epnet_fused_infer(sce, agn, *args, gemma=1.5, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kg.epnet_fused_infer.launches == before + 1
+    want = kg.epnet_fused_infer_ref(sce, agn, *args, gemma=1.5)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def _ppnet_args(gen, G, D, dims, hidden=None):
+    hidden = hidden or dims
+    lay = _affines(gen, (D,), [G] + dims)
+    g1 = [_affines(gen, (D,), [G, h])[0] for h in hidden]
+    g2 = [_affines(gen, (D,), [h, o])[0] for h, o in zip(hidden, dims)]
+    return lay, g1, g2, _affines(gen, (D,), [dims[-1] if dims else G, 1])[0]
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, G, D, layer dims, gate hidden, block_rows, domains present)
+    (4096, 376, 3, [256, 128, 64, 32, 16, 8], None, 16, None),  # Ali-CCP
+    (4096, 376, 3, [256, 128, 64, 32, 16, 8], None, 16, [0, 2]),  # domain 1 absent
+    (333, 41, 2, [7, 3], [9, 5], 8, None),
+    (64, 12, 4, [], None, 32, None),                    # no layer
+])
+def test_ppnet_kernel_matches_plain(gen, cfg):
+    B, G, D, dims, hidden, rows, present = cfg
+    g = torch.randn(B, G, generator=gen, device="cuda")
+    if present is None:
+        did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    else:
+        pick = torch.randint(0, len(present), (B,), generator=gen, device="cuda")
+        did = torch.tensor(present, device="cuda")[pick]
+    _launch_and_compare(gen, kg.ppnet_fused_infer, kg.ppnet_fused_infer_ref, g, did,
+                        *_ppnet_args(gen, G, D, dims, hidden), rows=rows)
+
+
+def _adasparse_args(gen, B, S, A, dims, alpha):
+    """Pruner weights at 0.6 x a Linear's scale (times alpha, folded): the
+    pruner inputs then have a std near 0.6, and eps = 1e-2 lies 7 of them
+    below 0 (sigmoid(v) = 0.01 at v = -4.6), so that rows near the threshold
+    stay rare at B = 4096. The negative factors are the work of
+    test_adasparse_kernel_both_signs."""
+    sce = torch.randn(B, S, generator=gen, device="cuda")
+    agn = torch.randn(B, A, generator=gen, device="cuda")
+    pw = [0.6 * alpha * (S + h) ** -0.5 * torch.randn(S + h, h, generator=gen, device="cuda")
+          for h in [A] + dims]
+    lay = _affines(gen, (), [S + A] + dims)
+    return sce, agn, pw, lay, _affines(gen, (), [dims[-1] if dims else S + A, 1])[0]
+
+
+def _adasparse_gap(got, want, margin):
+    """(max |error| over the rows held to TOL, rows excused by the
+    threshold rule)."""
+    near = margin <= THRESHOLD_GAP
+    err = (got - want).abs()[~near]
+    return (err.max().item() if err.numel() else 0.0), int(near.sum())
+
+
+@pytest.mark.parametrize("form", ["Binarization", "Scaling", "Fusion"])
+@pytest.mark.parametrize("cfg", [
+    # (B, S, A, layer dims, alpha, block_rows)
+    (4096, 16, 352, [256, 128, 64, 32, 16, 8], 1.37, 16),  # Ali-CCP, alpha folded
+    (333, 5, 41, [7, 3], 1.0, 8),
+    (130, 16, 40, [], 0.8, 24),                             # head on [sce ‖ agn]
+])
+def test_adasparse_kernel_matches_plain(gen, form, cfg):
+    B, S, A, dims, alpha, rows = cfg
+    args = _adasparse_args(gen, B, S, A, dims, alpha)
+    kw = dict(form=form, epsilon=1e-2, beta=2.0)
+    before = kg.adasparse_fused_infer.launches
+    got = kg.adasparse_fused_infer(*args, **kw, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kg.adasparse_fused_infer.launches == before + 1
+    want = kg.adasparse_fused_infer_ref(*args, **kw)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    err, near = _adasparse_gap(got, want, kg.adasparse_threshold_margin(*args, **kw))
+    assert err <= TOL and near <= THRESHOLD_ROWS * B
+
+
+def _adasparse_both_signs(gen, B, S, A, dims):
+    """Pruner inputs that are exact integers, -S/2 .. S/2, far from every
+    threshold: sce of +-1, the pruners' sce rows +-0.5 and their other rows
+    0. Every sum is exact in any order, and a few percent of the factors are
+    negative (v <= -5 for Binarization, v <= -6 for Scaling and Fusion)."""
+    sign = lambda *shape: torch.randint(0, 2, shape, generator=gen, device="cuda") * 2.0 - 1.0
+    sce = sign(B, S)
+    agn = torch.randn(B, A, generator=gen, device="cuda")
+    pw = [torch.cat([0.5 * sign(S, h), torch.zeros(h, h, device="cuda")]) for h in [A] + dims]
+    lay = _affines(gen, (), [S + A] + dims)
+    return sce, agn, pw, lay, _affines(gen, (), [dims[-1] if dims else S + A, 1])[0]
+
+
+@pytest.mark.parametrize("form", ["Binarization", "Scaling", "Fusion"])
+def test_adasparse_kernel_both_signs(gen, form):
+    args = _adasparse_both_signs(gen, 4096, 16, 352, [256, 128, 64, 32, 16, 8])
+    kw = dict(form=form, epsilon=1e-2, beta=2.0)
+    got = kg.adasparse_fused_infer(*args, **kw)
+    want = kg.adasparse_fused_infer_ref(*args, **kw)
+    assert (got - want).abs().max().item() <= TOL
+    assert kg.adasparse_threshold_margin(*args, **kw).min().item() > 1e-3
+    v0 = args[0] @ args[2][0][:16]
+    assert bool((v0 <= (-5 if form == "Binarization" else -6)).any())  # negative factors
+
+
+def test_adasparse_kernel_sign_is_zero_at_the_threshold(gen):
+    """Zero pruner weights put every pruner input at exactly 0.5: with
+    epsilon there every factor is sign(0) = 0, so the output is the head's
+    bias through the sigmoid."""
+    sce, agn, pw, lay, fin = _adasparse_args(gen, 50, 4, 12, [6], 1.0)
+    pw = [torch.zeros_like(p) for p in pw]
+    for form, eps in (("Binarization", 0.5), ("Scaling", 1.0), ("Fusion", 1.0)):
+        got = kg.adasparse_fused_infer(sce, agn, pw, lay, fin, form=form, epsilon=eps, beta=2.0)
+        assert torch.equal(got, torch.sigmoid(fin[1]).expand(50))
+
+
+def test_gated_kernels_reject_what_they_do_not_take(gen):
+    sce, agn, pw, lay, fin = _adasparse_args(gen, 10, 4, 12, [6], 1.0)
+    with pytest.raises(ValueError):
+        kg.adasparse_fused_infer(sce, agn, pw, lay, fin, block_rows=12)
+    with pytest.raises(ValueError):
+        kg.adasparse_fused_infer(sce.double(), agn, pw, lay, fin)
+    with pytest.raises(ValueError):
+        kg.adasparse_fused_infer(sce, agn.cpu(), pw, lay, fin)
+    assert kg.adasparse_fused_infer(sce[:0], agn[:0], pw, lay, fin).shape == (0,)
+    g = torch.randn(10, 20, generator=gen, device="cuda")
+    did = torch.zeros(10, dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError, match="layers"):
+        kg.ppnet_fused_infer(g, did, *_ppnet_args(gen, 20, 2, [4] * 31))
+    emb, args = _sarnet_args(gen, 10, 20, 2, 2, 1, 4, [4])
+    with pytest.raises(ValueError):
+        ksn.sarnet_fused_infer(emb, did.float(), *args)
+    wide = torch.randn(16, 9000, device="cuda")  # the tile exceeds shared memory
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kg.epnet_fused_infer(wide[:, :8].contiguous(), wide, *_affines(gen, (), [9008, 8]),
+                             *_affines(gen, (), [8, 9000]), _affines(gen, (), [9000, 1])[0])
