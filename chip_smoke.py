@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one card and
-check its kernels: MMOE, SharedBottom, STAR, PLE, SAR-Net, EPNet, PPNet and
-AdaSparse, each built at its Ali-CCP width through ``configs.build_model``
-(EPNet and AdaSparse from the scenario loader's features, PPNet from the
-ppnet loader's, as ``scripts/run_ali_ccp.py`` builds them).
+check its kernels: MMOE, SharedBottom, STAR, PLE, SAR-Net, EPNet, PPNet,
+AdaSparse, HamurLarge and AdaptDHM, each built at its Ali-CCP width through
+``configs.build_model`` (EPNet, AdaSparse and AdaptDHM from the scenario
+loader's features, PPNet from the ppnet loader's, as
+``scripts/run_ali_ccp.py`` builds them).
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit:
@@ -47,7 +48,20 @@ Phases; each asserts, and any failure exits non-zero:
      percent of the factors are negative. AdaSparse's hard threshold: a row
      in which some pruner element lies within 1e-5 of epsilon is excused
      from the 1e-5 check, and such rows are counted, printed and held to
-     0.01 % of the batch.
+     0.01 % of the batch;
+   - ``hamur_segment`` (HAMUR's segment kernel, one launch per segment) in
+     each of its forms alone from identical inputs (outputs held to 1e-5 of
+     their scale), and ``hamur_fused_infer`` (the whole chain: the
+     hyper-network and the adapter norms' masked statistics in PyTorch
+     between the launches) against the plain chain, at (a) HamurLarge's
+     Ali-CCP shape (F = 376, blocks [256,128,64,64,32,16 | 8], hyper [64],
+     k = 65, adapters' u/v from 0.1 N(0, 1) as the JAX package's tests draw
+     them), B = 4096, (b) HamurSmall's ([256, 128], hyper [64], k = 35),
+     (c) ragged B = 4095 and B = 1, (d) a batch padded with weight-0 rows
+     (its real rows also against the unpadded batch), (e) domain ids -1, D
+     and D+5; probabilities within 1e-5; ``adaptdhm_fused_infer`` at
+     AdaptDHM's Ali-CCP shape (F = 368, [256,...,8,1], 3 clusters), ragged,
+     narrow, router ids -1, C and C+5, and with a cluster absent.
 3. Serving path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
    experts [256,128,64,32,16,8], tower [16]) with 467,000 ids per feature
    (a packed [10.74M, 16] f32 table) built on the card from ``--seed``;
@@ -59,7 +73,13 @@ Phases; each asserts, and any failure exits non-zero:
    the CPU's plain path. Then the same for SharedBottom, STAR, PLE,
    SAR-Net, EPNet, PPNet and AdaSparse (the last four with their tables
    drawn from N(0, 0.5), AdaSparse's alpha at 1.37 and its threshold rule),
-   each with its own kernel and no other launched.
+   HamurLarge (3 segment launches a batch; its tolerance and a planted fault
+   that drops the padding mask from the adapter norms' statistics, which the
+   check must catch on the ragged last batch; narrow HamurLarge, HamurSmall
+   and MlpN, which serves op by op, on the card against the CPU) and
+   AdaptDHM (rows whose top two routing logits lie within 1e-6 excused,
+   counted and held to 0.01 % of the batch), each with its own kernel and
+   no other launched.
 4. Training path: the same model trained by ``CTRTrainer(
    sparse_embedding_updates=True, sparse_update_impl="sorted",
    fused_inference=True).fit`` for one epoch over 16*4096+123 rows with a
@@ -74,9 +94,13 @@ Phases; each asserts, and any failure exits non-zero:
    model's ``fit`` (8*4096+123 rows), evaluation, a timed second epoch and a
    narrow card-vs-CPU copy: the sorted kernel launches once per step for
    the models with one ``embedding`` collection, and never for EPNet, PPNet
-   and AdaSparse, which take the dense step.
+   and AdaSparse, which take the dense step. The narrow HamurLarge and
+   AdaptDHM steps hold the hyper-network's D-fold running stats and the
+   refined centers like every buffer, and AdaptDHM's unused biases must
+   move by weight decay; a narrow MlpN takes the dense step (no sorted
+   launch).
 5. ``[5] done in ... s``, the card line, one ``{"kernels": [...]}`` line
-   with all nine kernels, and last the line ``{"ok": true, "device":
+   with all eleven kernels, and last the line ``{"ok": true, "device":
    {...}}``.
 """
 
@@ -125,9 +149,26 @@ EVAL_KERNELS = {
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:91"),
     "adasparse": ("adasparse_fused_infer", "gated_infer",
                   "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:174"),
+    "hamur": ("hamur_segment", "hamur_infer", "scenario_wise_rec_tpu/ops/pallas/hamur_infer.py:40"),
+    "adaptdhm": ("adaptdhm_fused_infer", "adaptdhm_infer",
+                 "scenario_wise_rec_tpu/ops/pallas/adaptdhm_infer.py:29"),
 }
 NEW_MODELS = ("sharedbottom", "star", "ple")
 GATED_MODELS = ("sarnet", "epnet", "ppnet", "adasparse")
+HAMUR_MODELS = ("hamur", "adaptdhm")
+# eval kernel launches a batch: HamurLarge runs 3 segments
+LAUNCHES_PER_BATCH = {"hamur": 3}
+# HamurLarge served fused against op by op, end to end: the op-by-op path
+# sums the adapter's products in cuBLAS, the blocks with their BatchNorm
+# unfolded, and the two adapter norms divide by the batch's std twice in a
+# row, which amplifies those roundings; held to the JAX package's own HAMUR
+# tolerance, |fused - op by op| <= 1e-5 + 1e-4 |op by op|.
+SERVE_TOL = {"hamur": (1e-5, 1e-4)}
+# AdaptDHM routes each row by the argmax of its logits: two paths that round
+# a logit differently may route a row whose top two logits lie within
+# ROUTE_GAP to different clusters. Such rows are excused, counted, printed
+# and held to THRESHOLD_ROWS of the batch, as AdaSparse's threshold rows.
+ROUTE_GAP = 1e-6
 # AdaSparse's pruners threshold sign(beta * sigmoid(v) - eps): a kernel and a
 # plain version that differ in the last ulp of v can flip one factor. A row is
 # held to TOL unless some pruner element of it lies within THRESHOLD_GAP of
@@ -157,8 +198,12 @@ SA_RTOL, SA_ATOL = 1e-5, 1e-6
 # NOISE_ATOL only: Adam maps a relative gap in a gradient near eps into a
 # step gap of up to ~lr (PERF.md, Findings).
 STEP_RTOL, STEP_ATOL, NOISE_ATOL = 1e-4, 1e-6, 1e-2
+# In HAMUR the blocks' and the hyper-network's Linear biases and running
+# means are cancelled so, the adapter's up-projection bias by its own batch
+# norm, and that norm's beta where a block follows the adapter.
 BN_BIAS = re.compile(r"(layers\.\d+\.(lin\.b|bn\.mean)|fcn\.(share_b|dom_b)\.\d+"
-                     r"|fcn\.bn\.\d+\.mean|dn\.(share_)?beta)$")
+                     r"|fcn\.bn\.\d+\.mean|dn\.(share_)?beta"
+                     r"|(blocks|hyper)\.\d+\.(lin\.b|bn\.mean)|adapters\.\d+\.b_up)$")
 GROUP_TOL = {"table": (STEP_ATOL, STEP_RTOL), "table moments": (STEP_ATOL, STEP_RTOL),
              "dense": (STEP_ATOL, STEP_RTOL), "BN-cancelled": (NOISE_ATOL, 0.0)}
 N_TRAIN = 16 * BATCH + 123
@@ -702,6 +747,176 @@ def phase_gated_kernels(gen, peak):
     return entries
 
 
+def hamur_adapter(gen, w, k, mid=32):
+    """An adapter's weights: u/v from 0.1 N(0, 1), as the JAX package's
+    tests draw them (at the model's all-ones init the sigmoid saturates and
+    the norm divides near-zero variances), the rest random too."""
+    shapes = {"u_down": (w, k), "v_down": (k, mid), "b_down": (mid,), "u_up": (mid, k),
+              "v_up": (k, w), "b_up": (w,)}
+    a = {n: 0.1 * torch.randn(*s, generator=gen, device="cuda") for n, s in shapes.items()}
+    a["gamma"] = 0.5 + torch.rand(w, generator=gen, device="cuda")
+    a["beta"] = 0.1 * torch.randn(w, generator=gen, device="cuda")
+    return a
+
+
+def hamur_args(gen, F, D, seg_dims, hyper_dims, k, w=None):
+    """``hamur_fused_infer``'s arguments after ``(emb, domain_id)``: the
+    hyper-network's stages, k, each segment's block stages, an adapter after
+    every segment but the last, the final stage, eps and the mask ``w``."""
+    hyper = affines(gen, (), [F] + hyper_dims + [k * k])
+    segments, adapters, width = [], [], F
+    for j, dims in enumerate(seg_dims):
+        segments.append(affines(gen, (D,), [width] + dims))
+        width = dims[-1] if dims else width
+        if j < len(seg_dims) - 1:
+            adapters.append(hamur_adapter(gen, width, k))
+    return hyper, k, segments, adapters, affines(gen, (D,), [width, 1])[0], 1e-5, w
+
+
+def hamur_segment_inputs(emb, did, hyper_stages, k, segments, adapters, final, eps, w):
+    """Every segment's inputs, from the plain chain: ``[(x, stages, kwargs)]``."""
+    from scenario_wise_rec_tpu_torch.ops import kernels as k_
+
+    hyper = k_.hamur_hyper(emb, hyper_stages, k)
+    out, x, t_pre, dn = [], emb, None, None
+    for seg, a in zip(segments, adapters):
+        kw = dict(hyper=hyper, adapter=a, dn_affine=dn, t_pre=t_pre)
+        out.append((x, seg, kw))
+        t_pre, x = k_.hamur_segment_ref(x, seg, **kw)
+        dn = k_.adapter_norm_affine(t_pre, a["gamma"], a["beta"], eps, w)
+    out.append((x, segments[-1], dict(dn_affine=dn, t_pre=t_pre, final=final, domain_id=did)))
+    return out
+
+
+def segment_work(x, stages, hyper=None, adapter=None, dn_affine=None, t_pre=None, final=None,
+                 domain_id=None):
+    """(FLOPs, bytes) of one segment launch: 2 per multiply-add of every
+    domain's blocks and adapter (the final form: the row's own domain's
+    blocks and head), 4 per input element of the norm affine and residual;
+    each input read once (H too), each output written once."""
+    B, F = x.shape[0], x.shape[-1]
+    D = x.shape[1] if x.ndim == 3 else (stages[0][0].shape[0] if stages else final[0].shape[0])
+    tensors = [x, *flat(stages)] + [t for t in (t_pre, hyper, domain_id, *(dn_affine or ()))
+                                    if t is not None]
+    if final is not None:
+        per_row = 2.0 * (macs(stages) + macs([final])) + (4.0 * F if x.ndim == 3 else 0.0)
+        return B * per_row, nbytes(*tensors, *final) + B * 4
+    w_out = stages[-1][0].shape[-1] if stages else F
+    k, mid = adapter["u_down"].shape[1], adapter["v_down"].shape[1]
+    ad_macs = w_out * k + k * k + k * mid + mid * k + k * k + k * w_out
+    per_row = D * (2.0 * (macs(stages) + ad_macs) + (4.0 * F if x.ndim == 3 else 0.0))
+    ad = [adapter[n] for n in ("u_down", "v_down", "b_down", "u_up", "v_up", "b_up")]
+    return B * per_row, nbytes(*tensors, *ad) + 2.0 * B * D * w_out * 4
+
+
+def phase_hamur_kernels(gen, peak):
+    """``hamur_segment`` (each form alone) and ``hamur_fused_infer`` (the
+    chain), and ``adaptdhm_fused_infer``, against their plain versions at
+    every case, then timed at their model's Ali-CCP shape."""
+    from scenario_wise_rec_tpu_torch.ops import kernels as k
+
+    D, F = DOMAINS, N_SPARSE * 16 + N_DENSE
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ids = lambda B, d=D: torch.randint(0, d, (B,), generator=gen, device="cuda")
+    oob = torch.tensor([-1, D, D + 5, 0, 1, 2], device="cuda")
+    large_dims = [[256, 128, 64, 64, 32, 16], [8], []]
+    emb4096 = randn(4096, F)
+    large = hamur_args(gen, F, D, large_dims, [64], 65)
+    small = hamur_args(gen, F, D, [[256, 128], []], [64], 35)
+    real = 3000  # padded past row 3000 with copies of row 0 and weight 0
+    padded = torch.cat([emb4096[:real], emb4096[:1].expand(4096 - real, F)]).contiguous()
+    w = torch.cat([torch.ones(real, device="cuda"), torch.zeros(4096 - real, device="cuda")])
+    pad_ids = ids(4096)
+    cases = {"a_alicpp_large_b4096": ((emb4096, ids(4096)), large),
+             "b_small_b4096": ((emb4096, ids(4096)), small),
+             "c_ragged_b4095": ((randn(4095, F), ids(4095)), large),
+             "c_ragged_b1": ((randn(1, F), ids(1)), large),
+             "d_padded_rows_b4096": ((padded, pad_ids), large[:-1] + (w,)),
+             "e_domain_oob_b4096": ((emb4096, oob[ids(4096, len(oob))]), large)}
+    seg_err = 0.0
+    for name, (inputs, args) in cases.items():
+        errs = []
+        for x, stages, kw in hamur_segment_inputs(*inputs, *args):
+            got = k.hamur_segment(x, stages, **kw)
+            torch.cuda.synchronize()
+            want = k.hamur_segment_ref(x, stages, **kw)
+            if kw.get("final") is None:
+                got, want = torch.stack(got), torch.stack(want)
+            check(bool(torch.isfinite(got).all()), f"hamur_segment {name}: not finite")
+            errs.append(((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item())
+        log(f"  hamur_segment {name}: each form alone, max_abs_err / scale "
+            + ", ".join(f"{e:.3e}" for e in errs))
+        check(max(errs) <= TOL, f"hamur_segment {name}: a segment disagrees with plain")
+        seg_err = max(seg_err, *errs)
+    err = run_cases("hamur_fused_infer", k.hamur_fused_infer, k.hamur_fused_infer_ref, cases)
+    unpadded = k.hamur_fused_infer_ref(emb4096[:real].contiguous(), pad_ids[:real],
+                                       *large[:-1], None)
+    pad_err = (k.hamur_fused_infer(padded, pad_ids, *large[:-1], w)[:real]
+               - unpadded).abs().max().item()
+    log(f"  hamur_fused_infer d_padded_rows_b4096: real rows vs the unpadded batch, "
+        f"max_abs_err {pad_err:.3e}")
+    check(pad_err <= TOL, "HAMUR's padded rows move its real rows")
+
+    # times at HamurLarge's Ali-CCP shape: the three launches of one batch
+    inputs, args = cases["a_alicpp_large_b4096"]
+    segs = hamur_segment_inputs(*inputs, *args)
+    run = lambda rows: [k.hamur_segment(x, st, block_rows=rows, **kw) for x, st, kw in segs]
+    sweep = {rows: time_ms(lambda: run(rows)) for rows in (8, 16, 24, 32, 48)}
+    log("  hamur_segment x3 block_rows sweep, ms: "
+        + ", ".join(f"{r} -> {t:.4f}" for r, t in sweep.items()))
+    seg_ms = [time_ms(lambda: k.hamur_segment(x, st, **kw)) for x, st, kw in segs]
+    seg_plain = [time_ms(lambda: k.hamur_segment_ref(x, st, **kw)) for x, st, kw in segs]
+    chain_ms = time_ms(lambda: k.hamur_fused_infer(*inputs, *args))
+    chain_plain_ms = time_ms(lambda: k.hamur_fused_infer_ref(*inputs, *args))
+    hyper_ms = time_ms(lambda: k.hamur_hyper(inputs[0], args[0], args[1]))
+    works = [segment_work(x, st, **kw) for x, st, kw in segs]
+    flops, moved = sum(f for f, _ in works), sum(b for _, b in works)
+    t_ops, t_bytes = flops / peak[0] * 1e3, moved / peak[1] * 1e3
+    bound, kernel_ms = max(t_ops, t_bytes), sum(seg_ms)
+    log(f"  hamur_segment a_alicpp_large_b4096: segments {', '.join(f'{t:.4f}' for t in seg_ms)}"
+        f" ms (plain {', '.join(f'{t:.4f}' for t in seg_plain)}); 3 launches {kernel_ms:.4f} ms, "
+        f"plain {sum(seg_plain):.4f} ms, {flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, bound "
+        f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved ({100 * bound / kernel_ms:.1f}% of "
+        f"bound); whole hamur_fused_infer {chain_ms:.4f} ms (plain {chain_plain_ms:.4f} ms; "
+        f"the hyper-network's two products alone {hyper_ms:.4f} ms)")
+    fn, source, replaces = EVAL_KERNELS["hamur"]
+    entries = {"hamur": {
+        "name": fn, "route": "cuda", "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces, "max_abs_err": max(err, pad_err), "segment_err_over_scale": seg_err,
+        "ms": kernel_ms, "plain_ms": sum(seg_plain), "bound_ms": bound,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "segment_ms": seg_ms, "segment_plain_ms": seg_plain, "chain_ms": chain_ms,
+        "chain_plain_ms": chain_plain_ms, "hyper_ms": hyper_ms,
+        "block_rows_sweep_ms": sweep}}
+
+    # AdaptDHM: scenario loader, F = 22 x 16 + 16 = 368; [256,...,8,1], 3 clusters
+    def adaptdhm_args(Fi, C, dims):
+        return ([w_ for w_, _ in affines(gen, (C,), [Fi] + dims + [1])],)
+
+    def adaptdhm_work(emb, rid, stages):
+        B = emb.shape[0]
+        per_row = sum(w_.shape[1] * w_.shape[2] for w_ in stages)  # the own cluster's
+        return 2.0 * B * per_row, nbytes(emb, rid, *stages) + B * 4
+
+    Fa = (N_SPARSE - 1) * 16 + 16
+    ali = adaptdhm_args(Fa, D, EXPERT_DIMS)
+    emb_a = randn(4096, Fa)
+    cases = {"a_alicpp_b4096": ((emb_a, ids(4096)), ali),
+             "b_ragged_b4095": ((randn(4095, Fa), ids(4095)), ali),
+             "b_ragged_b1": ((randn(1, Fa), ids(1)), ali),
+             "c_narrow_b1000": ((randn(1000, 42), ids(1000, 2)), adaptdhm_args(42, 2, [16, 8])),
+             "d_router_oob_b4096": ((emb_a, oob[ids(4096, len(oob))]), ali),
+             "e_cluster_1_absent_b4096": (
+                 (emb_a, torch.tensor([0, 2], device="cuda")[ids(4096, 2)]), ali)}
+    err = run_cases("adaptdhm_fused_infer", k.adaptdhm_fused_infer, k.adaptdhm_fused_infer_ref,
+                    cases)
+    entries["adaptdhm"] = time_entry(
+        "adaptdhm_fused_infer", "adaptdhm", k.adaptdhm_fused_infer, k.adaptdhm_fused_infer_ref,
+        *cases["a_alicpp_b4096"], adaptdhm_work, peak, err)
+    return entries
+
+
 def kernel_wrappers():
     from scenario_wise_rec_tpu_torch.ops import kernels
 
@@ -719,7 +934,8 @@ def read_counts():
 
 
 # the Ali-CCP loader each model's script uses (scripts/run_ali_ccp.py)
-LOADER = {"epnet": "scenario", "adasparse": "scenario", "ppnet": "ppnet"}
+LOADER = {"epnet": "scenario", "adasparse": "scenario", "ppnet": "ppnet",
+          "adaptdhm": "scenario"}
 
 
 def ali_data(loader="default", vocab=VOCAB):
@@ -751,6 +967,10 @@ TABLES = {"default": {"embedding": (N_SPARSE * VOCAB, 16)},
                     "agn_embedding": ((N_SPARSE - 3) * VOCAB + DOMAINS, 16)}}
 
 
+# a model whose one collection packs its loader's tables together
+MODEL_TABLES = {"adaptdhm": {"embedding": ((N_SPARSE - 1) * VOCAB + DOMAINS, 16)}}
+
+
 def packed_tables(model):
     from scenario_wise_rec_tpu_torch.ops.embedding import EmbeddingCollection
 
@@ -772,11 +992,13 @@ def build_ali_model(seed, perturb=False, name="mmoe"):
         perturb_running_stats(model, gen, relative=True)
     elif perturb:
         perturb_running_stats(model, gen)
-    if perturb and name in GATED_MODELS:
+    if perturb and name in GATED_MODELS + HAMUR_MODELS:
         spread_tables(model, gen)
+    randomize_adapters(model, gen)
     torch.cuda.synchronize()
     tables = packed_tables(model)
-    check({n: tuple(t.shape) for n, t in tables.items()} == TABLES[loader], "table shapes")
+    check({n: tuple(t.shape) for n, t in tables.items()}
+          == MODEL_TABLES.get(name, TABLES[loader]), "table shapes")
     log(f"  {name} built on the card in {time.perf_counter() - t0:.2f} s: packed tables "
         + ", ".join(f"{n} {tuple(t.shape)}" for n, t in tables.items())
         + f", {sum(t.numel() for t in tables.values()) * 4 / 1e6:.1f} MB, "
@@ -793,6 +1015,9 @@ NARROW = {
     "star": dict(fcn_dims=[8, 4], aux_dims=[4]),
     "ple": dict(n_level=2, n_expert_specific=2, n_expert_shared=1,
                 expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+    "hamur": dict(fcn_dims=[16, 16, 12, 12, 8, 8, 6], hyper_dims=[8], k=4),
+    "hamur_small": dict(fcn_dims=[16, 8], hyper_dims=[8], k=5),
+    "mlpn": dict(fcn_dims=[16, 8]),
 }
 
 
@@ -805,7 +1030,9 @@ def narrow_kwargs(name, dense, sparse, sce, ids):
             "ppnet": dict(id_features=ids, agn_features=sparse + dense + sce, domain_num=2,
                           fcn_dims=[16, 8]),
             "adasparse": dict(sce_features=sce, agn_features=sparse,
-                              mlp_params={"dims": [16, 8], "dropout": 0.0})}[name]
+                              mlp_params={"dims": [16, 8], "dropout": 0.0}),
+            "adaptdhm": dict(features=sparse + sce, fcn_dims=[16, 8], cluster_num=3,
+                             beta=0.9)}[name]
 
 
 def narrow_model_and_data(seed, n=300, name="mmoe"):
@@ -825,8 +1052,9 @@ def narrow_model_and_data(seed, n=300, name="mmoe"):
         model = get_model(name)(**narrow_kwargs(name, dense, sparse, sce, ids), device="cpu",
                                 generator=cpu_gen)
     perturb_running_stats(model, cpu_gen)
-    if name in GATED_MODELS:
+    if name in GATED_MODELS + HAMUR_MODELS + ("hamur_small", "mlpn"):
         spread_tables(model, cpu_gen)
+    randomize_adapters(model, cpu_gen)
     r = np.random.default_rng(seed)
     x = {f"s{i}": r.integers(0, 100, n) for i in range(3)}
     x["uid"] = r.integers(0, 100, n)
@@ -859,9 +1087,19 @@ def trainer_groups(t):
         lr, _, _, _, bc1r, bc2r, eps = adam_hparams(
             step, t._lr_now, 0.0, p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8))
         implied[key] = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
+    cancelled = lambda k: bn_cancelled(t.model, k)
     return {"table": tables, "table moments": implied,
-            "dense": {k: v for k, v in sd.items() if not BN_BIAS.search(k)},
-            "BN-cancelled": {k: v for k, v in sd.items() if BN_BIAS.search(k)}}
+            "dense": {k: v for k, v in sd.items() if not cancelled(k)},
+            "BN-cancelled": {k: v for k, v in sd.items() if cancelled(k)}}
+
+
+def bn_cancelled(model, key):
+    """``key`` of ``model`` has an exactly zero gradient, all noise
+    (BN_BIAS; or the beta of a HAMUR adapter that a block follows)."""
+    if BN_BIAS.search(key):
+        return True
+    m = re.fullmatch(r"adapters\.(\d+)\.beta", key)
+    return bool(m) and model.adapter_after[int(m.group(1))] < len(model.blocks)
 
 
 def group_gaps(a, b):
@@ -1098,7 +1336,11 @@ def phase_train(seed, card):
 def narrow_train_card_vs_cpu(seed, name):
     """A narrow ``name``: 3 train steps with ``sparse_embedding_updates=True``
     (sorted, or dense for a model without an ``embedding`` collection) on the
-    card and on the CPU, the card handed the CPU's state before each."""
+    card and on the CPU, the card handed the CPU's state before each. Every
+    buffer is compared too (HAMUR's D-fold hyper-network running stats,
+    AdaptDHM's refined centers); the sorted kernel launches once a sorted
+    step and never in the dense one; AdaptDHM's unused biases move by
+    weight decay alone."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
@@ -1107,6 +1349,9 @@ def narrow_train_card_vs_cpu(seed, name):
                        sparse_update_impl="sorted")
     gpu_t = CTRTrainer(copy.deepcopy(small), sparse_embedding_updates=True,
                        sparse_update_impl="sorted")
+    unused = {n: p.detach().clone() for n, p in gpu_t.model.named_parameters()
+              if name == "adaptdhm" and n.startswith("b.")}
+    reset_counts()
     for step, b in enumerate(BatchIterable(ColumnarDataset(sx, sy), 128), 1):
         if step > 1:
             adopt_state(gpu_t, cpu_t)
@@ -1119,6 +1364,17 @@ def narrow_train_card_vs_cpu(seed, name):
         check(abs(lc - lg) <= 1e-5 * abs(lc), f"{name}: card loss {lg} vs CPU {lc}")
         check(not outside(gaps), f"narrow {name}, step {step}, card vs CPU: "
               f"{ {g: gaps[g][3] for g in outside(gaps)} } outside their tolerance")
+    counts = read_counts()
+    check(counts["sorted_dense_adam_apply"] == (3 if gpu_t._sorted_mode else 0),
+          f"narrow {name}: sorted launches {counts}")
+    params = dict(gpu_t.model.named_parameters())
+    for n, before in unused.items():
+        moved = (params[n].detach() - before).abs()
+        check(bool((moved > 0).all()) and moved.max().item() <= 3 * 1e-3,
+              f"narrow {name}: the unused {n} did not take its weight-decay steps")
+    if unused:
+        log(f"  narrow {name}: the {len(unused)} unused bias tensors moved by weight decay, "
+            f"at most {max((params[n].detach() - b).abs().max().item() for n, b in unused.items()):.3e}")
 
 
 def phase_train_model(seed, card, name):
@@ -1133,6 +1389,7 @@ def phase_train_model(seed, card, name):
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
     kernel = EVAL_KERNELS[name][0]
+    per_batch = LAUNCHES_PER_BATCH.get(name, 1)
     model = build_ali_model(seed + 1, name=name)
     x, y = synthetic_eval_set(seed + 2, N_TRAIN_NEW)
     vx, vy = synthetic_eval_set(seed + 3, 2 * BATCH + 7)
@@ -1153,13 +1410,13 @@ def phase_train_model(seed, card, name):
         counts = read_counts()
     log(f"  {name} training path launches {counts}: {n_steps} train steps, {n_val} eval "
         f"batches x 2 passes; fit {t1 - t0:.2f} s (one epoch, validation, checkpoint)")
-    sorted_steps = n_steps if hasattr(model, "embedding") else 0
+    sorted_steps = n_steps if getattr(model, "embedding", None) is not None else 0
     check(trainer._sorted_mode == bool(sorted_steps), f"{name}: update mode")
     check(counts["sorted_dense_adam_apply"] == sorted_steps,
           f"{name}: the sorted kernel did not launch {sorted_steps} times, once per sorted "
           "train step")
-    check(counts[kernel] == 2 * n_val, f"{name}: the eval kernel did not launch once per "
-          "eval batch")
+    check(counts[kernel] == per_batch * 2 * n_val, f"{name}: the eval kernel did not launch "
+          f"{per_batch} time(s) per eval batch")
     check(all(v == 0 for k, v in counts.items() if k not in (kernel, "sorted_dense_adam_apply")),
           f"{name}: another model's kernel launched")
     check(all(v is not None and np.isfinite(v) for v in ll + auc + [tll, tauc]),
@@ -1298,6 +1555,16 @@ def perturb_running_stats(model, gen, relative=False):
                 buf.copy_((buf if relative else 1.0) * (0.5 + noise(torch.rand)))
 
 
+def randomize_adapters(model, gen):
+    """HAMUR's adapters' u/v from 0.1 N(0, 1) instead of ones, as the JAX
+    package's tests draw them: at ones the adapter's sigmoid saturates and
+    its norm divides near-zero variances, and the paths' rounding shows."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if re.fullmatch(r"adapters\.\d+\.[uv]_(down|up)", name):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
 def spread_tables(model, gen, std=0.5):
     """Embedding tables drawn from N(0, std) instead of the initial N(0,
     1e-4). At 1e-4, SAR-Net's and AdaSparse's random models give every row
@@ -1329,14 +1596,16 @@ def settle_running_stats(model, seed, passes=30):
 
 
 def serving_near_threshold(model, x):
-    """AdaSparse's threshold rule over the rows ``x`` of a serving pass:
-    ``[n]`` bools, True where some pruner element lies within THRESHOLD_GAP
-    of epsilon (from the plain version); None for another model."""
-    from scenario_wise_rec_tpu_torch.ops.kernels import adasparse_threshold_margin
+    """The rows ``x`` of a serving pass that a near-tie excuses: ``[n]``
+    bools, True where some AdaSparse pruner element lies within
+    THRESHOLD_GAP of epsilon, or where AdaptDHM's top two routing logits lie
+    within ROUTE_GAP (by the plain path); None for another model."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import (adaptdhm_route_margin,
+                                                         adasparse_threshold_margin)
 
-    if not hasattr(model, "pruners"):
+    if not hasattr(model, "pruners") and not hasattr(model, "center"):
         return None
-    device, p = model.alpha.device, model.pruners[0]
+    device = next(model.buffers()).device
     n = len(x["domain_indicator"])
     margins = []
     with torch.inference_mode():
@@ -1344,21 +1613,57 @@ def serving_near_threshold(model, x):
         for i in range(0, n, BATCH):
             xb = {k: torch.as_tensor(np.asarray(v)[i:i + BATCH], device=device)
                   for k, v in x.items()}
+            if hasattr(model, "center"):
+                emb = model.embedding(xb, model.features, squeeze_dim=True)
+                margins.append(adaptdhm_route_margin(emb, model.center).cpu() - ROUTE_GAP)
+                continue
+            p = model.pruners[0]
             margins.append(adasparse_threshold_margin(
-                *model._embed(xb), *folded, p.form, p.epsilon, p.beta).cpu())
-    return (torch.cat(margins) <= THRESHOLD_GAP).numpy()
+                *model._embed(xb), *folded, p.form, p.epsilon, p.beta).cpu() - THRESHOLD_GAP)
+    return (torch.cat(margins) <= 0).numpy()
 
 
-def held_gap(label, got, want, near):
-    """max |got - want| over the rows not ``near`` AdaSparse's threshold;
-    the excused rows are counted, printed and held to THRESHOLD_ROWS."""
+def held_gap(label, got, want, near, tol=(TOL, 0.0)):
+    """The largest ``|got - want| / (atol + rtol |want|)`` over the rows not
+    ``near`` a threshold or a routing tie, with ``tol = (atol, rtol)``: at
+    most 1 passes. The excused rows are counted, printed and held to
+    THRESHOLD_ROWS."""
     keep = np.ones(len(got), bool) if near is None else ~near
-    err = float(np.abs(got - want)[keep].max()) if keep.any() else 0.0
-    rule = "" if near is None else f", {int(near.sum())} of {len(got)} rows at the threshold"
-    log(f"  {label}: max_abs_err {err:.3e}{rule}")
+    gap = np.abs(got - want)[keep]
+    err = float(gap.max()) if keep.any() else 0.0
+    ratio = float((gap / (tol[0] + tol[1] * np.abs(want[keep]))).max()) if keep.any() else 0.0
+    rule = "" if near is None else f", {int(near.sum())} of {len(got)} rows excused"
+    log(f"  {label}: max_abs_err {err:.3e}, {ratio:.3f} of the limit "
+        f"{tol[0]:g} + {tol[1]:g} |want|{rule}")
     if near is not None:
-        check(int(near.sum()) <= THRESHOLD_ROWS * len(got), f"{label}: rows at the threshold")
-    return err
+        check(int(near.sum()) <= THRESHOLD_ROWS * len(got), f"{label}: excused rows")
+    return ratio
+
+
+def narrow_serve_card_vs_cpu(seed, name):
+    """A narrow ``name`` served by ``CTRTrainer(fused_inference=True)`` on
+    the card against the same model on the CPU (the kernels' plain
+    versions); returns the launch counts of the card's pass."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    small, sx, _ = narrow_model_and_data(seed, name=name)
+    sl = BatchIterable(ColumnarDataset(sx, None), 128)
+    want = np.asarray(CTRTrainer(small, device="cpu", fused_inference=True).predict(small, sl))
+    small_gpu = copy.deepcopy(small)
+    reset_counts()
+    got = np.asarray(CTRTrainer(small_gpu, fused_inference=True).predict(small_gpu, sl))
+    counts = read_counts()
+    ratio = held_gap(f"narrow {name}, card vs CPU", got, want,
+                     serving_near_threshold(small, sx), SERVE_TOL.get(name, (TOL, 0.0)))
+    check(got.shape == (300,) and ratio <= 1, f"{name}: card disagrees with the CPU")
+    return counts
+
+
+def drop_norm_mask(norm_affine):
+    """A planted fault for the serving check: HAMUR's adapter norms take
+    their statistics over every row, the padded ones included."""
+    return lambda t_pre, gamma, beta, eps, w: norm_affine(t_pre, gamma, beta, eps, None)
 
 
 def phase_main_path(seed, card, name="mmoe"):
@@ -1366,17 +1671,14 @@ def phase_main_path(seed, card, name="mmoe"):
     narrow copy on the card against the CPU; returns the launch counts of
     the fused passes."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.ops.kernels import hamur_infer
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
-    # a narrow model on the card against the same model on the CPU
     kernel = EVAL_KERNELS[name][0]
-    small, sx, _ = narrow_model_and_data(seed, name=name)
-    sl = BatchIterable(ColumnarDataset(sx, None), 128)
-    want = np.asarray(CTRTrainer(small, device="cpu", fused_inference=True).predict(small, sl))
-    small_gpu = copy.deepcopy(small)
-    got = np.asarray(CTRTrainer(small_gpu, fused_inference=True).predict(small_gpu, sl))
-    err = held_gap(f"narrow {name}, card vs CPU", got, want, serving_near_threshold(small, sx))
-    check(got.shape == (300,) and err <= TOL, "card disagrees with the CPU")
+    per_batch = LAUNCHES_PER_BATCH.get(name, 1)
+    tol = SERVE_TOL.get(name, (TOL, 0.0))
+    small_counts = narrow_serve_card_vs_cpu(seed, name)
+    check(small_counts[kernel] == per_batch * 3, f"narrow {name}: launches {small_counts}")
 
     model = build_ali_model(seed, perturb=True, name=name)
     n = 8 * BATCH + 123
@@ -1395,8 +1697,8 @@ def phase_main_path(seed, card, name="mmoe"):
     counts = read_counts()
     launches = counts[kernel]
     log(f"  {name} serving path launches {counts} over {2 * n_batches} batches")
-    check(launches == 2 * n_batches, f"{name}: the main path did not launch the kernel "
-          "once per batch")
+    check(launches == per_batch * 2 * n_batches, f"{name}: the main path did not launch the "
+          f"kernel {per_batch} time(s) per batch")
     check(all(v == 0 for k, v in counts.items() if k != kernel),
           f"{name}: serving launched another kernel")
 
@@ -1410,18 +1712,32 @@ def phase_main_path(seed, card, name="mmoe"):
     check(p_fused.shape == p_plain.shape == (n,), "prediction shape")
     check(bool(np.isfinite(p_fused).all()) and 0 < p_fused.min() and p_fused.max() < 1,
           "predictions not finite probabilities")
-    err = held_gap(f"{name} fused vs op-by-op", p_fused, p_plain,
-                   serving_near_threshold(model, x))
+    near = serving_near_threshold(model, x)
+    ratio = held_gap(f"{name} fused vs op-by-op", p_fused, p_plain, near, tol)
     auc_gap = max(abs(a - b) for a, b in zip(f_auc + [f_tauc], o_auc + [o_tauc]))
     ll_gap = max(abs(a - b) for a, b in zip(f_ll + [f_tll], o_ll + [o_tll]))
     log(f"  fused vs op-by-op: auc gap {auc_gap:.3e}, logloss gap {ll_gap:.3e}")
     log(f"  per-domain auc {[round(a, 6) for a in f_auc]}, total auc {f_tauc:.6f}, "
         f"total logloss {f_tll:.6f}")
-    check(err <= TOL, f"fused and op-by-op predictions differ by {err}")
+    check(ratio <= 1, f"fused and op-by-op predictions differ beyond {tol}")
     check(auc_gap <= 1e-4, f"AUC differs by {auc_gap}")
     log(f"  {name} eval examples/s on {card}: fused predict {n / (t2 - t1):,.0f}, "
         f"op-by-op predict {n / (t5 - t4):,.0f}; evaluate_multi_domain_loss "
         f"fused {n / (t1 - t0):,.0f}, op-by-op {n / (t4 - t3):,.0f}")
+    if name == "hamur":
+        # the check must see a fault in the adapter norms' masking: the last
+        # batch holds 123 real rows and 3,973 padded ones
+        affine = hamur_infer.adapter_norm_affine
+        hamur_infer.adapter_norm_affine = drop_norm_mask(affine)
+        try:
+            p_fault = np.asarray(fused.predict(model, loader))
+        finally:
+            hamur_infer.adapter_norm_affine = affine
+        last = slice(n - 123, n)
+        fault = held_gap("planted fault (mask dropped from the norm statistics), the ragged "
+                         "last batch, fused vs op-by-op", p_fault[last], p_plain[last],
+                         None if near is None else near[last], tol)
+        check(fault > 1, "the serving check does not see the planted mask fault")
     profile_device(lambda: fused.predict(model, loader),
                    f"one fused {name} predict pass ({n_batches} batches)")
     del fused, plain, model
@@ -1495,22 +1811,31 @@ def main(argv=None):
     sorted_adam = phase_sorted_adam(gen, peak)
     new = phase_new_kernels(gen, peak)
     new.update(phase_gated_kernels(gen, peak))
+    new.update(phase_hamur_kernels(gen, peak))
+    models = NEW_MODELS + GATED_MODELS + HAMUR_MODELS
 
     log("[3] serving path: MMOE eval at Ali-CCP width, 467k ids per feature")
     infer["launches"] = phase_main_path(args.seed, card)["mmoe_fused_infer"]
-    for name in NEW_MODELS + GATED_MODELS:
+    for name in models:
         log(f"[3] serving path: {name} eval at Ali-CCP width, 467k ids per feature")
         new[name]["launches"] = phase_main_path(args.seed, card, name)[EVAL_KERNELS[name][0]]
+    log("[3] serving path: narrow HamurSmall and MlpN (op by op), card vs CPU")
+    counts = narrow_serve_card_vs_cpu(args.seed, "hamur_small")
+    check(counts["hamur_segment"] == 2 * 3 and sum(counts.values()) == 6,
+          f"narrow HamurSmall: launches {counts}")
+    counts = narrow_serve_card_vs_cpu(args.seed, "mlpn")
+    check(not any(counts.values()), f"narrow MlpN launched a kernel: {counts}")
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
     sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
-    for name in NEW_MODELS + GATED_MODELS:
+    for name in models:
         log(f"[4] training path: {name} fit at Ali-CCP width, 467k ids per feature")
         counts = phase_train_model(args.seed, card, name)
         new[name]["train_path_launches"] = {k: v for k, v in counts.items() if v}
+    log("[4] training path: narrow MlpN, the plain dense step, card vs CPU")
+    narrow_train_card_vs_cpu(args.seed, "mlpn")
     log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam]
-                      + [new[n] for n in NEW_MODELS + GATED_MODELS]}))
+    print(json.dumps({"kernels": [infer, sorted_adam] + [new[n] for n in models]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -26,7 +26,12 @@ every leaf into the module entry of the same path:
   tree and beside their parameters, at ``fcn.bn.i.{mean,var}``, in the
   module: a module whose layout departs from its JAX tree says so in a
   ``jax_state_map`` of ``(pattern, replacement)`` rules over state paths,
-  applied before the generic rule.
+  applied before the generic rule. HAMUR (and MlpN) map
+  ``state/{blocks,hyper}[i]/{mean,var}`` so to ``{blocks,hyper}.i.bn.*``;
+- HAMUR's other leaves by their own paths (``blocks[i]/{lin,bn}``,
+  ``final``, ``hyper[i]/{lin,bn}``, ``adapters[j]/<name>``), and
+  AdaptDHM's ``w[branch][layer]``, ``b[branch][layer]`` and
+  ``state/center``, which the port keeps as a buffer.
 
 Any shape mismatch, and any entry missing or left over on either side,
 raises. No JAX is imported.

@@ -7,9 +7,11 @@ registry knows that the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item, not ``KeyError``.
 """
 
+from .adaptdhm import AdaptDHM
 from .adasparse import AdaSparse
 from .base import Base, Model, domain_ids
 from .epnet import EPNet
+from .hamur import HamurLarge, HamurSmall, MlpNLayer
 from .mmoe import MMOE
 from .ple import PLE
 from .ppnet import PPNet
@@ -27,13 +29,17 @@ MODEL_REGISTRY = {
     "epnet": EPNet,
     "ppnet": PPNet,
     "adasparse": AdaSparse,
+    "adaptdhm": AdaptDHM,
+    "hamur": HamurLarge,
+    "hamurlarge": HamurLarge,
+    "hamur_small": HamurSmall,
+    "hamursmall": HamurSmall,
+    "mlpn": MlpNLayer,
     "base": Base,
 }
 
 # the JAX registry's other names, each with the ROADMAP item that ports it
-NOT_PORTED = {name: "A11" for name in (
-    "m2m", "adaptdhm", "hamur",
-    "hamurlarge", "hamur_small", "hamursmall", "m3oe", "mlpn")}
+NOT_PORTED = {name: "A11" for name in ("m2m", "m3oe")}
 
 
 def get_model(name: str):
@@ -50,5 +56,6 @@ def get_model(name: str):
                    f"{sorted(MODEL_REGISTRY) + sorted(NOT_PORTED)})")
 
 
-__all__ = ["AdaSparse", "Base", "EPNet", "Model", "domain_ids", "MMOE", "PLE", "PPNet",
-           "Sarnet", "SharedBottom", "Star", "MODEL_REGISTRY", "NOT_PORTED", "get_model"]
+__all__ = ["AdaSparse", "AdaptDHM", "Base", "EPNet", "HamurLarge", "HamurSmall", "MlpNLayer",
+           "Model", "domain_ids", "MMOE", "PLE", "PPNet", "Sarnet", "SharedBottom", "Star",
+           "MODEL_REGISTRY", "NOT_PORTED", "get_model"]

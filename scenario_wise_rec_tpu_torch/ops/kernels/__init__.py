@@ -10,9 +10,15 @@
 - ``gated_infer``: the same for EPNet, PPNet and AdaSparse, three kernels
   in ``csrc/gated_infer.cu`` (``epnet_fused_infer``, ``ppnet_fused_infer``,
   ``adasparse_fused_infer``, with ``adasparse_threshold_margin`` for
-  comparing the last across its hard threshold). Every fused eval kernel
-  but MMOE's is built over the shared ``csrc/fused_mlp.cuh``; ``_fused``
-  holds their Python side.
+  comparing the last across its hard threshold);
+- ``hamur_infer``: HAMUR's eval cut at its adapters' batch-statistics norms,
+  one launch of the segment kernel ``hamur_segment`` (``csrc/hamur_infer.cu``)
+  per segment, the hyper-network and the norms' statistics in PyTorch
+  between them (``hamur_fused_infer``);
+- ``adaptdhm_infer``: AdaptDHM's routed-cluster FCN
+  (``csrc/adaptdhm_infer.cu``), with ``adaptdhm_route_margin`` for comparing
+  it across a near-tie of the routing logits. Every fused eval kernel but MMOE's is built
+  over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort.
@@ -22,10 +28,14 @@ On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
 
+from .adaptdhm_infer import (adaptdhm_fused_infer, adaptdhm_fused_infer_ref,
+                             adaptdhm_route_margin)
 from .folding import fold_bn_linear_eval, fold_layers_eval, fold_stacked_mlp_eval
 from .gated_infer import (adasparse_fused_infer, adasparse_fused_infer_ref,
                           adasparse_threshold_margin, epnet_fused_infer,
                           epnet_fused_infer_ref, ppnet_fused_infer, ppnet_fused_infer_ref)
+from .hamur_infer import (adapter_norm_affine, hamur_fused_infer, hamur_fused_infer_ref,
+                          hamur_hyper, hamur_segment, hamur_segment_ref)
 from .mmoe_infer import mmoe_fused_infer, mmoe_fused_infer_ref
 from .ple_infer import LevelSpec, ple_fused_infer, ple_fused_infer_ref
 from .sarnet_infer import sarnet_fused_infer, sarnet_fused_infer_ref
@@ -34,9 +44,13 @@ from .tower_infer import trunk_towers_fused_infer, trunk_towers_fused_infer_ref
 from .sorted_adam import (owner_sorted_grads, sorted_dense_adam_apply,
                           sorted_dense_adam_apply_ref)
 
-__all__ = ["LevelSpec", "adasparse_fused_infer", "adasparse_fused_infer_ref",
+__all__ = ["LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
+           "adaptdhm_route_margin",
+           "adapter_norm_affine", "adasparse_fused_infer", "adasparse_fused_infer_ref",
            "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
            "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
+           "hamur_fused_infer", "hamur_fused_infer_ref", "hamur_hyper", "hamur_segment",
+           "hamur_segment_ref",
            "mmoe_fused_infer", "mmoe_fused_infer_ref", "owner_sorted_grads",
            "ple_fused_infer", "ple_fused_infer_ref", "ppnet_fused_infer",
            "ppnet_fused_infer_ref", "sarnet_fused_infer", "sarnet_fused_infer_ref",

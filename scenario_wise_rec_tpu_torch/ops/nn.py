@@ -10,6 +10,8 @@ The counterpart of the JAX package's ``ops/nn.py``:
 - ``MLP``             — [Linear -> BN -> act -> Dropout]* (+ optional (·,1) head)
 - ``GateNU``          — PEPNet's gate ``gemma·sigmoid(relu(x W1 + b1) W2 + b2)``
 - ``Pruner``          — AdaSparse's bias-free pruner on ``[sce ‖ h]``
+- ``domain_norm``     — HAMUR's (and STAR's) normalization by the current
+                        batch's masked statistics, at train and eval time
 
 A stacked bank (the JAX package's ``stacked_mlp_init``/``stacked_mlp_apply``)
 is ``MLP(..., members=n)``: every parameter and running stat gains a leading
@@ -64,11 +66,15 @@ def batch_stats(x: torch.Tensor, w: Optional[torch.Tensor] = None):
     return mean, var, n
 
 
-def batchnorm(x, gamma, beta, mean, var, train: bool, w=None):
+def batchnorm(x, gamma, beta, mean, var, train: bool, w=None,
+              momentum: float = BN_MOMENTUM):
     """torch BatchNorm1d: batch stats (biased var) normalize in train mode,
     running stats update with the *unbiased* var; eval uses running stats.
     ``w``: optional [B] 0/1 mask; padded rows are excluded from the stats
     (their outputs are garbage and must be discarded by the caller).
+    ``momentum``: the running stats' EMA weight of the batch; ``1 - (1 -
+    m)^n`` takes ``n`` identical updates of momentum ``m`` in one (HAMUR's
+    shared hyper-network, which the reference runs once per domain).
 
     Returns ``(y, new_mean, new_var)``.
     """
@@ -76,12 +82,23 @@ def batchnorm(x, gamma, beta, mean, var, train: bool, w=None):
         bmean, bvar, n = batch_stats(x, w)
         y = (x - _row(bmean)) * torch.rsqrt(_row(bvar) + BN_EPS)
         unbiased = bvar * (n / torch.clamp(n - 1.0, min=1.0))
-        new_mean = (1 - BN_MOMENTUM) * mean + BN_MOMENTUM * bmean
-        new_var = (1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased
+        new_mean = (1 - momentum) * mean + momentum * bmean
+        new_var = (1 - momentum) * var + momentum * unbiased
     else:
         y = (x - _row(mean)) * torch.rsqrt(_row(var) + BN_EPS)
         new_mean, new_var = mean, var
     return y * _row(gamma) + _row(beta), new_mean, new_var
+
+
+def domain_norm(x, gamma, beta, eps: float, unbiased: bool = False, w=None):
+    """``gamma * (x - mean) / sqrt(var + eps) + beta`` with the mean and var
+    of the current batch (axis -2), at train and eval time alike; padded
+    rows (``w == 0``) are excluded from them. ``unbiased``: HAMUR's adapters
+    take torch's ``.var()`` (n - 1), STAR the biased mean square."""
+    mean, var, n = batch_stats(x, w)
+    if unbiased:
+        var = var * (n / torch.clamp(n - 1.0, min=1.0))
+    return gamma * ((x - _row(mean)) * torch.rsqrt(_row(var) + eps)) + beta
 
 
 def dropout(x, p: float, train: bool, generator: Optional[torch.Generator]):
@@ -127,9 +144,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(shape, device=device))
         self.register_buffer("var", torch.ones(shape, device=device))
 
-    def forward(self, x, train: bool = False, w=None):
+    def forward(self, x, train: bool = False, w=None, momentum: float = BN_MOMENTUM):
         y, new_mean, new_var = batchnorm(x, self.gamma, self.beta, self.mean,
-                                         self.var, train, w)
+                                         self.var, train, w, momentum)
         if train:
             with torch.no_grad():
                 self.mean.copy_(new_mean)

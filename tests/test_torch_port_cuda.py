@@ -528,3 +528,158 @@ def test_gated_kernels_reject_what_they_do_not_take(gen):
     with pytest.raises(RuntimeError, match="shared memory"):
         kg.epnet_fused_infer(wide[:, :8].contiguous(), wide, *_affines(gen, (), [9008, 8]),
                              *_affines(gen, (), [8, 9000]), _affines(gen, (), [9000, 1])[0])
+
+
+# -- hamur_segment and adaptdhm_fused_infer -----------------------------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import adaptdhm_infer as ka  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import hamur_infer as kh  # noqa: E402
+
+
+def _hamur_adapter(gen, w, k, mid):
+    shapes = {"u_down": (w, k), "v_down": (k, mid), "b_down": (mid,), "u_up": (mid, k),
+              "v_up": (k, w), "b_up": (w,)}
+    a = {n: 0.3 * torch.randn(*s, generator=gen, device="cuda") for n, s in shapes.items()}
+    a["gamma"] = 0.5 + torch.rand(w, generator=gen, device="cuda")
+    a["beta"] = 0.1 * torch.randn(w, generator=gen, device="cuda")
+    return a
+
+
+def _segment_gap(got, want):
+    """max |got - want| over the scale of the plain output: the segments'
+    outputs are not bounded by 1, the probabilities are."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, first's blocks, middle's blocks, final's blocks, k, mid, block_rows)
+    (4096, 376, 3, [256, 128, 64, 64, 32, 16], [8], [], 65, 32, 16),  # HamurLarge, Ali-CCP
+    (4095, 376, 3, [256, 128], [], [], 35, 32, 16),  # HamurSmall's blocks, ragged; k 35
+    (333, 41, 2, [7], [], [5], 3, 5, 8),             # widths not multiples of 4
+    (130, 30, 5, [6], [9, 6], [4, 4], 9, 7, 24),     # 5 domains; deeper middle and final
+    (1, 20, 3, [8], [4], [], 4, 3, 64),
+])
+def test_hamur_segment_kernel_matches_plain(gen, cfg):
+    """Each form of the segment alone, from the same inputs; domain ids -2..D+2."""
+    B, F, D, d1, d2, d3, k, mid, rows = cfg
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    hyper = 0.4 * torch.randn(B, k, k, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    st1 = _affines(gen, (D,), [F] + d1)
+    w1 = d1[-1] if d1 else F
+    a1 = _hamur_adapter(gen, w1, k, mid)
+    before = kh.hamur_segment.launches
+    t, h = kh.hamur_segment(emb, st1, hyper=hyper, adapter=a1, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kh.hamur_segment.launches == before + 1
+    rt, rh = kh.hamur_segment_ref(emb, st1, hyper=hyper, adapter=a1)
+    assert t.shape == h.shape == (B, D, w1) and bool(torch.isfinite(t).all())
+    assert max(_segment_gap(t, rt), _segment_gap(h, rh)) <= TOL
+    dn = (0.2 * torch.randn(D, w1, generator=gen, device="cuda"),   # mean, scale, shift
+          0.5 + torch.rand(D, w1, generator=gen, device="cuda"),
+          0.1 * torch.randn(D, w1, generator=gen, device="cuda"))
+    st2 = _affines(gen, (D,), [w1] + d2)
+    a2 = _hamur_adapter(gen, d2[-1] if d2 else w1, k, mid)
+    t2, h2 = kh.hamur_segment(rh, st2, hyper=hyper, adapter=a2, dn_affine=dn, t_pre=rt,
+                              block_rows=rows)
+    torch.cuda.synchronize()
+    rt2, rh2 = kh.hamur_segment_ref(rh, st2, hyper=hyper, adapter=a2, dn_affine=dn, t_pre=rt)
+    assert max(_segment_gap(t2, rt2), _segment_gap(h2, rh2)) <= TOL
+    st3 = _affines(gen, (D,), [w1] + d3)
+    fin = _affines(gen, (D,), [d3[-1] if d3 else w1, 1])[0]
+    for x, tp, dna in ((rh, rt, dn), (emb, None, None)):  # after an adapter; no adapter
+        s3 = st3 if x.ndim == 3 else _affines(gen, (D,), [F] + d3)
+        f3 = fin if x.ndim == 3 else _affines(gen, (D,), [d3[-1] if d3 else F, 1])[0]
+        got = kh.hamur_segment(x, s3, dn_affine=dna, t_pre=tp, final=f3, domain_id=did,
+                               block_rows=rows)
+        torch.cuda.synchronize()
+        want = kh.hamur_segment_ref(x, s3, dn_affine=dna, t_pre=tp, final=f3, domain_id=did)
+        assert got.shape == (B,) and (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, D, segments' block dims, k, padded rows, block_rows)
+    (4096, 376, 3, [[256, 128, 64, 64, 32, 16], [8], []], 65, 0, 16),  # HamurLarge
+    (1000, 376, 3, [[256, 128], []], 35, 217, 16),                     # HamurSmall, padded
+    (45, 24, 2, [[16, 12], [], [4]], 4, 7, 8),
+])
+def test_hamur_fused_infer_matches_plain(gen, cfg):
+    """The whole chain: one launch per segment; the probabilities within
+    TOL of the plain chain (the norm statistics come from the same plain
+    reduction on nearly equal inputs)."""
+    B, F, D, seg_dims, k, n_pad, rows = cfg
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    hyper = _affines(gen, (), [F, 64, k * k])
+    segments, adapters, width = [], [], F
+    for j, dims in enumerate(seg_dims):
+        segments.append(_affines(gen, (D,), [width] + dims))
+        width = dims[-1] if dims else width
+        if j < len(seg_dims) - 1:
+            adapters.append(_hamur_adapter(gen, width, k, 32))
+    final = _affines(gen, (D,), [width, 1])[0]
+    w = torch.ones(B, device="cuda")
+    w[B - n_pad:] = 0.0
+    args = (emb, did, hyper, k, segments, adapters, final)
+    before = kh.hamur_segment.launches
+    got = kh.hamur_fused_infer(*args, w=w, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kh.hamur_segment.launches == before + len(seg_dims)
+    want = kh.hamur_fused_infer_ref(*args, w=w)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want)[w > 0].abs().max().item() <= TOL
+
+
+def test_hamur_segment_rejects_what_it_does_not_take(gen):
+    emb = torch.randn(10, 20, generator=gen, device="cuda")
+    st = _affines(gen, (2,), [20, 8])
+    hy = torch.randn(10, 4, 4, generator=gen, device="cuda")
+    a = _hamur_adapter(gen, 8, 4, 3)
+    for rows in (12, 0, 72):
+        with pytest.raises(ValueError):
+            kh.hamur_segment(emb, st, hyper=hy, adapter=a, block_rows=rows)
+    with pytest.raises(ValueError):
+        kh.hamur_segment(emb, st, hyper=hy.cpu(), adapter=a)
+    with pytest.raises(ValueError):
+        kh.hamur_segment(emb.double(), st, hyper=hy, adapter=a)
+    t, h = kh.hamur_segment(emb[:0], st, hyper=hy[:0], adapter=a)
+    assert t.shape == h.shape == (0, 2, 8)
+    wide = torch.randn(16, 9000, device="cuda")  # the tile exceeds shared memory
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kh.hamur_segment(wide, _affines(gen, (2,), [9000, 8]), hyper=hy[:1].expand(16, 4, 4)
+                         .contiguous(), adapter=a, block_rows=64)
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, C, hidden dims, router ids drawn from, block_rows)
+    (4096, 368, 3, [256, 128, 64, 32, 16, 8], (0, 3), 16),  # Ali-CCP
+    (4095, 368, 3, [256, 128, 64, 32, 16, 8], (-2, 8), 16),  # ragged; ids -2..7, clipped
+    (333, 41, 2, [7], (0, 2), 8),
+    (130, 50, 5, [], (0, 5), 24),                        # one stage
+    (64, 12, 4, [9, 5, 3], (1, 3), 64),                   # clusters 0 and 3 absent
+])
+def test_adaptdhm_kernel_matches_plain(gen, cfg):
+    B, F, C, dims, (lo, hi), rows = cfg
+    stages = [w for w, _ in _affines(gen, (C,), [F] + dims + [1])]
+    emb = torch.randn(B, F, generator=gen, device="cuda")
+    rid = torch.randint(lo, hi, (B,), generator=gen, device="cuda")
+    before = ka.adaptdhm_fused_infer.launches
+    got = ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=rows)
+    torch.cuda.synchronize()
+    assert ka.adaptdhm_fused_infer.launches == before + 1
+    want = ka.adaptdhm_fused_infer_ref(emb, rid, stages)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_adaptdhm_kernel_rejects_what_it_does_not_take(gen):
+    stages = [w for w, _ in _affines(gen, (2,), [20, 8, 1])]
+    emb = torch.randn(10, 20, generator=gen, device="cuda")
+    rid = torch.zeros(10, dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError):
+        ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=12)
+    with pytest.raises(ValueError):
+        ka.adaptdhm_fused_infer(emb, rid.cpu(), stages)
+    with pytest.raises(ValueError):
+        ka.adaptdhm_fused_infer(emb, rid, [stages[0].double(), stages[1]])
+    assert ka.adaptdhm_fused_infer(emb[:0], rid[:0], stages).shape == (0,)
