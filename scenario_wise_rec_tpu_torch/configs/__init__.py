@@ -5,8 +5,7 @@ The reference has no config system: each run script hard-codes model
 hyperparameters in an if/elif ladder (e.g. run_ali_ccp…py:134-163,
 run_movielens…py:200-223). This module holds every one of those
 combinations behind one ``build_model(dataset, model, data)`` entry point,
-with the reference's exact per-dataset settings. A model the port does not
-have yet raises ``NotImplementedError`` naming its ROADMAP item.
+with the reference's exact per-dataset settings.
 
 ``data`` is the loader's dict with keys ``dense_feas / sparse_feas /
 scenario_feas / id_feas / domain_num`` (as applicable). The port adds
@@ -28,8 +27,7 @@ def _feats(d, *keys):
 
 
 def _get(name, kw):
-    """The model class of ``name`` with ``kw`` bound; raises
-    ``NotImplementedError`` for a model the port does not have yet."""
+    """The model class of ``name`` with ``kw`` bound."""
     return functools.partial(get_model(name), **kw)
 
 

@@ -55,6 +55,12 @@ def _prelu_apply(params, x):
     return torch.where(x >= 0, x, params["alpha"] * x)
 
 
+def leaky_relu(x):
+    """torch ``LeakyReLU(0.1)``, as the JAX package writes it:
+    ``where(x >= 0, x, 0.1 x)``."""
+    return torch.where(x >= 0, x, 0.1 * x)
+
+
 _REGISTRY = {
     "sigmoid": Activation("sigmoid", _no_params, lambda p, x: torch.sigmoid(x)),
     "relu": Activation("relu", _no_params, lambda p, x: torch.relu(x)),
@@ -63,9 +69,7 @@ _REGISTRY = {
     # reference nn.Softmax(dim=1), always applied to 2-D gate logits
     "softmax": Activation("softmax", _no_params,
                           lambda p, x: torch.softmax(x, dim=-1)),
-    "leakyrelu": Activation(
-        "leakyrelu", _no_params, lambda p, x: torch.where(x >= 0, x, 0.1 * x)
-    ),
+    "leakyrelu": Activation("leakyrelu", _no_params, lambda p, x: leaky_relu(x)),
 }
 
 

@@ -1,8 +1,12 @@
 """Global compute configuration and device resolution.
 
-``compute_dtype``: when set to ``torch.bfloat16``, matmul/einsum inputs are
-cast to bf16 and the products come back as f32. Parameters stay f32.
-Default ``None`` keeps full f32 everywhere, the parity configuration.
+``compute_dtype``: when set to ``torch.bfloat16``, :func:`matmul` and
+:func:`einsum` round their operands to bf16 and return the f32 accumulation
+of the rounded operands, as the JAX package's ``preferred_element_type=f32``
+products do: the rounded operands are upcast to f32 and multiplied in f32
+(TF32 off, see below), where each product of two bf16 values is exact.
+Parameters stay f32. Default ``None`` keeps full f32 everywhere, the parity
+configuration, and leaves the products untouched.
 
 Parity numerics: a float32 matrix product on the card may run in TF32 if
 ``torch.backends.cuda.matmul.allow_tf32`` is set, and a float32 convolution
@@ -35,18 +39,22 @@ def set_parity_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _rounded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the compute dtype and back to f32."""
+    return t.to(_compute_dtype).float()
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w honoring the compute dtype (f32 result)."""
+    """x @ w honoring the compute dtype (f32 accumulation)."""
     if _compute_dtype is not None:
-        return torch.matmul(x.to(_compute_dtype), w.to(_compute_dtype)).float()
+        return torch.matmul(_rounded(x), _rounded(w))
     return torch.matmul(x, w)
 
 
 def einsum(spec: str, *args: torch.Tensor) -> torch.Tensor:
-    """einsum honoring the compute dtype (f32 result)."""
+    """einsum honoring the compute dtype (f32 accumulation)."""
     if _compute_dtype is not None:
-        args = tuple(a.to(_compute_dtype) for a in args)
-        return torch.einsum(spec, *args).float()
+        return torch.einsum(spec, *(_rounded(a) for a in args))
     return torch.einsum(spec, *args)
 
 

@@ -1,6 +1,7 @@
 // Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// tower_infer.cu, star_infer.cu, ple_infer.cu, sarnet_infer.cu and
-// gated_infer.cu.
+// tower_infer.cu, star_infer.cu, ple_infer.cu, sarnet_infer.cu,
+// gated_infer.cu, hamur_infer.cu, adaptdhm_infer.cu, m2m_infer.cu and
+// m3oe_infer.cu.
 //
 // Each of those kernels runs a model's whole eval stack after the embedding
 // for a tile of `tb` rows in one thread block, with every activation in
@@ -49,6 +50,8 @@ __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 // relu that keeps a NaN visible, as max(x, 0) does in XLA
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+// torch LeakyReLU(0.1), as where(x >= 0, x, 0.1 x)
+__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.1f * v; }
 
 // Row groups of a tile: group g holds rows[g * R + m] for m < cnt[g] (the
 // rest repeat its first row and are never written) and uses domain dom[g].
@@ -151,8 +154,9 @@ __device__ void build_groups(const int* did_s, int rows, int tb, int* ints,
   *domain_g = Groups{drows, dcnt, ddom, *dn};
 }
 
-// The epilogue of a dense stage: column j of the group's valid rows.
-template <int R, bool kRelu, bool kAccum>
+// The epilogue of a dense stage: column j of the group's valid rows, relu
+// (kRelu) or leakyrelu (kLeaky) after the bias.
+template <int R, bool kRelu, bool kAccum, bool kLeaky = false>
 __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, const float* acc,
                                       const int* rr, const float* __restrict__ bias,
                                       size_t b_dstride, float* out, int ld_out) {
@@ -163,7 +167,7 @@ __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, cons
     if (m < c) {
       float* o = out + (size_t)rr[m] * ld_out + j;
       const float v = (kAccum ? *o + acc[m] : acc[m]) + bj;
-      *o = kRelu ? relu(v) : v;
+      *o = kRelu ? relu(v) : kLeaky ? lrelu(v) : v;
     }
 }
 
@@ -179,7 +183,7 @@ __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, cons
 // over `ks` neighbouring lanes instead, ks a power of two up to 32, summed
 // by a shuffle: otherwise an aux layer of 16 columns would keep 32 of 256
 // threads busy, each walking all of k.
-template <int R, bool kRelu, bool kAccum = false>
+template <int R, bool kRelu, bool kAccum = false, bool kLeaky = false>
 __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __restrict__ W,
                               size_t w_dstride, const float* __restrict__ bias,
                               size_t b_dstride, int N, float* out, int ld_out, int ks) {
@@ -224,10 +228,10 @@ __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __res
 #pragma unroll
     for (int m = 0; m < R; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
   if (active && part == 0)
-    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
+    store<R, kRelu, kAccum, kLeaky>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
 }
 
-template <int R, bool kRelu, bool kAccum = false>
+template <int R, bool kRelu, bool kAccum = false, bool kLeaky = false>
 __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ W,
                       size_t w_dstride, const float* __restrict__ bias,
                       size_t b_dstride, int N, float* out, int ld_out) {
@@ -235,7 +239,8 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
   int ks = 1;
   while (ks < 32 && 2 * ks * items <= (int)blockDim.x) ks *= 2;
   if (ks > 1) {
-    dense_split_k<R, kRelu, kAccum>(G, in, K, W, w_dstride, bias, b_dstride, N, out, ld_out, ks);
+    dense_split_k<R, kRelu, kAccum, kLeaky>(G, in, K, W, w_dstride, bias, b_dstride, N, out,
+                                            ld_out, ks);
     return;
   }
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -272,7 +277,7 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
 #pragma unroll
       for (int m = 0; m < R; ++m) acc[m] = fmaf(ar[m][k], wk, acc[m]);
     }
-    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
+    store<R, kRelu, kAccum, kLeaky>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
   }
 }
 
@@ -292,10 +297,10 @@ __device__ void softmax_rows(float* x, int ld, int N, int rows) {
   }
 }
 
-// Runs stages st[0..n) on `in`, each followed by relu (kAct = 1) or by a
-// softmax over its columns (kAct = 2), or by nothing (kAct = 0). Stage s of
-// group g uses member `member + dom[g] * member_dmul` of its stacked
-// weights. Intermediate results alternate between pp0 and pp1 [tb, ld_pp]
+// Runs stages st[0..n) on `in`, each followed by relu (kAct = 1), by a
+// softmax over its columns (kAct = 2), by leakyrelu(0.1) (kAct = 3), or by
+// nothing (kAct = 0). Stage s of group g uses member
+// `member + dom[g] * member_dmul` of its stacked weights. Intermediate results alternate between pp0 and pp1 [tb, ld_pp]
 // (never the buffer being read); the last stage writes to `last` [tb,
 // ld_last] when it is given. Returns where the result lies. Every thread
 // of the block calls it; it ends synchronised.
@@ -309,9 +314,9 @@ __device__ Act chain(const Groups& G, Act in, const Stage* st, int n, int member
     const bool to_last = last != nullptr && s == n - 1;
     float* out = to_last ? last : (in.p == pp0 ? pp1 : pp0);
     const int ld_out = to_last ? ld_last : ld_pp;
-    dense<R, kAct == 1>(G, in, S.K, S.w + (size_t)member * kn, (size_t)member_dmul * kn,
-                        S.b + (size_t)member * S.N, (size_t)member_dmul * S.N, S.N,
-                        out, ld_out);
+    dense<R, kAct == 1, false, kAct == 3>(
+        G, in, S.K, S.w + (size_t)member * kn, (size_t)member_dmul * kn,
+        S.b + (size_t)member * S.N, (size_t)member_dmul * S.N, S.N, out, ld_out);
     __syncthreads();
     if (kAct == 2) {
       softmax_rows(out, ld_out, S.N, rows);

@@ -31,7 +31,17 @@ every leaf into the module entry of the same path:
 - HAMUR's other leaves by their own paths (``blocks[i]/{lin,bn}``,
   ``final``, ``hyper[i]/{lin,bn}``, ``adapters[j]/<name>``), and
   AdaptDHM's ``w[branch][layer]``, ``b[branch][layer]`` and
-  ``state/center``, which the port keeps as a buffer.
+  ``state/center``, which the port keeps as a buffer;
+- M2M's ``transformer/{enc[i]/{attn/{in_w,in_b,out_w,out_b}, ff/{l1,l2}/
+  {w,b}, norm1, norm2}, dec[i]/{self_attn, cross_attn, ff, norm1, norm2,
+  norm3}, enc_norm, dec_norm}`` (each norm ``{gamma, beta}``), ``v``, and
+  its banks ``experts`` (stacked on the expert axis), ``task``,
+  ``scenario``, ``vw``, ``vb``, ``tw``, ``tb`` and ``out`` by the bank rule
+  above;
+- M3oE's ``w_{exp,bal}_{d,t}``, ``skip[i]/{lin,ln}``, ``shared_w``,
+  ``shared_b``, ``slot_w``, ``slot_b``, ``star_mlp[i]``, the lists of lists
+  ``experts[e][i]`` and ``domain_experts[d][i]``, ``gates[d]/{w,b}`` and
+  ``towers[d]/{l1, ln, l2}``; its state is empty.
 
 Any shape mismatch, and any entry missing or left over on either side,
 raises. No JAX is imported.

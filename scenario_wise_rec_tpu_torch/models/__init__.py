@@ -1,10 +1,9 @@
 """Model registry (the JAX package's ``models/__init__.py``).
 
-``MODEL_REGISTRY`` holds the models the port has, under every alias the
-JAX registry gives them; :func:`get_model` resolves any casing of a name
-(the reference scripts spell "sharedbottom" three ways). A name the JAX
-registry knows that the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item, not ``KeyError``.
+``MODEL_REGISTRY`` holds every model of the JAX registry, under every
+alias it gives them; :func:`get_model` resolves any casing of a name (the
+reference scripts spell "sharedbottom" three ways) and raises ``KeyError``
+for a name it does not know.
 """
 
 from .adaptdhm import AdaptDHM
@@ -12,6 +11,8 @@ from .adasparse import AdaSparse
 from .base import Base, Model, domain_ids
 from .epnet import EPNet
 from .hamur import HamurLarge, HamurSmall, MlpNLayer
+from .m2m import M2M
+from .m3oe import M3oE
 from .mmoe import MMOE
 from .ple import PLE
 from .ppnet import PPNet
@@ -29,6 +30,8 @@ MODEL_REGISTRY = {
     "epnet": EPNet,
     "ppnet": PPNet,
     "adasparse": AdaSparse,
+    "m2m": M2M,
+    "m3oe": M3oE,
     "adaptdhm": AdaptDHM,
     "hamur": HamurLarge,
     "hamurlarge": HamurLarge,
@@ -38,8 +41,6 @@ MODEL_REGISTRY = {
     "base": Base,
 }
 
-# the JAX registry's other names, each with the ROADMAP item that ports it
-NOT_PORTED = {name: "A11" for name in ("m2m", "m3oe")}
 
 
 def get_model(name: str):
@@ -48,14 +49,9 @@ def get_model(name: str):
     for k in (key, key.replace("_", "")):
         if k in MODEL_REGISTRY:
             return MODEL_REGISTRY[k]
-        if k in NOT_PORTED:
-            raise NotImplementedError(
-                f"model '{name}' is not ported yet (ROADMAP {NOT_PORTED[k]}; "
-                f"the port has {sorted(MODEL_REGISTRY)})")
-    raise KeyError(f"unknown model '{name}' (known: "
-                   f"{sorted(MODEL_REGISTRY) + sorted(NOT_PORTED)})")
+    raise KeyError(f"unknown model '{name}' (known: {sorted(MODEL_REGISTRY)})")
 
 
-__all__ = ["AdaSparse", "AdaptDHM", "Base", "EPNet", "HamurLarge", "HamurSmall", "MlpNLayer",
-           "Model", "domain_ids", "MMOE", "PLE", "PPNet", "Sarnet", "SharedBottom", "Star",
-           "MODEL_REGISTRY", "NOT_PORTED", "get_model"]
+__all__ = ["AdaSparse", "AdaptDHM", "Base", "EPNet", "HamurLarge", "HamurSmall", "M2M", "M3oE",
+           "MlpNLayer", "Model", "domain_ids", "MMOE", "PLE", "PPNet", "Sarnet", "SharedBottom",
+           "Star", "MODEL_REGISTRY", "get_model"]

@@ -23,7 +23,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core import config as compute_config
 from ..core.features import sum_embed_dims
 from ..ops.embedding import EmbeddingCollection
 from ..ops.kernels.folding import fold_stacked_mlp_eval
@@ -83,11 +82,11 @@ class PLE(Model):
                                    per_member_x=True)            # [D, B, S + n_sh]
             experts = torch.cat(
                 [spec, shared[None].expand((D,) + tuple(shared.shape))], dim=1)
-            mixed = compute_config.einsum("dbe,debh->dbh", gates, experts)
+            mixed = torch.einsum("dbe,debh->dbh", gates, experts)
             if "gate_shared" in level:
                 gs = level["gate_shared"](shared_in, train, w, generator)  # [B, n_all]
                 every = torch.cat([spec.reshape((-1,) + tuple(spec.shape[2:])), shared])
-                shared_in = compute_config.einsum("be,ebh->bh", gs, every)
+                shared_in = torch.einsum("be,ebh->bh", gs, every)
             streams = mixed
         ys = self.towers(streams, train, w, generator, per_member_x=True)  # [D, B, 1]
         return domain_select(torch.sigmoid(ys), did)

@@ -25,7 +25,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core import config as compute_config
 from ..core import init as initializers
 from ..core.features import sum_embed_dims
 from ..ops.embedding import EmbeddingCollection
@@ -73,13 +72,13 @@ class Sarnet(Model):
         D = self.domain_num
         scaled = emb[None] * self.dom_w[:, None, :] + self.dom_b[:, None, :]  # [D, B, in]
         onehot = nn.functional.one_hot(torch.clamp(did.long(), 0, D - 1), D).to(emb.dtype)
-        shared_emb = compute_config.einsum("bd,dbi->bi", onehot, scaled)
+        shared_emb = torch.einsum("bd,dbi->bi", onehot, scaled)
         shared_out = self.shared(shared_emb, train, w)                 # [n_shared, B, 16]
         spec_out = self.spec(scaled[:, None], train, w)                # [D, n_spec, B, 16]
-        spec_sel = compute_config.einsum("bd,debo->ebo", onehot, spec_out)
+        spec_sel = torch.einsum("bd,debo->ebo", onehot, spec_out)
         experts = torch.cat([shared_out, spec_sel])                    # [E, B, 16]
         gate = torch.softmax(self.gate(shared_emb), dim=-1)            # [B, E]
-        mixed = compute_config.einsum("be,ebo->bo", gate, experts)
+        mixed = torch.einsum("be,ebo->bo", gate, experts)
         return torch.sigmoid(self.final(mixed, train, w, generator))[:, 0]
 
     @torch.no_grad()

@@ -1,6 +1,8 @@
 from .embedding import EmbeddingCollection, clamp_rows, input_mask
-from .nn import BN_EPS, MLP, BatchNorm, Linear, batch_stats, batchnorm, linear
+from .nn import (BN_EPS, MLP, BatchNorm, LayerNorm, Linear, batch_stats, batchnorm, layernorm,
+                 linear)
 from .select import domain_select
+from .transformer import Transformer
 
 __all__ = [
     "EmbeddingCollection",
@@ -9,9 +11,12 @@ __all__ = [
     "BN_EPS",
     "MLP",
     "BatchNorm",
+    "LayerNorm",
     "Linear",
     "batch_stats",
     "batchnorm",
+    "layernorm",
     "linear",
     "domain_select",
+    "Transformer",
 ]

@@ -17,8 +17,14 @@
   between them (``hamur_fused_infer``);
 - ``adaptdhm_infer``: AdaptDHM's routed-cluster FCN
   (``csrc/adaptdhm_infer.cu``), with ``adaptdhm_route_margin`` for comparing
-  it across a near-tie of the routing logits. Every fused eval kernel but MMOE's is built
-  over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
+  it across a near-tie of the routing logits;
+- ``m2m_infer``: M2M's eval after its transformer (``csrc/m2m_infer.cu``):
+  the experts, the hyper-MLPs, the meta-attention over each row's generated
+  matrix, the meta-tower and the output MLP;
+- ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
+  a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
+  MMOE's is built over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds
+  their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort.
@@ -36,6 +42,8 @@ from .gated_infer import (adasparse_fused_infer, adasparse_fused_infer_ref,
                           epnet_fused_infer_ref, ppnet_fused_infer, ppnet_fused_infer_ref)
 from .hamur_infer import (adapter_norm_affine, hamur_fused_infer, hamur_fused_infer_ref,
                           hamur_hyper, hamur_segment, hamur_segment_ref)
+from .m2m_infer import m2m_fused_infer, m2m_fused_infer_ref
+from .m3oe_infer import m3oe_fused_infer, m3oe_fused_infer_ref
 from .mmoe_infer import mmoe_fused_infer, mmoe_fused_infer_ref
 from .ple_infer import LevelSpec, ple_fused_infer, ple_fused_infer_ref
 from .sarnet_infer import sarnet_fused_infer, sarnet_fused_infer_ref
@@ -50,8 +58,8 @@ __all__ = ["LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
            "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
            "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
            "hamur_fused_infer", "hamur_fused_infer_ref", "hamur_hyper", "hamur_segment",
-           "hamur_segment_ref",
-           "mmoe_fused_infer", "mmoe_fused_infer_ref", "owner_sorted_grads",
+           "hamur_segment_ref", "m2m_fused_infer", "m2m_fused_infer_ref", "m3oe_fused_infer",
+           "m3oe_fused_infer_ref", "mmoe_fused_infer", "mmoe_fused_infer_ref", "owner_sorted_grads",
            "ple_fused_infer", "ple_fused_infer_ref", "ppnet_fused_infer",
            "ppnet_fused_infer_ref", "sarnet_fused_infer", "sarnet_fused_infer_ref",
            "sorted_dense_adam_apply", "sorted_dense_adam_apply_ref", "star_fused_infer",

@@ -7,6 +7,9 @@ The counterpart of the JAX package's ``ops/nn.py``:
                         running stats in eval, unbiased-var running update),
                         with the weight-masked ``batch_stats`` so padded rows
                         stay invisible
+- ``layernorm``       — torch LayerNorm over the last axis (biased variance,
+                        eps 1e-5), with a ``LayerNorm`` module for its
+                        ``gamma``/``beta``
 - ``MLP``             — [Linear -> BN -> act -> Dropout]* (+ optional (·,1) head)
 - ``GateNU``          — PEPNet's gate ``gemma·sigmoid(relu(x W1 + b1) W2 + b2)``
 - ``Pruner``          — AdaSparse's bias-free pruner on ``[sce ‖ h]``
@@ -35,6 +38,7 @@ from ..core.activations import activation as activation_factory
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+LN_EPS = 1e-5
 
 
 def _row(t: torch.Tensor) -> torch.Tensor:
@@ -88,6 +92,14 @@ def batchnorm(x, gamma, beta, mean, var, train: bool, w=None,
         y = (x - _row(mean)) * torch.rsqrt(_row(var) + BN_EPS)
         new_mean, new_var = mean, var
     return y * _row(gamma) + _row(beta), new_mean, new_var
+
+
+def layernorm(x, gamma, beta, eps: float = LN_EPS):
+    """torch LayerNorm over the last axis, in the JAX package's operation
+    order: ``(x - mean) * rsqrt(var + eps) * gamma + beta``, var biased."""
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mean) ** 2, dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
 
 
 def domain_norm(x, gamma, beta, eps: float, unbiased: bool = False, w=None):
@@ -152,6 +164,19 @@ class BatchNorm(nn.Module):
                 self.mean.copy_(new_mean)
                 self.var.copy_(new_var)
         return y
+
+
+class LayerNorm(nn.Module):
+    """:func:`layernorm` with ``gamma`` (ones) and ``beta`` (zeros)
+    parameters of width ``dim``."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim, device=device))
+        self.beta = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        return layernorm(x, self.gamma, self.beta)
 
 
 class _Layer(nn.Module):
@@ -283,7 +308,7 @@ class Pruner(nn.Module):
         self.w = nn.Parameter(p["w"])
 
     def forward(self, sce, h, alpha):
-        vin = compute_config.matmul(torch.cat([sce, h], dim=1), self.w)
+        vin = torch.cat([sce, h], dim=1) @ self.w
         if self.form == "Binarization":
             return torch.sign(torch.sigmoid(vin * alpha) - self.epsilon)
         if self.form == "Fusion":

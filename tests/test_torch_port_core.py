@@ -146,3 +146,109 @@ def test_parity_numerics_and_compute_dtype():
     finally:
         port_config.set_compute_dtype(None)
     torch.testing.assert_close(port_config.einsum("bi,io->bo", x, w), x @ w)
+
+
+# -- the bf16 compute mode against the JAX package's --------------------------------------
+
+@pytest.fixture
+def bf16_both():
+    """Both packages' compute dtype at bf16 for one test, f32 again after it
+    (the flag is global, and a worker runs a file's tests in one process)."""
+    from scenario_wise_rec_tpu.core import config as jconfig
+
+    jconfig.set_compute_dtype(jnp.bfloat16)
+    port_config.set_compute_dtype(torch.bfloat16)
+    try:
+        yield
+    finally:
+        jconfig.set_compute_dtype(None)
+        port_config.set_compute_dtype(None)
+
+
+# f32 accumulation of bf16-rounded operands: each product is exact in f32,
+# so the two packages differ only in the order of the f32 sums
+BF16_RTOL, BF16_ATOL = 1e-5, 1e-6
+# A model forward rounds every layer's input to bf16 again: an f32 sum that
+# differs in its last bit between the two can round to the other bf16
+# neighbour (a 2^-8 step of that one operand), which moves a probability by
+# up to ~5e-5. So a forward holds BF16_ROWS of its rows to the tolerance
+# above and every row to BF16_FLIP_ATOL. A product returned in bf16, the
+# fault this closes, misses the first on every model (a 2^-9 error in every
+# product moves most rows by 1e-5 to 1e-4).
+BF16_ROWS, BF16_FLIP_ATOL = 0.9, 1e-4
+
+
+def test_bf16_products_accumulate_in_f32(bf16_both, np_rng):
+    """``matmul`` and ``einsum`` in bf16 mode return the f32 accumulation of
+    the bf16-rounded operands, as the JAX package's do: at the
+    ``[64, 376] @ [376, 256]`` shape of the fault they closed, a bf16 result
+    was off by 4e-3 of its scale."""
+    from scenario_wise_rec_tpu.core import config as jconfig
+
+    x = np_rng.normal(size=(64, 376)).astype(np.float32)
+    w = np_rng.normal(size=(376, 256)).astype(np.float32)
+    s = np_rng.normal(size=(3, 64, 5)).astype(np.float32)
+    want = np.asarray(jconfig.matmul(jnp.asarray(x), jnp.asarray(w)))
+    got = port_config.matmul(torch.tensor(x), torch.tensor(w))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL, atol=BF16_ATOL * np.abs(want).max())
+    exact = (torch.tensor(x).bfloat16().double() @ torch.tensor(w).bfloat16().double()).numpy()
+    np.testing.assert_allclose(got.numpy(), exact, rtol=BF16_RTOL, atol=BF16_ATOL * np.abs(exact).max())
+    want = np.asarray(jconfig.einsum("dbe,bi->dei", jnp.asarray(s), jnp.asarray(x)))
+    got = port_config.einsum("dbe,bi->dei", torch.tensor(s), torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL, atol=BF16_ATOL * np.abs(want).max())
+
+
+def _bf16_models():
+    """(name, JAX class, port class, kwargs for a features module) of the
+    models whose forwards the bf16 mode reaches."""
+    def feats(m):
+        return ([m.SparseFeature(f"s{i}", vocab_size=40, embed_dim=8) for i in range(4)],
+                [m.DenseFeature(f"d{i}") for i in range(2)],
+                [m.SparseFeature("domain_indicator", vocab_size=3, embed_dim=8)])
+
+    return {
+        "mmoe": lambda m: dict(features=sum(feats(m)[:2], []), domain_num=3, n_expert=3,
+                               expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+        "ple": lambda m: dict(features=sum(feats(m)[:2], []), domain_num=3, n_level=2,
+                              n_expert_specific=2, n_expert_shared=1,
+                              expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+        "sarnet": lambda m: dict(features=sum(feats(m)[:2], []), domain_num=3,
+                                 domain_shared_expert_num=4, domain_specific_expert_num=2),
+        "adasparse": lambda m: dict(sce_features=feats(m)[2], agn_features=feats(m)[0],
+                                    form="Scaling",
+                                    mlp_params={"dims": [16, 8], "dropout": 0.0}),
+    }
+
+
+@pytest.mark.parametrize("name", ["mmoe", "ple", "sarnet", "adasparse"])
+def test_bf16_forward_matches_jax(bf16_both, name):
+    """One eval forward of each model with both packages in bf16, weights
+    carried across: the port's products are the JAX package's f32
+    accumulations, and the five products the JAX package leaves in f32 (PLE's
+    and SAR-Net's mixtures and selects, the AdaSparse pruner) are plain f32
+    in the port too. A bf16 input rounded differently would move a
+    probability by ~1e-3."""
+    from scenario_wise_rec_tpu import models as jmodels
+    from scenario_wise_rec_tpu_torch import models as pmodels
+    from scenario_wise_rec_tpu_torch.interop import load_jax_params
+
+    kw = _bf16_models()[name]
+    jm = jmodels.get_model(name)(**kw(jf))
+    params, state = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    r = np.random.default_rng(1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: (jnp.asarray(r.normal(0, 0.5, a.shape).astype(np.float32))
+                      if "embedding" in str(p[0]) else a), params)
+    pm = pmodels.get_model(name)(**kw(pf), device="cpu",
+                                 generator=port_config.make_generator(torch.device("cpu"), 0))
+    load_jax_params(pm, *jax.tree_util.tree_map(np.asarray, (params, state)))
+    x = {f"s{i}": r.integers(0, 40, 37) for i in range(4)}
+    x.update({f"d{i}": r.normal(size=37).astype(np.float32) for i in range(2)})
+    x["domain_indicator"] = r.integers(0, 3, 37)
+    want, _ = jm.apply(params, state, {k: jnp.asarray(v) for k, v in x.items()}, train=False)
+    with torch.no_grad():
+        got = pm.apply({k: torch.as_tensor(v) for k, v in x.items()}, train=False)
+    gap = np.abs(got.numpy() - np.asarray(want))
+    within = gap <= BF16_ATOL + BF16_RTOL * np.abs(np.asarray(want))
+    assert within.mean() >= BF16_ROWS and gap.max() <= BF16_FLIP_ATOL, (within.mean(), gap.max())

@@ -683,3 +683,108 @@ def test_adaptdhm_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         ka.adaptdhm_fused_infer(emb, rid, [stages[0].double(), stages[1]])
     assert ka.adaptdhm_fused_infer(emb[:0], rid[:0], stages).shape == (0,)
+
+
+# -- m2m_fused_infer and m3oe_fused_infer -------------------------------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import m2m_infer as km  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import m3oe_infer as k3  # noqa: E402
+
+
+def _m2m_args(gen, F, Fd, E, nE, expert_dims, hyper_dims, out_dims):
+    """``m2m_fused_infer``'s weights after its two inputs: hyper_dims are the
+    hidden widths of every hyper-MLP, before its generated output."""
+    hyper = lambda i, o: _affines(gen, (), [i] + hyper_dims + [o])
+    return (_affines(gen, (nE,), [F] + expert_dims + [E]), hyper(Fd, E), hyper(Fd, E),
+            hyper(E, 4 * E * E), hyper(E, 2 * E), hyper(E, E * E), hyper(E, E),
+            torch.randn(2 * E, 1, generator=gen, device="cuda"),
+            _affines(gen, (), [E] + out_dims), _affines(gen, (), [(out_dims or [E])[-1], 1])[0])
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, F, Fd, E, nE, expert hidden, hyper hidden, output MLP, block_rows)
+    (4096, 376, 16, 16, 4, [], [], [64, 32], 16),  # Ali-CCP
+    (4095, 376, 16, 16, 4, [], [], [64, 32], 24),  # ragged, the widest tile that fits
+    (333, 41, 7, 5, 3, [9], [6], [7], 8),           # widths not multiples of 4
+    (1, 20, 8, 8, 2, [], [], [], 64),               # no output MLP: the head on h
+])
+def test_m2m_kernel_matches_plain(gen, cfg):
+    B, F, Fd, E, nE, ed, hd, od, rows = cfg
+    t_out = torch.randn(B, F, generator=gen, device="cuda")
+    dom = torch.randn(B, Fd, generator=gen, device="cuda")
+    args = _m2m_args(gen, F, Fd, E, nE, ed, hd, od)
+    before = km.m2m_fused_infer.launches
+    got = km.m2m_fused_infer(t_out, dom, *args, E=E, block_rows=rows)
+    torch.cuda.synchronize()
+    assert km.m2m_fused_infer.launches == before + 1
+    want = km.m2m_fused_infer_ref(t_out, dom, *args, E=E)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_m2m_kernel_rejects_what_it_does_not_take(gen):
+    t_out = torch.randn(10, 20, generator=gen, device="cuda")
+    dom = torch.randn(10, 8, generator=gen, device="cuda")
+    args = _m2m_args(gen, 20, 8, 4, 2, [], [], [8])
+    with pytest.raises(ValueError):
+        km.m2m_fused_infer(t_out, dom, *args, E=4, block_rows=12)
+    with pytest.raises(ValueError):
+        km.m2m_fused_infer(t_out, dom.cpu(), *args, E=4)
+    with pytest.raises(ValueError):
+        km.m2m_fused_infer(t_out.double(), dom, *args, E=4)
+    with pytest.raises(ValueError):  # E does not match the generated widths
+        km.m2m_fused_infer(t_out, dom, *args, E=5)
+    assert km.m2m_fused_infer(t_out[:0], dom[:0], *args, E=4).shape == (0,)
+    with pytest.raises(RuntimeError, match="shared memory"):  # 64 rows of the Ali-CCP tile
+        km.m2m_fused_infer(torch.randn(64, 376, device="cuda"), torch.randn(64, 16, device="cuda"),
+                           *_m2m_args(gen, 376, 16, 16, 4, [], [], [64, 32]), E=16,
+                           block_rows=64)
+
+
+def _ln_layers(gen, lead, dims):
+    return [(w, b, 0.5 + torch.rand(*lead, w.shape[-1], generator=gen, device="cuda"),
+             0.1 * torch.randn(*lead, w.shape[-1], generator=gen, device="cuda"))
+            for w, b in _affines(gen, lead, dims)]
+
+
+def _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden=()):
+    """``m3oe_fused_infer``'s weights after ``(emb, domain_id)``."""
+    l1 = _ln_layers(gen, (D,), [fcn[-1], fcn[-1]])[0]
+    return (_affines(gen, (D,), [s0, s1])[0], _ln_layers(gen, (), [s0, *skip_hidden, s2]),
+            _ln_layers(gen, (), [s1, s2]), _affines(gen, (D,), [s2, E])[0],
+            _ln_layers(gen, (E,), [s2] + fcn), _ln_layers(gen, (D,), [s2] + fcn),
+            (*l1, *_affines(gen, (D,), [fcn[-1], 1])[0]),
+            torch.rand(1, generator=gen, device="cuda"),
+            torch.rand(1, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, s0, s1, s2, D, E, expert widths, skip hidden, ids drawn from, block_rows)
+    (4096, 376, 512, 256, 3, 4, [64], (), (0, 3), 16),     # Ali-CCP
+    (4095, 376, 512, 256, 3, 4, [64], (), (-2, 6), 24),    # ragged; ids -2..5, clipped
+    (333, 41, 23, 13, 2, 3, [9, 5], (11,), (0, 2), 8),     # two layers a chain
+    (130, 30, 16, 12, 1, 2, [6], (), (0, 1), 64),          # one domain: its own branch
+    (1, 20, 8, 8, 4, 2, [4], (), (3, 4), 16),
+])
+def test_m3oe_kernel_matches_plain(gen, cfg):
+    B, s0, s1, s2, D, E, fcn, skip_hidden, (lo, hi), rows = cfg
+    emb = torch.randn(B, s0, generator=gen, device="cuda")
+    did = torch.randint(lo, hi, (B,), generator=gen, device="cuda")
+    args = _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden)
+    _launch_and_compare(gen, k3.m3oe_fused_infer, k3.m3oe_fused_infer_ref, emb, did, *args,
+                        rows=rows)
+
+
+def test_m3oe_kernel_rejects_what_it_does_not_take(gen):
+    emb = torch.randn(10, 20, generator=gen, device="cuda")
+    did = torch.zeros(10, dtype=torch.long, device="cuda")
+    args = _m3oe_args(gen, 20, 16, 8, 2, 2, [4])
+    with pytest.raises(ValueError):
+        k3.m3oe_fused_infer(emb, did, *args, block_rows=12)
+    with pytest.raises(ValueError):
+        k3.m3oe_fused_infer(emb, did.cpu(), *args)
+    with pytest.raises(ValueError):
+        k3.m3oe_fused_infer(emb.double(), did, *args)
+    with pytest.raises(ValueError):
+        k3.m3oe_fused_infer(emb, did.float(), *args)
+    assert k3.m3oe_fused_infer(emb[:0], did[:0], *args).shape == (0,)

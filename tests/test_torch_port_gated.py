@@ -317,8 +317,7 @@ def test_registry_aliases():
                       ("AdaSparse", pmodels.AdaSparse), ("ada-sparse", pmodels.AdaSparse)):
         assert pmodels.get_model(name) is cls
         assert jmodels.get_model(name).__name__ == cls.__name__
-    assert set(pmodels.MODEL_REGISTRY) | set(pmodels.NOT_PORTED) == set(jmodels.MODEL_REGISTRY)
-    assert not {"sarnet", "epnet", "ppnet", "adasparse"} & set(pmodels.NOT_PORTED)
+    assert set(pmodels.MODEL_REGISTRY) == set(jmodels.MODEL_REGISTRY)
     m = pconfigs.build_model("ali_ccp", "adasparse", _ladder_data(pf), device="cpu")
     assert (m.mlp_dims, m.dropout_p, m.pruners[0].form) == ([256, 128, 64, 32, 16, 8], 0.2,
                                                            "Fusion")

@@ -448,8 +448,11 @@ def test_registry_aliases_and_ladders():
                       ("MlpN", pmodels.MlpNLayer), ("AdaptDHM", pmodels.AdaptDHM)):
         assert pmodels.get_model(name) is cls
         assert jmodels.get_model(name).__name__ == cls.__name__
-    assert set(pmodels.MODEL_REGISTRY) | set(pmodels.NOT_PORTED) == set(jmodels.MODEL_REGISTRY)
-    assert set(pmodels.NOT_PORTED) == {"m2m", "m3oe"}
+    assert set(pmodels.MODEL_REGISTRY) == set(jmodels.MODEL_REGISTRY)
+    for name in jmodels.MODEL_REGISTRY:
+        assert pmodels.get_model(name).__name__ == jmodels.get_model(name).__name__, name
+    with pytest.raises(KeyError):
+        pmodels.get_model("hamur_medium")
     m = pconfigs.build_model("ali_ccp", "hamur", _ladder_data(pf), device="cpu")
     assert isinstance(m, pmodels.HamurLarge) and m.k == 65 and m.adapter_after == (6, 7)
     assert m.fcn_dim[1:] == [256, 128, 64, 64, 32, 16, 8] and m.hyper_dims == [64, 65 * 65]

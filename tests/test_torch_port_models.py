@@ -390,15 +390,11 @@ def test_registry_aliases_and_unported_names():
     for name in ("SharedBottom", "sharebottom", "Sharedbottom"):
         assert pmodels.get_model(name) is pmodels.SharedBottom
     assert pmodels.get_model("PLE") is pmodels.PLE and pmodels.get_model("Star") is pmodels.Star
-    assert set(pmodels.MODEL_REGISTRY) | set(pmodels.NOT_PORTED) == set(jmodels.MODEL_REGISTRY)
-    for name in ("m2m", "M2M", "m3oe"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            pmodels.get_model(name)
-    for name in ("hamur", "hamurlarge", "hamur_small", "Hamur_Small", "hamursmall", "mlpn",
-                 "adaptdhm"):
-        assert pmodels.get_model(name).__name__ == jmodels.get_model(name).__name__
-    with pytest.raises(NotImplementedError, match="A11"):
-        pconfigs.build_model("ali_ccp", "m2m", _ladder_data(pf), device="cpu")
+    assert set(pmodels.MODEL_REGISTRY) == set(jmodels.MODEL_REGISTRY)
+    for name in list(jmodels.MODEL_REGISTRY) + ["M2M", "M3oE", "Hamur_Small", "HamurLarge"]:
+        assert pmodels.get_model(name).__name__ == jmodels.get_model(name).__name__, name
+    m = pconfigs.build_model("ali_ccp", "m3oe", _ladder_data(pf), device="cpu")
+    assert isinstance(m, pmodels.M3oE) and m.fcn_dim == [256, 64]
     with pytest.raises(KeyError):
         pmodels.get_model("no_such_model")
     with pytest.raises(KeyError):
