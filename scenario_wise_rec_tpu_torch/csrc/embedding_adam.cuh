@@ -1,0 +1,262 @@
+// Device code shared by the two exact dense-Adam embedding kernels,
+// csrc/sorted_adam.cu and csrc/fused_adam.cu: both sum a vocab tile's
+// duplicate-id gradient rows in shared memory from ids sorted ascending, then
+// stream torch-Adam over every row of the tile. They differ only in how a
+// sorted position finds its gradient row (in place, or through `pos`) and in
+// how many sorted spans feed one tile (one, or one per segment).
+//
+// Adam, per element, with bc1r = 1 / (1 - b1^t), bc2r = 1 / (1 - b2^t):
+//   g  = sum of the row's gradients + wd * p
+//   mu = b1 * mu + (1 - b1) * g
+//   nu = b2 * nu + (1 - b2) * g * g
+//   p  = p - lr * (mu * bc1r) / (sqrt(nu * bc2r) + eps)
+// The _rn intrinsics keep nvcc from contracting anything into an FMA, so each
+// element rounds exactly as the plain PyTorch versions' chain of elementwise
+// ops does; the two differ only in the order in which three or more duplicate
+// gradients are summed.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace emb_adam {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Hp {
+  float lr, wd, b1, b2, bc1r, bc2r, eps;
+};
+
+__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
+                                           long long key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (static_cast<long long>(a[mid]) < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// For segment s (sorted positions [seg_off[s], seg_off[s + 1]), or [0, k) when
+// seg_off is null and nseg == 1) and tile b: starts[s * (nb + 1) + b] is the
+// first position of the segment whose id reaches tile b. Tile b of segment s
+// owns positions [starts[s * (nb + 1) + b], starts[s * (nb + 1) + b + 1]);
+// ids below 0 sort before tile 0 and ids >= v after the last tile, so they
+// reach no tile.
+__global__ void tile_starts_kernel(const int* __restrict__ ids,
+                                   const int* __restrict__ seg_off, int nseg,
+                                   int k, long long v, int block_rows, int nb,
+                                   int* __restrict__ starts) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(nseg) * (nb + 1)) return;
+  const int s = static_cast<int>(t / (nb + 1));
+  const int b = static_cast<int>(t - static_cast<long long>(s) * (nb + 1));
+  const int lo = seg_off ? seg_off[s] : 0;
+  const int hi = seg_off ? seg_off[s + 1] : k;
+  long long bound = static_cast<long long>(b) * block_rows;
+  if (bound > v) bound = v;
+  starts[t] = lo + lower_bound(ids + lo, hi - lo, bound);
+}
+
+__device__ __forceinline__ float adam_element(float p, float& m, float& s,
+                                              float acc, const Hp& h,
+                                              float omb1, float omb2) {
+  const float g = __fadd_rn(acc, __fmul_rn(h.wd, p));
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(omb1, g));
+  s = __fadd_rn(__fmul_rn(h.b2, s), __fmul_rn(omb2, __fmul_rn(g, g)));
+  const float upd = __fdiv_rn(__fmul_rn(h.lr, __fmul_rn(m, h.bc1r)),
+                              __fadd_rn(__fsqrt_rn(__fmul_rn(s, h.bc2r)), h.eps));
+  return __fsub_rn(p, upd);
+}
+
+// Sorted positions one staging pass of a block holds in shared memory.
+inline int stage_rows_for(int d) {
+  int s = (2048 / d) & ~31;
+  return s < 32 ? 32 : (s > 128 ? 128 : s);
+}
+
+// Dynamic shared memory one block needs: the tile's accumulator, the
+// staging buffers of `accumulate_span` and the tile's span of each of the
+// nseg segments.
+inline size_t smem_bytes(int d, int block_rows, int nseg) {
+  const size_t stage = static_cast<size_t>(stage_rows_for(d));
+  return sizeof(float) * static_cast<size_t>(block_rows) * d +
+         stage * (sizeof(float) * (d | 1) + sizeof(int)) +
+         2 * sizeof(int) * static_cast<size_t>(nseg);
+}
+
+// Adds the gradient rows of the sorted positions [lo, hi), whose ids lie in
+// the tile starting at row0 and ascend, into the tile's accumulator
+// acc[block_rows * d]. The gradient row of position p is g[pos[p]], or g[p]
+// when pos is null. Every thread of the block calls it.
+//
+// The block stages `stage_rows` positions at a time in shared memory; then
+// warp w sums columns w, w + 8, ...: its 32 lanes take 32 consecutive
+// positions and a segmented warp scan (shuffles, head flags from the id
+// changes) leaves each run's total in the run's last lane, which adds it to
+// the accumulator. A hot row of thousands of duplicates is summed 32
+// positions per step by every warp at once, not by one thread; one warp owns
+// a column, so no two threads add to one element at once, and the order of
+// the sum is fixed by the data.
+__device__ __forceinline__ void accumulate_span(
+    float* acc, float* s_g, int* s_row, const int* __restrict__ ids,
+    const int* __restrict__ pos, const float* __restrict__ g, int lo, int hi,
+    long long row0, int d, int stage_rows) {
+  const int dp = d | 1;  // odd row stride: a warp reading one column hits 32 banks
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int base = lo; base < hi; base += stage_rows) {
+    const int cnt = min(stage_rows, hi - base);
+    for (int i = tid; i < cnt * d; i += kThreads) {
+      const int r = i / d;
+      const int c = i - r * d;
+      const long long src = pos ? static_cast<long long>(pos[base + r]) : base + r;
+      s_g[r * dp + c] = g[src * d + c];
+    }
+    for (int i = tid; i < cnt; i += kThreads) {
+      s_row[i] = static_cast<int>(ids[base + i] - row0);
+    }
+    __syncthreads();
+    for (int c = warp; c < d; c += kWarps) {
+      for (int p0 = 0; p0 < cnt; p0 += 32) {
+        const int p = p0 + lane;
+        const bool valid = p < cnt;
+        const int row = valid ? s_row[p] : -1;
+        float x = valid ? s_g[p * dp + c] : 0.f;
+        const int prev = __shfl_up_sync(kFull, row, 1);
+        const int next = __shfl_down_sync(kFull, row, 1);
+        const bool head = valid && (lane == 0 || prev != row);
+        const unsigned heads = __ballot_sync(kFull, head);
+        // the lane where this lane's run starts: the highest head at or below
+        // it (lane 0 of a chunk is always a valid head)
+        const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float y = __shfl_up_sync(kFull, x, off);
+          if (lane - off >= start) x = __fadd_rn(x, y);
+        }
+        const bool tail = valid && (lane == 31 || p + 1 == cnt || next != row);
+        if (tail) acc[row * d + c] = __fadd_rn(acc[row * d + c], x);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Adam over the tile's `rows` rows starting at row0, from the summed
+// gradients in acc; 16-byte loads and stores when vec4 (d % 4 == 0 and the
+// three arrays 16-byte aligned).
+__device__ __forceinline__ void adam_tile(float* __restrict__ table,
+                                          float* __restrict__ mu,
+                                          float* __restrict__ nu,
+                                          const float* acc, long long row0,
+                                          int rows, int d, int vec4, const Hp& h) {
+  const int n = rows * d, tid = threadIdx.x;
+  const float omb1 = __fsub_rn(1.f, h.b1), omb2 = __fsub_rn(1.f, h.b2);
+  const size_t off0 = static_cast<size_t>(row0) * d;
+  if (vec4) {
+    float4* t4 = reinterpret_cast<float4*>(table + off0);
+    float4* m4 = reinterpret_cast<float4*>(mu + off0);
+    float4* v4 = reinterpret_cast<float4*>(nu + off0);
+    const float4* a4 = reinterpret_cast<const float4*>(acc);
+    for (int i = tid; i < (n >> 2); i += kThreads) {
+      float4 p = t4[i], m = m4[i], s = v4[i];
+      const float4 a = a4[i];
+      p.x = adam_element(p.x, m.x, s.x, a.x, h, omb1, omb2);
+      p.y = adam_element(p.y, m.y, s.y, a.y, h, omb1, omb2);
+      p.z = adam_element(p.z, m.z, s.z, a.z, h, omb1, omb2);
+      p.w = adam_element(p.w, m.w, s.w, a.w, h, omb1, omb2);
+      t4[i] = p;
+      m4[i] = m;
+      v4[i] = s;
+    }
+  } else {
+    float* t = table + off0;
+    float* m = mu + off0;
+    float* s = nu + off0;
+    for (int i = tid; i < n; i += kThreads) {
+      float mi = m[i], si = s[i];
+      t[i] = adam_element(t[i], mi, si, acc[i], h, omb1, omb2);
+      m[i] = mi;
+      s[i] = si;
+    }
+  }
+}
+
+// One block per tile of block_rows rows: zero the accumulator, sum the tile's
+// sorted spans (one per segment: positions [starts[s * (nb + 1) + b],
+// starts[s * (nb + 1) + b + 1]), read into shared memory all at once), then
+// Adam over the whole tile (rows with no id decay too). Ids are sorted within a segment, so a tile's ids in one
+// segment are one contiguous span and no row is shared with another block:
+// no cross-block reduction, no atomics.
+__global__ void __launch_bounds__(kThreads)
+dense_adam_kernel(float* __restrict__ table, float* __restrict__ mu,
+                  float* __restrict__ nu, const int* __restrict__ ids,
+                  const int* __restrict__ pos, const float* __restrict__ g,
+                  const int* __restrict__ starts, int nseg, int nb, long long v,
+                  int d, int block_rows, int stage_rows, int vec4, const Hp h) {
+  extern __shared__ __align__(16) float smem[];
+  float* acc = smem;                                           // [block_rows * d]
+  float* s_g = acc + static_cast<size_t>(block_rows) * d;      // [stage_rows * (d | 1)]
+  int* s_row = reinterpret_cast<int*>(s_g + static_cast<size_t>(stage_rows) * (d | 1));
+  int* s_span = s_row + stage_rows;                            // [2 * nseg]
+
+  const int b = blockIdx.x;
+  const long long row0 = static_cast<long long>(b) * block_rows;
+  const int rows = static_cast<int>(min(static_cast<long long>(block_rows), v - row0));
+  for (int s = threadIdx.x; s < nseg; s += kThreads) {
+    const int* st = starts + static_cast<size_t>(s) * (nb + 1) + b;
+    s_span[2 * s] = st[0];
+    s_span[2 * s + 1] = st[1];
+  }
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) acc[i] = 0.f;
+  __syncthreads();
+  for (int s = 0; s < nseg; ++s) {
+    accumulate_span(acc, s_g, s_row, ids, pos, g, s_span[2 * s], s_span[2 * s + 1],
+                    row0, d, stage_rows);
+  }
+  adam_tile(table, mu, nu, acc, row0, rows, d, vec4, h);
+}
+
+// Launches tile_starts_kernel, then dense_adam_kernel. Returns
+// cudaGetLastError() after the launches (0 = success).
+inline cudaError_t launch(float* table, float* mu, float* nu, const int* ids,
+                          const int* pos, const float* g, const int* seg_off,
+                          int nseg, int* starts, long long v, int d, int k,
+                          int block_rows, const Hp& h, void* stream) {
+  if (v <= 0 || d <= 0 || k < 0 || nseg <= 0 || block_rows <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long nb_ll = (v + block_rows - 1) / block_rows;
+  if (nb_ll >= 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int nb = static_cast<int>(nb_ll);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_bytes(d, block_rows, nseg);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dense_adam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int vec4 = (d % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(mu) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(nu) % 16 == 0);
+  const long long n_starts = static_cast<long long>(nseg) * (nb + 1);
+  tile_starts_kernel<<<static_cast<unsigned>((n_starts + 255) / 256), 256, 0, s>>>(
+      ids, seg_off, nseg, k, v, block_rows, nb, starts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dense_adam_kernel<<<nb, kThreads, smem, s>>>(table, mu, nu, ids, pos, g, starts,
+                                               nseg, nb, v, d, block_rows,
+                                               stage_rows_for(d), vec4, h);
+  return cudaGetLastError();
+}
+
+}  // namespace emb_adam

@@ -48,8 +48,10 @@ raises. No JAX is imported.
 
 :func:`load_jax_trainer_state` carries a JAX ``CTRTrainer``'s training
 state across as well: optax's ``scale_by_adam`` state becomes the
-``torch.optim.Adam`` state, and the sorted mode's packed ``[V2/r, 128]``
-table and moments become the port's ``[V, D]`` table and moments.
+``torch.optim.Adam`` state, and the embedding update's state becomes the
+port's: the sorted mode's packed ``[V2/r, 128]`` table and moments, the
+occurrence mode's combined ``[V, 3·D]`` store, the dense and winner modes'
+``[V, D]`` moments.
 """
 
 from __future__ import annotations
@@ -137,27 +139,39 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
 
     - optax's ``scale_by_adam`` ``count``/``mu``/``nu`` trees become the
       ``torch.optim.Adam`` ``step``/``exp_avg``/``exp_avg_sq`` of the
-      parameter of the same path;
-    - in the sorted mode, ``opt_state["emb"]`` (packed ``[V2/r, 128]``
-      ``table``/``mu``/``nu`` padded past V, and ``step``) becomes the
-      model's ``[V, D]`` table, the trainer's moments and its step: a
-      reshape and a ``[:V]`` slice.
+      parameter of the same path (a frozen loose table, which takes no step
+      in the port, has none);
+    - with ``sparse_embedding_updates``, ``opt_state["emb"]`` becomes the
+      model's ``[V, D]`` table (where the JAX params carry none) and the
+      trainer's ``emb_opt_state``: in the sorted mode the packed
+      ``[V2/r, 128]`` ``table``/``mu``/``nu``, padded past V (a reshape and a
+      ``[:V]`` slice); in the occurrence mode the combined ``comb [V, 3·D]``
+      (its first D columns the weights); in the dense and winner modes
+      ``mu``/``nu``; and ``step``.
     """
     model = trainer.model
-    base = opt_state
-    if trainer._sorted_mode:
-        emb = opt_state["emb"]
-        base = opt_state["base"]
+    base, emb = opt_state, None
+    if trainer._emb_mode is not None:
+        emb, base = opt_state["emb"], opt_state["base"]
         col = model.embedding
         v, d = col.packed_vocab, col.packed_dim
         unpack = lambda a: np.asarray(a).reshape(-1, d)[:v]
-        params = {**params, "embedding": {**params["embedding"],
-                                          "packed": unpack(emb["table"])}}
+        if "table" in emb:
+            packed = unpack(emb["table"])
+        elif "comb" in emb:
+            packed = np.asarray(emb["comb"])[:, :d]
+        else:
+            packed = params["embedding"]["packed"]
+        params = {**params, "embedding": {**params["embedding"], "packed": packed}}
     load_jax_params(model, params, state)
     adam_state = _find_adam_state(base)
     if adam_state is None:
         raise ValueError("no scale_by_adam state (count, mu, nu) in opt_state")
+    frozen = set()
+    if getattr(model, "embedding", None) is not None:
+        frozen = {f"embedding.tables.{n}" for n in model.embedding.frozen_loose}
     mu, nu = flatten_tree(adam_state.mu), flatten_tree(adam_state.nu)
+    mu, nu = ({k: a for k, a in m.items() if k not in frozen} for m in (mu, nu))
     names = [n for n, _ in trainer._dense_named]
     if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
         raise KeyError(f"optax moments {sorted(mu)} do not match the trainer's "
@@ -168,9 +182,13 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
         trainer.optimizer.state[p] = {"step": step.clone(),
                                       "exp_avg": as_t(mu[name], p),
                                       "exp_avg_sq": as_t(nu[name], p)}
-    if trainer._sorted_mode:
-        st = trainer.emb_opt_state
-        with torch.no_grad():
+    if emb is None:
+        return
+    st = trainer.emb_opt_state
+    with torch.no_grad():
+        if "comb" in emb:
+            st["comb"][:, d:].copy_(as_t(np.asarray(emb["comb"])[:, d:], st["comb"]))
+        else:
             for k in ("mu", "nu"):
-                st[k].copy_(torch.tensor(unpack(emb[k])))
-        st["step"] = int(np.asarray(emb["step"]))
+                st[k].copy_(as_t(unpack(emb[k]) if "table" in emb else emb[k], st[k]))
+    st["step"] = int(np.asarray(emb["step"]))

@@ -71,7 +71,9 @@ class EmbeddingCollection(nn.Module):
 
     Parameters: ``packed`` ``[V_total, D]`` for the packed group and
     ``tables[name]`` for odd-width tables, drawn from ``generator`` on its
-    device, one table after another in owner order.
+    device, one table after another in owner order. ``frozen_spans`` and
+    ``frozen_loose`` name the frozen pretrained tables (the JAX collection's
+    rule), which the trainer keeps fixed.
     """
 
     def __init__(self, features: Sequence[Feature], generator: torch.Generator):
@@ -98,6 +100,13 @@ class EmbeddingCollection(nn.Module):
                 self.packed_names.append(name)
         self.packed_vocab = total
         self.loose_names = [n for n in owned if n not in self.offsets]
+        # frozen pretrained tables (an initializer with freeze=True,
+        # core/init.py:pretrained): packed (offset, vocab) spans and loose
+        # table names, which the trainer keeps fixed (train/freeze.py)
+        frozen = lambda n: getattr(owned[n].initializer, "freeze", False)
+        self.frozen_spans: Tuple[Tuple[int, int], ...] = tuple(
+            (self.offsets[n], owned[n].vocab_size) for n in self.packed_names if frozen(n))
+        self.frozen_loose: Tuple[str, ...] = tuple(n for n in self.loose_names if frozen(n))
 
         device = self._init_device = generator.device
         packed = (torch.empty((total, self.packed_dim), device=device)

@@ -27,7 +27,16 @@
   their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
-  with its plain version and the id sort.
+  with its plain version and the id sort; the ``sorted`` embedding update.
+- ``fused_adam``: the same from ids sorted within each feature's segment,
+  the gradient rows read through their sorted positions
+  (``csrc/fused_adam.cu``, ``fused_dense_adam_apply``); the ``dense``
+  embedding update. Both Adam kernels are built over the shared
+  ``csrc/embedding_adam.cuh``.
+- ``row_update``: the ``occurrence`` embedding update's two row primitives
+  (``csrc/row_update.cu``): ``occurrence_segsum``, every occurrence's
+  duplicate-id gradient sum, bit-identical across duplicates, and
+  ``scatter_rows``, the in-place row write-back.
 - ``_build``: compiles ``csrc/*.cu`` with nvcc at first use, loads with ctypes.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
@@ -37,6 +46,7 @@ launches its kernel or raises.
 from .adaptdhm_infer import (adaptdhm_fused_infer, adaptdhm_fused_infer_ref,
                              adaptdhm_route_margin)
 from .folding import fold_bn_linear_eval, fold_layers_eval, fold_stacked_mlp_eval
+from .fused_adam import fused_dense_adam_apply, fused_dense_adam_ref
 from .gated_infer import (adasparse_fused_infer, adasparse_fused_infer_ref,
                           adasparse_threshold_margin, epnet_fused_infer,
                           epnet_fused_infer_ref, ppnet_fused_infer, ppnet_fused_infer_ref)
@@ -46,6 +56,8 @@ from .m2m_infer import m2m_fused_infer, m2m_fused_infer_ref
 from .m3oe_infer import m3oe_fused_infer, m3oe_fused_infer_ref
 from .mmoe_infer import mmoe_fused_infer, mmoe_fused_infer_ref
 from .ple_infer import LevelSpec, ple_fused_infer, ple_fused_infer_ref
+from .row_update import (occurrence_segsum, occurrence_segsum_ref, scatter_rows,
+                         scatter_rows_ref)
 from .sarnet_infer import sarnet_fused_infer, sarnet_fused_infer_ref
 from .star_infer import star_fused_infer, star_fused_infer_ref
 from .tower_infer import trunk_towers_fused_infer, trunk_towers_fused_infer_ref
@@ -57,11 +69,14 @@ __all__ = ["LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
            "adapter_norm_affine", "adasparse_fused_infer", "adasparse_fused_infer_ref",
            "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
            "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
+           "fused_dense_adam_apply", "fused_dense_adam_ref",
            "hamur_fused_infer", "hamur_fused_infer_ref", "hamur_hyper", "hamur_segment",
            "hamur_segment_ref", "m2m_fused_infer", "m2m_fused_infer_ref", "m3oe_fused_infer",
-           "m3oe_fused_infer_ref", "mmoe_fused_infer", "mmoe_fused_infer_ref", "owner_sorted_grads",
+           "m3oe_fused_infer_ref", "mmoe_fused_infer", "mmoe_fused_infer_ref",
+           "occurrence_segsum", "occurrence_segsum_ref", "owner_sorted_grads",
            "ple_fused_infer", "ple_fused_infer_ref", "ppnet_fused_infer",
            "ppnet_fused_infer_ref", "sarnet_fused_infer", "sarnet_fused_infer_ref",
+           "scatter_rows", "scatter_rows_ref",
            "sorted_dense_adam_apply", "sorted_dense_adam_apply_ref", "star_fused_infer",
            "star_fused_infer_ref", "trunk_towers_fused_infer",
            "trunk_towers_fused_infer_ref"]

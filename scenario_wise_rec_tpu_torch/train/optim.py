@@ -6,14 +6,26 @@ The reference uses ``torch.optim.Adam(lr=1e-3, weight_decay=1e-5)``
 moment updates (Adam, not AdamW). The JAX package writes that as an optax
 chain; here it is ``torch.optim.Adam`` itself.
 
-The sorted embedding update keeps the packed table out of that optimizer
-and updates it with :func:`sorted_dense_adam_update`: exact dense Adam on
-every row, from the per-occurrence gradient rows, through the kernel of
-``ops/kernels/sorted_adam.py``. Its authority is the model's own
-``embedding.packed`` parameter, a plain ``[V, D]`` tensor updated in place;
-``mu`` and ``nu`` are ``[V, D]`` tensors in the optimizer state. (The TPU
-kept a padded, packed ``[V2/r, 128]`` copy; that layout is not carried over,
-so eval reads the live table directly.)
+The sparse embedding updates keep the packed table out of that optimizer
+and update it from the batch's per-occurrence gradient rows (``g_rows
+[K, D]``, the gradient with respect to ``table[ids]``), in place:
+
+- exact dense Adam on every row (the reference's semantics):
+  :func:`sorted_dense_adam_update` (one global id sort, the kernel of
+  ``ops/kernels/sorted_adam.py``) and :func:`fused_dense_adam_update`
+  (per-segment sorts, the kernel of ``ops/kernels/fused_adam.py``), with
+  ``{"mu", "nu", "step"}`` state beside the model's own ``[V, D]`` table;
+- lazy row-sparse Adam (``torch.optim.SparseAdam``'s semantics: only the
+  touched rows move, untouched rows take no weight decay and their moments
+  no decay): :func:`sparse_adam_rowgrads_update` (winner scatter, plain
+  PyTorch) and :func:`sparse_adam_occurrence_update` (a combined ``[V, 3·D]``
+  row store, the two kernels of ``ops/kernels/row_update.py``).
+
+Every update takes ``frozen_spans``, the packed rows of frozen pretrained
+tables, which keep their weights and moments (``train/freeze.py``). The step
+count is a host int, so no update syncs with the card. (The TPU kept the
+sorted table padded in a packed ``[V2/r, 128]`` layout; that layout is not
+carried over, so eval reads the live table directly.)
 
 The reference passes StepLR ``scheduler_params`` but never a
 ``scheduler_fn``, so its lr is constant; :func:`step_lr` is provided for
@@ -23,13 +35,20 @@ capability parity.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..ops.kernels.fused_adam import DEFAULT_BLOCK_ROWS as FUSED_BLOCK_ROWS
+from ..ops.kernels.fused_adam import fused_dense_adam_apply
+from ..ops.kernels.row_update import occurrence_segsum, scatter_rows
 from ..ops.kernels.sorted_adam import (DEFAULT_BLOCK_ROWS, adam_hparams,
                                        owner_sorted_grads,
                                        sorted_dense_adam_apply)
+from .freeze import frozen_ids_mask, rows_kept
+
+Spans = Sequence[Tuple[int, int]]
 
 
 def adam(lr: float = 1e-3, weight_decay: float = 1e-5, b1: float = 0.9,
@@ -52,19 +71,205 @@ def step_lr(step_size: int, gamma: float):
     return schedule
 
 
-def sorted_dense_adam_init(table: torch.Tensor) -> Dict:
-    """Optimizer state for :func:`sorted_dense_adam_update`: zero ``[V, D]``
-    moments beside the table and a host step count."""
+def sparse_adam_init(table: torch.Tensor) -> Dict:
+    """Optimizer state of the winner, dense and sorted updates: zero
+    ``[V, D]`` moments beside the table and a host step count."""
     return {"mu": torch.zeros_like(table, memory_format=torch.contiguous_format),
             "nu": torch.zeros_like(table, memory_format=torch.contiguous_format),
             "step": 0}
+
+
+sorted_dense_adam_init = sparse_adam_init
+
+
+def _bias_corrections(step: int, b1: float, b2: float) -> Tuple[float, float]:
+    """``(1 - b1^t, 1 - b2^t)`` in float32 on the host, as the JAX package
+    computes them from its int32 step."""
+    f, t = np.float32, np.float32(step)
+    return float(f(1.0) - f(b1) ** t), float(f(1.0) - f(b2) ** t)
+
+
+def _rows_adam_core(table, opt_state, g, gather_ids, scatter_ids, lr, weight_decay,
+                    b1, b2, eps):
+    """The shared torch-Adam row math: gather the rows and moments at
+    ``gather_ids``, update, and write them back at ``scatter_ids`` (ids
+    outside ``[0, V)`` dropped). In place; returns ``(table, opt_state)``."""
+    with torch.no_grad():
+        p = table[gather_ids]
+        if weight_decay:
+            g = g + weight_decay * p  # torch Adam: decay folded into the gradient
+        mu = b1 * opt_state["mu"][gather_ids] + (1 - b1) * g
+        nu = b2 * opt_state["nu"][gather_ids] + (1 - b2) * (g * g)
+        t = int(opt_state["step"]) + 1
+        bc1, bc2 = _bias_corrections(t, b1, b2)
+        update = lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        keep = (scatter_ids >= 0) & (scatter_ids < table.shape[0])
+        rows = scatter_ids[keep]
+        table[rows] = (p - update)[keep]
+        opt_state["mu"][rows] = mu[keep]
+        opt_state["nu"][rows] = nu[keep]
+    opt_state["step"] = t
+    return table, opt_state
+
+
+def sparse_adam_rows_update(table, opt_state, g_dense, ids, lr: float = 1e-3,
+                            weight_decay: float = 1e-5, b1: float = 0.9,
+                            b2: float = 0.999, eps: float = 1e-8):
+    """Lazy (row-sparse) Adam from a dense gradient ``g_dense [V, D]``: only
+    the rows in ``ids`` (duplicates allowed) move, with torch-Adam math and
+    the global step's bias correction (``torch.optim.SparseAdam``'s
+    semantics). In place; returns ``(table, opt_state)``."""
+    sids = torch.sort(ids)[0]
+    first = torch.ones_like(sids, dtype=torch.bool)
+    first[1:] = sids[1:] != sids[:-1]
+    # duplicates write nothing: their rows compute identical updates
+    scatter_ids = torch.where(first, sids, table.shape[0])
+    return _rows_adam_core(table, opt_state, g_dense[sids], sids, scatter_ids, lr,
+                           weight_decay, b1, b2, eps)
+
+
+def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
+                                weight_decay: float = 1e-5, b1: float = 0.9,
+                                b2: float = 0.999, eps: float = 1e-8,
+                                frozen_spans: Spans = ()):
+    """Lazy Adam from the per-occurrence rows ``g_rows [K, D]`` of ``ids
+    [K]`` (the ``winner`` update): one occurrence of each id is elected its
+    winner by a scatter into an O(V) scratch, every occurrence's gradient is
+    summed into its winner's slot, and Adam runs at the winner slots only.
+    Frozen ids write nothing. Plain PyTorch on the CPU and the card (the JAX
+    function reaches no Pallas kernel). In place; returns ``(table,
+    opt_state)``."""
+    vocab, k = table.shape[0], ids.shape[0]
+    if k == 0:
+        opt_state["step"] = int(opt_state["step"]) + 1
+        return table, opt_state
+    ids = ids.long()
+    occ = torch.arange(k, device=ids.device)
+    winner = torch.zeros(vocab, dtype=torch.int32, device=ids.device)
+    winner[ids] = occ.to(torch.int32)      # any duplicate wins
+    rep = winner[ids].long()               # occurrence -> its winner
+    g_slot = torch.zeros_like(g_rows).index_add_(0, rep, g_rows)
+    uid = torch.where(rep == occ, ids, vocab)  # non-winners write nothing
+    if frozen_spans:
+        uid = torch.where(frozen_ids_mask(uid, frozen_spans), vocab, uid)
+    return _rows_adam_core(table, opt_state, g_slot, uid.clamp(0, vocab - 1), uid, lr,
+                           weight_decay, b1, b2, eps)
+
+
+def sparse_adam_occurrence_init(table: torch.Tensor) -> Dict:
+    """State of :func:`sparse_adam_occurrence_update`: the combined row store
+    ``comb [V, 3·D]`` = ``[weights | mu | nu]`` per row, and a host step
+    count. One gather ``comb[ids]`` then serves the forward (the weights) and
+    the update (the moments), and one row scatter writes both back."""
+    v, d = table.shape
+    comb = torch.zeros(v, 3 * d, dtype=table.dtype, device=table.device)
+    comb[:, :d] = table.detach()
+    return {"comb": comb, "step": 0}
+
+
+def _grouped_occurrence_segsum(g_rows, ids, segments):
+    """For every occurrence, the sum of the gradients of all occurrences of
+    its row id (``[K, D]``). The JAX package merges the segments that share
+    an owner and batches the owners by length into ``[F, N]`` kernel calls.
+    Every id lies in its owner's packed span (``touched_ids`` clips it
+    there) and the spans are disjoint, so one segment sum over the whole
+    ``[1, K]`` gives the same sums, alias segments included: one launch."""
+    if sum(size for _, _, size in segments) != ids.shape[0]:
+        raise ValueError("segments do not cover the ids")
+    return occurrence_segsum(ids[None], g_rows[None])[0]
+
+
+def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
+                                  lr: float = 1e-3, weight_decay: float = 1e-5,
+                                  b1: float = 0.9, b2: float = 0.999,
+                                  eps: float = 1e-8, frozen_spans: Spans = ()):
+    """Lazy Adam on the combined row store (the ``occurrence`` update), the
+    semantics of :func:`sparse_adam_rowgrads_update`:
+
+    1. duplicate gradients summed per occurrence (``occurrence_segsum``):
+       every occurrence of an id carries the identical sum;
+    2. Adam on the gathered rows ``r3 = comb[ids]`` (``[K, 3·D]``, the
+       caller's forward already needed them);
+    3. one row scatter of the updated ``[K, 3·D]`` rows back into comb
+       (``scatter_rows``): duplicates write identical rows, and a frozen id
+       writes back its old row.
+
+    ``segments``: the ``(owner, start, size)`` layout of ``ids``
+    (``EmbeddingCollection.touched_owner_segments``). Updates
+    ``opt_state["comb"]`` in place and returns ``opt_state``; the weights
+    are ``comb[:, :D]``."""
+    if ids.shape[0] == 0:
+        opt_state["step"] = int(opt_state["step"]) + 1
+        return opt_state
+    d = g_rows.shape[-1]
+    with torch.no_grad():
+        g = _grouped_occurrence_segsum(g_rows, ids, segments)
+        p = r3[:, :d]
+        if weight_decay:
+            g = g + weight_decay * p  # torch Adam: decay folded into the gradient
+        mu = b1 * r3[:, d:2 * d] + (1 - b1) * g
+        nu = b2 * r3[:, 2 * d:] + (1 - b2) * (g * g)
+        t = int(opt_state["step"]) + 1
+        bc1, bc2 = _bias_corrections(t, b1, b2)
+        update = lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        new3 = torch.cat([p - update, mu, nu], dim=1)
+        if frozen_spans:
+            new3 = torch.where(frozen_ids_mask(ids, frozen_spans)[:, None], r3, new3)
+        scatter_rows(opt_state["comb"], ids, new3)
+    opt_state["step"] = t
+    return opt_state
+
+
+def segment_sorted_ids(ids: torch.Tensor, segments):
+    """``(sorted_ids int32, sorted_pos int32, sizes)``: ``ids`` sorted
+    ascending within each ``(owner, start, size)`` segment (one stable sort
+    of the key ``(segment, id)``, so duplicates keep their order of
+    occurrence), the original position of each, and the segments' sizes."""
+    sizes, pos = [], 0
+    for _, start, size in segments:
+        if start != pos:
+            raise ValueError(f"segments must tile the ids in order; {start} != {pos}")
+        sizes.append(int(size))
+        pos += size
+    if pos != ids.shape[0]:
+        raise ValueError("segments do not cover the ids")
+    seg = torch.repeat_interleave(torch.arange(len(sizes), device=ids.device),
+                                  torch.tensor(sizes, dtype=torch.long, device=ids.device),
+                                  output_size=pos)
+    key = (seg << 32) + (ids.long() + 2 ** 31)  # signed id order within a segment
+    _, perm = torch.sort(key, stable=True)
+    return ids[perm].to(torch.int32), perm.to(torch.int32), sizes
+
+
+def fused_dense_adam_update(table, opt_state, g_rows, ids, segments,
+                            lr: float = 1e-3, weight_decay: float = 1e-5,
+                            b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                            block_rows: int = FUSED_BLOCK_ROWS,
+                            frozen_spans: Spans = ()):
+    """Exact dense torch-Adam on ``table`` (the ``dense`` update): every row
+    takes weight decay and moment decay every step, as the reference's
+    ``torch.optim.Adam`` over ``nn.Embedding.weight``. Each segment's ids
+    are sorted separately (:func:`segment_sorted_ids`), which is all the
+    kernel of ``ops/kernels/fused_adam.py`` needs; the gradient rows stay in
+    their order. Frozen spans keep their rows and moments. In place; returns
+    ``(table, opt_state)``."""
+    step = int(opt_state["step"]) + 1
+    hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
+    sorted_ids, sorted_pos, sizes = segment_sorted_ids(ids, segments)
+    tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
+    with rows_kept(tensors, frozen_spans):
+        fused_dense_adam_apply(*tensors, g_rows.contiguous(), sorted_ids, sorted_pos,
+                               sizes, hp, block_rows=block_rows)
+    opt_state["step"] = step
+    return table, opt_state
 
 
 def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
                              g_rows: torch.Tensor, ids: torch.Tensor, *,
                              lr: float = 1e-3, weight_decay: float = 1e-5,
                              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                             block_rows: int = DEFAULT_BLOCK_ROWS) -> Dict:
+                             block_rows: int = DEFAULT_BLOCK_ROWS,
+                             frozen_spans: Spans = ()) -> Dict:
     """One exact dense torch-Adam step of ``table`` (in place) from the
     per-occurrence gradient rows ``g_rows [K, D]`` of the packed rows
     ``ids [K]`` (``EmbeddingCollection.touched_ids``, duplicates allowed).
@@ -72,16 +277,17 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
     Identical semantics to the reference's ``torch.optim.Adam`` over
     ``nn.Embedding.weight``: every row receives weight decay and moment
     decay every step. ``hp`` is computed on the host from the integer step
-    count, so the step costs no device sync. Updates ``opt_state`` in place
-    and returns it. (The JAX function also takes the owner segments and
-    offsets, which its per-owner sorts need; one global sort here does
-    not.)
+    count, so the step costs no device sync. Frozen spans keep their rows
+    and moments. Updates ``opt_state`` in place and returns it. (The JAX
+    function also takes the owner segments and offsets, which its per-owner
+    sorts need; one global sort here does not.)
     """
     step = int(opt_state["step"]) + 1
     hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
     sorted_ids, g_sorted = owner_sorted_grads(ids, g_rows)
-    sorted_dense_adam_apply(table.detach(), opt_state["mu"], opt_state["nu"],
-                            sorted_ids, g_sorted.contiguous(), hp,
-                            block_rows=block_rows)
+    tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
+    with rows_kept(tensors, frozen_spans):
+        sorted_dense_adam_apply(*tensors, sorted_ids, g_sorted.contiguous(), hp,
+                                block_rows=block_rows)
     opt_state["step"] = step
     return opt_state

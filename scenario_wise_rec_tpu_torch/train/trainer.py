@@ -3,20 +3,38 @@ with early stopping and a final checkpoint, and the reference's eval
 protocol.
 
 - **Train step**: forward + BCE on probabilities + backward + torch-Adam.
-  With ``sparse_embedding_updates=True, sparse_update_impl="sorted"`` the
-  packed embedding table leaves the autograd graph: the step gathers the
-  batch's rows ``packed[touched_ids]``, differentiates with respect to those
-  ``[K, D]`` rows, steps ``torch.optim.Adam`` on every other parameter and
-  updates the whole table with exact dense Adam through the sorted kernel
-  (``ops/kernels/sorted_adam.py``): no dense ``[V, D]`` gradient exists. The
-  plain step (``sparse_embedding_updates=False``) differentiates the table
-  itself and leaves it to ``torch.optim.Adam``. Both compute the
-  reference's ``torch.optim.Adam`` semantics. A model without an
-  ``embedding`` collection (EPNet, PPNet and AdaSparse keep two) runs the
-  plain step whatever ``sparse_embedding_updates`` says, as the JAX
+  The plain step (``sparse_embedding_updates=False``) differentiates the
+  packed embedding table itself and leaves it to ``torch.optim.Adam``. With
+  ``sparse_embedding_updates=True`` the table leaves the autograd graph and
+  ``torch.optim``: the step gathers the batch's rows ``packed[touched_ids]``,
+  differentiates with respect to those ``[K, D]`` rows (no dense ``[V, D]``
+  gradient exists), steps ``torch.optim.Adam`` on every other parameter and
+  updates the table by ``sparse_update_impl`` (``train/optim.py``):
+
+  - ``"sorted"``: exact dense Adam on every row through the sorted kernel
+    (``ops/kernels/sorted_adam.py``), ids sorted globally;
+  - ``"dense"``: the same semantics through the kernel of
+    ``ops/kernels/fused_adam.py``, ids sorted within each feature's segment;
+  - ``"occurrence"`` (the default): lazy ``torch.optim.SparseAdam``
+    semantics on a combined ``[V, 3·D]`` store of weights and moments: one
+    gather ``comb[ids]`` feeds the forward and the update, the duplicate
+    sums and the one row write-back are the kernels of
+    ``ops/kernels/row_update.py``. The model's ``embedding.packed`` becomes
+    the strided view ``comb[:, :D]``, so eval, ``predict``, ``save``,
+    ``load`` and ``fit``'s early-stop snapshot and restore always see the
+    live weights;
+  - ``"winner"``: the same lazy semantics in plain PyTorch (a winner
+    scatter into an O(V) scratch), on the model's table.
+
+  The two exact modes compute the reference's ``torch.optim.Adam``
+  semantics; the two lazy ones differ from it as ``SparseAdam`` does
+  (untouched rows take no weight decay and keep their moments). A model
+  without an ``embedding`` collection (EPNet, PPNet and AdaSparse keep two)
+  runs the plain step whatever ``sparse_embedding_updates`` says, as the JAX
   trainer does. Every dense parameter takes its Adam step every step, one
   the loss does not reach too (its gradient is zero, as in the JAX
-  package's optax chain).
+  package's optax chain). Frozen ``Pretrained`` tables of the
+  ``embedding`` collection stay fixed in every mode (``train/freeze.py``).
 - **Eval**: ``predict``, ``evaluate`` and ``evaluate_multi_domain_loss``
   (the reference's per-domain slicing protocol, the acceptance metric of
   the benchmark) run the eval forward batch by batch and score on the host
@@ -44,12 +62,14 @@ from ..core.config import make_generator, resolve_device
 from ..data.prefetch import prefetch
 from ..ops.kernels.sorted_adam import DEFAULT_BLOCK_ROWS, check_jax_dials
 from .callback import EarlyStopper
+from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
 from .metrics import auc_score, log_loss_score
-from .optim import adam, sorted_dense_adam_init, sorted_dense_adam_update
+from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_update,
+                    sparse_adam_init, sparse_adam_occurrence_init,
+                    sparse_adam_occurrence_update, sparse_adam_rowgrads_update)
 
-# ROADMAP items of the options the port does not run yet
-_IMPL_TODO = {"occurrence": "A13, B12", "dense": "A13, B13", "winner": "A13"}
+_EMB_MODES = ("dense", "winner", "occurrence", "sorted")
 
 
 class CTRTrainer:
@@ -70,8 +90,11 @@ class CTRTrainer:
         device: where the model and batches live; default ``"cuda"``. With
             no card present this raises unless the caller passes ``"cpu"``.
         seed: seeds the generator that dropout draws from.
-        sparse_embedding_updates / sparse_update_impl: ``True, "sorted"``
-            runs the sorted embedding update (see the module docstring).
+        sparse_embedding_updates / sparse_update_impl: ``True`` with
+            ``"occurrence"`` (default), ``"dense"``, ``"winner"`` or
+            ``"sorted"`` runs that embedding update (see the module
+            docstring); ``"sorted"`` needs a packed width dividing 128, as
+            in the JAX package.
         fused_inference: ``True`` runs eval through ``apply_fused_eval``.
         scan_steps: the JAX package's optimizer steps per device dispatch;
             accepted (a positive int) for its signature. The port runs one
@@ -90,9 +113,7 @@ class CTRTrainer:
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
     item: ``mesh`` and more than one entry in ``gpus`` (A15);
-    ``sparse_update_impl`` ``"occurrence"`` / ``"dense"`` / ``"winner"``
-    (A13, B12, B13); ``sorted_dtype="bf16"`` and training with frozen
-    ``Pretrained`` tables (A13); a ``DeviceResidentLoader`` (A14);
+    ``sorted_dtype="bf16"`` (A13); a ``DeviceResidentLoader`` (A14);
     ``fused_inference="auto"`` (A10); ``on_device=True`` evaluation (A14).
     """
 
@@ -138,15 +159,11 @@ class CTRTrainer:
             raise ValueError(
                 f"fused_inference must be True, False or 'auto', got "
                 f"{fused_inference!r}")
-        if sparse_update_impl not in ("dense", "winner", "occurrence", "sorted"):
+        if sparse_update_impl not in _EMB_MODES:
             raise ValueError(f"unknown sparse_update_impl {sparse_update_impl!r}")
         emb = getattr(model, "embedding", None)
         self._sparse_emb = bool(sparse_embedding_updates and emb is not None
                                 and emb.packed_names)
-        if self._sparse_emb and sparse_update_impl != "sorted":
-            raise NotImplementedError(
-                f"sparse_update_impl={sparse_update_impl!r} is ROADMAP "
-                f"{_IMPL_TODO[sparse_update_impl]}; the port runs 'sorted'")
         if sorted_dtype not in (None, "float32", "bf16"):
             raise ValueError(f"sorted_dtype must be None, 'float32' or 'bf16', "
                              f"got {sorted_dtype!r}")
@@ -168,8 +185,8 @@ class CTRTrainer:
                 "sparse_update_impl='sorted' requires the packed embed_dim to "
                 f"divide 128, got {emb.packed_dim}")
         self._sorted_block_rows = int(sorted_block_rows or DEFAULT_BLOCK_ROWS)
-        self._frozen = emb is not None and any(
-            getattr(f.initializer, "freeze", False) for f in emb.owned.values())
+        # frozen pretrained tables of the embedding collection (train/freeze.py)
+        self._frozen_spans = tuple(emb.frozen_spans) if emb is not None else ()
 
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -181,15 +198,19 @@ class CTRTrainer:
         self._lr_now = self._base_lr
         self._epoch_schedule = (scheduler_fn(**(scheduler_params or {}))
                                 if scheduler_fn is not None else None)
-        # the sorted mode keeps the packed table out of torch.optim
-        self._dense_named = [
-            (n, p) for n, p in self.model.named_parameters()
-            if not (self._sorted_mode and p is self.model.embedding.packed)]
+        if emb is not None:
+            # a frozen loose table takes no gradient and no step, as
+            # nn.Embedding.from_pretrained(freeze=True)
+            for name in emb.frozen_loose:
+                self.model.embedding.tables[name].requires_grad_(False)
+        # every sparse mode keeps the packed table out of torch.optim
+        packed = self.model.embedding.packed if self._sparse_emb else None
+        self._dense_named = [(n, p) for n, p in self.model.named_parameters()
+                             if p.requires_grad and p is not packed]
         factory = (optimizer_fn or adam)(**self._opt_params)
         self.optimizer = (factory([p for _, p in self._dense_named])
                           if self._dense_named else None)
-        self.emb_opt_state = (sorted_dense_adam_init(self.model.embedding.packed.detach())
-                              if self._sorted_mode else None)
+        self.emb_opt_state = self._init_emb_state()
         self.n_epoch = n_epoch
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
         self.model_path = model_path
@@ -202,8 +223,25 @@ class CTRTrainer:
         self._eval_step = self._build_eval_step()
 
     @property
+    def _emb_mode(self) -> Optional[str]:
+        """The embedding update of the step, or None for the plain step."""
+        return self._sparse_impl if self._sparse_emb else None
+
+    @property
     def _sorted_mode(self) -> bool:
-        return self._sparse_emb and self._sparse_impl == "sorted"
+        return self._emb_mode == "sorted"
+
+    def _init_emb_state(self):
+        if self._emb_mode is None:
+            return None
+        col = self.model.embedding
+        if self._emb_mode != "occurrence":
+            return sparse_adam_init(col.packed.detach())
+        state = sparse_adam_occurrence_init(col.packed.detach())
+        # the model's table becomes the weight columns of the combined store,
+        # a strided view that every reader and writer of the weights shares
+        col.packed = torch.nn.Parameter(state["comb"][:, :col.packed_dim])
+        return state
 
     def _build_eval_step(self):
         model = self.model
@@ -231,13 +269,19 @@ class CTRTrainer:
     def _train_step(self, x, y, w) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on the
         device: reading it is the caller's sync)."""
-        model = self.model
+        model, mode, st = self.model, self._emb_mode, self.emb_opt_state
         rows = None
-        if self._sorted_mode:
+        if mode is not None:
             col = model.embedding
             ids = col.touched_ids(x)
-            # a gathered copy: the kernel may update the live table in place
-            rows = col.packed.detach()[ids].requires_grad_()
+            if mode == "occurrence":
+                # one gather: the weights feed the forward, the moments ride
+                # along to the update
+                r3 = st["comb"][ids]
+                rows = r3[:, :col.packed_dim].detach().requires_grad_()
+            else:
+                # a gathered copy: the update may change the live table in place
+                rows = col.packed.detach()[ids].requires_grad_()
         probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
         loss = bce_loss(probs, y, w)
         if self.optimizer is not None:
@@ -251,27 +295,44 @@ class CTRTrainer:
             for _, p in self._dense_named:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            self.optimizer.step()
-        if self._sorted_mode:
-            p = self._opt_params
-            sorted_dense_adam_update(
-                col.packed, self.emb_opt_state, rows.grad, ids, lr=self._lr_now,
-                weight_decay=p.get("weight_decay", 1e-5), b1=p.get("b1", 0.9),
-                b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
-                block_rows=self._sorted_block_rows)
+            self._optimizer_step()
+        if mode is None:
+            return loss.detach()
+        p = self._opt_params
+        kw = dict(lr=self._lr_now, weight_decay=p.get("weight_decay", 1e-5),
+                  b1=p.get("b1", 0.9), b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
+                  frozen_spans=self._frozen_spans)
+        if mode == "sorted":
+            sorted_dense_adam_update(col.packed, st, rows.grad, ids,
+                                     block_rows=self._sorted_block_rows, **kw)
+        elif mode == "dense":
+            fused_dense_adam_update(col.packed, st, rows.grad, ids,
+                                    col.touched_owner_segments(x), **kw)
+        elif mode == "winner":
+            sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, **kw)
+        else:
+            sparse_adam_occurrence_update(st, rows.grad, ids,
+                                          col.touched_owner_segments(x), r3, **kw)
         return loss.detach()
 
-    def _check_trainable(self, data_loader):
-        if type(data_loader).__name__ == "DeviceResidentLoader":
-            raise NotImplementedError("device-resident epochs are ROADMAP A14")
-        if self._frozen:
-            raise NotImplementedError(
-                "training with frozen Pretrained tables is ROADMAP A13")
+    def _optimizer_step(self):
+        """``torch.optim`` over the dense parameters. In the plain step the
+        packed table is one of them: its frozen rows then keep their weights
+        and their moments stay zero (``train/freeze.py``)."""
+        if self._emb_mode is not None or not self._frozen_spans:
+            self.optimizer.step()
+            return
+        packed = self.model.embedding.packed
+        with rows_kept([packed], self._frozen_spans):
+            self.optimizer.step()
+        st = self.optimizer.state[packed]
+        zero_rows([st["exp_avg"], st["exp_avg_sq"]], self._frozen_spans)
 
     def train_one_epoch(self, data_loader, log_interval: int = 10):
         """One pass over ``data_loader``; returns the mean loss of the last
         logged window (None for an empty loader)."""
-        self._check_trainable(data_loader)
+        if type(data_loader).__name__ == "DeviceResidentLoader":
+            raise NotImplementedError("device-resident epochs are ROADMAP A14")
         # Losses stay on the device until a log boundary: reading one every
         # step would sync the host with the card each step.
         pending, done, last = [], 0, None
@@ -376,9 +437,11 @@ class CTRTrainer:
     # -- checkpoints ------------------------------------------------------
 
     def _checkpoint_tensors(self):
-        """Everything a resume needs, path-keyed: the model's state dict,
-        the torch optimizer's moments and step per parameter name (zeros
-        before the first step) and the sorted table's moments and step."""
+        """Everything a resume needs, path-keyed: the model's state dict
+        (the live table in every mode), the torch optimizer's moments and
+        step per parameter name (zeros before the first step) and the
+        embedding update's moments and step (in the occurrence mode the
+        moment columns of the combined store)."""
         out = {f"model/{k}": v for k, v in self.model.state_dict().items()}
         for name, p in self._dense_named:
             st = self.optimizer.state.get(p, {})
@@ -386,11 +449,19 @@ class CTRTrainer:
                 float(st.get("step", 0.0)), dtype=torch.float32)
             out[f"opt/base/{name}/exp_avg"] = st.get("exp_avg", torch.zeros_like(p))
             out[f"opt/base/{name}/exp_avg_sq"] = st.get("exp_avg_sq", torch.zeros_like(p))
-        if self._sorted_mode:
-            out["opt/emb/mu"] = self.emb_opt_state["mu"]
-            out["opt/emb/nu"] = self.emb_opt_state["nu"]
+        for k, v in self._emb_moments().items():
+            out[f"opt/emb/{k}"] = v
+        if self.emb_opt_state is not None:
             out["opt/emb/step"] = torch.tensor(self.emb_opt_state["step"])
         return out
+
+    def _emb_moments(self):
+        """The embedding update's moments by checkpoint name, as views of
+        its state (so ``load`` can copy into them)."""
+        st, mode = self.emb_opt_state, self._emb_mode
+        if mode == "occurrence":
+            return {"comb_moments": st["comb"][:, self.model.embedding.packed_dim:]}
+        return {} if mode is None else {"mu": st["mu"], "nu": st["nu"]}
 
     def save(self, path: str) -> str:
         """Write the checkpoint; returns the ``.npz`` path."""
@@ -421,9 +492,10 @@ class CTRTrainer:
                 "step": torch.as_tensor(arrays[f"opt/base/{name}/step"]),
                 "exp_avg": t(f"opt/base/{name}/exp_avg", p),
                 "exp_avg_sq": t(f"opt/base/{name}/exp_avg_sq", p)}
-        if self._sorted_mode:
-            for k in ("mu", "nu"):
-                self.emb_opt_state[k].copy_(t(f"opt/emb/{k}", self.emb_opt_state[k]))
+        with torch.no_grad():
+            for k, v in self._emb_moments().items():
+                v.copy_(t(f"opt/emb/{k}", v))
+        if self.emb_opt_state is not None:
             self.emb_opt_state["step"] = int(arrays["opt/emb/step"])
         self.epoch_i = int(meta.get("epoch", 0))
         self.early_stopper.best_auc = float(meta.get("best_auc", 0.0))

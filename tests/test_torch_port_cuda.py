@@ -7,6 +7,8 @@ a card:
     python -m pytest tests/test_torch_port_cuda.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -788,3 +790,185 @@ def test_m3oe_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         k3.m3oe_fused_infer(emb, did.float(), *args)
     assert k3.m3oe_fused_infer(emb[:0], did[:0], *args).shape == (0,)
+
+
+# -- occurrence_segsum, scatter_rows, fused_dense_adam_apply --------------------
+
+from scenario_wise_rec_tpu_torch.ops.kernels import fused_adam as kfa  # noqa: E402
+from scenario_wise_rec_tpu_torch.ops.kernels import row_update as kru  # noqa: E402
+
+
+def _segsum_ids(gen, F, N, case, vocab=467_000):
+    if case == "hot":  # row 0 all one id, the others Zipf
+        r = np.random.default_rng(F * N)
+        ids = np.minimum(r.zipf(1.2, (F, N)) - 1, vocab - 1)
+        ids[0] = 17
+        return torch.as_tensor(ids).cuda()
+    return torch.randint(0, vocab if case == "uniform" else 7, (F, N), generator=gen,
+                         device="cuda")
+
+
+def _assert_duplicates_bit_identical(ids, out):
+    for f in range(ids.shape[0]):
+        sid, perm = torch.sort(ids[f], stable=True)
+        o, same = out[f][perm], sid[1:] == sid[:-1]
+        assert torch.equal(o[1:][same], o[:-1][same])
+
+
+@pytest.mark.parametrize("F,N,D,case", [
+    (23, 4096, 16, "uniform"),   # Ali-CCP, one row a feature
+    (1, 94208, 16, "uniform"),   # Ali-CCP in one launch, as the trainer calls it
+    (3, 4097, 16, "hot"),        # a 4097-long run, ragged N
+    (2, 1000, 3, "few"),         # D not a multiple of 4; 7 distinct ids a row
+    (1, 70000, 12, "hot"),       # a 70000-long run
+    (5, 1, 8, "uniform"),
+])
+def test_segsum_kernel_matches_plain(gen, F, N, D, case):
+    ids = _segsum_ids(gen, F, N, case)
+    g = torch.randn(F, N, D, generator=gen, device="cuda")
+    before = kru.occurrence_segsum.launches
+    got = kru.occurrence_segsum(ids, g)
+    torch.cuda.synchronize()
+    assert kru.occurrence_segsum.launches == before + 1
+    want = kru.occurrence_segsum_ref(ids, g)
+    # two f32 sums of a run's n terms in other orders: within n ulp of the
+    # sum of |g| (the plain index_add_ uses atomics); a singleton is exact
+    count = kru.occurrence_segsum_ref(ids, torch.ones_like(g[..., :1]))
+    tol = count * 2.0 ** -23 * kru.occurrence_segsum_ref(ids, g.abs())
+    assert bool(((got - want).abs() <= tol).all()), (got - want).abs().max().item()
+    _assert_duplicates_bit_identical(ids, got)
+    again = kru.occurrence_segsum(ids, g)
+    assert torch.equal(again, got)  # the order of every sum is fixed by the data
+
+
+@pytest.mark.parametrize("V,W,K", [(100_003, 48, 94_208), (5000, 5, 3000), (70, 16, 4000)])
+def test_scatter_kernel_matches_plain(gen, V, W, K):
+    ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
+    ids[:4] = torch.tensor([-1, V, V + 7, -V], device="cuda")  # dropped
+    # duplicates carry identical rows: each row a function of its id
+    rows = torch.randn(V + 8, W, generator=gen, device="cuda")[ids.clamp(0, V + 7)]
+    dst = torch.randn(V, W, generator=gen, device="cuda")
+    want = kru.scatter_rows_ref(dst.clone(), ids, rows)
+    before = kru.scatter_rows.launches
+    got = kru.scatter_rows(dst, ids.to(torch.int32), rows)
+    torch.cuda.synchronize()
+    assert got is dst and kru.scatter_rows.launches == before + 1
+    assert torch.equal(got, want)
+    kru.scatter_rows(dst, ids, rows)  # int64 ids
+    assert torch.equal(dst, want)
+    with pytest.raises(ValueError):
+        kru.scatter_rows(dst.t(), ids, rows)
+
+
+@pytest.mark.parametrize("V,D,sizes,case", [
+    (50_003, 16, [4096, 4096, 4096, 100], "uniform"),
+    (50_003, 16, [4096, 4096, 4096, 100], "hot"),
+    (9_001, 3, [0, 2000, 17], "uniform"),
+    (5_000, 16, [], "none"),
+])
+def test_fused_adam_kernel_matches_plain(gen, V, D, sizes, case):
+    from scenario_wise_rec_tpu_torch.train.optim import segment_sorted_ids
+
+    K = sum(sizes)
+    ids = torch.randint(0, V // 3, (K,), generator=gen, device="cuda")  # upper tiles empty
+    if case == "hot":
+        ids[:4096] = 17
+    if K > 4:
+        ids[-4:] = torch.tensor([-1, V, V + 3, -7], device="cuda")
+    segs = []
+    for s in sizes:
+        segs.append(("f", sum(z for _, _, z in segs), s))
+    sid, pos, _ = segment_sorted_ids(ids, segs)
+    table, mu, nu, _ = _sa_case(gen, V, D, ids)
+    ref = [t.clone() for t in (table, mu, nu)]
+    table0 = table.clone()
+    for t in (1, 2, 3):
+        g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+        hp = sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+        before = kfa.fused_dense_adam_apply.launches
+        kfa.fused_dense_adam_apply(table, mu, nu, g, sid, pos, sizes, hp)
+        torch.cuda.synchronize()
+        assert kfa.fused_dense_adam_apply.launches == before + 1
+        kfa.fused_dense_adam_ref(*ref, g, ids, hp)
+        for got, want in zip((table, mu, nu), ref):
+            assert bool(torch.isfinite(got).all())
+            assert _sa_close(got, want), (got - want).abs().max().item()
+    assert bool((table != table0).any(dim=1).all())  # every row moved
+    with pytest.raises(ValueError):
+        kfa.fused_dense_adam_apply(table, mu, nu, g, sid, pos.long(), sizes, hp)
+
+
+def _narrow_trainers(mode, frozen=False):
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.core.init import pretrained
+    from scenario_wise_rec_tpu_torch.models import MMOE
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    r = np.random.default_rng(5)
+    feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 60, embed_dim=8) for i in range(3)]
+    if frozen:
+        feats += [SparseFeature("pre", 40, embed_dim=8,
+                                initializer=pretrained(r.normal(size=(40, 8)))),
+                  SparseFeature("loose", 10, embed_dim=4,
+                                initializer=pretrained(r.normal(size=(10, 4))))]
+    cpu_model = MMOE(feats, 2, n_expert=2, expert_params={"dims": [16]},
+                     tower_params={"dims": [4]}, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model)
+    kw = ({} if mode == "plain" else
+          dict(sparse_embedding_updates=True, sparse_update_impl=mode))
+    return CTRTrainer(cpu_model, device="cpu", **kw), CTRTrainer(gpu_model, **kw)
+
+
+def _narrow_batch(r, n=64):
+    x = {f"s{i}": r.integers(0, 60, n) for i in range(3)}
+    x.update(pre=r.integers(0, 40, n), loose=r.integers(0, 10, n))
+    x["s1"][:20] = 7  # duplicates
+    x["d0"] = r.normal(size=n).astype(np.float32)
+    x["domain_indicator"] = r.integers(0, 2, n)
+    return x, (r.random(n) < 0.5).astype(np.float32), np.ones(n, np.float32)
+
+
+LAUNCHES = {"occurrence": {"occurrence_segsum": 1, "scatter_rows": 1},
+            "dense": {"fused_dense_adam_apply": 1}, "winner": {}}
+
+
+@pytest.mark.parametrize("mode", ["occurrence", "dense", "winner"])
+def test_trainer_modes_card_vs_cpu(gen, mode):
+    """Two train steps of a narrow MMOE on the card and the CPU in each
+    mode: the step's kernels launch as the mode says, and every parameter
+    agrees (Adam steps to 1e-4, BN-cancelled biases at 10 x lr, as
+    test_torch_port_train.py)."""
+    tc, tg = _narrow_trainers(mode)
+    r = np.random.default_rng(0)
+    wrappers = {"occurrence_segsum": kru.occurrence_segsum, "scatter_rows": kru.scatter_rows,
+                "fused_dense_adam_apply": kfa.fused_dense_adam_apply,
+                "sorted_dense_adam_apply": sa.sorted_dense_adam_apply}
+    before = {k: f.launches for k, f in wrappers.items()}
+    for _ in range(2):
+        batch = _narrow_batch(r)
+        lc = float(tc._train_step(*tc._device_batch(*batch)))
+        lg = float(tg._train_step(*tg._device_batch(*batch)))
+        assert abs(lc - lg) <= 1e-5 * abs(lc)
+    torch.cuda.synchronize()
+    for k, f in wrappers.items():
+        assert f.launches - before[k] == 2 * LAUNCHES[mode].get(k, 0), k
+    for k, v in tg.model.state_dict().items():
+        want = tc.model.state_dict()[k]
+        atol = 1e-2 if k.endswith(("lin.b", "bn.mean")) and ".layers." in f".{k}" else 1e-6
+        assert torch.allclose(v.cpu(), want, rtol=1e-4, atol=atol), k
+
+
+@pytest.mark.parametrize("mode", ["plain", "occurrence", "dense", "winner", "sorted"])
+def test_frozen_tables_on_the_card(gen, mode):
+    _, tg = _narrow_trainers(mode, frozen=True)
+    col = tg.model.embedding
+    (off, n), = col.frozen_spans
+    pre = col.packed.detach()[off:off + n].clone()
+    loose = col.tables["loose"].detach().clone()
+    r = np.random.default_rng(1)
+    for _ in range(3):
+        tg._train_step(*tg._device_batch(*_narrow_batch(r)))
+    torch.cuda.synchronize()
+    assert torch.equal(col.packed.detach()[off:off + n], pre)
+    assert torch.equal(col.tables["loose"].detach(), loose)

@@ -391,11 +391,6 @@ def test_trainer_rejects_what_the_port_does_not_run():
     model = pt.model
     for kw, item in ((dict(mesh=object()), "A15"), (dict(gpus=[0, 1]), "A15"),
                      (dict(fused_inference="auto"), "A10"),
-                     (dict(sparse_embedding_updates=True), "A13, B12"),
-                     (dict(sparse_embedding_updates=True, sparse_update_impl="dense"),
-                      "A13, B13"),
-                     (dict(sparse_embedding_updates=True, sparse_update_impl="winner"),
-                      "A13"),
                      (dict(sparse_embedding_updates=True, sparse_update_impl="sorted",
                            sorted_dtype="bf16"), "A13")):
         with pytest.raises(NotImplementedError, match=item):
@@ -410,14 +405,6 @@ def test_trainer_rejects_what_the_port_does_not_run():
     with pytest.raises(ValueError, match="divide 128"):
         PTrainer(wide, device="cpu", sparse_embedding_updates=True,
                  sparse_update_impl="sorted")
-    frozen = [pf.SparseFeature("s0", vocab_size=V, embed_dim=D,
-                               initializer=__import__(
-                                   "scenario_wise_rec_tpu_torch.core.init",
-                                   fromlist=["pretrained"]).pretrained(np.zeros((V, D)))),
-              pf.DenseFeature("d0")]
-    ft = PTrainer(PMMOE(frozen, DOMAINS, device="cpu", **KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ft.train_one_epoch(_loader())
 
     class DeviceResidentLoader(list):
         pass
