@@ -32,14 +32,22 @@ Phases; each asserts, and any failure exits non-zero:
      torch.optim.Adam) and a ``block_rows`` sweep on uniform and on hot-row
      ids;
    - ``occurrence_segsum`` against ``occurrence_segsum_ref`` at the Ali-CCP
-     ids as the trainer passes them (one ``[1, 94208]`` launch) and as
-     ``[23, 4096]``, a hot row (one feature's 4096 ids one row) with Zipf
-     ids, two alias segments of one owner, ragged N = 4097 with D = 3 and
-     K = 0: within n ulp of each run's sum of |g|, every duplicate's sum
-     bit-identical, and a second call equal; ``scatter_rows`` against
-     ``scatter_rows_ref`` into the occurrence mode's ``[10,741,000, 48]``
-     store with the same ids, ids -1, -7, V, V+3 and K = 0: equal; both
-     timed (the scatter beside ``index_copy_``);
+     ids as the trainer passes them (int64, one ``[23, 4096]`` launch) and
+     as int32, a hot row (one feature's 4096 ids one row) with Zipf ids, two
+     alias segments of one owner, sentinel ids, runs of 64 and 65 (either
+     side of the long-run threshold), ragged N = 4097 with D = 3, rows of
+     16384 (the shared-memory limit) and 16385 and ``[1, 94208]`` (the
+     sorted route), and K = 0: within n ulp of each run's sum of |g|, every
+     duplicate's sum bit-identical, a second call equal, and every
+     ``splits`` equal; ``scatter_rows`` against ``scatter_rows_ref`` into
+     the occurrence mode's ``[10,741,000, 48]`` store (its bulk copies) with
+     the same ids as int64 and int32, ids -1, -7, V, V+3, 2^31-1, -2^31, and
+     K = 0, and rows of 5 floats (its lanes): equal; both timed, the scatter
+     beside ``index_copy_``, and each with its device ms apart from the
+     host (a ``torch.cuda._sleep`` holds the stream until the host has
+     queued the timed calls), host µs and profiler launches per call, as
+     are their plain versions, ``index_copy_`` and the whole occurrence
+     update of a train step;
    - ``fused_dense_adam_apply`` against ``fused_dense_adam_ref`` over 3
      steps at the Ali-CCP table with 23 segments of uniform ids, the hot
      row with Zipf ids, two alias segments of one owner, V = 1,000,003 with
@@ -146,6 +154,7 @@ Phases; each asserts, and any failure exits non-zero:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -320,6 +329,103 @@ def time_ms(fn, reps=5, inner=20, warmup=3):
         b.synchronize()
         runs.append(a.elapsed_time(b) / inner)
     return statistics.median(runs)
+
+
+def device_and_host(fn, inner=50, reps=5, warmup=3):
+    """``(device ms, host µs)`` per call of ``fn``, the host's issue cost
+    kept out of the first. ``torch.cuda._sleep`` holds the stream before the
+    start event long enough that the host has queued all ``inner`` calls
+    before the card reaches them, so the events bracket device work only;
+    the host's ``perf_counter`` over the same calls (the queue never drains
+    while it runs) gives the issue cost. A run in which the card caught up
+    with the host is repeated with a longer sleep; a ``fn`` that waits for
+    the card itself (a sync inside) can never be held so, and gives
+    ``(None, host µs)``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    torch.cuda.synchronize()
+    # ~2 GHz: 4x the whole run's wall time, host and device together
+    cycles = max(1_000_000, int(4 * (time.perf_counter() - t0) * 2e9))
+    dev, host, misses = [], [], 0
+    while misses < 3:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        tq = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        t1 = time.perf_counter()
+        b.record()
+        b.synchronize()
+        if (t1 - tq) * 1e3 >= s.elapsed_time(a):  # the card reached the calls first
+            cycles, misses = 2 * cycles, misses + 1
+            continue
+        dev.append(a.elapsed_time(b) / inner)
+        host.append((t1 - t0) * 1e6 / inner)
+        if len(dev) == reps:
+            return statistics.median(dev), statistics.median(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    return None, (time.perf_counter() - t0) * 1e6 / inner
+
+
+def device_ms(event):
+    """A profiler event's own device time, ms."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0)) / 1e3
+
+
+def device_events(averages):
+    """The device-side events (kernels, copies, memsets) of a profile's
+    ``key_averages()``: an op's row, and a user annotation's such as
+    ``Optimizer.step``, repeats the time of the kernels inside it."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages if e.device_type != DeviceType.CPU and device_ms(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled_launches(fn, calls=10):
+    """``(launches, device ms)`` per call of ``fn`` under torch.profiler:
+    every kernel and memset or copy on the card, and their summed device
+    time (the card's busy time, gaps excluded); and the names seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof.key_averages())
+    names = {}
+    for e in events:
+        names[e.key[:60]] = names.get(e.key[:60], 0) + e.count / calls
+    return (sum(e.count for e in events) / calls, sum(device_ms(e) for e in events) / calls,
+            names)
+
+
+def wrapper_cost(label, fn):
+    """Step 0's three readings of one call of ``fn``: device ms (host kept
+    out), host µs, launches (profiler), logged with the profiler's busy
+    time per call as the cross-check of the device reading. The timed run
+    queues at most ~400 launches, well inside the card's launch queue (a
+    full queue would make the host wait for the card)."""
+    launches, busy_ms, names = profiled_launches(fn)
+    device_ms, host_us = device_and_host(fn, inner=max(5, min(50, int(400 // max(1, launches)))))
+    shown = "not measurable (the call syncs)" if device_ms is None else f"{device_ms:.4f} ms"
+    log(f"    {label}: device {shown}, host {host_us:.1f} us, {launches:g} launches per call "
+        f"(profiler busy {busy_ms:.4f} ms): {names}")
+    return {"device_ms": device_ms, "host_us": host_us, "launches_per_call": launches,
+            "profiled_busy_ms": busy_ms}
 
 
 def random_stages(gen, F, E, D, expert_dims, tower_dims):
@@ -1518,95 +1624,209 @@ def run_length_line(ids):
     return f"{counts.numel()} distinct ids, longest run {counts.max().item()}"
 
 
+def threshold_ids(gen, rows, n, long_run, vocab=VOCAB):
+    """``[rows, n]`` uniform ids with, in row 0, a run of ``long_run`` (the
+    longest run the lane groups sum) and one of ``long_run + 1`` (the
+    shortest the whole block sums), scattered over the row."""
+    i2 = torch.randint(0, vocab, (rows, n), generator=gen, device="cuda")
+    at = torch.randperm(n, generator=gen, device="cuda")
+    i2[0, at[:long_run]] = vocab + 1
+    i2[0, at[long_run:2 * long_run + 1]] = vocab + 2
+    return i2
+
+
+def check_segsum(rk, name, i2, g):
+    """One segment-sum call against its plain version: within n ulp of each
+    run's sum of |g|, every duplicate's sum bit-identical, a second call
+    equal. Returns (output, max |error|)."""
+    got = rk.occurrence_segsum(i2, g)
+    torch.cuda.synchronize()
+    want = rk.occurrence_segsum_ref(i2, g)
+    # two f32 sums of a run's n terms in other orders lie within n ulp of
+    # the run's sum of |g| (the plain index_add_ adds with atomics); a
+    # singleton is exact
+    count = rk.occurrence_segsum_ref(i2, torch.ones_like(g[..., :1]))
+    tol = count * 2.0 ** -23 * rk.occurrence_segsum_ref(i2, g.abs())
+    err = (got - want).abs()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"segsum {name}")
+    check(bool((err <= tol).all()), f"occurrence_segsum {name} disagrees with plain")
+    for f in range(i2.shape[0]):
+        sid, perm = torch.sort(i2[f].to(torch.int32), stable=True)
+        o, same = got[f][perm], sid[1:] == sid[:-1]
+        check(torch.equal(o[1:][same], o[:-1][same]),
+              f"occurrence_segsum {name}: duplicates' sums differ")
+    check(torch.equal(rk.occurrence_segsum(i2, g), got), f"segsum {name} not repeatable")
+    err = err.max().item() if err.numel() else 0.0
+    runs = run_length_line(i2) if i2.numel() else "no ids"
+    log(f"  occurrence_segsum {name}: {runs}, max_abs_err {err:.3e}, duplicates' sums "
+        "bit-identical, a second call equal")
+    return got, err
+
+
+@contextlib.contextmanager
+def blocks_per_row(rk, splits):
+    """The shared-memory segment sum's blocks a row set to ``splits`` for
+    the checks and the sweep (the result does not depend on it)."""
+    default, rk._splits = rk._splits, lambda rows, device: splits
+    try:
+        yield
+    finally:
+        rk._splits = default
+
+
 def phase_row_update(gen, peak):
     """``occurrence_segsum`` and ``scatter_rows`` against their plain
-    versions: the Ali-CCP ids as the trainer passes them (one ``[1, K]``
-    segsum launch, K = 94,208), the same as ``[23, 4096]``, a hot row with
-    Zipf ids, two alias segments of one owner, ragged N with D = 3, and
-    K = 0; the scatter into the occurrence mode's combined store
-    ``[10,741,000, 48]`` with the same ids, sentinel ids < 0 and >= V, and
-    K = 0. Duplicates' sums must be bit-identical and the scatter exact.
-    Then each kernel's time beside its bound and plain version (and
-    ``index_copy_`` for the scatter)."""
+    versions. The segment sum at the Ali-CCP ids as the trainer passes them
+    (int64, one ``[23, 4096]`` launch) and as int32; a hot row (one
+    feature's 4096 ids one row) with Zipf ids; two alias segments of one
+    owner; sentinel ids (negative, and at and above the vocabulary); runs
+    just below and just above the long-run threshold; ragged N with D = 3;
+    rows at the shared-memory route's limit (16384) and past it (the sorted
+    route, also at ``[1, 94208]``); K = 0; and bit-equal sums for every
+    ``splits``. The scatter into the occurrence mode's combined store
+    ``[10,741,000, 48]`` (its bulk copies) with the same ids as int64 and
+    int32, sentinel ids < 0 and >= V, and K = 0, and rows of 5 floats (its
+    lanes): exact. Then each kernel's time beside its bound, its plain
+    version and (the scatter) ``index_copy_``, and step 0's readings: device
+    ms with the host kept out, host µs and launches per call, for the
+    kernels, their plain versions, ``index_copy_`` and the whole occurrence
+    update."""
     from scenario_wise_rec_tpu_torch.ops.kernels import row_update as rk
+    from scenario_wise_rec_tpu_torch.train import optim
 
     V, D, W, K = N_SPARSE * VOCAB, 16, 48, N_SPARSE * BATCH
+    limit, long_run = rk.ROW_LIMIT, rk.LONG_RUN
     r = np.random.default_rng(2)
     ids = {k: v.cuda() for k, v in ali_id_cases(r).items()}
-    seg_cases = {"a_alicpp_uniform_1x94208": ids["a_alicpp_uniform"][None],
-                 "a_alicpp_uniform_23x4096": ids["a_alicpp_uniform"].reshape(N_SPARSE, BATCH),
-                 "b_hot_row_zipf_1x94208": ids["b_hot_row_zipf"][None],
-                 "c_alias_segments_1x8192": ids["c_alias_segments"][None],
-                 "d_ragged_d3_3x4097": torch.randint(0, 50, (3, 4097), generator=gen,
-                                                     device="cuda"),
-                 "e_no_ids": torch.zeros(1, 0, dtype=torch.long, device="cuda")}
+    ali, hot = ids["a_alicpp_uniform"], ids["b_hot_row_zipf"]
+    sentinels = torch.tensor([-1, -7, V, V + 3, 2 ** 31 - 1, -2 ** 31], device="cuda")
+    seg_cases = {
+        "a_alicpp_uniform_23x4096": ali.view(N_SPARSE, BATCH),
+        "a_alicpp_uniform_23x4096_int32": ali.view(N_SPARSE, BATCH).to(torch.int32),
+        "b_hot_row_zipf_23x4096": hot.view(N_SPARSE, BATCH),
+        "c_alias_segments_1x8192": ids["c_alias_segments"][None],
+        "d_ragged_d3_3x4097": torch.randint(0, 50, (3, 4097), generator=gen, device="cuda"),
+        "e_sentinels_2x4096": torch.cat([ali[:2 * BATCH - 24], sentinels.repeat(4)]).view(2, -1),
+        f"f_runs_{long_run}_and_{long_run + 1}_4x4096": threshold_ids(gen, 4, BATCH, long_run),
+        f"g_at_the_limit_2x{limit}": torch.randint(0, 3000, (2, limit), generator=gen,
+                                                   device="cuda"),
+        f"h_past_the_limit_2x{limit + 1}": torch.randint(0, 3000, (2, limit + 1),
+                                                         generator=gen, device="cuda"),
+        "i_alicpp_uniform_1x94208_sorted_route": ali[None],
+        "j_hot_row_zipf_1x94208_sorted_route": hot[None],
+        "k_no_ids": torch.zeros(1, 0, dtype=torch.long, device="cuda"),
+    }
     seg_err = 0.0
     for name, i2 in seg_cases.items():
         d = 3 if "d3" in name else D
         g = torch.randn(*i2.shape, d, generator=gen, device="cuda")
-        got = rk.occurrence_segsum(i2, g)
-        torch.cuda.synchronize()
-        want = rk.occurrence_segsum_ref(i2, g)
-        # two f32 sums of a run's n terms in other orders lie within n ulp of
-        # the run's sum of |g| (the plain index_add_ adds with atomics); a
-        # singleton is exact
-        count = rk.occurrence_segsum_ref(i2, torch.ones_like(g[..., :1]))
-        tol = count * 2.0 ** -23 * rk.occurrence_segsum_ref(i2, g.abs())
-        err = (got - want).abs()
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"segsum {name}")
-        check(bool((err <= tol).all()), f"occurrence_segsum {name} disagrees with plain")
-        for f in range(i2.shape[0]):
-            sid, perm = torch.sort(i2[f], stable=True)
-            o, same = got[f][perm], sid[1:] == sid[:-1]
-            check(torch.equal(o[1:][same], o[:-1][same]),
-                  f"occurrence_segsum {name}: duplicates' sums differ")
-        check(torch.equal(rk.occurrence_segsum(i2, g), got), f"segsum {name} not repeatable")
-        err = err.max().item() if err.numel() else 0.0
+        got, err = check_segsum(rk, name, i2, g)
         seg_err = max(seg_err, err)
-        runs = run_length_line(i2) if i2.numel() else "no ids"
-        log(f"  occurrence_segsum {name}: {runs}, max_abs_err {err:.3e}, duplicates' sums "
-            "bit-identical")
+        if name.startswith(("a_", "b_", "f_")):
+            for splits in (1, 2, 5, 12):
+                with blocks_per_row(rk, splits):
+                    check(torch.equal(rk.occurrence_segsum(i2, g), got),
+                          f"occurrence_segsum {name}: splits {splits} changes the sums")
+    log(f"  occurrence_segsum: splits 1, 2, 5 and 12 give the same bits (cases a, b, f)")
 
-    i2 = seg_cases["a_alicpp_uniform_1x94208"]
-    g = torch.randn(1, K, D, generator=gen, device="cuda")
-    seg_ms = time_ms(lambda: rk.occurrence_segsum(i2, g))
-    hot = seg_cases["b_hot_row_zipf_1x94208"]
-    seg_hot_ms = time_ms(lambda: rk.occurrence_segsum(hot, g))
-    sort_ms = time_ms(lambda: torch.sort(i2.to(torch.int32), dim=1, stable=True))
-    seg_plain_ms = time_ms(lambda: rk.occurrence_segsum_ref(i2, g), reps=3, inner=5)
-    log(f"  occurrence_segsum b_hot_row_zipf: {seg_hot_ms:.4f} ms; of the uniform call's "
-        f"{seg_ms:.4f} ms the id sort takes {sort_ms:.4f} ms")
+    # the trainer's call: 23 segments of 4096 int64 ids, one owner each
+    segments = tuple((f"f{f}", f * BATCH, BATCH) for f in range(N_SPARSE))
+    g = torch.randn(K, D, generator=gen, device="cuda")
+    trainer_call = lambda i1: lambda: optim._grouped_occurrence_segsum(g, i1, segments)
+    seg_ms = time_ms(trainer_call(ali))
+    seg_hot_ms = time_ms(trainer_call(hot))
+    seg_plain_ms = time_ms(lambda: rk.occurrence_segsum_ref(ali.view(N_SPARSE, BATCH),
+                                                            g.view(N_SPARSE, BATCH, D)),
+                           reps=3, inner=5)
+    log(f"  occurrence_segsum as the trainer calls it: {seg_ms:.4f} ms, hot row "
+        f"{seg_hot_ms:.4f} ms (back-to-back wrapper calls); step 0, per call:")
+    seg_cost = wrapper_cost("occurrence_segsum, the trainer's call", trainer_call(ali))
+    seg_hot = wrapper_cost("occurrence_segsum, the trainer's call, hot row", trainer_call(hot))
+    seg_plain = wrapper_cost("occurrence_segsum_ref [23, 4096]", lambda: rk.occurrence_segsum_ref(
+        ali.view(N_SPARSE, BATCH), g.view(N_SPARSE, BATCH, D)))
+    i2, g2 = ali.view(N_SPARSE, BATCH), g.view(N_SPARSE, BATCH, D)
+    sweep = {}
+    for s in (1, 2, 3, 5, 6, 12):
+        with blocks_per_row(rk, s):
+            sweep[s] = device_and_host(lambda: rk.occurrence_segsum(i2, g2))[0]
+    log(f"  occurrence_segsum [23, 4096] device ms by splits (default "
+        f"{rk._splits(N_SPARSE, torch.cuda.current_device())}): "
+        + ", ".join(f"{s}: {t:.4f}" for s, t in sweep.items()))
+    big = torch.randint(0, VOCAB, (N_SPARSE, limit), generator=gen, device="cuda")
+    gbig = torch.randn(N_SPARSE, limit, D, generator=gen, device="cuda")
+    at_limit = device_and_host(lambda: rk.occurrence_segsum(big, gbig))[0]
+    # one row of limit + 1 ids, read from the first limit + 1 of the 23 rows
+    big, gbig = big.view(1, -1)[:, :limit + 1], gbig.view(1, -1, D)[:, :limit + 1]
+    past = device_and_host(lambda: rk.occurrence_segsum(big, gbig))[0]
+    sorted_route = device_and_host(lambda: rk.occurrence_segsum(ali[None], g[None]))[0]
+    log(f"  occurrence_segsum device ms: [23, {limit}] {at_limit:.4f} (the bench's batch); "
+        f"[1, {limit + 1}] {past:.4f} and [1, 94208] {sorted_route:.4f} (the sorted route)")
+    del big, gbig
     segsum = update_entry("occurrence_segsum", seg_err, seg_ms, seg_plain_ms,
-                          float(K * D), K * (4.0 + 2 * D * 4), peak, None,
-                          hot_row_zipf_ms=seg_hot_ms, sort_ms=sort_ms)
-    del g
+                          float(K * D), K * (8.0 + 2 * D * 4), peak, None,
+                          hot_row_zipf_ms=seg_hot_ms, device_ms=seg_cost["device_ms"],
+                          host_us=seg_cost["host_us"],
+                          launches_per_call=seg_cost["launches_per_call"],
+                          hot_row_device_ms=seg_hot["device_ms"],
+                          plain_device_busy_ms=seg_plain["profiled_busy_ms"],
+                          splits_device_ms=sweep, row_limit_23x16384_device_ms=at_limit,
+                          sorted_route_1x94208_device_ms=sorted_route)
 
     dst = torch.randn(V, W, generator=gen, device="cuda")
-    sentinels = torch.tensor([-1, -7, V, V + 3], device="cuda")
-    sc_cases = {**ids, "d_sentinels": torch.cat([ids["a_alicpp_uniform"][:20_000], sentinels]),
-                "e_no_ids": torch.zeros(0, dtype=torch.long, device="cuda")}
+    narrow = torch.randn(100_003, 5, generator=gen, device="cuda")  # W % 4 != 0: the lanes
+    wide = torch.randn(3000, 1024, generator=gen, device="cuda")  # past the bulk copies' 896
+    sc_cases = {**ids, "d_sentinels": torch.cat([ali[:20_000], sentinels]),
+                "e_no_ids": torch.zeros(0, dtype=torch.long, device="cuda"),
+                "f_lanes_w5": torch.cat([sentinels, torch.randint(0, 100_003, (50_000,),
+                                                                  generator=gen, device="cuda")]),
+                "g_lanes_w1024": torch.cat([sentinels, torch.randint(0, 3000, (5000,),
+                                                                     generator=gen, device="cuda")])}
     for name, i1 in sc_cases.items():
+        into = {"f_lanes_w5": narrow, "g_lanes_w1024": wide}.get(name, dst)
         # duplicates carry identical rows, as the segsum makes them
         _, inv = torch.unique(i1, return_inverse=True)
-        rows = torch.randn(i1.numel(), W, generator=gen, device="cuda")[inv]
-        got, want = dst.clone(), dst.clone()
-        rk.scatter_rows(got, i1, rows)
-        torch.cuda.synchronize()
-        rk.scatter_rows_ref(want, i1, rows)
-        check(torch.equal(got, want), f"scatter_rows {name} disagrees with plain")
-        log(f"  scatter_rows {name}: K {i1.numel()}, equal to the plain version")
-        del got, want
-    i1 = ids["a_alicpp_uniform"]
-    _, inv = torch.unique(i1, return_inverse=True)
+        rows = torch.randn(i1.numel(), into.shape[1], generator=gen, device="cuda")[inv]
+        want = rk.scatter_rows_ref(into.clone(), i1, rows)
+        for dtype in (torch.int64, torch.int32):
+            got = into.clone()
+            rk.scatter_rows(got, i1.to(dtype), rows)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"scatter_rows {name} ({dtype}) disagrees with plain")
+            del got
+        log(f"  scatter_rows {name}: K {i1.numel()} into {tuple(into.shape)}, equal to the plain "
+            "version with int64 and int32 ids")
+        del want
+    del narrow, wide
+    _, inv = torch.unique(ali, return_inverse=True)
     rows = torch.randn(K, W, generator=gen, device="cuda")[inv]
-    i32 = i1.to(torch.int32)
-    sc_ms = time_ms(lambda: rk.scatter_rows(dst, i32, rows))
-    sc_plain_ms = time_ms(lambda: rk.scatter_rows_ref(dst, i1, rows))
+    i32 = ali.to(torch.int32)
+    # int64 ids, as the trainer passes them
+    sc_ms = time_ms(lambda: rk.scatter_rows(dst, ali, rows))
+    sc_plain_ms = time_ms(lambda: rk.scatter_rows_ref(dst, ali, rows))
     # one PyTorch call computing the same (timed here only; the port never calls it)
-    sc_lib_ms = time_ms(lambda: dst.index_copy_(0, i1, rows))
+    sc_lib_ms = time_ms(lambda: dst.index_copy_(0, ali, rows))
+    log("  scatter_rows, step 0, per call:")
+    sc_lib = wrapper_cost("index_copy_, int64 ids", lambda: dst.index_copy_(0, ali, rows))
+    sc_cost = wrapper_cost("scatter_rows, int64 ids", lambda: rk.scatter_rows(dst, ali, rows))
+    sc_cost32 = wrapper_cost("scatter_rows, int32 ids", lambda: rk.scatter_rows(dst, i32, rows))
+    sc_plain = wrapper_cost("scatter_rows_ref, int64 ids",
+                            lambda: rk.scatter_rows_ref(dst, ali, rows))
+    sc_lib2 = wrapper_cost("index_copy_, int64 ids, again", lambda: dst.index_copy_(0, ali, rows))
     scatter = update_entry("scatter_rows", 0.0, sc_ms, sc_plain_ms, 0.0,
-                           K * (4.0 + 2 * W * 4), peak, sc_lib_ms)
-    del dst
+                           K * (8.0 + 2 * W * 4), peak, sc_lib_ms,
+                           device_ms=sc_cost["device_ms"], host_us=sc_cost["host_us"],
+                           launches_per_call=sc_cost["launches_per_call"],
+                           int32_ids_device_ms=sc_cost32["device_ms"],
+                           library_device_ms=[sc_lib["device_ms"], sc_lib2["device_ms"]],
+                           library_host_us=sc_lib["host_us"],
+                           plain_device_busy_ms=sc_plain["profiled_busy_ms"])
+    # the whole occurrence update of one train step at Ali-CCP: its launches
+    state, r3 = {"comb": dst, "step": 0}, dst[ali]
+    log("  the occurrence update of one train step (sparse_adam_occurrence_update):")
+    step = wrapper_cost("sparse_adam_occurrence_update", lambda: optim.sparse_adam_occurrence_update(
+        state, g, ali, segments, r3))
+    segsum["occurrence_step_launches"] = step["launches_per_call"]
+    del dst, state, r3, g
     torch.cuda.empty_cache()
     return {"occurrence_segsum": segsum, "scatter_rows": scatter}
 
@@ -2435,9 +2655,8 @@ def phase_main_path(seed, card, name="mmoe"):
 def profile_device(fn, what):
     """Device time by kernel over ``fn()`` and the host ops that cost the
     most, under torch.profiler (which adds host overhead, so the busy share
-    is a lower bound). Only device-side events (kernels, copies) count as
-    busy time: an op's row, and a user annotation's such as
-    ``Optimizer.step``, repeats the time of the kernels inside it."""
+    is a lower bound). Only device-side events count as busy time
+    (:func:`device_events`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2447,20 +2666,17 @@ def profile_device(fn, what):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0)) / 1e3
     averages = prof.key_averages()
-    kernels = [e for e in averages if e.device_type != DeviceType.CPU and dev(e) > 0
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_events(averages)
     if not kernels:
         log("  profile: the profiler saw no device time (not measured)")
         return
-    busy_ms = sum(dev(e) for e in kernels)
+    busy_ms = sum(device_ms(e) for e in kernels)
     log(f"  profile of {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels "
         f"and copies; top device time:")
-    for e in sorted(kernels, key=dev, reverse=True)[:8]:
-        log(f"    {dev(e):8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for e in sorted(kernels, key=device_ms, reverse=True)[:8]:
+        log(f"    {device_ms(e):8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     log("   top host self time:")
     host = [e for e in averages if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:

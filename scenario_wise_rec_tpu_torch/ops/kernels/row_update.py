@@ -11,8 +11,10 @@
   Replaces ``scenario_wise_rec_tpu/ops/pallas/row_update.py:scatter_rows``.
 
 The design notes are at the top of the source. On the card the segment sum
-is sort-based (one stable ``torch.sort`` of each row of ids, then the
-kernel), not the TPU's equality-mask matmul. The JAX functions' dials
+is sort-based, not the TPU's equality-mask matmul: a row of up to 16384 ids
+is sorted in shared memory inside the one launch; a longer row is sorted by
+``torch.sort`` before its launch. Both kernels read int32 or int64 ids as
+the trainer passes them. The JAX functions' dials
 (``tile``; ``nslots``, ``chunk``, ``force_xla``) shape the TPU kernels only:
 here they are checked and unused.
 
@@ -58,15 +60,29 @@ def occurrence_segsum_ref(ids: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return sums[inv].reshape(F, N, D)
 
 
+# csrc/row_update.cu's kRowLimit: the longest row that the segment sum sorts
+# in shared memory (longer rows take torch.sort and the sorted kernel); and
+# its kLongRun: runs longer than this are summed by a whole block
+ROW_LIMIT, LONG_RUN = 16384, 64
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from . import _build
 
     lib = _build.load("row_update")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.occurrence_segsum_f32.argtypes = [p, p, p, p, ll, i, i, p]
-    lib.occurrence_segsum_f32.restype = ctypes.c_int
-    lib.scatter_rows_f32.argtypes = [p, p, p, ll, i, ll, p]
+    for getter in (lib.occurrence_segsum_row_limit, lib.occurrence_segsum_long_run):
+        getter.argtypes, getter.restype = [], ctypes.c_int
+    if (lib.occurrence_segsum_row_limit(), lib.occurrence_segsum_long_run()) != (
+            ROW_LIMIT, LONG_RUN):
+        raise RuntimeError("csrc/row_update.cu's kRowLimit and kLongRun differ from "
+                           "ROW_LIMIT and LONG_RUN")
+    lib.occurrence_segsum_rows_f32.argtypes = [p, i, p, p, i, i, i, i, p]
+    lib.occurrence_segsum_rows_f32.restype = ctypes.c_int
+    lib.occurrence_segsum_sorted_f32.argtypes = [p, p, p, p, ll, i, i, p]
+    lib.occurrence_segsum_sorted_f32.restype = ctypes.c_int
+    lib.scatter_rows_f32.argtypes = [p, p, i, p, i, i, ll, p]
     lib.scatter_rows_f32.restype = ctypes.c_int
     return lib
 
@@ -80,29 +96,54 @@ def _cuda_only(name, *tensors):
             raise ValueError(f"{name}: tensor on {t.device}, expected {dev}")
 
 
-def occurrence_segsum(ids: torch.Tensor, g: torch.Tensor, *,
-                      tile: int = 256) -> torch.Tensor:
-    """Per-occurrence duplicate-gradient sum: ids ``[F, N]``, g ``[F, N,
-    D]`` f32 -> ``[F, N, D]``. Rows of ``ids`` are independent; ``tile`` is
-    the TPU kernel's row tile, checked and unused."""
+def _int_ids(name, ids):
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name} takes int32 or int64 ids on the card, got {ids.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(rows: int, device: int) -> int:
+    """Blocks per row of the shared-memory segment sum: as many as the
+    card's SMs hold one each (every block sorts its row again and takes a
+    share of its runs, so a second block on an SM doubles the sorts there;
+    the result does not depend on it)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(16, sms // rows))
+
+
+def occurrence_segsum(ids: torch.Tensor, g: torch.Tensor, *, tile: int = 256) -> torch.Tensor:
+    """Per-occurrence duplicate-gradient sum: ids ``[F, N]`` (int32 or int64
+    on the card, compared by their low 32 bits), g ``[F, N, D]`` f32 ->
+    ``[F, N, D]``. Rows of ``ids`` are independent. A row of at most
+    ``ROW_LIMIT`` (16384) ids is one launch that sorts in shared memory
+    (:func:`_splits` blocks a row, which leaves the result unchanged); a
+    longer row is sorted by ``torch.sort`` first, then one launch. ``tile``
+    is the TPU kernel's row tile, checked and unused."""
     _positive("tile", tile)
     if g.device.type == "cpu":
         return occurrence_segsum_ref(ids, g)
     _check_segsum(ids, g)
     _cuda_only("occurrence_segsum", g, ids)
+    _int_ids("occurrence_segsum", ids)
+    if g.device.index != torch.cuda.current_device():
+        with torch.cuda.device(g.device):
+            return occurrence_segsum(ids, g, tile=tile)
     F, N, D = g.shape
-    if F * N >= 2 ** 31:
-        raise ValueError(f"int32 positions address at most 2^31 - 1 occurrences, got {F * N}")
     out = torch.empty_like(g, memory_format=torch.contiguous_format)
     if F * N == 0:
         return out
-    g = g.contiguous()
-    sid, idx = torch.sort(ids.to(torch.int32), dim=1, stable=True)
-    perm = (idx + torch.arange(F, device=g.device)[:, None] * N).to(torch.int32)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    with torch.cuda.device(g.device):
-        err = _lib().occurrence_segsum_f32(sid.data_ptr(), perm.data_ptr(), g.data_ptr(),
-                                           out.data_ptr(), F * N, N, D, stream)
+    g, ids = g.contiguous(), ids.contiguous()
+    lib = _lib()
+    stream = torch._C._cuda_getCurrentRawStream(g.device.index)
+    if N <= ROW_LIMIT:
+        err = lib.occurrence_segsum_rows_f32(ids.data_ptr(), ids.dtype == torch.int64,
+                                             g.data_ptr(), out.data_ptr(), F, N, D,
+                                             _splits(F, g.device.index), stream)
+    else:
+        # int64 ids are grouped by their low 32 bits here too
+        sid, idx = torch.sort(ids.to(torch.int32), dim=1, stable=True)
+        err = lib.occurrence_segsum_sorted_f32(sid.data_ptr(), idx.data_ptr(), g.data_ptr(),
+                                               out.data_ptr(), F * N, N, D, stream)
     if err != 0:
         raise RuntimeError(f"occurrence_segsum launch failed with cudaError {err}")
     occurrence_segsum.launches += 1
@@ -139,10 +180,10 @@ def scatter_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, *,
     """In-place row scatter ``dst[ids[k]] = rows[k]``; returns ``dst``.
 
     ``dst [V, ...]`` (contiguous on the card) and ``rows [K, ...]`` share
-    their trailing shape; ids outside ``[0, V)`` are dropped; duplicate ids
-    must carry identical rows (their writes race). ``nslots``, ``chunk`` and
-    ``force_xla`` are the TPU kernel's DMA ring, id chunk and XLA switch,
-    checked and unused."""
+    their trailing shape; ids (int32 or int64 on the card) outside ``[0,
+    V)`` are dropped by the kernel; duplicate ids must carry identical rows
+    (their writes race). ``nslots``, ``chunk`` and ``force_xla`` are the TPU
+    kernel's DMA ring, id chunk and XLA switch, checked and unused."""
     _positive("nslots", nslots)
     _positive("chunk", chunk)
     if not isinstance(force_xla, bool):
@@ -151,21 +192,21 @@ def scatter_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, *,
         return scatter_rows_ref(dst, ids, rows)
     _check_scatter(dst, ids, rows)
     _cuda_only("scatter_rows", dst, ids, rows)
+    _int_ids("scatter_rows", ids)
     if not dst.is_contiguous():
         raise ValueError("scatter_rows updates a contiguous dst in place")
+    if dst.device.index != torch.cuda.current_device():
+        with torch.cuda.device(dst.device):
+            return scatter_rows(dst, ids, rows)
     V, K, W = dst.shape[0], ids.shape[0], math.prod(dst.shape[1:])
-    if V >= 2 ** 31:
-        raise ValueError(f"int32 ids address at most 2^31 - 1 rows, got V = {V}")
+    if K >= 2 ** 31:
+        raise ValueError(f"scatter_rows takes at most 2^31 - 1 rows, got K = {K}")
     if K == 0 or V == 0 or W == 0:
         return dst
-    # the kernel drops ids outside [0, V); other integer ids are clamped to
-    # [-1, V] first, so that none wraps into range as int32
-    ids32 = ids.clamp(-1, V).to(torch.int32) if ids.dtype != torch.int32 else ids.contiguous()
-    rows = rows.contiguous()
-    stream = torch.cuda.current_stream(dst.device).cuda_stream
-    with torch.cuda.device(dst.device):
-        err = _lib().scatter_rows_f32(dst.data_ptr(), ids32.data_ptr(), rows.data_ptr(),
-                                      K, W, V, stream)
+    rows, ids = rows.contiguous(), ids.contiguous()
+    err = _lib().scatter_rows_f32(dst.data_ptr(), ids.data_ptr(), ids.dtype == torch.int64,
+                                  rows.data_ptr(), K, W, V,
+                                  torch._C._cuda_getCurrentRawStream(dst.device.index))
     if err != 0:
         raise RuntimeError(f"scatter_rows launch failed with cudaError {err}")
     scatter_rows.launches += 1

@@ -804,8 +804,20 @@ def _segsum_ids(gen, F, N, case, vocab=467_000):
         ids = np.minimum(r.zipf(1.2, (F, N)) - 1, vocab - 1)
         ids[0] = 17
         return torch.as_tensor(ids).cuda()
-    return torch.randint(0, vocab if case == "uniform" else 7, (F, N), generator=gen,
-                         device="cuda")
+    if case == "threshold":  # row 0: runs of LONG_RUN and LONG_RUN + 1, scattered
+        ids = torch.randint(0, vocab, (F, N), generator=gen, device="cuda")
+        at = torch.randperm(N, generator=gen, device="cuda")
+        ids[0, at[:kru.LONG_RUN]] = vocab + 1
+        ids[0, at[kru.LONG_RUN:2 * kru.LONG_RUN + 1]] = vocab + 2
+        return ids
+    if case == "sentinels":  # negative ids and ids at and past any vocabulary
+        ids = torch.randint(0, 50, (F, N), generator=gen, device="cuda")
+        ids[:, ::7] = torch.tensor([-1, -7, vocab, vocab + 3, 2 ** 31 - 1, -2 ** 31],
+                                   device="cuda").repeat(N)[:ids[:, ::7].shape[1]]
+        return ids
+    ids = torch.randint(0, vocab if case.startswith("uniform") else 7, (F, N), generator=gen,
+                        device="cuda")
+    return ids.to(torch.int32) if case.endswith("int32") else ids
 
 
 def _assert_duplicates_bit_identical(ids, out):
@@ -822,6 +834,12 @@ def _assert_duplicates_bit_identical(ids, out):
     (2, 1000, 3, "few"),         # D not a multiple of 4; 7 distinct ids a row
     (1, 70000, 12, "hot"),       # a 70000-long run
     (5, 1, 8, "uniform"),
+    (23, 4096, 16, "uniform_int32"),  # int32 ids
+    (3, 4096, 16, "sentinels"),  # ids < 0 and >= any V, compared as int32
+    (4, 4096, 16, "threshold"),  # a run of LONG_RUN (lanes) and LONG_RUN + 1 (the block)
+    (2, 16384, 16, "few"),       # rows at ROW_LIMIT: the shared-memory route
+    (2, 16385, 16, "few"),       # one past it: the sorted route
+    (2, 16384, 3, "hot"),        # at the limit with D = 3; a 16384-long run
 ])
 def test_segsum_kernel_matches_plain(gen, F, N, D, case):
     ids = _segsum_ids(gen, F, N, case)
@@ -841,6 +859,49 @@ def test_segsum_kernel_matches_plain(gen, F, N, D, case):
     assert torch.equal(again, got)  # the order of every sum is fixed by the data
 
 
+@pytest.mark.parametrize("splits", [1, 2, 7, 23])
+@pytest.mark.parametrize("case", ["uniform", "hot", "threshold"])
+def test_segsum_splits_leave_the_sums_unchanged(gen, monkeypatch, splits, case):
+    """Blocks per row only share out the runs: every count of blocks a row
+    gives the default's bits."""
+    ids = _segsum_ids(gen, 5, 4096, case)
+    g = torch.randn(5, 4096, 16, generator=gen, device="cuda")
+    want = kru.occurrence_segsum(ids, g)
+    monkeypatch.setattr(kru, "_splits", lambda rows, device: splits)
+    assert torch.equal(kru.occurrence_segsum(ids, g), want)
+
+
+@pytest.mark.parametrize("segments", [
+    tuple((f"f{f}", f * 4096, 4096) for f in range(23)),  # Ali-CCP: one [23, 4096] launch
+    (("a", 0, 300), ("b", 300, 500), ("a", 800, 200), ("c", 1000, 500), ("d", 1500, 20000)),
+])
+def test_grouped_segsum_on_the_card(gen, segments):
+    """The trainer's batching on the card: one launch per distinct owner
+    length (alias segments of one owner merged, a 20000-long owner on the
+    sorted route), equal to the plain version over the same layout."""
+    from scenario_wise_rec_tpu_torch.train import optim
+
+    K = sum(z for _, _, z in segments)
+    ids = torch.empty(K, dtype=torch.long, device="cuda")
+    spans = {o: i * 100_000 for i, o in enumerate(dict.fromkeys(o for o, _, _ in segments))}
+    for owner, start, size in segments:
+        ids[start:start + size] = spans[owner] + torch.randint(0, 3000, (size,), generator=gen,
+                                                               device="cuda")
+    g = torch.randn(K, 16, generator=gen, device="cuda")
+    before = kru.occurrence_segsum.launches
+    got = optim._grouped_occurrence_segsum(g, ids, segments)
+    torch.cuda.synchronize()
+    lengths = {}
+    for owner, _, size in segments:
+        lengths[owner] = lengths.get(owner, 0) + size
+    assert kru.occurrence_segsum.launches - before == len(set(lengths.values()))
+    want = kru.occurrence_segsum_ref(ids[None], g[None])[0]  # spans disjoint: one row
+    count = kru.occurrence_segsum_ref(ids[None], torch.ones_like(g[None, :, :1]))[0]
+    assert bool(((got - want).abs() <= count * 2.0 ** -23 *
+                 kru.occurrence_segsum_ref(ids[None], g[None].abs())[0]).all())
+    _assert_duplicates_bit_identical(ids[None], got[None])
+
+
 @pytest.mark.parametrize("V,W,K", [(100_003, 48, 94_208), (5000, 5, 3000), (70, 16, 4000)])
 def test_scatter_kernel_matches_plain(gen, V, W, K):
     ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
@@ -858,6 +919,36 @@ def test_scatter_kernel_matches_plain(gen, V, W, K):
     assert torch.equal(dst, want)
     with pytest.raises(ValueError):
         kru.scatter_rows(dst.t(), ids, rows)
+    with pytest.raises(ValueError):
+        kru.scatter_rows(dst, ids.to(torch.int16), rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("V,W,K,offset", [
+    (10_741_000, 48, 94_208, 0),  # the occurrence store: bulk copies
+    (5000, 8, 3001, 0),           # a ragged last block of the bulk copies
+    (70, 16, 4000, 1),            # rows 4 bytes off 16-byte alignment: the lanes
+    (5000, 7, 3001, 0),           # W % 4 != 0: the lanes
+    (3000, 896, 700, 0),          # the widest rows of the bulk copies (224 KB a block)
+    (3000, 1024, 700, 0),         # wider: the lanes
+])
+def test_scatter_kernel_by_row_shape_matches_plain(gen, V, W, K, offset, dtype):
+    """Each scatter kernel (bulk copies for 16-byte rows and pointers of at
+    most 896 floats, lanes otherwise) exact against the plain version, with int64 and int32 ids
+    and sentinels below 0 and at or above V dropped."""
+    ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
+    ids[:6] = torch.tensor([-1, V, V + 7, -V, 2 ** 31 - 1, -2 ** 31], device="cuda")
+    table = torch.randn(min(V, 100_000) + 8, W, generator=gen, device="cuda")
+    buf = torch.empty(K * W + offset, device="cuda")
+    rows = buf[offset:].view(K, W)
+    rows.copy_(table[ids.remainder(table.shape[0])])  # duplicates carry identical rows
+    dst = torch.randn(V, W, generator=gen, device="cuda")
+    want = kru.scatter_rows_ref(dst.clone(), ids, rows)
+    before = kru.scatter_rows.launches
+    assert kru.scatter_rows(dst, ids.to(dtype), rows) is dst
+    torch.cuda.synchronize()
+    assert kru.scatter_rows.launches == before + 1
+    assert torch.equal(dst, want)
 
 
 @pytest.mark.parametrize("V,D,sizes,case", [

@@ -105,6 +105,65 @@ def test_occurrence_segsum_exact_sums_and_rows_independent():
         pru.occurrence_segsum(_t(ids), _t(g[:, :5]))
 
 
+def _owner_layout(layout):
+    """``(ids int32 [K], segments)``: each owner's ids in its own span of
+    the packed table (as ``touched_ids`` clips them), with duplicates."""
+    sizes = {"unequal": (("A", 30), ("B", 50), ("C", 30), ("D", 7)),
+             # alias segments of one owner, not contiguous, duplicates across them
+             "alias": (("A", 10), ("B", 20), ("A", 15), ("C", 25), ("A", 5)),
+             # an owner longer than the card's shared-memory route takes
+             "long": (("A", pru.ROW_LIMIT + 3), ("B", 40), ("A", 9))}[layout]
+    r = np.random.default_rng(len(layout))
+    span = {o: i * 1000 for i, o in enumerate(dict.fromkeys(o for o, _ in sizes))}
+    ids, segments, at = [], [], 0
+    for owner, size in sizes:
+        ids.append(span[owner] + r.integers(0, 12 if owner == "A" else 900, size))
+        segments.append((owner, at, size))
+        at += size
+    return np.concatenate(ids).astype(np.int32), tuple(segments)
+
+
+@pytest.mark.parametrize("layout,use_pallas", [
+    ("unequal", False), ("unequal", True), ("alias", False), ("alias", True),
+    ("long", True),  # the XLA form would build a [16387, 16387] mask
+], ids=lambda v: {False: "jax_xla", True: "jax_pallas"}.get(v, v))
+def test_grouped_occurrence_segsum_matches_jax(layout, use_pallas):
+    """The trainer's batching (owners merged, stacked by length, one call a
+    length) against the JAX function on the same numpy inputs: unequal
+    owner lengths, non-contiguous alias segments, and an owner longer than
+    ROW_LIMIT; every duplicate's sum bit-identical."""
+    ids, segments = _owner_layout(layout)
+    g = np.random.default_rng(7).normal(size=(ids.shape[0], D)).astype(np.float32)
+    want = joptim._grouped_occurrence_segsum(jnp.asarray(g), jnp.asarray(ids), segments,
+                                            use_pallas)
+    got = poptim._grouped_occurrence_segsum(_t(g), _t(ids).long(), segments).numpy()
+    # runs here reach ~1400 occurrences: two f32 sums of a run's n terms in
+    # other orders lie within n ulp of the run's sum of |g| (the spans are
+    # disjoint, so the runs are those of the whole layout)
+    _, inv, count = np.unique(ids, return_inverse=True, return_counts=True)
+    abs_sum = np.zeros((count.shape[0], D), np.float64)
+    np.add.at(abs_sum, inv, np.abs(g))
+    tol = count[inv, None] * 2.0 ** -23 * abs_sum[inv]
+    assert np.all(np.abs(got - np.asarray(want)) <= tol + SUM_ATOL), layout
+    _duplicates_equal_exactly(ids[None], got[None])
+
+
+def test_grouped_occurrence_segsum_layout():
+    """The JAX package's batching: one call per distinct owner length, in
+    order of first appearance; the ids' own order stays a view (no gather)."""
+    _, segments = _owner_layout("alias")
+    order, back, shapes = poptim._owner_rows(segments, torch.device("cpu"))
+    assert shapes == ((1, 30), (1, 20), (1, 25))
+    assert order[:12].tolist() == list(range(10)) + [30, 31]  # A's pieces merged first
+    assert sorted(order.tolist()) == list(range(75))
+    assert order[back].tolist() == list(range(75))  # back is the inverse
+    ali = tuple((f"f{f}", f * 4096, 4096) for f in range(23))
+    assert poptim._owner_rows(ali, torch.device("cpu")) == (None, None, ((23, 4096),))
+    with pytest.raises(ValueError):
+        poptim._grouped_occurrence_segsum(torch.zeros(5, D), torch.zeros(5, dtype=torch.long),
+                                          (("A", 0, 4),))
+
+
 # -- scatter_rows -------------------------------------------------------------
 
 @pytest.mark.parametrize("trailing,k,chunk", [((16,), 40, 32), ((2, 8), 40, 32),
