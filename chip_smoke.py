@@ -19,9 +19,15 @@ Phases; each asserts, and any failure exits non-zero:
 2. Kernels vs plain on the card, each timed with CUDA events (warm-up,
    median of repeats) beside the bound of its work:
    - ``mmoe_fused_infer`` against ``mmoe_fused_infer_ref`` at (a) the
-     Ali-CCP shape, B = 4096, (b) ragged B = 4095 and B = 1, (c) a narrow
-     configuration, (d) domain ids -1, D and D+5; max |error| <= 1e-5 (f32
-     FMA order differs from cuBLAS);
+     Ali-CCP shape, B = 4096, (b) ragged B = 4095, B = 1, B = 31 and 33
+     (a 32-row tile -+ 1) and B = 1000, (c) a narrow configuration, (d)
+     domain ids -1, D and D+5, (e) widths off the mma tile, a layer wider
+     than one 256-column pass and 9 experts, (f) a NaN in one row, which
+     must stay there, (g) KuaiRand's MMOE (F = 800, 5 domains, 5 experts of
+     [32], tower [16]); max |error| <= 1e-5 (3xTF32 products and another summation order
+     than cuBLAS's); with its Step-0 reading (device ms, host µs, launches)
+     for each ``block_rows`` of the sweep, beside its f32 SIMT bound and the
+     3xTF32 design's;
    - ``sorted_dense_adam_apply`` against ``sorted_dense_adam_apply_ref``
      over 3 steps at (a) the Ali-CCP table (V = 10,741,000, D = 16,
      K = 94,208 uniform ids), (b) a hot row (one feature's 4096 ids one
@@ -41,8 +47,10 @@ Phases; each asserts, and any failure exits non-zero:
      duplicate's sum bit-identical, a second call equal, and every
      ``splits`` equal; ``scatter_rows`` against ``scatter_rows_ref`` into
      the occurrence mode's ``[10,741,000, 48]`` store (its bulk copies) with
-     the same ids as int64 and int32, ids -1, -7, V, V+3, 2^31-1, -2^31, and
-     K = 0, and rows of 5 floats (its lanes): equal; both timed, the scatter
+     the same ids as int64 and int32, ids -1, -7, -V and the wrapped twins of
+     positive ids (a negative id wraps once, as the reference's XLA form
+     does), -V-1, V, V+3, 2^31-1, -2^31 (dropped), and K = 0, and rows of 5
+     and 1024 floats (its lanes) with the same kinds of ids: equal; both timed, the scatter
      beside ``index_copy_``, and each with its device ms apart from the
      host (a ``torch.cuda._sleep`` holds the stream until the host has
      queued the timed calls), host µs and profiler launches per call, as
@@ -146,9 +154,11 @@ Phases; each asserts, and any failure exits non-zero:
    in each mode on the card against the CPU; and a narrow model with a
    frozen pretrained table in its packed table and a frozen loose one in
    all five modes (both bit-identical).
-5. ``[5] done in ... s``, the card line, one ``{"kernels": [...]}`` line
-   with all sixteen kernels, and last the line ``{"ok": true, "device":
-   {...}}``.
+5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
+   prints its own on a line when it ends), the card line, one
+   ``{"kernels": [...]}`` line with all sixteen kernels (an eval kernel's
+   ``ms`` is its Step-0 device time, beside ``back_to_back_ms``), and last
+   the line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -170,11 +180,11 @@ import torch
 
 # Published peaks (dense, no sparsity) by card: f32 outside the tensor cores
 # and memory bandwidth, from NVIDIA's data sheets, at full power.
-PEAKS = {  # name fragment -> (f32 FLOP/s, bytes/s)
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
-    "H200": (67e12, 4.8e12),
-    "H100": (67e12, 3.35e12),  # SXM
+PEAKS = {  # name fragment -> (f32 FLOP/s, bytes/s, dense TF32 tensor-core FLOP/s)
+    "H100 PCIe": (51e12, 2.0e12, 378e12),
+    "H100 NVL": (60e12, 3.9e12, 417e12),
+    "H200": (67e12, 4.8e12, 495e12),
+    "H100": (67e12, 3.35e12, 495e12),  # SXM
 }
 VOCAB, N_SPARSE, N_DENSE, DOMAINS, BATCH = 467_000, 23, 8, 3, 4096
 EXPERT_DIMS, TOWER_DIMS = [256, 128, 64, 32, 16, 8], [16]
@@ -210,6 +220,8 @@ META_MODELS = ("m2m", "m3oe")
 # block_rows whose activations fit in shared memory at M2M's and M3oE's
 # Ali-CCP widths (each row keeps ~8 KB)
 META_BLOCK_ROWS = (8, 16, 24)
+# mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
+MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # eval kernel launches a batch: HamurLarge runs 3 segments
 LAUNCHES_PER_BATCH = {"hamur": 3}
 # HamurLarge served fused against op by op, end to end: the op-by-op path
@@ -296,6 +308,22 @@ def check(cond, what):
 
 def log(*a):
     print(*a, flush=True)
+
+
+PHASE_S = {}  # wall seconds of each phase of this run, in order
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Times one phase of the run (host clock, the card synced at its end)
+    and prints its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        PHASE_S[label] = time.perf_counter() - t0
+        log(f"  phase {label}: {PHASE_S[label]:.1f} s")
 
 
 def card_line() -> str:
@@ -446,17 +474,18 @@ def random_stages(gen, F, E, D, expert_dims, tower_dims):
 
 
 def work(emb, did, ex, gate, tw, out):
-    """(FLOPs, bytes) the function needs on these inputs: 2 per multiply-add,
-    each row's own-domain gate and tower; each input read once, the output
-    written once."""
+    """(FLOPs, bytes, expert FLOPs) the function needs on these inputs: 2
+    per multiply-add, each row's own-domain gate and tower; each input read
+    once, the output written once. The experts' share is what the kernel
+    runs on the tensor cores."""
     B = emb.shape[0]
-    macs = sum(w.shape[0] * w.shape[1] * w.shape[2] for w, _ in ex)  # E * in * out
-    macs += gate[0].shape[1] * gate[0].shape[2]
+    expert = sum(w.shape[0] * w.shape[1] * w.shape[2] for w, _ in ex)  # E * in * out
+    macs = expert + gate[0].shape[1] * gate[0].shape[2]
     macs += sum(w.shape[1] * w.shape[2] for w, _ in tw) + out[0].shape[1]
     tensors = [emb, did] + [t for s in ex for t in s] + list(gate) \
         + [t for s in tw for t in s] + list(out)
     nbytes = sum(t.numel() * t.element_size() for t in tensors) + B * 4
-    return 2.0 * B * macs, float(nbytes)
+    return 2.0 * B * macs, float(nbytes), 2.0 * B * expert
 
 
 def phase_kernels(gen, peak):
@@ -471,16 +500,33 @@ def phase_kernels(gen, peak):
         return torch.randint(lo, D if hi is None else hi, (B,), generator=gen,
                              device="cuda")
 
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
     cases = {
-        "a_alicpp_b4096": (torch.randn(4096, F, generator=gen, device="cuda"),
-                           ids(4096, DOMAINS), ali),
-        "b_ragged_b4095": (torch.randn(4095, F, generator=gen, device="cuda"),
-                           ids(4095, DOMAINS), ali),
-        "b_ragged_b1": (torch.randn(1, F, generator=gen, device="cuda"),
-                        ids(1, DOMAINS), ali),
-        "c_narrow_b1000": (torch.randn(1000, 42, generator=gen, device="cuda"),
-                           ids(1000, 2), narrow),
+        "a_alicpp_b4096": (randn(4096, F), ids(4096, DOMAINS), ali),
+        "b_ragged_b4095": (randn(4095, F), ids(4095, DOMAINS), ali),
+        "b_ragged_b1": (randn(1, F), ids(1, DOMAINS), ali),
+        "b_ragged_b31_b33": (randn(33, F), ids(33, DOMAINS), ali),  # a tile's 32 rows +- 1
+        # 32 tiles of 32 rows, the last of 8
+        "b_ragged_b1000": (randn(1000, F), ids(1000, DOMAINS), ali),
+        "c_narrow_b1000": (randn(1000, 42), ids(1000, 2), narrow),
+        # widths off the mma tile (8), a layer past one 256-column pass, 9
+        # experts
+        "e_odd_widths_b1000": (randn(1000, 201), ids(1000, 2),
+                               random_stages(gen, 201, 9, 2, [300, 33, 7], [5])),
     }
+    # KuaiRand's MMOE ladder (5 domains, 5 experts of [32], tower [16]) at a
+    # wide F: its loader keeps each column as a 16-wide sparse feature. Its
+    # own generator: the phases after this one draw what they drew without it
+    kr = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 1)
+    cases["g_kuairand_b4096"] = (
+        torch.randn(4096, 800, generator=kr, device="cuda"),
+        torch.randint(0, 5, (4096,), generator=kr, device="cuda"),
+        random_stages(kr, 800, 5, 5, [32], [16]))
+    nan_emb = randn(4096, F)
+    nan_emb[2049, 100] = float("nan")  # stays in its row: the others are checked
+    cases["f_nan_row_b4096"] = (nan_emb, cases["a_alicpp_b4096"][1], ali)
     oob = torch.tensor([-1, DOMAINS, DOMAINS + 5, 0, 1, 2], device="cuda")
     cases["d_domain_oob_b4096"] = (
         cases["a_alicpp_b4096"][0], oob[ids(4096, len(oob))], ali)
@@ -489,6 +535,13 @@ def phase_kernels(gen, peak):
         got = mmoe_fused_infer(emb, did, *st)
         torch.cuda.synchronize()
         want = mmoe_fused_infer_ref(emb, did, *st)
+        if name.startswith("f_nan"):
+            check(bool(torch.isnan(got[2049])), f"{name}: the NaN row is not NaN")
+            keep = torch.arange(emb.shape[0], device="cuda") != 2049
+            got, want = got[keep], want[keep]
+        elif name == "b_ragged_b31_b33":
+            check(torch.equal(mmoe_fused_infer(emb[:31], did[:31], *st), got[:31]),
+                  f"{name}: B = 31 differs from the first 31 rows of B = 33")
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"{name}: bad output")
         err = (got - want).abs().max().item()
@@ -501,27 +554,47 @@ def phase_kernels(gen, peak):
           "out-of-range domain ids are not clipped")
 
     emb, did, st = cases["a_alicpp_b4096"]
-    for rows in (8, 16, 24, 32, 48):
-        check((mmoe_fused_infer(emb, did, *st, block_rows=rows)
-               - mmoe_fused_infer_ref(emb, did, *st)).abs().max().item() <= TOL,
-              f"block_rows={rows} disagrees")
-        log(f"  block_rows={rows}: "
-            f"{time_ms(lambda: mmoe_fused_infer(emb, did, *st, block_rows=rows)):.4f} ms")
+    want = mmoe_fused_infer_ref(emb, did, *st)
+    sweep, sweep_device = {}, {}
+    log("  a_alicpp_b4096 block_rows sweep: back to back, then step 0 per call:")
+    for rows in MMOE_BLOCK_ROWS:
+        err = (mmoe_fused_infer(emb, did, *st, block_rows=rows) - want).abs().max().item()
+        check(err <= TOL, f"block_rows={rows} disagrees ({err} > {TOL})")
+        max_err = max(max_err, err)
+        sweep[rows] = time_ms(lambda: mmoe_fused_infer(emb, did, *st, block_rows=rows))
+        cost = wrapper_cost(f"mmoe_fused_infer block_rows={rows} (back to back "
+                            f"{sweep[rows]:.4f} ms, max_abs_err {err:.3e})",
+                            lambda: mmoe_fused_infer(emb, did, *st, block_rows=rows))
+        sweep_device[rows] = cost["device_ms"]
     kernel_ms = time_ms(lambda: mmoe_fused_infer(emb, did, *st))
     plain_ms = time_ms(lambda: mmoe_fused_infer_ref(emb, did, *st))
-    flops, nbytes = work(emb, did, *st)
+    cost = wrapper_cost("mmoe_fused_infer, default block_rows",
+                        lambda: mmoe_fused_infer(emb, did, *st))
+    flops, nbytes, expert_flops = work(emb, did, *st)
     t_ops, t_bytes = flops / peak[0] * 1e3, nbytes / peak[1] * 1e3
-    log(f"  a_alicpp_b4096: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {max(t_ops, t_bytes):.4f} ms "
+    f32_bound = max(t_ops, t_bytes)
+    # the design's own: three TF32 products a multiply-add of the experts on
+    # the tensor cores, the gate, tower and head in f32
+    t_ops = (3 * expert_flops / peak[2] + (flops - expert_flops) / peak[0]) * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  bounds: f32 SIMT {f32_bound:.4f} ms; 3xTF32 design {bound:.4f} ms "
+        f"({3 * expert_flops / 1e9:.3f} GFLOP TF32 at {peak[2] / 1e12:g} TFLOP/s + "
+        f"{(flops - expert_flops) / 1e9:.4f} GFLOP f32)")
+    device = cost["device_ms"]
+    log(f"  a_alicpp_b4096: kernel device {device:.4f} ms (back to back {kernel_ms:.4f}), "
+        f"host {cost['host_us']:.1f} us, plain {plain_ms:.4f} ms, "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {bound:.4f} ms "
         f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
+        f"{flops / device / 1e9:.2f} TFLOP/s achieved ({100 * bound / device:.1f}% of bound)")
     fn, source, replaces = EVAL_KERNELS["mmoe"]
     return {"name": fn, "route": "cuda",
             "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu", "replaces": replaces,
-            "max_abs_err": max_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "max_abs_err": max_err, "ms": device, "back_to_back_ms": kernel_ms,
+            "host_us": cost["host_us"], "launches_per_call": cost["launches_per_call"],
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": None, "f32_simt_bound_ms": f32_bound,
+            "block_rows_sweep_ms": sweep, "block_rows_sweep_device_ms": sweep_device}
 
 
 def affines(gen, lead, dims):
@@ -653,17 +726,22 @@ def time_entry(label, model, wrapper, ref, inputs, args, work_fn, peak, max_err,
     log(f"  {label} block_rows sweep, ms: " + ", ".join(f"{r} -> {t:.4f}" for r, t in sweep.items()))
     kernel_ms = time_ms(lambda: wrapper(*inputs, *args))
     plain_ms = time_ms(lambda: ref(*inputs, *args))
+    cost = wrapper_cost(f"{label} a_alicpp_b4096, step 0", lambda: wrapper(*inputs, *args))
+    device = cost["device_ms"]
     flops, moved = work_fn(*inputs, *args)
     t_ops, t_bytes = flops / peak[0] * 1e3, moved / peak[1] * 1e3
     bound = max(t_ops, t_bytes)
-    log(f"  {label} a_alicpp_b4096: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  {label} a_alicpp_b4096: kernel device {device:.4f} ms (back to back "
+        f"{kernel_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, bound {bound:.4f} ms "
         f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved ({100 * bound / kernel_ms:.1f}% of bound)")
+        f"{flops / device / 1e9:.2f} TFLOP/s achieved ({100 * bound / device:.1f}% of bound)")
     fn, source, replaces = EVAL_KERNELS[model]
     return {"name": fn, "route": "cuda",
             "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu", "replaces": replaces,
-            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "max_abs_err": max_err, "ms": device, "back_to_back_ms": kernel_ms,
+            "host_us": cost["host_us"], "launches_per_call": cost["launches_per_call"],
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
             "block_rows_sweep_ms": sweep}
 
@@ -1046,12 +1124,15 @@ def phase_hamur_kernels(gen, peak):
     chain_ms = time_ms(lambda: k.hamur_fused_infer(*inputs, *args))
     chain_plain_ms = time_ms(lambda: k.hamur_fused_infer_ref(*inputs, *args))
     hyper_ms = time_ms(lambda: k.hamur_hyper(inputs[0], args[0], args[1]))
+    cost = wrapper_cost("hamur_segment x3 a_alicpp_large_b4096, step 0",
+                        lambda: [k.hamur_segment(x, st, **kw) for x, st, kw in segs])
     works = [segment_work(x, st, **kw) for x, st, kw in segs]
     flops, moved = sum(f for f, _ in works), sum(b for _, b in works)
     t_ops, t_bytes = flops / peak[0] * 1e3, moved / peak[1] * 1e3
-    bound, kernel_ms = max(t_ops, t_bytes), sum(seg_ms)
+    bound, kernel_ms = max(t_ops, t_bytes), cost["device_ms"]
     log(f"  hamur_segment a_alicpp_large_b4096: segments {', '.join(f'{t:.4f}' for t in seg_ms)}"
-        f" ms (plain {', '.join(f'{t:.4f}' for t in seg_plain)}); 3 launches {kernel_ms:.4f} ms, "
+        f" ms back to back (plain {', '.join(f'{t:.4f}' for t in seg_plain)}); 3 launches device "
+        f"{kernel_ms:.4f} ms (back to back {sum(seg_ms):.4f}), "
         f"plain {sum(seg_plain):.4f} ms, {flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, bound "
         f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved ({100 * bound / kernel_ms:.1f}% of "
@@ -1061,7 +1142,9 @@ def phase_hamur_kernels(gen, peak):
     entries = {"hamur": {
         "name": fn, "route": "cuda", "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu",
         "replaces": replaces, "max_abs_err": max(err, pad_err), "segment_err_over_scale": seg_err,
-        "ms": kernel_ms, "plain_ms": sum(seg_plain), "bound_ms": bound,
+        "ms": kernel_ms, "back_to_back_ms": sum(seg_ms), "host_us": cost["host_us"],
+        "launches_per_call": cost["launches_per_call"], "plain_ms": sum(seg_plain),
+        "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
         "segment_ms": seg_ms, "segment_plain_ms": seg_plain, "chain_ms": chain_ms,
         "chain_plain_ms": chain_plain_ms, "hyper_ms": hyper_ms,
@@ -1685,8 +1768,9 @@ def phase_row_update(gen, peak):
     route, also at ``[1, 94208]``); K = 0; and bit-equal sums for every
     ``splits``. The scatter into the occurrence mode's combined store
     ``[10,741,000, 48]`` (its bulk copies) with the same ids as int64 and
-    int32, sentinel ids < 0 and >= V, and K = 0, and rows of 5 floats (its
-    lanes): exact. Then each kernel's time beside its bound, its plain
+    int32, sentinel ids (-1, -V and negative twins wrap once; -V-1, >= V
+    drop), and K = 0, and rows of 5 and 1024 floats (its lanes) with the
+    same sentinels: exact. Then each kernel's time beside its bound, its plain
     version and (the scatter) ``index_copy_``, and step 0's readings: device
     ms with the host kept out, host µs and launches per call, for the
     kernels, their plain versions, ``index_copy_`` and the whole occurrence
@@ -1775,16 +1859,24 @@ def phase_row_update(gen, peak):
     dst = torch.randn(V, W, generator=gen, device="cuda")
     narrow = torch.randn(100_003, 5, generator=gen, device="cuda")  # W % 4 != 0: the lanes
     wide = torch.randn(3000, 1024, generator=gen, device="cuda")  # past the bulk copies' 896
-    sc_cases = {**ids, "d_sentinels": torch.cat([ali[:20_000], sentinels]),
+    def negatives(i1, v):
+        """``i1`` with -1, -7, -v, -v-1, v, v+3, +-2^31 and the wrapped
+        twins of its first 100 ids: a negative id wraps once, as the XLA
+        form of the reference does, and what is still outside [0, v) drops."""
+        return torch.cat([torch.tensor([-1, -7, -v, -v - 1, v, v + 3, 2 ** 31 - 1, -2 ** 31],
+                                       device="cuda"), i1[:100] - v, i1])
+
+    sc_cases = {**ids, "d_sentinels": negatives(ali[:20_000], V),
                 "e_no_ids": torch.zeros(0, dtype=torch.long, device="cuda"),
-                "f_lanes_w5": torch.cat([sentinels, torch.randint(0, 100_003, (50_000,),
-                                                                  generator=gen, device="cuda")]),
-                "g_lanes_w1024": torch.cat([sentinels, torch.randint(0, 3000, (5000,),
-                                                                     generator=gen, device="cuda")])}
+                "f_lanes_w5": negatives(torch.randint(0, 100_003, (50_000,), generator=gen,
+                                                      device="cuda"), 100_003),
+                "g_lanes_w1024": negatives(torch.randint(0, 3000, (5000,), generator=gen,
+                                                         device="cuda"), 3000)}
     for name, i1 in sc_cases.items():
         into = {"f_lanes_w5": narrow, "g_lanes_w1024": wide}.get(name, dst)
-        # duplicates carry identical rows, as the segsum makes them
-        _, inv = torch.unique(i1, return_inverse=True)
+        # duplicates carry identical rows, as the segsum makes them: a
+        # negative id and its wrapped twin too
+        _, inv = torch.unique(torch.where(i1 < 0, i1 + into.shape[0], i1), return_inverse=True)
         rows = torch.randn(i1.numel(), into.shape[1], generator=gen, device="cuda")[inv]
         want = rk.scatter_rows_ref(into.clone(), i1, rows)
         for dtype in (torch.int64, torch.int32):
@@ -1793,8 +1885,9 @@ def phase_row_update(gen, peak):
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"scatter_rows {name} ({dtype}) disagrees with plain")
             del got
-        log(f"  scatter_rows {name}: K {i1.numel()} into {tuple(into.shape)}, equal to the plain "
-            "version with int64 and int32 ids")
+        log(f"  scatter_rows {name}: K {i1.numel()} into {tuple(into.shape)}"
+            f"{', negative ids wrapped once' if bool((i1 < 0).any()) else ''}, equal to the "
+            "plain version with int64 and int32 ids")
         del want
     del narrow, wide
     _, inv = torch.unique(ali, return_inverse=True)
@@ -2698,7 +2791,8 @@ def main(argv=None):
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[1] card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
-    seconds = _build.build()
+    with phase("[1] build"):
+        seconds = _build.build()
     for name, s in seconds.items():
         log(f"  built {name} in {s:.2f} s")
         for line in _build.build_logs.get(name, "").splitlines():
@@ -2706,48 +2800,66 @@ def main(argv=None):
                 log(f"    {line.strip()}")
     peak_name, peak = peaks(kind)
     log(f"  bounds from the published {peak_name} peaks: "
-        f"{peak[0] / 1e12:g} TFLOP/s f32, {peak[1] / 1e12:g} TB/s")
+        f"{peak[0] / 1e12:g} TFLOP/s f32, {peak[2] / 1e12:g} TFLOP/s TF32, {peak[1] / 1e12:g} TB/s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     log("[2] kernels vs plain versions on the card")
-    infer = phase_kernels(gen, peak)
-    sorted_adam = phase_sorted_adam(gen, peak)
-    updates = phase_row_update(gen, peak)
-    updates["fused_dense_adam_apply"] = phase_fused_adam(gen, peak)
-    new = phase_new_kernels(gen, peak)
-    new.update(phase_gated_kernels(gen, peak))
-    new.update(phase_hamur_kernels(gen, peak))
-    new.update(phase_meta_kernels(gen, peak))
+    with phase("[2] mmoe_fused_infer"):
+        infer = phase_kernels(gen, peak)
+    with phase("[2] sorted_dense_adam_apply"):
+        sorted_adam = phase_sorted_adam(gen, peak)
+    with phase("[2] occurrence_segsum, scatter_rows"):
+        updates = phase_row_update(gen, peak)
+    with phase("[2] fused_dense_adam_apply"):
+        updates["fused_dense_adam_apply"] = phase_fused_adam(gen, peak)
+    with phase("[2] tower, star, ple kernels"):
+        new = phase_new_kernels(gen, peak)
+    with phase("[2] sarnet, epnet, ppnet, adasparse kernels"):
+        new.update(phase_gated_kernels(gen, peak))
+    with phase("[2] hamur, adaptdhm kernels"):
+        new.update(phase_hamur_kernels(gen, peak))
+    with phase("[2] m2m, m3oe kernels"):
+        new.update(phase_meta_kernels(gen, peak))
     models = NEW_MODELS + GATED_MODELS + HAMUR_MODELS + META_MODELS
 
     log("[3] serving path: MMOE eval at Ali-CCP width, 467k ids per feature")
-    infer["launches"] = phase_main_path(args.seed, card)[0]["mmoe_fused_infer"]
+    with phase("[3] serving mmoe"):
+        infer["launches"] = phase_main_path(args.seed, card)[0]["mmoe_fused_infer"]
     for name in models:
         log(f"[3] serving path: {name} eval at Ali-CCP width, 467k ids per feature")
-        counts, extra = phase_main_path(args.seed, card, name)
+        with phase(f"[3] serving {name}"):
+            counts, extra = phase_main_path(args.seed, card, name)
         new[name]["launches"] = counts[EVAL_KERNELS[name][0]]
         new[name].update(extra)
     log("[3] serving path: narrow HamurSmall and MlpN (op by op), card vs CPU")
-    counts = narrow_serve_card_vs_cpu(args.seed, "hamur_small")
-    check(counts["hamur_segment"] == 2 * 3 and sum(counts.values()) == 6,
-          f"narrow HamurSmall: launches {counts}")
-    counts = narrow_serve_card_vs_cpu(args.seed, "mlpn")
-    check(not any(counts.values()), f"narrow MlpN launched a kernel: {counts}")
+    with phase("[3] serving narrow hamur_small, mlpn"):
+        counts = narrow_serve_card_vs_cpu(args.seed, "hamur_small")
+        check(counts["hamur_segment"] == 2 * 3 and sum(counts.values()) == 6,
+              f"narrow HamurSmall: launches {counts}")
+        counts = narrow_serve_card_vs_cpu(args.seed, "mlpn")
+        check(not any(counts.values()), f"narrow MlpN launched a kernel: {counts}")
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
-    sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
+    with phase("[4] training mmoe"):
+        sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
     for name in models:
         log(f"[4] training path: {name} fit at Ali-CCP width, 467k ids per feature")
-        counts = phase_train_model(args.seed, card, name)
+        with phase(f"[4] training {name}"):
+            counts = phase_train_model(args.seed, card, name)
         new[name]["train_path_launches"] = {k: v for k, v in counts.items() if v}
     log("[4] training path: narrow MlpN, the plain dense step, card vs CPU")
-    narrow_train_card_vs_cpu(args.seed, "mlpn")
+    with phase("[4] training narrow mlpn"):
+        narrow_train_card_vs_cpu(args.seed, "mlpn")
     log("[4] training path: MMOE fit at Ali-CCP width in the occurrence, dense and winner "
         "modes, 467k ids per feature")
-    mode_counts = phase_train_modes(args.seed, card)
+    with phase("[4] training mmoe modes"):
+        mode_counts = phase_train_modes(args.seed, card)
     updates["occurrence_segsum"]["launches"] = mode_counts["occurrence"]["occurrence_segsum"]
     updates["scatter_rows"]["launches"] = mode_counts["occurrence"]["scatter_rows"]
     updates["fused_dense_adam_apply"]["launches"] = mode_counts["dense"]["fused_dense_adam_apply"]
-    log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    log(f"[5] done in {total:.1f} s; by phase (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
+        + f"; outside the phases {total - sum(PHASE_S.values()):.1f}")
     print(card)
     print(json.dumps({"kernels": [infer, sorted_adam] + [new[n] for n in models]
                       + [updates[k] for k in ("fused_dense_adam_apply", "occurrence_segsum",

@@ -1,4 +1,4 @@
-// Fused MMOE eval forward for NVIDIA Hopper (sm_90a), f32.
+// Fused MMOE eval forward for NVIDIA Hopper (sm_90a), f32 in and out.
 //
 // Replaces the TPU kernel scenario_wise_rec_tpu/ops/pallas/mmoe_infer.py:
 // mmoe_fused_infer. For each row b of the embedded batch emb[B, F] it
@@ -8,22 +8,53 @@
 // That is the TPU kernel's function: it computes every domain and selects
 // with jnp.where, which gives the same value per row.
 //
-// What bounds it on this card: arithmetic. At the Ali-CCP shape (F = 376,
-// 3 experts of [256,128,64,32,16,8], 3 domains, tower [16]) a row costs
-// ~0.42 M f32 multiply-adds and moves ~1.5 KB, so a 4096-row batch is
-// ~3.5 GFLOP against ~8 MB: f32 without tensor cores, the FP32 SIMT peak
-// (67 TFLOP/s on an H100 SXM at 700 W) bounds it, not HBM.
+// What bounds it on this card: arithmetic, almost all of it in the experts.
+// At the Ali-CCP shape (F = 376, 3 experts of [256,128,64,32,16,8], 3
+// domains, tower [16]) a row costs 420,984 multiply-adds, 99.7 % of them in
+// the expert layers (68.6 % in 376 -> 256, 23.3 % in 256 -> 128), and moves
+// ~1.9 KB: 3.45 GFLOP against 7.9 MB for B = 4096. In f32 without tensor
+// cores that is 0.0515 ms at 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less.
 //
-// What the design does about it: everything after the embedding stays on
-// chip. One block of 256 threads owns TB rows (default 16); it stages its
-// emb tile and two ping-pong activation buffers in dynamic shared memory,
-// and keeps the E expert outputs there too, so the only device-memory
-// traffic is one read of the tile, the weights (1.7 MB, L2-resident) and
-// one write of the probabilities. In each dense layer a thread holds 8 rows
-// of one output column in registers: one weight load feeds 8 FMAs, and the
-// activations are read from shared memory as float4 along k, broadcast to
-// the warp. Blocks are independent; the ragged last tile is masked here
-// (no pad copy). Simple first: no tensor cores (wgmma) and no TMA yet.
+// What the design does about it:
+// - Expert layers on the tensor cores at about f32's accuracy ("3xTF32"):
+//   each f32 operand x is split into hi (x's top 10 mantissa bits, a TF32
+//   value) and lo = x - hi; a product is hi*hi + hi*lo + lo*hi, three
+//   mma.sync.m16n8k8 TF32 products accumulated in f32 (the lo*lo term,
+//   ~2^-20 relative, is dropped). Bound: 3 x 3.44 GFLOP / 495 TFLOP/s
+//   (0.0208 ms) plus the SIMT gate, tower and head (0.01 GFLOP / 67).
+// - Weights staged in shared memory and shared by every warp of a block: a
+//   producer warp streams each expert layer's W [K, N] through a ring of
+//   kRing slots of up to kSlotFloats (smaller where a wide emb tile leaves
+//   less room, down to 8 weight rows a slot), a slab of one layer's rows (as
+//   many as fill a slot, so a narrow layer is one slab) by up to kChunk
+//   columns a slot,
+//   with one bulk async copy a row (cp.async.bulk, completing on the slot's
+//   full barrier; cp.async where rows are not 8-float multiples), as far
+//   ahead as the 8 compute warps free slots (the empty barriers). The
+//   compute warps never issue a copy and meet only at a layer's end. A warp
+//   owns every 16-row m-tile of the block and the n-tiles j = warp + 8 i of
+//   a chunk, so each weight element is read from shared memory once per
+//   block, and one A fragment feeds 4 n-tiles x 3 products.
+// - One block a 32-row tile at the Ali-CCP shape: 128 blocks, one wave of
+//   132 SMs, each running the 3 experts in turn. L2 -> SM weight bytes a
+//   call: tiles x all expert weights = 128 x 1.68 MB = 0.22 GB (the first
+//   design read 0.43-0.86 GB with scalar loads).
+// - Each row's own-domain softmax gate is computed by the compute warps
+//   while the producer fills the ring, its weights read through L2 (__ldg:
+//   every domain's gate in shared memory would not leave room for a wide F
+//   with many domains), and folded in as gate x expert output into the
+//   block's mixture in the last layer's epilogue (in expert order, the
+//   reference's g_0 x_0 + g_1 x_1 + ...). Then each row's tower with a
+//   thread per (row, output), and its head and sigmoid with a warp a row.
+// The ragged last tile is masked here (zero rows, no pad copy); a NaN in a
+// row stays in that row (rows never mix). Activations keep a row stride of
+// 4 mod 32 floats and weight slabs 8 mod 32, so the fragment loads are free
+// of bank conflicts.
+//
+// On an H100 it reaches about a sixth of this bound (PERF.md, section 6):
+// the compute warps' fragment loads, splits and mma.sync issue and the weight
+// stream from L2 share the time. A wgmma form (TF32 wants both operands
+// K-major in shared memory: the weights transposed) is the next step.
 //
 // Bound through ctypes: a plain C interface, every pointer and the stream
 // as void*, the cudaError_t of the launch returned.
@@ -31,20 +62,32 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxStages = 8;       // expert and tower depth limit
-constexpr int kMaxExperts = 16;     // gate registers per row
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 8;   // rows of one column a thread accumulates
+constexpr int kMaxStages = 8;     // expert and tower depth limit
+constexpr int kMaxExperts = 16;   // gate registers per row
+constexpr int kWarps = 8;         // compute warps
+constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
+constexpr int kComputeThreads = 32 * kWarps;
+constexpr int kSlotFloats = 9216; // a ring slot: up to 36 KB of one layer's weight rows
+constexpr int kChunk = 256;       // output columns per pass over a layer
+constexpr int kRing = 3;          // slots: slabs in flight and in use
+constexpr int kNTW = kChunk / 8 / kWarps;  // n-tiles of a chunk per warp
+constexpr int kMaxMT = 4;         // 16-row m-tiles per block: block_rows <= 64
+constexpr int kBarBytes = 64;     // a full and an empty barrier per ring slot
+static_assert(16 * kRing <= kBarBytes, "two 8-byte barriers a ring slot");
 
 struct Args {
   const float* emb;   // [B, F]
-  const int* did;     // [B]
+  const void* did;    // [B], int64 when id64, else int32
   float* out;         // [B]
-  int B, F, E, D, n_exp, n_tow, tb;
-  int ld_f, ld_w, ld_h;  // shared-memory row strides (floats, multiples of 4)
+  int id64, B, F, E, D, H, n_exp, n_tow;
+  int ld_f, ld_a, ld_b;  // shared-memory row strides (floats)
+  int slot;              // floats of a ring slot
+  int srows[kMaxStages];  // expert stage s: weight rows a slab (a multiple of 8)
+  int sld[kMaxStages];    //                 and their stride in the slot
   const float* ew[kMaxStages];  // expert stage s: W [E, in, out]
   const float* eb[kMaxStages];  //                 b [E, out]
   int edim[kMaxStages + 1];     // F, widths...
@@ -57,7 +100,18 @@ struct Args {
   const float* ob;              // head b [D, 1]
 };
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+// where the ring's producer or consumer stands: expert e, layer l, output
+// chunk c, first weight row k0; past the last expert when e >= E
+struct Slab {
+  int e, l, c, k0;
+};
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// activation rows: 4 mod 32 floats (A fragments conflict-free)
+__host__ __device__ inline int ld_act(int w) { return round_up(w, 32) + 4; }
+// weight slab rows of a chunk `wc` wide: 8 mod 32 floats (B fragments
+// conflict-free; 16-byte rows for the bulk copies)
+__host__ __device__ inline int ld_slab(int wc) { return round_up(wc, 32) + 8; }
 
 // relu that keeps a NaN visible, as max(x, 0) does in XLA
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
@@ -68,204 +122,511 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out[r, j] = relu(sum_k in[r, k] * W[k, j] + b[j]) for the tile's tb rows.
-// in/out live in shared memory; W [K, N] and b [N] in device memory.
-__device__ void dense_relu_tile(const float* in, int ld_in, int K,
-                                const float* __restrict__ W,
-                                const float* __restrict__ bias, int N,
-                                float* out, int ld_out, int tb) {
-  const int items = (tb / kRowsPerThread) * N;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int j = item % N;
-    const int r0 = (item / N) * kRowsPerThread;
-    const float* a = in + r0 * ld_in;
-    float acc[kRowsPerThread];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x = hi + lo exactly: hi keeps x's top 10 mantissa bits (a TF32 value), lo
+// = x - hi (|lo| < 2^-10 |x|) goes to the tensor core as it is, which reads
+// its TF32 part (10 more bits): hi*hi + hi*lo + lo*hi is within ~2^-20 of
+// the product. Two instructions a value.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// this thread's arrival, counted when its earlier cp.async copies have landed
+__device__ __forceinline__ void bar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one row of a slab, global -> shared, counted on the slot's full barrier
+__device__ __forceinline__ void bulk_row(uint32_t dst, const float* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the compute warps only (the producer warp runs ahead on its own)
+__device__ __forceinline__ void compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kComputeThreads) : "memory");
+}
+
+__device__ __forceinline__ void advance(const Args& p, Slab& s) {
+  s.k0 += p.srows[s.l];
+  if (s.k0 < p.edim[s.l]) return;
+  s.k0 = 0;
+  if (++s.c * kChunk < p.edim[s.l + 1]) return;
+  s.c = 0;
+  if (++s.l < p.n_exp) return;
+  s.l = 0;
+  ++s.e;
+}
+
+// The producer warp's part: rows k0 .. k0 + srows - 1 and columns of chunk c
+// of expert e's layer l into a ring slot [srows, sld]; each lane arrives on the
+// slot's full barrier, which completes when the slab has landed. Rows from K
+// up to K rounded to 8 and columns from N up to the chunk's width rounded to
+// 8 are zero (the mma reads them against zero activations); rows past those
+// are never read. Rows of 8-float multiples from 16-byte aligned weights come
+// as one bulk copy a row (the async proxy: no registers, a few instructions
+// a slab); others as cp.async of 16 or 4 bytes, zero-filled.
+__device__ void issue_slab(const Args& p, const Slab& s, float* slot, uint32_t full, int lane) {
+  const int K = p.edim[s.l], N = p.edim[s.l + 1];
+  const float* W = p.ew[s.l] + static_cast<size_t>(s.e) * K * N;
+  const int c0 = s.c * kChunk;
+  const int wc = min(kChunk, N - c0);
+  const int wc8 = round_up(wc, 8);
+  const uint32_t base = smem_addr(slot);
+  const int ldw = p.sld[s.l], srows = p.srows[s.l];
+  const bool aligned = (reinterpret_cast<uintptr_t>(W) & 15) == 0;
+  if ((N & 7) == 0 && aligned) {
+    const int rows = min(srows, K - s.k0);
+    const int pad = min(srows, round_up(K, 8) - s.k0) - rows;
+    for (int i = lane; i < pad * wc; i += 32) slot[(rows + i / wc) * ldw + i % wc] = 0.f;
+    // the slot's earlier reads (generic proxy) before the copies' writes (async)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (lane == 0) bar_arrive_tx(full, static_cast<uint32_t>(rows * wc * 4));
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32)
+      bulk_row(base + 4u * (r * ldw), W + static_cast<size_t>(s.k0 + r) * N + c0,
+               static_cast<uint32_t>(wc * 4), full);
+    if (lane != 0) bar_arrive(full);
+    return;
+  }
+  const bool vec = (N & 3) == 0 && aligned;
+  const int per_row = vec ? wc8 / 4 : wc8;
+  for (int i = lane; i < srows * per_row; i += 32) {
+    const int r = i / per_row, q = vec ? 4 * (i % per_row) : i % per_row;
+    const int k = s.k0 + r;
+    const bool ok = k < K && q < wc;
+    const float* src = ok ? W + static_cast<size_t>(k) * N + c0 + q : W;
+    if (vec)
+      cp_async16(base + 4u * (r * ldw + q), src, ok);
+    else
+      cp_async4(base + 4u * (r * ldw + q), src, ok);
+  }
+  bar_arrive_cp_async(full);
+}
+
+// acc[m][i] += A[m-tile m, k0 .. k0 + rows) x Ws[., n-tile warp + 8 i] in 3xTF32
+template <int MT>
+__device__ __forceinline__ void mma_slab(const float* A, int lda, int k0, int K, int rows,
+                                         const float* Ws, int ldw, int nt,
+                                         float (&acc)[MT][kNTW][4], int warp, int g, int t) {
+#pragma unroll 4
+  for (int kk = 0; kk < rows; kk += 8) {
+    if (k0 + kk >= K) break;  // uniform: past the layer's (zero-padded) depth
+    uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-    for (int m = 0; m < kRowsPerThread; ++m) acc[m] = 0.f;
-    int k = 0;
-    for (; k + 4 <= K; k += 4) {
-      const float w0 = __ldg(W + (size_t)(k + 0) * N + j);
-      const float w1 = __ldg(W + (size_t)(k + 1) * N + j);
-      const float w2 = __ldg(W + (size_t)(k + 2) * N + j);
-      const float w3 = __ldg(W + (size_t)(k + 3) * N + j);
+    for (int m = 0; m < MT; ++m) {
+      const float* a = A + (m * 16 + g) * lda + k0 + kk + t;
+      split(a[0], ah[m][0], al[m][0]);
+      split(a[8 * lda], ah[m][1], al[m][1]);
+      split(a[4], ah[m][2], al[m][2]);
+      split(a[8 * lda + 4], ah[m][3], al[m][3]);
+    }
+    uint32_t bh[kNTW][2], bl[kNTW][2];
 #pragma unroll
-      for (int m = 0; m < kRowsPerThread; ++m) {
-        const float4 v = *reinterpret_cast<const float4*>(a + m * ld_in + k);
-        acc[m] = fmaf(v.x, w0, acc[m]);
-        acc[m] = fmaf(v.y, w1, acc[m]);
-        acc[m] = fmaf(v.z, w2, acc[m]);
-        acc[m] = fmaf(v.w, w3, acc[m]);
+    for (int i = 0; i < kNTW; ++i) {
+      if (warp + kWarps * i < nt) {
+        const float* b = Ws + (kk + t) * ldw + (warp + kWarps * i) * 8 + g;
+        split(b[0], bh[i][0], bl[i][0]);
+        split(b[4 * ldw], bh[i][1], bl[i][1]);
       }
     }
-    for (; k < K; ++k) {
-      const float wk = __ldg(W + (size_t)k * N + j);
+    // each product over every (m-tile, n-tile) before the next: a chain of
+    // dependent mma is MT x kNTW apart
 #pragma unroll
-      for (int m = 0; m < kRowsPerThread; ++m)
-        acc[m] = fmaf(a[m * ld_in + k], wk, acc[m]);
+    for (int i = 0; i < kNTW; ++i) {
+      if (warp + kWarps * i < nt) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], al[m], bh[i][0], bh[i][1]);
+      }
     }
-    const float bj = __ldg(bias + j);
-    float* o = out + r0 * ld_out + j;
 #pragma unroll
-    for (int m = 0; m < kRowsPerThread; ++m) o[m * ld_out] = relu(acc[m] + bj);
+    for (int i = 0; i < kNTW; ++i) {
+      if (warp + kWarps * i < nt) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], ah[m], bl[i][0], bl[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kNTW; ++i) {
+      if (warp + kWarps * i < nt) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], ah[m], bh[i][0], bh[i][1]);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mmoe_fused_infer_kernel(const __grid_constant__ Args p) {
-  extern __shared__ __align__(16) float smem[];
-  const int tb = p.tb;
-  float* emb_s = smem;                        // [tb, ld_f]
-  float* buf0 = emb_s + tb * p.ld_f;          // [tb, ld_w]
-  float* buf1 = buf0 + tb * p.ld_w;           // [tb, ld_w]
-  float* xout = buf1 + tb * p.ld_w;           // [E, tb, ld_h]
-  float* gate_s = xout + p.E * tb * p.ld_h;   // [tb, E]
-  int* did_s = reinterpret_cast<int*>(gate_s + tb * p.E);  // [tb]
-
-  const int row0 = blockIdx.x * tb;
-  const int rows = min(tb, p.B - row0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-
-  // 1. stage the emb tile; rows past the batch and pad columns are zero
-  for (int i = threadIdx.x; i < tb * p.ld_f; i += blockDim.x) {
-    const int r = i / p.ld_f, c = i % p.ld_f;
-    emb_s[i] = (r < rows && c < p.F) ? p.emb[(size_t)(row0 + r) * p.F + c]
-                                     : 0.f;
+// bias + relu of a finished chunk: into the next layer's input rows, or
+// (the last layer) gate x output added to the block's partial mixture.
+// Resets the accumulators.
+// This thread's bias pair of each of its n-tiles of a chunk, read when the
+// chunk starts so that the epilogue does not wait on L2.
+__device__ __forceinline__ void load_bias(float (&bias)[kNTW][2], const float* __restrict__ b,
+                                          int nt, int c0, int N, int warp, int t) {
+#pragma unroll
+  for (int i = 0; i < kNTW; ++i) {
+    const int col = c0 + (warp + kWarps * i) * 8 + 2 * t;
+    const bool tile = warp + kWarps * i < nt;
+    bias[i][0] = tile && col < N ? __ldg(b + col) : 0.f;
+    bias[i][1] = tile && col + 1 < N ? __ldg(b + col + 1) : 0.f;
   }
-  for (int r = threadIdx.x; r < tb; r += blockDim.x) {
-    const int d = r < rows ? p.did[row0 + r] : 0;
-    did_s[r] = min(max(d, 0), p.D - 1);
-  }
-  __syncthreads();
+}
 
-  // 2. gate of the row's own domain: softmax over E (max subtracted)
-  for (int r = warp; r < tb; r += nwarps) {
-    const int d = did_s[r];
-    const float* wg = p.gw + (size_t)d * p.F * p.E;
-    const float* a = emb_s + r * p.ld_f;
-    float acc[kMaxExperts];
+template <int MT>
+__device__ __forceinline__ void epilogue(float (&acc)[MT][kNTW][4], int nt, int c0, int N,
+                                         const float (&bias)[kNTW][2], float* out, int ldo,
+                                         bool last, float* mix, const float* gate, int E,
+                                         int e, int warp, int g, int t) {
 #pragma unroll
-    for (int e = 0; e < kMaxExperts; ++e) acc[e] = 0.f;
-    for (int k = lane; k < p.F; k += 32) {
-      const float x = a[k];
+  for (int i = 0; i < kNTW; ++i) {
+    const int j = warp + kWarps * i;
+    if (j < nt) {
+      const int col = c0 + j * 8 + 2 * t;
+      const float b0 = bias[i][0], b1 = bias[i][1];
 #pragma unroll
-      for (int e = 0; e < kMaxExperts; ++e)
-        if (e < p.E) acc[e] = fmaf(x, __ldg(wg + (size_t)k * p.E + e), acc[e]);
-    }
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int e = 0; e < kMaxExperts; ++e)
-      if (e < p.E) acc[e] = warp_sum(acc[e]);
-    if (lane == 0) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < kMaxExperts; ++e)
-        if (e < p.E) {
-          acc[e] += __ldg(p.gb + d * p.E + e);
-          mx = fmaxf(mx, acc[e]);
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m-tile
+          const int r = m * 16 + g + 8 * h;
+          const float v0 = relu(acc[m][i][2 * h] + b0);
+          const float v1 = relu(acc[m][i][2 * h + 1] + b1);
+          if (!last) {
+            *reinterpret_cast<float2*>(out + r * ldo + col) = make_float2(v0, v1);
+          } else {
+            const float gr = gate[r * E + e];
+            if (col < N) mix[r * N + col] = __fadd_rn(mix[r * N + col], __fmul_rn(gr, v0));
+            if (col + 1 < N)
+              mix[r * N + col + 1] = __fadd_rn(mix[r * N + col + 1], __fmul_rn(gr, v1));
+          }
+          acc[m][i][2 * h] = 0.f;
+          acc[m][i][2 * h + 1] = 0.f;
         }
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < kMaxExperts; ++e)
-        if (e < p.E) {
-          acc[e] = expf(acc[e] - mx);
-          s += acc[e];
-        }
-#pragma unroll
-      for (int e = 0; e < kMaxExperts; ++e)
-        if (e < p.E) gate_s[r * p.E + e] = acc[e] / s;
-    }
-  }
-
-  // 3. experts: relu MLPs through buf0/buf1, the last stage into xout[e]
-  for (int e = 0; e < p.E; ++e) {
-    const float* in = emb_s;
-    int ld_in = p.ld_f;
-    for (int s = 0; s < p.n_exp; ++s) {
-      const int K = p.edim[s], N = p.edim[s + 1];
-      const bool last = s == p.n_exp - 1;
-      float* out = last ? xout + e * tb * p.ld_h : ((s & 1) ? buf1 : buf0);
-      const int ld_out = last ? p.ld_h : p.ld_w;
-      dense_relu_tile(in, ld_in, K, p.ew[s] + (size_t)e * K * N,
-                      p.eb[s] + (size_t)e * N, N, out, ld_out, tb);
-      __syncthreads();
-      in = out;
-      ld_in = ld_out;
-    }
-  }
-
-  // 4. mixture into buf0: mixed[r, h] = sum_e gate[r, e] * x_e[r, h]
-  const int H = p.edim[p.n_exp];
-  for (int i = threadIdx.x; i < tb * H; i += blockDim.x) {
-    const int r = i / H, h = i % H;
-    float m = gate_s[r * p.E] * xout[r * p.ld_h + h];
-    for (int e = 1; e < p.E; ++e)
-      m += gate_s[r * p.E + e] * xout[(e * tb + r) * p.ld_h + h];
-    buf0[r * p.ld_w + h] = m;
-  }
-  __syncthreads();
-
-  // 5. the row's own tower, head and sigmoid: one warp per row
-  for (int r = warp; r < tb; r += nwarps) {
-    const int d = did_s[r];
-    float* cur = buf0 + r * p.ld_w;
-    float* nxt = buf1 + r * p.ld_w;
-    for (int s = 0; s < p.n_tow; ++s) {
-      const int K = p.tdim[s], N = p.tdim[s + 1];
-      const float* w = p.tw[s] + (size_t)d * K * N;
-      const float* b = p.tbias[s] + (size_t)d * N;
-      for (int j = lane; j < N; j += 32) {
-        float acc = 0.f;
-        for (int k = 0; k < K; ++k)
-          acc = fmaf(cur[k], __ldg(w + (size_t)k * N + j), acc);
-        nxt[j] = relu(acc + __ldg(b + j));
       }
-      __syncwarp();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
     }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+mmoe_fused_infer_kernel(const __grid_constant__ Args p) {
+  constexpr int M = MT * 16;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t full = smem_addr(smem);     // [kRing] barriers: the slot has landed
+  const uint32_t empty = full + 8 * kRing;   // [kRing] barriers: the slot has been read
+  float* emb_s = smem + kBarBytes / 4;       // [M, ld_f]
+  float* buf_a = emb_s + M * p.ld_f;         // [M, ld_a] even layers' outputs
+  float* buf_b = buf_a + M * p.ld_a;         // [M, ld_b] odd layers' outputs
+  float* ring = buf_b + M * p.ld_b;          // [kRing, slot]
+  float* mix = ring + kRing * p.slot;        // [M, H] the mixture
+  float* gate_s = mix + M * p.H;             // [M, E]
+  int* did_s = reinterpret_cast<int*>(gate_s + M * p.E);  // [M]
+
+  const int row0 = blockIdx.x * M;
+  const int rows = min(M, p.B - row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // 1. the ring's barriers
+  if (threadIdx.x < kRing) {
+    bar_init(full + 8 * threadIdx.x, 32);       // the producer warp's lanes
+    bar_init(empty + 8 * threadIdx.x, kWarps);  // a lane of each compute warp
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+
+  // 2. the emb tile (rows past the batch and pad columns zero), domains,
+  //    an empty mixture
+  if ((p.F & 3) == 0 && (reinterpret_cast<uintptr_t>(p.emb) & 15) == 0) {
+    const int q4 = p.ld_f / 4;
+    for (int i = threadIdx.x; i < M * q4; i += kThreads) {
+      const int r = i / q4, c = 4 * (i % q4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && c < p.F)
+        v = __ldg(reinterpret_cast<const float4*>(p.emb + static_cast<size_t>(row0 + r) * p.F + c));
+      *reinterpret_cast<float4*>(emb_s + r * p.ld_f + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < M * p.ld_f; i += kThreads) {
+      const int r = i / p.ld_f, c = i % p.ld_f;
+      emb_s[i] = (r < rows && c < p.F) ? __ldg(p.emb + static_cast<size_t>(row0 + r) * p.F + c)
+                                       : 0.f;
+    }
+  }
+  // an int64 id is taken modulo 2^32 as an int32, then clipped, as the
+  // plain version and the reference (int32 ids) take it
+  for (int r = threadIdx.x; r < M; r += kThreads) {
+    int d = 0;
+    if (r < rows)
+      d = p.id64 ? static_cast<int>(static_cast<const long long*>(p.did)[row0 + r])
+                 : static_cast<const int*>(p.did)[row0 + r];
+    did_s[r] = d < 0 ? 0 : (d >= p.D ? p.D - 1 : d);
+  }
+  for (int i = threadIdx.x; i < M * p.H; i += kThreads) mix[i] = 0.f;
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // 3p. the producer warp: the experts' weights, slab by slab, through
+    //     the ring, as far ahead as the compute warps free slots
+    Slab prod = {0, 0, 0, 0};
+    for (int s = 0; prod.e < p.E; ++s) {
+      const int slot = s % kRing;
+      bar_wait(empty + 8 * slot, ((s / kRing) & 1) ^ 1);  // the first pass finds it free
+      issue_slab(p, prod, ring + slot * p.slot, full + 8 * slot, lane);
+      advance(p, prod);
+    }
+  } else {
+    // 3. the gate of each row's own domain: softmax over E (max subtracted),
+    //    its weights through L2
+    for (int r = warp; r < M; r += kWarps) {
+      const int d = did_s[r];
+      const float* __restrict__ wg = p.gw + static_cast<size_t>(d) * p.F * p.E;
+      const float* a = emb_s + r * p.ld_f;
+      float acc[kMaxExperts];
+#pragma unroll
+      for (int e = 0; e < kMaxExperts; ++e) acc[e] = 0.f;
+#pragma unroll 4
+      for (int k = lane; k < p.F; k += 32) {
+        const float x = a[k];
+#pragma unroll
+        for (int e = 0; e < kMaxExperts; ++e)
+          if (e < p.E) acc[e] = fmaf(x, __ldg(wg + k * p.E + e), acc[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < kMaxExperts; ++e)
+        if (e < p.E) acc[e] = warp_sum(acc[e]);
+      if (lane == 0) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < kMaxExperts; ++e)
+          if (e < p.E) {
+            acc[e] += __ldg(p.gb + d * p.E + e);
+            mx = fmaxf(mx, acc[e]);
+          }
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < kMaxExperts; ++e)
+          if (e < p.E) {
+            acc[e] = expf(acc[e] - mx);
+            sum += acc[e];
+          }
+#pragma unroll
+        for (int e = 0; e < kMaxExperts; ++e)
+          if (e < p.E) gate_s[r * p.E + e] = acc[e] / sum;
+      }
+    }
+    compute_sync();  // the gates, before any epilogue reads them
+
+    // 4. the experts, layer by layer, from the ring
+    float acc[MT][kNTW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][i][q] = 0.f;
+    float bias[kNTW][2];
+    Slab cons = {0, 0, 0, 0};
+    for (int s = 0; cons.e < p.E; ++s) {
+      const int slot = s % kRing;
+      const int l = cons.l, K = p.edim[l], N = p.edim[l + 1];
+      const float* A = l == 0 ? emb_s : ((l & 1) ? buf_a : buf_b);
+      const int lda = l == 0 ? p.ld_f : ((l & 1) ? p.ld_a : p.ld_b);
+      const int c0 = cons.c * kChunk;
+      const int nt = (min(kChunk, N - c0) + 7) / 8;
+      if (cons.k0 == 0)
+        load_bias(bias, p.eb[l] + static_cast<size_t>(cons.e) * N, nt, c0, N, warp, t);
+      bar_wait(full + 8 * slot, (s / kRing) & 1);  // slab s has landed
+      mma_slab<MT>(A, lda, cons.k0, K, p.srows[l], ring + slot * p.slot, p.sld[l], nt, acc,
+                   warp, g, t);
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty + 8 * slot);  // this warp is done with the slot
+      if (cons.k0 + p.srows[l] >= K) {  // the chunk is done
+        epilogue<MT>(acc, nt, c0, N, bias, (l & 1) ? buf_b : buf_a, (l & 1) ? p.ld_b : p.ld_a,
+                     l == p.n_exp - 1, mix, gate_s, p.E, cons.e, warp, g, t);
+        compute_sync();  // its output, before the next layer reads it
+      }
+      advance(p, cons);
+    }
+  }
+
+  // 5. the mixture into buf_a, the tower's input rows
+  __syncthreads();
+  for (int i = threadIdx.x; i < M * p.H; i += kThreads)
+    buf_a[(i / p.H) * p.ld_a + i % p.H] = mix[i];
+  __syncthreads();
+
+  // 6. each row's own tower, a thread per (row, output) so that the weight
+  //    loads of all rows are in flight at once; then its head and sigmoid,
+  //    a warp a row
+  float* cur = buf_a;
+  float* nxt = buf_b;
+  int ld_cur = p.ld_a, ld_nxt = p.ld_b;
+  for (int s = 0; s < p.n_tow; ++s) {
+    const int K = p.tdim[s], N = p.tdim[s + 1];
+    for (int i = threadIdx.x; i < rows * N; i += kThreads) {
+      const int r = i / N, j = i % N, d = did_s[r];
+      const float* w = p.tw[s] + static_cast<size_t>(d) * K * N + j;
+      const float* x = cur + r * ld_cur;
+      float a = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) a = fmaf(x[k], __ldg(w + static_cast<size_t>(k) * N), a);
+      nxt[r * ld_nxt + j] = relu(a + __ldg(p.tbias[s] + static_cast<size_t>(d) * N + j));
+    }
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+    const int ld = ld_cur;
+    ld_cur = ld_nxt;
+    ld_nxt = ld;
+  }
+  for (int r = warp; r < rows; r += kWarps + 1) {
+    const int d = did_s[r];
     const int K = p.tdim[p.n_tow];
     float part = 0.f;
     for (int k = lane; k < K; k += 32)
-      part = fmaf(cur[k], __ldg(p.ow + (size_t)d * K + k), part);
+      part = fmaf(cur[r * ld_cur + k], __ldg(p.ow + static_cast<size_t>(d) * K + k), part);
     part = warp_sum(part);
-    if (lane == 0 && r < rows) {
+    if (lane == 0) {
       const float logit = part + __ldg(p.ob + d);
       p.out[row0 + r] = 1.f / (1.f + expf(-logit));
     }
   }
 }
 
-size_t smem_bytes(int tb, int F, int E, int H, int max_w) {
-  const size_t floats = (size_t)tb * round4(F) + 2 * (size_t)tb * round4(max_w)
-                        + (size_t)E * tb * round4(H) + (size_t)tb * E;
-  return floats * sizeof(float) + (size_t)tb * sizeof(int);
+struct Layout {
+  int ld_f, ld_a, ld_b, H, slot;  // slot 0: not even the smallest ring fits
+  int srows[kMaxStages], sld[kMaxStages];
+};
+
+size_t smem_bytes(int tb, int E, const Layout& L) {
+  const size_t floats = static_cast<size_t>(tb) * (L.ld_f + L.ld_a + L.ld_b + L.H + E) +
+                        static_cast<size_t>(kRing) * L.slot;
+  return kBarBytes + floats * sizeof(float) + static_cast<size_t>(tb) * sizeof(int);
+}
+
+// The layout of a tb-row tile in `budget` bytes of shared memory: the ring
+// takes what the tile leaves, up to kRing slots of kSlotFloats, and at least
+// 8 weight rows of each layer a slot.
+Layout layout(int tb, int F, int E, int n_exp, const int* edim, int n_tow, const int* tdim,
+              size_t budget) {
+  Layout L;
+  L.H = edim[n_exp];
+  int wa = L.H, wb = L.H, min_slot = 0;
+  for (int s = 0; s <= n_tow; ++s) {
+    wa = tdim[s] > wa ? tdim[s] : wa;
+    wb = tdim[s] > wb ? tdim[s] : wb;
+  }
+  for (int l = 0; l < n_exp; ++l) {
+    const int n = edim[l + 1];
+    if (l & 1) wb = n > wb ? n : wb;
+    else wa = n > wa ? n : wa;
+    L.sld[l] = ld_slab(n < kChunk ? n : kChunk);
+    min_slot = 8 * L.sld[l] > min_slot ? 8 * L.sld[l] : min_slot;
+  }
+  L.ld_f = ld_act(F);
+  L.ld_a = ld_act(wa);
+  L.ld_b = ld_act(wb);
+  L.slot = 0;
+  const size_t tile = smem_bytes(tb, E, L);
+  const size_t room = budget > tile ? (budget - tile) / sizeof(float) / kRing : 0;
+  const int slot = static_cast<int>(room < kSlotFloats ? room : kSlotFloats) & ~3;
+  L.slot = slot < min_slot ? min_slot : slot;  // past the budget when it is too small
+  for (int l = 0; l < n_exp; ++l) {
+    // a slab: as many rows as fill a slot, so that a narrow layer is one slab
+    L.srows[l] = (L.slot / L.sld[l]) & ~7;
+    L.srows[l] = L.srows[l] < round_up(edim[l], 8) ? L.srows[l] : round_up(edim[l], 8);
+  }
+  return L;
+}
+
+template <int MT>
+cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(mmoe_fused_infer_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  mmoe_fused_infer_kernel<MT><<<(p.B + MT * 16 - 1) / (MT * 16), kThreads, smem, stream>>>(p);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs (bytes).
-size_t mmoe_fused_infer_smem_bytes(int tb, int F, int E, int n_exp,
-                                   const int* exp_dims, int n_tow,
-                                   const int* tow_dims) {
-  int max_w = 0;
-  for (int s = 1; s <= n_exp; ++s) max_w = exp_dims[s] > max_w ? exp_dims[s] : max_w;
-  for (int s = 0; s <= n_tow; ++s) max_w = tow_dims[s] > max_w ? tow_dims[s] : max_w;
-  return smem_bytes(tb, F, E, exp_dims[n_exp], max_w);
+// Dynamic shared memory one tb-row block takes within `budget` bytes (the
+// ring sized to what is left); more than `budget` when it does not fit.
+size_t mmoe_fused_infer_smem_bytes(int tb, int F, int E, int n_exp, const int* exp_dims,
+                                   int n_tow, const int* tow_dims, size_t budget) {
+  return smem_bytes(tb, E, layout(tb, F, E, n_exp, exp_dims, n_tow, tow_dims, budget));
 }
 
-// exp_w/exp_b/tow_w/tow_b: host arrays of device pointers, one per stage.
+// did: [B] domain ids, int64 when id64, else int32 (the trainer's int64 ids
+// need no cast launch). exp_w/exp_b/tow_w/tow_b: host arrays of device
+// pointers, one per stage.
 // exp_dims: n_exp + 1 widths starting at F; tow_dims: n_tow + 1 widths
-// starting at the expert output width H. Returns a cudaError_t.
-int mmoe_fused_infer_f32(const void* emb, const void* did, void* out, int B,
-                         int F, int E, int D, int n_exp, const void* exp_w,
-                         const void* exp_b, const void* exp_dims,
-                         const void* gate_w, const void* gate_b, int n_tow,
-                         const void* tow_w, const void* tow_b,
-                         const void* tow_dims, const void* head_w,
-                         const void* head_b, int block_rows, void* stream) {
+// starting at the expert output width H. block_rows: rows of one block, a
+// multiple of 16 up to 64, or 0: 32 where a 32-row tile fits in shared
+// memory, else 16. Returns a cudaError_t.
+int mmoe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, int B, int F,
+                         int E, int D, int n_exp, const void* exp_w, const void* exp_b,
+                         const void* exp_dims, const void* gate_w, const void* gate_b,
+                         int n_tow, const void* tow_w, const void* tow_b, const void* tow_dims,
+                         const void* head_w, const void* head_b, int block_rows,
+                         void* stream) {
   const float* const* ew = static_cast<const float* const*>(exp_w);
   const float* const* eb = static_cast<const float* const*>(exp_b);
   const float* const* tw = static_cast<const float* const*>(tow_w);
@@ -273,58 +634,63 @@ int mmoe_fused_infer_f32(const void* emb, const void* did, void* out, int B,
   const int* edim = static_cast<const int*>(exp_dims);
   const int* tdim = static_cast<const int*>(tow_dims);
   if (B < 0 || F < 1 || E < 1 || E > kMaxExperts || D < 1 || n_exp < 1 ||
-      n_exp > kMaxStages || n_tow < 0 || n_tow > kMaxStages ||
-      block_rows < kRowsPerThread || block_rows % kRowsPerThread != 0 ||
-      edim[0] != F || tdim[0] != edim[n_exp])
-    return (int)cudaErrorInvalidValue;
+      n_exp > kMaxStages || n_tow < 0 || n_tow > kMaxStages || block_rows < 0 ||
+      block_rows % 16 != 0 || block_rows > 16 * kMaxMT || edim[0] != F ||
+      tdim[0] != edim[n_exp])
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int s = 1; s <= n_exp; ++s)
+    if (edim[s] < 1) return static_cast<int>(cudaErrorInvalidValue);
+
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t budget = static_cast<size_t>(optin);
+  if (block_rows == 0)
+    block_rows = smem_bytes(32, E, layout(32, F, E, n_exp, edim, n_tow, tdim, budget)) <= budget
+                     ? 32 : 16;
+  const Layout L = layout(block_rows, F, E, n_exp, edim, n_tow, tdim, budget);
+  const size_t smem = smem_bytes(block_rows, E, L);
+  if (smem > budget) return static_cast<int>(cudaErrorInvalidValue);
 
   Args p = {};
   p.emb = static_cast<const float*>(emb);
-  p.did = static_cast<const int*>(did);
+  p.did = did;
+  p.id64 = id64;
   p.out = static_cast<float*>(out);
-  p.B = B; p.F = F; p.E = E; p.D = D; p.n_exp = n_exp; p.n_tow = n_tow;
-  p.tb = block_rows;
-  int max_w = 0;
+  p.B = B; p.F = F; p.E = E; p.D = D; p.H = L.H; p.n_exp = n_exp; p.n_tow = n_tow;
+  p.ld_f = L.ld_f; p.ld_a = L.ld_a; p.ld_b = L.ld_b; p.slot = L.slot;
   for (int s = 0; s < n_exp; ++s) {
+    p.srows[s] = L.srows[s];
+    p.sld[s] = L.sld[s];
     p.ew[s] = ew[s];
     p.eb[s] = eb[s];
   }
   for (int s = 0; s <= n_exp; ++s) p.edim[s] = edim[s];
-  for (int s = 1; s <= n_exp; ++s) max_w = edim[s] > max_w ? edim[s] : max_w;
   for (int s = 0; s < n_tow; ++s) {
     p.tw[s] = tw[s];
     p.tbias[s] = tbias[s];
   }
-  for (int s = 0; s <= n_tow; ++s) {
-    p.tdim[s] = tdim[s];
-    max_w = tdim[s] > max_w ? tdim[s] : max_w;
-  }
+  for (int s = 0; s <= n_tow; ++s) p.tdim[s] = tdim[s];
   p.gw = static_cast<const float*>(gate_w);
   p.gb = static_cast<const float*>(gate_b);
   p.ow = static_cast<const float*>(head_w);
   p.ob = static_cast<const float*>(head_b);
-  p.ld_f = round4(F);
-  p.ld_w = round4(max_w);
-  p.ld_h = round4(edim[n_exp]);
 
-  const size_t smem = smem_bytes(block_rows, F, E, edim[n_exp], max_w);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(mmoe_fused_infer_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (block_rows / 16) {
+    case 1: err = launch<1>(p, smem, s); break;
+    case 2: err = launch<2>(p, smem, s); break;
+    case 3: err = launch<3>(p, smem, s); break;
+    default: err = launch<4>(p, smem, s); break;
   }
-  if (B == 0) return (int)cudaSuccess;
-  const int grid = (B + block_rows - 1) / block_rows;
-  mmoe_fused_infer_kernel<<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -51,9 +51,11 @@
 // the result is the same on every run, and does not depend on splits.
 //
 // scatter_rows: dst[ids[k]] = rows[k] in place, dst [V, W], rows [K, W]; ids
-// (int32 or int64, as the trainer passes them) outside [0, V) are dropped in
-// the kernel. Duplicate ids carry identical rows, so racing writes of one row
-// are benign; no atomics.
+// (int32 or int64, as the trainer passes them) follow the XLA form of the
+// reference (dst.at[ids].set(rows, mode="drop")): a negative id wraps once
+// (id + V), and what is still outside [0, V) is dropped in the kernel.
+// Duplicate ids (an id in [-V, -1] and its wrapped twin included) carry
+// identical rows, so racing writes of one row are benign; no atomics.
 // Bound: bytes (2*K*W*4 + K*8 with int64 ids: 37.3 MB at K = 94,208, W = 48,
 // ~0.011 ms). A row is 192 bytes at W = 48, six 32-byte sectors. The kernel
 // is chosen by the row's shape:
@@ -446,7 +448,8 @@ scatter_lanes_kernel(float* __restrict__ dst, const Id* __restrict__ ids,
   long long mine = -1;  // one id load per row, then shared over its group
   if (lane < per_warp && r0 + lane < k) mine = static_cast<long long>(ids[r0 + lane]);
   const int slot = lane / L, cl = lane % L;
-  const long long id = __shfl_sync(kFull, mine, slot);
+  const long long raw = __shfl_sync(kFull, mine, slot);
+  const long long id = raw < 0 ? raw + v : raw;  // a negative id wraps once
   const int r = r0 + slot;
   if (r >= k || id < 0 || id >= v) return;
   const float* src = rows + static_cast<Ix>(r) * static_cast<Ix>(w);
@@ -500,7 +503,8 @@ scatter_bulk_kernel(float* __restrict__ dst, const Id* __restrict__ ids,
         "l"(rows + static_cast<long long>(r0) * w), "r"(bytes), "r"(b)
         : "memory");
   }
-  const long long id = tid < nrow ? static_cast<long long>(ids[r0 + tid]) : -1;
+  long long id = tid < nrow ? static_cast<long long>(ids[r0 + tid]) : -1;
+  if (tid < nrow && id < 0) id += v;  // a negative id wraps once
   asm volatile(
       "{\n"
       ".reg .pred P1;\n"
@@ -640,7 +644,8 @@ int occurrence_segsum_sorted_f32(const int* sid, const long long* idx, const flo
 }
 
 // dst: [v, w] f32, updated in place; ids: [k] (int64 when id64, else int32);
-// rows: [k, w] f32. Rows of a multiple of 4 floats, at most kBulkMaxW (896)
+// rows: [k, w] f32. A negative id wraps once (id + v); ids still outside
+// [0, v) are dropped. Rows of a multiple of 4 floats, at most kBulkMaxW (896)
 // wide, with 16-byte aligned dst and rows take the bulk copies, the others the
 // lanes. Returns
 // cudaGetLastError() after the launch (0 = success).

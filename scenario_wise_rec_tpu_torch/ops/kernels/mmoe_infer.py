@@ -5,8 +5,10 @@ The eval forward of MMOE after the embedding is a stack of small dense ops:
 E relu expert MLPs, D softmax gates, the gate-weighted mixture, D relu
 towers with a 1-unit head, sigmoid, per-row domain select. Run op by op,
 every stage round-trips activations through device memory and pays a
-launch; the kernel runs the whole stack for a tile of rows on chip (the
-design note is at the top of the source). It replaces the TPU kernel
+launch; the kernel runs the whole stack for a tile of rows on chip: the
+expert layers on the tensor cores in 3xTF32 (about f32's accuracy), the
+weights streamed through shared memory (the design note is at the top of
+the source). It replaces the TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/mmoe_infer.py:mmoe_fused_infer``.
 
 Preconditions: eval mode (BatchNorm folded to affine, see ``folding.py``),
@@ -31,7 +33,8 @@ Affine = Tuple[torch.Tensor, torch.Tensor]
 
 MAX_STAGES = 8    # expert and tower depth the kernel takes (csrc kMaxStages)
 MAX_EXPERTS = 16  # csrc kMaxExperts
-ROWS_PER_THREAD = 8
+ROW_TILE = 16     # rows of one mma m-tile: block_rows is a multiple of it
+MAX_BLOCK_ROWS = 64  # csrc kMaxMT m-tiles
 
 
 def _check_shapes(emb, domain_id, expert_stages, gate_stage, tower_stages,
@@ -57,6 +60,17 @@ def _check_shapes(emb, domain_id, expert_stages, gate_stage, tower_stages,
     if tower_out[0].shape != (D, width, 1) or tower_out[1].shape != (D, 1):
         raise ValueError(f"head must be W [{D}, {width}, 1] b [{D}, 1]")
     return B, F, E, D
+
+
+def check_block_rows(block_rows: int | None) -> None:
+    """The kernel's tile rule: a multiple of 16 (one mma m-tile) up to 64, or
+    None (the kernel's choice)."""
+    if block_rows is None:
+        return
+    if (not isinstance(block_rows, int) or not ROW_TILE <= block_rows <= MAX_BLOCK_ROWS
+            or block_rows % ROW_TILE):
+        raise ValueError(f"block_rows must be a multiple of {ROW_TILE} from {ROW_TILE} "
+                         f"to {MAX_BLOCK_ROWS}, got {block_rows!r}")
 
 
 def mmoe_fused_infer_ref(
@@ -103,9 +117,9 @@ def _lib():
     lib = _build.load("mmoe_infer")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mmoe_fused_infer_f32.argtypes = [
-        p, p, p, i, i, i, i, i, p, p, p, p, p, i, p, p, p, p, p, i, p]
+        p, p, i, p, i, i, i, i, i, p, p, p, p, p, i, p, p, p, p, p, i, p]
     lib.mmoe_fused_infer_f32.restype = ctypes.c_int
-    lib.mmoe_fused_infer_smem_bytes.argtypes = [i, i, i, i, p, i, p]
+    lib.mmoe_fused_infer_smem_bytes.argtypes = [i, i, i, i, p, i, p, ctypes.c_size_t]
     lib.mmoe_fused_infer_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -117,15 +131,21 @@ def mmoe_fused_infer(
     gate_stage: Affine,
     tower_stages: Sequence[Affine],
     tower_out: Affine,
-    block_rows: int = 16,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused MMOE eval forward on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of
-    8). 16 was the fastest of 8..48 at the Ali-CCP shape, B = 4096, on an
-    H100 SXM (``chip_smoke.py``'s sweep): twice as many blocks as SMs. It
-    has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows one block owns on the card, a multiple of 16 up to
+    64 whose activations fit in a block's shared memory beside the
+    smallest weight ring (the ring takes what the tile leaves). None: 32,
+    or 16 where a 32-row tile does not fit (F over about 1,200 to 1,700,
+    by the expert widths). 32 was the fastest of 16-64 at the Ali-CCP
+    shape, B = 4096, on an H100 SXM (``chip_smoke.py``'s sweep): 128
+    blocks, one wave. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    raises there too.
     """
+    check_block_rows(block_rows)
     if emb.device.type == "cpu":
         return mmoe_fused_infer_ref(emb, domain_id, expert_stages, gate_stage,
                                     tower_stages, tower_out)
@@ -138,9 +158,6 @@ def mmoe_fused_infer(
                          f"{MAX_STAGES} tower stages")
     if E > MAX_EXPERTS:
         raise ValueError(f"the kernel takes at most {MAX_EXPERTS} experts, got {E}")
-    if block_rows < ROWS_PER_THREAD or block_rows % ROWS_PER_THREAD:
-        raise ValueError(f"block_rows must be a positive multiple of "
-                         f"{ROWS_PER_THREAD}, got {block_rows}")
     weights = [t for s in expert_stages for t in s] + list(gate_stage) + \
         [t for s in tower_stages for t in s] + list(tower_out)
     for t in [emb, domain_id] + weights:
@@ -156,26 +173,30 @@ def mmoe_fused_infer(
     if B == 0:
         return out
     lib = _lib()
-    did = domain_id.to(torch.int32).contiguous()
+    # int64 ids (the trainer's) and int32 ids are read as they are
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     ed = ints([F] + [w.shape[2] for w, _ in expert_stages])
     td = ints([ed[-1]] + [w.shape[2] for w, _ in tower_stages])
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):
         err = lib.mmoe_fused_infer_f32(
-            emb.data_ptr(), did.data_ptr(), out.data_ptr(), B, F, E, D,
+            emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B, F,
+            E, D,
             len(expert_stages), ptrs([w for w, _ in expert_stages]),
             ptrs([b for _, b in expert_stages]), ed,
             gate_stage[0].data_ptr(), gate_stage[1].data_ptr(),
             len(tower_stages), ptrs([w for w, _ in tower_stages]),
             ptrs([b for _, b in tower_stages]), td,
-            tower_out[0].data_ptr(), tower_out[1].data_ptr(), block_rows,
+            tower_out[0].data_ptr(), tower_out[1].data_ptr(), block_rows or 0,
             stream)
     if err != 0:
+        rows = block_rows or ROW_TILE
         smem = lib.mmoe_fused_infer_smem_bytes(
-            block_rows, F, E, len(expert_stages), ed, len(tower_stages), td)
+            rows, F, E, len(expert_stages), ed, len(tower_stages), td, 0)
         raise RuntimeError(
-            f"mmoe_fused_infer launch failed with cudaError {err} "
-            f"({smem} bytes of shared memory per block, block_rows={block_rows})")
+            f"mmoe_fused_infer launch failed with cudaError {err} ({smem} bytes of "
+            f"shared memory per block at least, block_rows={rows})")
     mmoe_fused_infer.launches += 1
     return out
 

@@ -6,8 +6,9 @@
   sum_j [ids[f, i] == ids[f, j]] g[f, j]``. Every duplicate receives a
   bit-identical sum, which makes the row writes that follow idempotent.
   Replaces ``scenario_wise_rec_tpu/ops/pallas/row_update.py:occurrence_segsum``.
-- :func:`scatter_rows`: ``dst[ids[k]] = rows[k]`` in place; ids outside
-  ``[0, V)`` are dropped, and duplicate ids must carry identical rows.
+- :func:`scatter_rows`: ``dst[ids[k]] = rows[k]`` in place; a negative id
+  wraps once, ids still outside ``[0, V)`` are dropped, and duplicate ids
+  must carry identical rows.
   Replaces ``scenario_wise_rec_tpu/ops/pallas/row_update.py:scatter_rows``.
 
 The design notes are at the top of the source. On the card the segment sum
@@ -165,12 +166,16 @@ def _check_scatter(dst, ids, rows):
 
 
 def scatter_rows_ref(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: an indexed assignment of the rows whose id
-    lies in ``[0, V)``, in place. Returns ``dst``."""
+    """The plain PyTorch version: a negative id wraps once (``id + V``), then
+    an indexed assignment of the rows whose id lies in ``[0, V)``, in place.
+    Returns ``dst``."""
     _check_scatter(dst, ids, rows)
-    keep = (ids >= 0) & (ids < dst.shape[0])
+    V = dst.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + V, ids)
+    keep = (ids >= 0) & (ids < V)
     with torch.no_grad():
-        dst[ids[keep].long()] = rows[keep]
+        dst[ids[keep]] = rows[keep]
     return dst
 
 
@@ -180,10 +185,13 @@ def scatter_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, *,
     """In-place row scatter ``dst[ids[k]] = rows[k]``; returns ``dst``.
 
     ``dst [V, ...]`` (contiguous on the card) and ``rows [K, ...]`` share
-    their trailing shape; ids (int32 or int64 on the card) outside ``[0,
-    V)`` are dropped by the kernel; duplicate ids must carry identical rows
-    (their writes race). ``nslots``, ``chunk`` and ``force_xla`` are the TPU
-    kernel's DMA ring, id chunk and XLA switch, checked and unused."""
+    their trailing shape. Ids (int32 or int64 on the card) follow the JAX
+    function's XLA form (``dst.at[ids].set(rows, mode="drop")``): a negative
+    id wraps once (``id + V``), and what is still outside ``[0, V)`` is
+    dropped by the kernel. Duplicate ids must carry identical rows (their
+    writes race); an id in ``[-V, -1]`` and its wrapped twin are duplicates.
+    ``nslots``, ``chunk`` and ``force_xla`` are the TPU kernel's DMA ring, id
+    chunk and XLA switch, checked and unused."""
     _positive("nslots", nslots)
     _positive("chunk", chunk)
     if not isinstance(force_xla, bool):

@@ -42,13 +42,31 @@ def _stages(gen, F, E, D, expert_dims, tower_dims):
     return ex, gate, tw, (n(D, h, 1, scale=h ** -0.5), n(D, 1))
 
 
+ALI = (376, 3, 3, (256, 128, 64, 32, 16, 8), (16,))
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, E, D, expert dims, tower dims, block_rows)
-    (4096, 376, 3, 3, (256, 128, 64, 32, 16, 8), (16,), 16),  # Ali-CCP
-    (333, 41, 2, 2, (7,), (3,), 8),          # widths not multiples of 4
-    (130, 50, 16, 4, (33,), (40, 70), 24),   # most experts; towers wider than a warp
+    # (B, F, E, D, expert dims, tower dims, block_rows; None: the kernel's choice)
+    (4096, *ALI, None),                      # Ali-CCP
+    (4096, *ALI, 16),
+    (4096, *ALI, 48),                        # 48- and 64-row tiles: a smaller ring
+    (200, *ALI, 64),
+    (333, 41, 2, 2, (7,), (3,), 16),         # widths not multiples of 4
+    (130, 50, 16, 4, (33,), (40, 70), 48),   # most experts (2 a block); towers wider than a warp
     (64, 12, 2, 1, (8,) * 8, (4,) * 8, 32),  # deepest stacks
     (17, 9, 1, 3, (5,), (), 16),             # one expert, no tower stage
+    (1, *ALI, 32),                           # one row
+    (31, *ALI, 32),                          # one row below a tile
+    (33, *ALI, 32),                          # one above: a last tile of one row
+    (97, *ALI, 32),                          # a last tile of one row after three full ones
+    (1000, *ALI, 32),                        # 32 tiles, the last of 8 rows
+    (200, 41, 3, 2, (33, 17), (9,), 48),     # widths not multiples of the mma tile (8)
+    (200, 377, 3, 3, (257, 129, 9), (16,), 16),  # ... and a layer past one 256-column pass
+    (300, 64, 9, 2, (300, 20), (5,), 48),    # 9 experts; 300 columns in two passes
+    (4096, 800, 5, 5, (32,), (16,), None),   # KuaiRand's MMOE: wide F, 5 domains and experts
+    (500, 1000, 5, 5, (32,), (16,), None),   # a ring smaller than 3 full slots at 32 rows
+    (100, 2000, 5, 5, (32,), (16,), None),   # 32 rows do not fit: 16
+    (100, 3000, 2, 2, (8,), (4,), 16),
 ])
 def test_mmoe_kernel_matches_plain(gen, cfg):
     B, F, E, D, ed, td, rows = cfg
@@ -62,6 +80,63 @@ def test_mmoe_kernel_matches_plain(gen, cfg):
     want = k.mmoe_fused_infer_ref(emb, did, *st)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= TOL
+
+
+def test_mmoe_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb leaves every other row of the
+    tile as the plain version computes it."""
+    st = _stages(gen, *ALI[:3], *ALI[3:])
+    emb = torch.randn(100, ALI[0], generator=gen, device="cuda")
+    emb[50, 7] = float("nan")
+    did = torch.randint(0, 3, (100,), generator=gen, device="cuda")
+    got = k.mmoe_fused_infer(emb, did, *st, block_rows=32)
+    want = k.mmoe_fused_infer_ref(emb, did, *st)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert bool(torch.isfinite(got[rest]).all())
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
+
+
+def test_mmoe_kernel_layout_at_the_alicpp_shape(gen):
+    """The kernel's shared memory: at the Ali-CCP shape a 16- or 32-row tile
+    leaves room for the full ring of 3 slots of 9216 floats; 48- and 64-row
+    tiles fit in an H100 block's 232,448 bytes with a smaller ring, and a
+    tile too wide for even the smallest ring (8 rows of the widest weight
+    slab a slot) reports more bytes than it is given."""
+    lib = k._lib()
+    F, E, D, ed, td = ALI
+    budget = 232_448
+
+    def smem(rows, F=F, ed=ed, td=td, budget=budget):
+        return lib.mmoe_fused_infer_smem_bytes(rows, F, E, len(ed), k.ints([F, *ed]),
+                                               len(td), k.ints([ed[-1], *td]), budget)
+
+    # the ring's 6 barriers in 64 bytes; rows x (388 emb + 260 + 132
+    # activations + 8 mixture + 3 gates) floats and their domain ids; the ring
+    tile = {rows: 64 + 4 * rows * 791 + 4 * rows for rows in (16, 32, 48, 64)}
+    assert smem(16) == tile[16] + 4 * 3 * 9216
+    assert smem(32) == tile[32] + 4 * 3 * 9216 == 212_032
+    for rows in (48, 64):  # the slots take what is left, in 16-byte steps
+        slot = (budget - tile[rows]) // 4 // 3 // 4 * 4
+        assert 8 * 264 <= slot < 9216 and smem(rows) == tile[rows] + 4 * 3 * slot <= budget
+    assert smem(16, budget=0) == tile[16] + 4 * 3 * 8 * 264  # the smallest ring
+    wide = smem(32, F=2000, ed=(32,), td=(16,))
+    assert wide > budget and smem(16, F=2000, ed=(32,), td=(16,)) <= budget
+
+
+def test_mmoe_kernel_wraps_int64_ids_as_int32(gen):
+    """An int64 domain id is taken modulo 2^32 as an int32 before it is
+    clipped, as the plain version (and the JAX reference's int32 ids) take
+    it."""
+    st = _stages(gen, 20, 2, 3, (8,), (4,))
+    did = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                       device="cuda")
+    emb = torch.randn(did.shape[0], 20, generator=gen, device="cuda")
+    got = k.mmoe_fused_infer(emb, did, *st)
+    assert torch.equal(got, k.mmoe_fused_infer(emb, did.to(torch.int32), *st))
+    assert torch.equal(got, k.mmoe_fused_infer(
+        emb, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *st))
+    assert (got - k.mmoe_fused_infer_ref(emb, did, *st)).abs().max().item() <= TOL
 
 
 def test_mmoe_kernel_int32_ids_and_empty_batch(gen):
@@ -78,8 +153,9 @@ def test_mmoe_kernel_rejects_what_it_does_not_take(gen):
     st = _stages(gen, 20, 2, 2, (8,), (4,))
     emb = torch.randn(10, 20, generator=gen, device="cuda")
     did = torch.zeros(10, dtype=torch.long, device="cuda")
-    with pytest.raises(ValueError):
-        k.mmoe_fused_infer(emb, did, *st, block_rows=12)
+    for rows in (8, 12, 24, 80):  # not a multiple of 16 up to 64
+        with pytest.raises(ValueError):
+            k.mmoe_fused_infer(emb, did, *st, block_rows=rows)
     with pytest.raises(ValueError):
         k.mmoe_fused_infer(emb.double(), did, *st)
     with pytest.raises(ValueError):
@@ -90,6 +166,10 @@ def test_mmoe_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(RuntimeError, match="shared memory"):
         k.mmoe_fused_infer(torch.randn(16, 9000, device="cuda"), did[:1].expand(16).contiguous(),
                            *big)
+    wide = _stages(gen, 2000, 5, 5, (32,), (16,))  # fits in 16 rows, not in 32
+    with pytest.raises(RuntimeError, match="shared memory"):
+        k.mmoe_fused_infer(torch.randn(32, 2000, device="cuda"), did[:1].expand(32).contiguous(),
+                           *wide, block_rows=32)
 
 
 # -- sorted_dense_adam_apply ------------------------------------------------
@@ -902,12 +982,17 @@ def test_grouped_segsum_on_the_card(gen, segments):
     _assert_duplicates_bit_identical(ids[None], got[None])
 
 
+def _wrapped(ids, V):
+    """The row each id lands on: a negative id wraps once."""
+    return torch.where(ids < 0, ids + V, ids)
+
+
 @pytest.mark.parametrize("V,W,K", [(100_003, 48, 94_208), (5000, 5, 3000), (70, 16, 4000)])
 def test_scatter_kernel_matches_plain(gen, V, W, K):
     ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
-    ids[:4] = torch.tensor([-1, V, V + 7, -V], device="cuda")  # dropped
-    # duplicates carry identical rows: each row a function of its id
-    rows = torch.randn(V + 8, W, generator=gen, device="cuda")[ids.clamp(0, V + 7)]
+    ids[:4] = torch.tensor([-1, V, V + 7, -V], device="cuda")  # -1, -V wrap; V, V+7 drop
+    # duplicates carry identical rows: each row a function of the id it lands on
+    rows = torch.randn(V + 8, W, generator=gen, device="cuda")[_wrapped(ids, V).clamp(0, V + 7)]
     dst = torch.randn(V, W, generator=gen, device="cuda")
     want = kru.scatter_rows_ref(dst.clone(), ids, rows)
     before = kru.scatter_rows.launches
@@ -935,15 +1020,38 @@ def test_scatter_kernel_matches_plain(gen, V, W, K):
 def test_scatter_kernel_by_row_shape_matches_plain(gen, V, W, K, offset, dtype):
     """Each scatter kernel (bulk copies for 16-byte rows and pointers of at
     most 896 floats, lanes otherwise) exact against the plain version, with int64 and int32 ids
-    and sentinels below 0 and at or above V dropped."""
+    and sentinels: -1 and -V wrap once, V and past it and -2^31 drop."""
     ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
     ids[:6] = torch.tensor([-1, V, V + 7, -V, 2 ** 31 - 1, -2 ** 31], device="cuda")
     table = torch.randn(min(V, 100_000) + 8, W, generator=gen, device="cuda")
     buf = torch.empty(K * W + offset, device="cuda")
     rows = buf[offset:].view(K, W)
-    rows.copy_(table[ids.remainder(table.shape[0])])  # duplicates carry identical rows
+    # duplicates (a wrapped id and its twin too) carry identical rows
+    rows.copy_(table[_wrapped(ids, V).remainder(table.shape[0])])
     dst = torch.randn(V, W, generator=gen, device="cuda")
     want = kru.scatter_rows_ref(dst.clone(), ids, rows)
+    before = kru.scatter_rows.launches
+    assert kru.scatter_rows(dst, ids.to(dtype), rows) is dst
+    torch.cuda.synchronize()
+    assert kru.scatter_rows.launches == before + 1
+    assert torch.equal(dst, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("V,W", [(100_003, 48), (5000, 5), (3000, 1024)])
+def test_scatter_kernels_wrap_negative_ids(gen, V, W, dtype):
+    """The bulk copies (W = 48) and the lanes (W = 5, W = 1024) on ids -1,
+    -V, -V-1 and negative twins of positive ids: a negative id wraps once
+    and what is still outside [0, V) drops, equal to the plain version."""
+    K = 4000
+    ids = torch.randint(0, V, (K,), generator=gen, device="cuda")
+    ids[:3] = torch.tensor([-1, -V, -V - 1], device="cuda")
+    ids[3:200] = ids[200:397] - V  # wrapped twins of positive ids
+    table = torch.randn(V, W, generator=gen, device="cuda")
+    rows = table[_wrapped(ids, V).clamp(0, V - 1)]
+    dst = torch.randn(V, W, generator=gen, device="cuda")
+    want = kru.scatter_rows_ref(dst.clone(), ids, rows)
+    assert torch.equal(want[[0, V - 1]], table[[0, V - 1]])  # -V and -1 landed
     before = kru.scatter_rows.launches
     assert kru.scatter_rows(dst, ids.to(dtype), rows) is dst
     torch.cuda.synchronize()

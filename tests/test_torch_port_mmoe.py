@@ -115,6 +115,30 @@ def test_fused_wrapper_checks_shapes():
                             t(gate), [], t(out))
 
 
+@pytest.mark.parametrize("block_rows", [0, 8, 12, 24, 80, 1024, 16.0])
+def test_fused_wrapper_rejects_block_rows_off_the_tile_rule(block_rows):
+    """The kernel's tile rule (a multiple of 16 up to 64) holds on the CPU
+    too, where the plain version runs."""
+    r = np.random.default_rng(0)
+    ex, gate, tw, out = _random_stages(r, 10, 2, 2, (6,), (3,))
+    t = lambda s: tuple(torch.tensor(a) for a in s)
+    with pytest.raises(ValueError, match="block_rows"):
+        pk.mmoe_fused_infer(torch.randn(4, 10), torch.zeros(4, dtype=torch.long),
+                            [t(s) for s in ex], t(gate), [t(s) for s in tw], t(out),
+                            block_rows=block_rows)
+
+
+@pytest.mark.parametrize("block_rows", [16, 32, 48, 64, None])
+def test_fused_wrapper_takes_every_tile_of_the_rule(block_rows):
+    r = np.random.default_rng(block_rows or 0)
+    ex, gate, tw, out = _random_stages(r, 10, 3, 2, (6,), (3,))
+    t = lambda s: tuple(torch.tensor(a) for a in s)
+    args = (torch.randn(5, 10), torch.tensor([0, 1, 1, -1, 7]), [t(s) for s in ex], t(gate),
+            [t(s) for s in tw], t(out))
+    assert torch.equal(pk.mmoe_fused_infer(*args, block_rows=block_rows),
+                       pk.mmoe_fused_infer_ref(*args))
+
+
 @pytest.mark.parametrize("oob_domains", [False, True])
 @pytest.mark.parametrize("dims", [((16, 8), (4,)), ((24, 12, 6), (8, 4))])
 def test_mmoe_apply_and_fused_eval_match_jax(oob_domains, dims):

@@ -166,21 +166,35 @@ def test_grouped_occurrence_segsum_layout():
 
 # -- scatter_rows -------------------------------------------------------------
 
+def _scatter_case(trailing, k, negative, dtype=np.int32):
+    """dst [50, *trailing], k ids with duplicates and ids >= V; with
+    ``negative`` also -1, -V, -V-1 and the wrapped twin of a positive id.
+    Every row is a function of the id it lands on (later duplicates, a
+    negative id's wrapped twin included, copy the first row)."""
+    r = np.random.default_rng(k)
+    v = 50
+    dst = r.normal(size=(v,) + trailing).astype(np.float32)
+    ids = r.integers(0, v, k).astype(dtype)
+    ids[5] = ids[7]
+    ids[3], ids[9] = v, v + 4
+    if negative:
+        ids[11], ids[13], ids[15] = -1, -v, -v - 1
+        ids[17] = ids[19] - v  # the wrapped twin of ids[19]
+    rows = r.normal(size=(k,) + trailing).astype(np.float32)
+    first = {}
+    for i, t in enumerate(ids):
+        lands = int(t) + v if t < 0 else int(t)
+        rows[i] = rows[first.setdefault(lands, i)]
+    return dst, ids, rows
+
+
 @pytest.mark.parametrize("trailing,k,chunk", [((16,), 40, 32), ((2, 8), 40, 32),
                                               ((48,), 53, 16)])
 def test_scatter_rows_matches_jax(trailing, k, chunk):
     """Ids >= V dropped, duplicates carrying identical rows, K across
-    several of the JAX kernel's chunks: exact equality."""
-    r = np.random.default_rng(k)
-    v = 50
-    dst = r.normal(size=(v,) + trailing).astype(np.float32)
-    ids = r.integers(0, v, k).astype(np.int32)
-    ids[5] = ids[7]
-    ids[3], ids[9] = v, v + 4
-    rows = r.normal(size=(k,) + trailing).astype(np.float32)
-    first = {}
-    for i, t in enumerate(ids):  # later duplicates copy the first row
-        rows[i] = rows[first.setdefault(int(t), i)]
+    several of the JAX kernel's chunks: exact equality with the Pallas
+    kernel (interpret mode) and the XLA form."""
+    dst, ids, rows = _scatter_case(trailing, k, negative=False)
     want = jru.scatter_rows(jnp.asarray(dst), jnp.asarray(ids), jnp.asarray(rows),
                             nslots=4, chunk=chunk, interpret=True)
     pd = _t(dst)
@@ -191,10 +205,28 @@ def test_scatter_rows_matches_jax(trailing, k, chunk):
                                                 jnp.asarray(rows), force_xla=True)))
 
 
-def test_scatter_rows_drops_negative_ids_and_checks_dials():
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("trailing,k", [((16,), 40), ((2, 8), 40), ((48,), 53)])
+def test_scatter_rows_negative_ids_match_jax_xla(trailing, k, dtype):
+    """Ids -1, -V and -V-1 and the wrapped twin of a positive id: a negative
+    id wraps once and what is still outside [0, V) drops, exactly as the JAX
+    function's XLA form (what the JAX package runs off the TPU)."""
+    dst, ids, rows = _scatter_case(trailing, k, negative=True, dtype=dtype)
+    want = jru.scatter_rows(jnp.asarray(dst), jnp.asarray(ids), jnp.asarray(rows),
+                            force_xla=True)
+    pd = _t(dst)
+    assert pru.scatter_rows(pd, _t(ids), _t(rows)) is pd
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(want))
+    assert not np.array_equal(pd.numpy()[[0, 49]], dst[[0, 49]])  # -V and -1 landed
+
+
+def test_scatter_rows_wraps_negative_ids_and_checks_dials():
     dst = torch.zeros(6, 3)
     pru.scatter_rows(dst, torch.tensor([-1, 2, 7, -6]), torch.ones(4, 3))
-    np.testing.assert_array_equal(dst.sum(1).numpy(), [0, 0, 3, 0, 0, 0])
+    np.testing.assert_array_equal(dst.sum(1).numpy(), [3, 0, 3, 0, 0, 3])
+    dst = torch.zeros(6, 3)
+    pru.scatter_rows(dst, torch.tensor([-7, 6, -13]), torch.ones(3, 3))  # -V-1, V: dropped
+    assert not dst.any()
     for kw in (dict(nslots=0), dict(chunk=-1), dict(force_xla=1)):
         with pytest.raises(ValueError):
             pru.scatter_rows(dst, torch.tensor([1]), torch.ones(1, 3), **kw)
