@@ -15,7 +15,8 @@
 // ~1.9 KB: 3.45 GFLOP against 7.9 MB for B = 4096. In f32 without tensor
 // cores that is 0.0515 ms at 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less.
 //
-// What the design does about it:
+// What the design does about it (the split, the mma loop and the weight ring
+// are mma_ring.cuh's, shared with hamur_infer.cu):
 // - Expert layers on the tensor cores at about f32's accuracy ("3xTF32"):
 //   each f32 operand x is split into hi (x's top 10 mantissa bits, a TF32
 //   value) and lo = x - hi; a product is hi*hi + hi*lo + lo*hi, three
@@ -59,23 +60,15 @@
 // Bound through ctypes: a plain C interface, every pointer and the stream
 // as void*, the cudaError_t of the launch returned.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "mma_ring.cuh"
 
 namespace {
 
-constexpr int kMaxStages = 8;     // expert and tower depth limit
+using namespace ring;
+
 constexpr int kMaxExperts = 16;   // gate registers per row
-constexpr int kWarps = 8;         // compute warps
-constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
-constexpr int kComputeThreads = 32 * kWarps;
-constexpr int kSlotFloats = 9216; // a ring slot: up to 36 KB of one layer's weight rows
-constexpr int kChunk = 256;       // output columns per pass over a layer
-constexpr int kRing = 3;          // slots: slabs in flight and in use
-constexpr int kNTW = kChunk / 8 / kWarps;  // n-tiles of a chunk per warp
-constexpr int kMaxMT = 4;         // 16-row m-tiles per block: block_rows <= 64
 constexpr int kBarBytes = 64;     // a full and an empty barrier per ring slot
 static_assert(16 * kRing <= kBarBytes, "two 8-byte barriers a ring slot");
 
@@ -83,14 +76,10 @@ struct Args {
   const float* emb;   // [B, F]
   const void* did;    // [B], int64 when id64, else int32
   float* out;         // [B]
-  int id64, B, F, E, D, H, n_exp, n_tow;
+  int id64, B, F, E, D, H, n_tow;
   int ld_f, ld_a, ld_b;  // shared-memory row strides (floats)
   int slot;              // floats of a ring slot
-  int srows[kMaxStages];  // expert stage s: weight rows a slab (a multiple of 8)
-  int sld[kMaxStages];    //                 and their stride in the slot
-  const float* ew[kMaxStages];  // expert stage s: W [E, in, out]
-  const float* eb[kMaxStages];  //                 b [E, out]
-  int edim[kMaxStages + 1];     // F, widths...
+  Stack ex;              // the expert layers: W [E, in, out], b [E, out]
   const float* gw;              // [D, F, E]
   const float* gb;              // [D, E]
   const float* tw[kMaxStages];  // tower stage s: W [D, in, out]
@@ -100,232 +89,9 @@ struct Args {
   const float* ob;              // head b [D, 1]
 };
 
-// where the ring's producer or consumer stands: expert e, layer l, output
-// chunk c, first weight row k0; past the last expert when e >= E
-struct Slab {
-  int e, l, c, k0;
-};
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-// activation rows: 4 mod 32 floats (A fragments conflict-free)
-__host__ __device__ inline int ld_act(int w) { return round_up(w, 32) + 4; }
-// weight slab rows of a chunk `wc` wide: 8 mod 32 floats (B fragments
-// conflict-free; 16-byte rows for the bulk copies)
-__host__ __device__ inline int ld_slab(int wc) { return round_up(wc, 32) + 8; }
-
-// relu that keeps a NaN visible, as max(x, 0) does in XLA
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// x = hi + lo exactly: hi keeps x's top 10 mantissa bits (a TF32 value), lo
-// = x - hi (|lo| < 2^-10 |x|) goes to the tensor core as it is, which reads
-// its TF32 part (10 more bits): hi*hi + hi*lo + lo*hi is within ~2^-20 of
-// the product. Two instructions a value.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// this thread's arrival, counted when its earlier cp.async copies have landed
-__device__ __forceinline__ void bar_arrive_cp_async(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one row of a slab, global -> shared, counted on the slot's full barrier
-__device__ __forceinline__ void bulk_row(uint32_t dst, const float* src, uint32_t bytes,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// the compute warps only (the producer warp runs ahead on its own)
-__device__ __forceinline__ void compute_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kComputeThreads) : "memory");
-}
-
-__device__ __forceinline__ void advance(const Args& p, Slab& s) {
-  s.k0 += p.srows[s.l];
-  if (s.k0 < p.edim[s.l]) return;
-  s.k0 = 0;
-  if (++s.c * kChunk < p.edim[s.l + 1]) return;
-  s.c = 0;
-  if (++s.l < p.n_exp) return;
-  s.l = 0;
-  ++s.e;
-}
-
-// The producer warp's part: rows k0 .. k0 + srows - 1 and columns of chunk c
-// of expert e's layer l into a ring slot [srows, sld]; each lane arrives on the
-// slot's full barrier, which completes when the slab has landed. Rows from K
-// up to K rounded to 8 and columns from N up to the chunk's width rounded to
-// 8 are zero (the mma reads them against zero activations); rows past those
-// are never read. Rows of 8-float multiples from 16-byte aligned weights come
-// as one bulk copy a row (the async proxy: no registers, a few instructions
-// a slab); others as cp.async of 16 or 4 bytes, zero-filled.
-__device__ void issue_slab(const Args& p, const Slab& s, float* slot, uint32_t full, int lane) {
-  const int K = p.edim[s.l], N = p.edim[s.l + 1];
-  const float* W = p.ew[s.l] + static_cast<size_t>(s.e) * K * N;
-  const int c0 = s.c * kChunk;
-  const int wc = min(kChunk, N - c0);
-  const int wc8 = round_up(wc, 8);
-  const uint32_t base = smem_addr(slot);
-  const int ldw = p.sld[s.l], srows = p.srows[s.l];
-  const bool aligned = (reinterpret_cast<uintptr_t>(W) & 15) == 0;
-  if ((N & 7) == 0 && aligned) {
-    const int rows = min(srows, K - s.k0);
-    const int pad = min(srows, round_up(K, 8) - s.k0) - rows;
-    for (int i = lane; i < pad * wc; i += 32) slot[(rows + i / wc) * ldw + i % wc] = 0.f;
-    // the slot's earlier reads (generic proxy) before the copies' writes (async)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (lane == 0) bar_arrive_tx(full, static_cast<uint32_t>(rows * wc * 4));
-    __syncwarp();
-    for (int r = lane; r < rows; r += 32)
-      bulk_row(base + 4u * (r * ldw), W + static_cast<size_t>(s.k0 + r) * N + c0,
-               static_cast<uint32_t>(wc * 4), full);
-    if (lane != 0) bar_arrive(full);
-    return;
-  }
-  const bool vec = (N & 3) == 0 && aligned;
-  const int per_row = vec ? wc8 / 4 : wc8;
-  for (int i = lane; i < srows * per_row; i += 32) {
-    const int r = i / per_row, q = vec ? 4 * (i % per_row) : i % per_row;
-    const int k = s.k0 + r;
-    const bool ok = k < K && q < wc;
-    const float* src = ok ? W + static_cast<size_t>(k) * N + c0 + q : W;
-    if (vec)
-      cp_async16(base + 4u * (r * ldw + q), src, ok);
-    else
-      cp_async4(base + 4u * (r * ldw + q), src, ok);
-  }
-  bar_arrive_cp_async(full);
-}
-
-// acc[m][i] += A[m-tile m, k0 .. k0 + rows) x Ws[., n-tile warp + 8 i] in 3xTF32
-template <int MT>
-__device__ __forceinline__ void mma_slab(const float* A, int lda, int k0, int K, int rows,
-                                         const float* Ws, int ldw, int nt,
-                                         float (&acc)[MT][kNTW][4], int warp, int g, int t) {
-#pragma unroll 4
-  for (int kk = 0; kk < rows; kk += 8) {
-    if (k0 + kk >= K) break;  // uniform: past the layer's (zero-padded) depth
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float* a = A + (m * 16 + g) * lda + k0 + kk + t;
-      split(a[0], ah[m][0], al[m][0]);
-      split(a[8 * lda], ah[m][1], al[m][1]);
-      split(a[4], ah[m][2], al[m][2]);
-      split(a[8 * lda + 4], ah[m][3], al[m][3]);
-    }
-    uint32_t bh[kNTW][2], bl[kNTW][2];
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      if (warp + kWarps * i < nt) {
-        const float* b = Ws + (kk + t) * ldw + (warp + kWarps * i) * 8 + g;
-        split(b[0], bh[i][0], bl[i][0]);
-        split(b[4 * ldw], bh[i][1], bl[i][1]);
-      }
-    }
-    // each product over every (m-tile, n-tile) before the next: a chain of
-    // dependent mma is MT x kNTW apart
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      if (warp + kWarps * i < nt) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], al[m], bh[i][0], bh[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      if (warp + kWarps * i < nt) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], ah[m], bl[i][0], bl[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      if (warp + kWarps * i < nt) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i], ah[m], bh[i][0], bh[i][1]);
-      }
-    }
-  }
-}
-
 // bias + relu of a finished chunk: into the next layer's input rows, or
 // (the last layer) gate x output added to the block's partial mixture.
 // Resets the accumulators.
-// This thread's bias pair of each of its n-tiles of a chunk, read when the
-// chunk starts so that the epilogue does not wait on L2.
-__device__ __forceinline__ void load_bias(float (&bias)[kNTW][2], const float* __restrict__ b,
-                                          int nt, int c0, int N, int warp, int t) {
-#pragma unroll
-  for (int i = 0; i < kNTW; ++i) {
-    const int col = c0 + (warp + kWarps * i) * 8 + 2 * t;
-    const bool tile = warp + kWarps * i < nt;
-    bias[i][0] = tile && col < N ? __ldg(b + col) : 0.f;
-    bias[i][1] = tile && col + 1 < N ? __ldg(b + col + 1) : 0.f;
-  }
-}
-
 template <int MT>
 __device__ __forceinline__ void epilogue(float (&acc)[MT][kNTW][4], int nt, int c0, int N,
                                          const float (&bias)[kNTW][2], float* out, int ldo,
@@ -424,8 +190,8 @@ mmoe_fused_infer_kernel(const __grid_constant__ Args p) {
     for (int s = 0; prod.e < p.E; ++s) {
       const int slot = s % kRing;
       bar_wait(empty + 8 * slot, ((s / kRing) & 1) ^ 1);  // the first pass finds it free
-      issue_slab(p, prod, ring + slot * p.slot, full + 8 * slot, lane);
-      advance(p, prod);
+      issue_slab(p.ex, prod, ring + slot * p.slot, full + 8 * slot, lane);
+      advance(p.ex, prod);
     }
   } else {
     // 3. the gate of each row's own domain: softmax over E (max subtracted),
@@ -481,24 +247,24 @@ mmoe_fused_infer_kernel(const __grid_constant__ Args p) {
     Slab cons = {0, 0, 0, 0};
     for (int s = 0; cons.e < p.E; ++s) {
       const int slot = s % kRing;
-      const int l = cons.l, K = p.edim[l], N = p.edim[l + 1];
+      const int l = cons.l, K = p.ex.dim[l], N = p.ex.dim[l + 1];
       const float* A = l == 0 ? emb_s : ((l & 1) ? buf_a : buf_b);
       const int lda = l == 0 ? p.ld_f : ((l & 1) ? p.ld_a : p.ld_b);
       const int c0 = cons.c * kChunk;
       const int nt = (min(kChunk, N - c0) + 7) / 8;
       if (cons.k0 == 0)
-        load_bias(bias, p.eb[l] + static_cast<size_t>(cons.e) * N, nt, c0, N, warp, t);
+        load_bias(bias, p.ex.b[l] + static_cast<size_t>(cons.e) * N, nt, c0, N, warp, t);
       bar_wait(full + 8 * slot, (s / kRing) & 1);  // slab s has landed
-      mma_slab<MT>(A, lda, cons.k0, K, p.srows[l], ring + slot * p.slot, p.sld[l], nt, acc,
+      mma_slab<MT>(A, lda, cons.k0, K, p.ex.srows[l], ring + slot * p.slot, p.ex.sld[l], nt, acc,
                    warp, g, t);
       __syncwarp();
       if (lane == 0) bar_arrive(empty + 8 * slot);  // this warp is done with the slot
-      if (cons.k0 + p.srows[l] >= K) {  // the chunk is done
+      if (cons.k0 + p.ex.srows[l] >= K) {  // the chunk is done
         epilogue<MT>(acc, nt, c0, N, bias, (l & 1) ? buf_b : buf_a, (l & 1) ? p.ld_b : p.ld_a,
-                     l == p.n_exp - 1, mix, gate_s, p.E, cons.e, warp, g, t);
+                     l == p.ex.n - 1, mix, gate_s, p.E, cons.e, warp, g, t);
         compute_sync();  // its output, before the next layer reads it
       }
-      advance(p, cons);
+      advance(p.ex, cons);
     }
   }
 
@@ -549,7 +315,7 @@ mmoe_fused_infer_kernel(const __grid_constant__ Args p) {
 
 struct Layout {
   int ld_f, ld_a, ld_b, H, slot;  // slot 0: not even the smallest ring fits
-  int srows[kMaxStages], sld[kMaxStages];
+  Stack ex;                       // the experts' slabs (no weights yet)
 };
 
 size_t smem_bytes(int tb, int E, const Layout& L) {
@@ -563,9 +329,11 @@ size_t smem_bytes(int tb, int E, const Layout& L) {
 // 8 weight rows of each layer a slot.
 Layout layout(int tb, int F, int E, int n_exp, const int* edim, int n_tow, const int* tdim,
               size_t budget) {
-  Layout L;
+  Layout L = {};
   L.H = edim[n_exp];
-  int wa = L.H, wb = L.H, min_slot = 0;
+  L.ex.n = n_exp;
+  for (int s = 0; s <= n_exp; ++s) L.ex.dim[s] = edim[s];
+  int wa = L.H, wb = L.H;
   for (int s = 0; s <= n_tow; ++s) {
     wa = tdim[s] > wa ? tdim[s] : wa;
     wb = tdim[s] > wb ? tdim[s] : wb;
@@ -574,9 +342,8 @@ Layout layout(int tb, int F, int E, int n_exp, const int* edim, int n_tow, const
     const int n = edim[l + 1];
     if (l & 1) wb = n > wb ? n : wb;
     else wa = n > wa ? n : wa;
-    L.sld[l] = ld_slab(n < kChunk ? n : kChunk);
-    min_slot = 8 * L.sld[l] > min_slot ? 8 * L.sld[l] : min_slot;
   }
+  const int min_slot = slab_strides(L.ex);
   L.ld_f = ld_act(F);
   L.ld_a = ld_act(wa);
   L.ld_b = ld_act(wb);
@@ -585,11 +352,7 @@ Layout layout(int tb, int F, int E, int n_exp, const int* edim, int n_tow, const
   const size_t room = budget > tile ? (budget - tile) / sizeof(float) / kRing : 0;
   const int slot = static_cast<int>(room < kSlotFloats ? room : kSlotFloats) & ~3;
   L.slot = slot < min_slot ? min_slot : slot;  // past the budget when it is too small
-  for (int l = 0; l < n_exp; ++l) {
-    // a slab: as many rows as fill a slot, so that a narrow layer is one slab
-    L.srows[l] = (L.slot / L.sld[l]) & ~7;
-    L.srows[l] = L.srows[l] < round_up(edim[l], 8) ? L.srows[l] : round_up(edim[l], 8);
-  }
+  fill_slabs(L.ex, L.slot);
   return L;
 }
 
@@ -659,15 +422,13 @@ int mmoe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, 
   p.did = did;
   p.id64 = id64;
   p.out = static_cast<float*>(out);
-  p.B = B; p.F = F; p.E = E; p.D = D; p.H = L.H; p.n_exp = n_exp; p.n_tow = n_tow;
+  p.B = B; p.F = F; p.E = E; p.D = D; p.H = L.H; p.n_tow = n_tow;
   p.ld_f = L.ld_f; p.ld_a = L.ld_a; p.ld_b = L.ld_b; p.slot = L.slot;
+  p.ex = L.ex;
   for (int s = 0; s < n_exp; ++s) {
-    p.srows[s] = L.srows[s];
-    p.sld[s] = L.sld[s];
-    p.ew[s] = ew[s];
-    p.eb[s] = eb[s];
+    p.ex.w[s] = ew[s];
+    p.ex.b[s] = eb[s];
   }
-  for (int s = 0; s <= n_exp; ++s) p.edim[s] = edim[s];
   for (int s = 0; s < n_tow; ++s) {
     p.tw[s] = tw[s];
     p.tbias[s] = tbias[s];

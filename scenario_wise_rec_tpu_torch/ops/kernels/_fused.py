@@ -2,7 +2,8 @@
 ``ple_infer``, ``sarnet_infer`` and ``gated_infer`` share: the checks of
 what their kernels take, the stage list they pass (``csrc/fused_mlp.cuh``),
 the ctypes launch, and the plain versions' gate mixture. ``mmoe_infer``
-uses its batch check and its ctypes arrays.
+uses its batch check and its ctypes arrays, ``hamur_infer`` its tensor
+checks, stage list and launch.
 
 Nothing here builds or loads a kernel until :func:`launch` is called.
 """
@@ -50,16 +51,24 @@ def check_chain(what: str, stages: Sequence[Affine], lead: tuple, width: int) ->
 def check_launch(name: str, emb: torch.Tensor, domain_id: Optional[torch.Tensor],
                  tensors: Sequence[torch.Tensor], n_stages: int, block_rows: int):
     """What the kernels take beyond shapes: one CUDA device, contiguous
-    float32 tensors, at most ``MAX_STAGES`` stages and a ``block_rows`` that
-    is a multiple of ``ROW_GROUP`` up to ``MAX_BLOCK_ROWS``. ``domain_id``
-    is None for a kernel without domains."""
-    if emb.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {emb.device}")
+    float32 tensors (:func:`check_tensors`), at most ``MAX_STAGES`` stages
+    and a ``block_rows`` that is a multiple of ``ROW_GROUP`` up to
+    ``MAX_BLOCK_ROWS``. ``domain_id`` is None for a kernel without
+    domains."""
+    check_tensors(name, emb, domain_id, tensors)
     if n_stages > MAX_STAGES:
         raise ValueError(f"{name} takes at most {MAX_STAGES} stages, got {n_stages}")
     if not (ROW_GROUP <= block_rows <= MAX_BLOCK_ROWS and block_rows % ROW_GROUP == 0):
         raise ValueError(f"block_rows must be a multiple of {ROW_GROUP} up to "
                          f"{MAX_BLOCK_ROWS}, got {block_rows}")
+
+
+def check_tensors(name: str, emb: torch.Tensor, domain_id: Optional[torch.Tensor],
+                  tensors: Sequence[torch.Tensor]):
+    """``emb``, ``domain_id`` and ``tensors`` on one CUDA device and
+    contiguous; ``emb`` and ``tensors`` float32."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {emb.device}")
     for t in [emb, *([] if domain_id is None else [domain_id]), *tensors]:
         if t.device != emb.device:
             raise ValueError(f"tensor on {t.device}, emb on {emb.device}")

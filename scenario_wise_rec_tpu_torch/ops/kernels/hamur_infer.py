@@ -44,8 +44,10 @@ import torch
 from ..nn import batch_stats
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import check_block_rows
 
 ADAPTER_KEYS = ("u_down", "v_down", "b_down", "u_up", "v_up", "b_up")
+MAX_STAGES = 8  # block stages of a segment the kernel takes (csrc ring::kMaxStages)
 
 
 def _check_segment(x, stages, hyper, adapter, dn_affine, t_pre, final, domain_id):
@@ -140,29 +142,38 @@ def hamur_segment(
     t_pre: Optional[torch.Tensor] = None,
     final: Optional[Affine] = None,
     domain_id: Optional[torch.Tensor] = None,
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: Optional[int] = None,
 ):
     """One HAMUR segment (the arguments of :func:`hamur_segment_ref`).
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows one block owns on the card, a multiple of 16 up to
+    64 whose tiles fit in a block's shared memory beside the smallest rings,
+    or None: 32 where a 32-row tile fits, else 16. On the CPU the plain
+    version runs and the value only has to keep the tile rule, so that a
+    call that would raise on the card raises there too.
     """
+    check_block_rows(block_rows)
     if x.device.type == "cpu":
         return hamur_segment_ref(x, stages, hyper, adapter, dn_affine, t_pre, final,
                                  domain_id)
     B, F, D, w_out, k, mid = _check_segment(x, stages, hyper, adapter, dn_affine, t_pre,
                                             final, domain_id)
+    if len(stages) > MAX_STAGES:
+        raise ValueError(f"hamur_segment takes at most {MAX_STAGES} block stages, "
+                         f"got {len(stages)}")
     first = x.ndim == 2
     blocks = list(stages) + ([final] if final is not None else [])
     ad = [] if adapter is None else [adapter[key] for key in ADAPTER_KEYS]
     tensors = [t for s in blocks for t in s] + ad + [
         t for t in (t_pre, hyper, *(dn_affine or ())) if t is not None]
-    _fused.check_launch("hamur_segment", x, domain_id, tensors, len(blocks), block_rows)
+    _fused.check_tensors("hamur_segment", x, domain_id, tensors)
     dev = x.device
     if final is not None:
         out = (torch.empty(B, dtype=torch.float32, device=dev),)
         out_t = out_h = None
-        did = domain_id.to(torch.int32).contiguous()
+        # int64 ids (the trainer's) and int32 ids are read as they are
+        did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+            domain_id.to(torch.int32)
     else:
         out_t = torch.empty(B, D, w_out, dtype=torch.float32, device=dev)
         out_h = torch.empty_like(out_t)
@@ -175,13 +186,13 @@ def hamur_segment(
     p, i = ctypes.c_void_p, ctypes.c_int
     _fused.launch(
         "hamur_infer", "hamur_segment_f32",
-        (p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p),
+        (p, p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, i, p, p, p),
         (x.data_ptr(), ptr(t_pre), ptr(mean), ptr(scale), ptr(shift), ptr(hyper),
-         _fused.ptrs(ad),
-         ptr(did), ptr(out_t), ptr(out_h), ptr(out[0]) if final is not None else None,
+         _fused.ptrs(ad), ptr(did), int(did is not None and did.dtype == torch.int64),
+         ptr(out_t), ptr(out_h), ptr(out[0]) if final is not None else None,
          B, F, D, k, mid, int(first), int(final is not None), len(stages),
          *_fused.stage_args(blocks)),
-        x, block_rows)
+        x, block_rows or 0)
     hamur_segment.launches += 1
     return out[0] if final is not None else out
 
@@ -236,7 +247,7 @@ def hamur_fused_infer(
     final: Affine,                        # (W[D,w,1], b[D,1])
     eps: float = 1e-5,
     w: Optional[torch.Tensor] = None,     # [B] 0/1 padding mask for the norms
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """probs[B]: HAMUR's eval forward after the embedding, one
     :func:`hamur_segment` launch per segment, the hyper-network and the

@@ -395,6 +395,30 @@ def test_segment_wrapper_checks_shapes():
                              _t(_affines(r, (2,), [5, 1]))[0])
 
 
+def _segment_args(r):
+    emb, hy = torch.randn(5, 6), torch.randn(5, 3, 3)
+    st = _t(_affines(r, (2,), [6, 5]))
+    return emb, st, dict(hyper=hy, adapter={n: torch.tensor(v) for n, v in
+                                             _adapter(r, 5, 3, 4).items()})
+
+
+@pytest.mark.parametrize("block_rows", [0, 8, 12, 24, 80, 16.0])
+def test_segment_wrapper_rejects_block_rows_off_the_tile_rule(block_rows):
+    """The kernel's tile rule (a multiple of 16 up to 64, or None) holds on
+    the CPU too, where the plain version runs."""
+    emb, st, kw = _segment_args(np.random.default_rng(0))
+    with pytest.raises(ValueError, match="block_rows"):
+        pk.hamur_segment(emb, st, block_rows=block_rows, **kw)
+
+
+@pytest.mark.parametrize("block_rows", [16, 32, 48, 64, None])
+def test_segment_wrapper_takes_every_tile_of_the_rule(block_rows):
+    emb, st, kw = _segment_args(np.random.default_rng(1))
+    for got, want in zip(pk.hamur_segment(emb, st, block_rows=block_rows, **kw),
+                         pk.hamur_segment_ref(emb, st, **kw)):
+        assert torch.equal(got, want)
+
+
 # -- carrying weights across, the registry and build_model ----------------------------------
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
