@@ -78,8 +78,13 @@ Phases; each asserts, and any failure exits non-zero:
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
      S = 16, A = 352), ragged, narrow and (SAR-Net, PPNet: the others have
-     no domain ids) out-of-range domain ids; PPNet also with domain 1
-     absent; AdaSparse in all three forms, alpha = 1.37 folded into its
+     no domain ids) out-of-range domain ids; PPNet also with (e) domain 1
+     absent, (f) every row in one domain, (g) domain counts astride its
+     tiles, (h) KuaiRand's width (G 832, 5 domains, [128, 64, 32]) and (i)
+     B = 65,536, each output into a block just freed full of NaN so that a
+     row left unwritten fails, its sweep over the tile rule (16, 32, 48, 64
+     and the kernel's choice) and its 3xTF32 bound beside the f32 one;
+     AdaSparse in all three forms, alpha = 1.37 folded into its
      pruners, and (e) pruner inputs that are exact integers, so that a few
      percent of the factors are negative. AdaSparse's hard threshold: a row
      in which some pruner element lies within 1e-5 of epsilon is excused
@@ -212,7 +217,7 @@ EVAL_KERNELS = {
                "scenario_wise_rec_tpu/ops/pallas/sarnet_infer.py:33"),
     "epnet": ("epnet_fused_infer", "gated_infer",
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:47"),
-    "ppnet": ("ppnet_fused_infer", "gated_infer",
+    "ppnet": ("ppnet_fused_infer", "ppnet_infer",
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:91"),
     "adasparse": ("adasparse_fused_infer", "gated_infer",
                   "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:174"),
@@ -231,8 +236,9 @@ META_MODELS = ("m2m", "m3oe")
 META_BLOCK_ROWS = (8, 16, 24)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
-# hamur_segment's: the tile rule's every value, and None (the kernel's choice)
-HAMUR_BLOCK_ROWS = (16, 32, 48, 64, None)
+# hamur_segment's and ppnet_fused_infer's: the tile rule's every value, and
+# None (the kernel's choice)
+HAMUR_BLOCK_ROWS = PPNET_BLOCK_ROWS = (16, 32, 48, 64, None)
 # eval kernel launches a batch: HamurLarge runs 3 segments
 LAUNCHES_PER_BATCH = {"hamur": 3}
 # HamurLarge served fused against op by op, end to end: the op-by-op path
@@ -968,21 +974,79 @@ def phase_gated_kernels(gen, peak):
 
     # PPNet: ppnet loader, G = 2 x 16 ids + 20 x 16 + 8 + 16 = 376; towers
     # [256, 128, 64, 32, 16, 8] with a GateNU per layer, 3 domains
-    def ppnet_args(G, Dn, dims):
-        return (affines(gen, (Dn,), [G] + dims),
-                [affines(gen, (Dn,), [G, o])[0] for o in dims],
-                [affines(gen, (Dn,), [o, o])[0] for o in dims],
-                affines(gen, (Dn,), [dims[-1], 1])[0], 2.0)
+    def ppnet_args(G, Dn, dims, g=gen):
+        return (affines(g, (Dn,), [G] + dims),
+                [affines(g, (Dn,), [G, o])[0] for o in dims],
+                [affines(g, (Dn,), [o, o])[0] for o in dims],
+                affines(g, (Dn,), [dims[-1], 1])[0], 2.0)
 
     G = 2 * 16 + (N_SPARSE - 3) * 16 + N_DENSE + 16
     ali = ppnet_args(G, D, EXPERT_DIMS)
     cases = shaped(G, ali, ppnet_args(42, 2, [16, 8]))
     absent = torch.tensor([0, 2], device="cuda")[ids(4096, 2)]  # domain 1 absent
     cases["e_domain_1_absent_b4096"] = ((cases["a_alicpp_b4096"][0][0], absent), ali)
-    err = run_cases("ppnet_fused_infer", k.ppnet_fused_infer, k.ppnet_fused_infer_ref, cases)
-    entries["ppnet"] = time_entry("ppnet_fused_infer", "ppnet", k.ppnet_fused_infer,
-                                  k.ppnet_fused_infer_ref, *cases["a_alicpp_b4096"], ppnet_work,
-                                  peak, err)
+    # the partition by domain at its edges, from a generator of its own: the
+    # shared one feeds every later phase's data
+    pg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 4)
+
+    def counted(*counts):
+        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
+        return did[torch.randperm(len(did), generator=pg, device="cuda")]
+
+    def g_rows(B, Gi):
+        return torch.randn(B, Gi, generator=pg, device="cuda")
+
+    cases["f_one_domain_b4096"] = ((g_rows(4096, G), counted(0, 4096, 0)), ali)
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["g_counts_astride_tiles_b66"] = ((g_rows(66, G), counted(33, 32, 1)), ali)
+    # KuaiRand's PPNet ladder ([128, 64, 32], 5 domains): G = 832, MMOE's F 800
+    # less user_id and video_id moved to the ids (2 x 16), plus the scenario
+    # feature as a sparse feature and as itself (2 x 16)
+    kuairand = ppnet_args(832, 5, [128, 64, 32], g=pg)
+    cases["h_kuairand_b4096"] = (
+        (g_rows(4096, 832), torch.randint(0, 5, (4096,), generator=pg, device="cuda")), kuairand)
+    cases["i_b65536"] = (
+        (g_rows(65_536, G), torch.randint(0, D, (65_536,), generator=pg, device="cuda")), ali)
+
+    def unwritten_nan(*a, **kw):
+        """The kernel's output in a block just freed full of NaN: a row left
+        unwritten fails run_cases' finiteness check."""
+        torch.cuda.synchronize()
+        nan = torch.full((a[0].shape[0],), float("nan"), device="cuda")
+        del nan
+        return k.ppnet_fused_infer(*a, **kw)
+
+    err = run_cases("ppnet_fused_infer", unwritten_nan, k.ppnet_fused_infer_ref, cases)
+    for rows in PPNET_BLOCK_ROWS:  # every tile at the edges of the partition too
+        for name in ("f_one_domain_b4096", "g_counts_astride_tiles_b66"):
+            inputs, args = cases[name]
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.ppnet_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"ppnet_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    entry = time_entry("ppnet_fused_infer", "ppnet", k.ppnet_fused_infer,
+                       k.ppnet_fused_infer_ref, *cases["a_alicpp_b4096"], ppnet_work, peak, err,
+                       sweep_rows=PPNET_BLOCK_ROWS)
+    # the design's own bound: every product as three TF32 products on the
+    # tensor cores, the gating and the final in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    flops, moved = ppnet_work(*inputs, *args)
+    tc = 2.0 * inputs[0].shape[0] * macs(args[0] + args[1] + args[2])
+    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
+    entry["f32_simt_bound_ms"] = entry["bound_ms"]
+    entry["bound_ms"] = max(t_ops, moved / peak[1] * 1e3)
+    entry["bound_by"] = "operations" if t_ops >= moved / peak[1] * 1e3 else "bytes"
+    log(f"  ppnet_fused_infer bounds: f32 SIMT {entry['f32_simt_bound_ms']:.4f} ms; 3xTF32 "
+        f"design {entry['bound_ms']:.4f} ms ({3 * tc / 1e9:.3f} GFLOP TF32 at "
+        f"{peak[2] / 1e12:g} TFLOP/s + {(flops - tc) / 1e9:.4f} GFLOP f32), "
+        f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it")
+    for name in ("h_kuairand_b4096", "i_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"ppnet_fused_infer {name}, step 0",
+                            lambda: k.ppnet_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["ppnet"] = entry
 
     # AdaSparse: scenario loader, S = 16, A = 22 x 16 = 352; layers [256,
     # ..., 8], a pruner on [sce ‖ agn] and after each layer. Pruner weights at

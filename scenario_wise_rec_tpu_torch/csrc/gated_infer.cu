@@ -1,14 +1,10 @@
-// Fused eval forwards of the gated-personalization family for NVIDIA Hopper
-// (sm_90a), f32: EPNet, PPNet and AdaSparse.
+// Fused eval forwards of EPNet and AdaSparse for NVIDIA Hopper (sm_90a), f32.
+// (PPNet's, the third of the family, is ppnet_infer.cu.)
 //
-// Replaces the three TPU kernels of
+// Replaces two TPU kernels of
 // scenario_wise_rec_tpu/ops/pallas/gated_infer.py:
 // - epnet_fused_infer: h = relu([s ‖ a] W1 + b1), gate = gemma *
 //   sigmoid(h W2 + b2), out = sigmoid((a * gate) Wo + bo);
-// - ppnet_fused_infer: per domain d, from the gate input g (h_0 = g), each
-//   layer i: h_i = relu(h_{i-1} W_i[d] + b_i[d]) * gemma *
-//   sigmoid(relu(g G1_i[d] + c1_i[d]) G2_i[d] + c2_i[d]); then
-//   out = sigmoid(h Wf[d] + bf[d]) for the row's own domain;
 // - adasparse_fused_infer: a' = prune([s ‖ a] P_0) * a, then each layer i:
 //   h_i = relu(h_{i-1} W_i + b_i) (h_0 = [s ‖ a']) * prune([s ‖ h_i] P_i+1);
 //   out = sigmoid(h Wf + bf). prune(v) is sign(sigmoid(v) - eps)
@@ -17,23 +13,18 @@
 // BatchNorm is folded into W_i, b_i outside the kernel (folding.py). A
 // product with a concatenation, [s ‖ a] W, is split as s W[:S] + a W[S:]
 // (the kAccum stages of fused_mlp.cuh): no concatenated activation exists.
-// The TPU PPNet kernel computes every domain's tower and selects; here a
-// row runs its own domain's tower only, the same value.
 //
 // What bounds them on this card: arithmetic. At the Ali-CCP shapes a row
-// costs ~265k (EPNet: S 16, A 360, W1 376 -> 360, W2 360 -> 360), ~417k
-// (PPNet: G 376, towers [256,128,64,32,16,8], own domain) and ~363k
+// costs ~265k (EPNet: S 16, A 360, W1 376 -> 360, W2 360 -> 360) and ~363k
 // (AdaSparse: S 16, A 352, layers [256,...,8], a pruner after each)
-// multiply-adds and moves ~1.5 KB, so a 4096-row batch is 2.2-3.4 GFLOP
-// against ~6 MB: the FP32 SIMT peak bounds them, not HBM.
+// multiply-adds and moves ~1.5 KB, so a 4096-row batch is 2.2-3.0 GFLOP
+// against ~7 MB: the FP32 SIMT peak bounds them, not HBM.
 //
 // What the design does about it (fused_mlp.cuh): one block of 256 threads
 // owns tb rows (default 16). The inputs stay in dynamic shared memory for
 // the whole stack, as the gates need them: EPNet's gate multiplies a, every
-// PPNet gate reads g, every AdaSparse pruner reads s. Activations live in
-// shared memory too; weights stream from L2. EPNet's and AdaSparse's stages
-// take the tile's rows 8 at a time (no domain), PPNet's take rows grouped
-// by domain, 4 at a time.
+// AdaSparse pruner reads s. Activations live in shared memory too; weights
+// stream from L2. The stages take the tile's rows 8 at a time (no domain).
 //
 // Bound through ctypes: a plain C interface, every pointer and the stream as
 // void*, the cudaError_t of the launch returned.
@@ -47,7 +38,6 @@ using fused::Groups;
 using fused::Stage;
 
 constexpr int SR = fused::kSharedRows;
-constexpr int DR = fused::kDomainRows;
 
 // sign() that is 0 at 0, as jnp.sign and torch.sign are (copysignf is not)
 __device__ __forceinline__ float sgn(float v) { return (float)((v > 0.f) - (v < 0.f)); }
@@ -106,70 +96,7 @@ epnet_fused_infer_kernel(const __grid_constant__ EpnetArgs p) {
     p.out[row0 + r] = fused::sigmoid(logit[r]);
 }
 
-// ---------------------------------------------------------------------------
-// PPNet
-// ---------------------------------------------------------------------------
-
 constexpr int kMaxLayers = 30;
-
-struct PpnetArgs {
-  const float* g;  // [B, G]
-  const int* did;  // [B]
-  float* out;      // [B]
-  int B, G, D, n_lay, tb, ld_g, ld_w;
-  float gemma;
-  // layers (W [D, in, out]), gate l1s (W [D, G, H_i]), gate l2s
-  // (W [D, H_i, out_i]), final (W [D, h, 1])
-  Stage st[3 * kMaxLayers + 1];
-};
-
-__global__ void __launch_bounds__(fused::kThreads)
-ppnet_fused_infer_kernel(const __grid_constant__ PpnetArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int tb = p.tb, n = p.n_lay;
-  float* g = smem;                                 // [tb, ld_g]
-  float* buf[3];                                   // each [tb, ld_w]
-  buf[0] = g + (size_t)tb * p.ld_g;
-  buf[1] = buf[0] + (size_t)tb * p.ld_w;
-  buf[2] = buf[1] + (size_t)tb * p.ld_w;
-  float* logit = buf[2] + (size_t)tb * p.ld_w;     // [tb]
-  int* did_s = reinterpret_cast<int*>(logit + fused::round4(tb));
-
-  const int row0 = blockIdx.x * tb;
-  const int rows = min(tb, p.B - row0);
-  fused::stage_tile(p.g, p.did, row0, rows, p.G, p.D, g, p.ld_g, tb, did_s);
-  __syncthreads();
-  Groups all, own;
-  fused::build_groups(did_s, rows, tb, did_s + tb, &all, &own);
-
-  const Act gate_in{g, 0, p.ld_g};
-  Act hid = gate_in;
-  int hb = -1;  // the buffer holding hid; -1: the gate input itself
-  for (int i = 0; i < n; ++i) {
-    // m and the gate's hidden go to the two buffers hid is not in; the gate's
-    // logits overwrite hid, which m no longer needs
-    const int mb = (hb + 1) % 3, gb = (hb + 2) % 3, zb = hb < 0 ? 2 : hb;
-    const int N = p.st[i].N;
-    fused::chain<DR, 1>(own, hid, p.st + i, 1, 0, 1, nullptr, nullptr, 0, rows, buf[mb],
-                        p.ld_w);
-    fused::chain<DR, 1>(own, gate_in, p.st + n + i, 1, 0, 1, nullptr, nullptr, 0, rows,
-                        buf[gb], p.ld_w);
-    fused::chain<DR, 0>(own, Act{buf[gb], 0, p.ld_w}, p.st + 2 * n + i, 1, 0, 1, nullptr,
-                        nullptr, 0, rows, buf[zb], p.ld_w);
-    float* m = buf[mb];
-    const float* z = buf[zb];
-    for (int j = threadIdx.x; j < rows * N; j += blockDim.x) {
-      const size_t o = (size_t)(j / N) * p.ld_w + j % N;
-      m[o] = m[o] * (p.gemma * fused::sigmoid(z[o]));
-    }
-    __syncthreads();
-    hid = Act{m, 0, p.ld_w};
-    hb = mb;
-  }
-  fused::chain<DR, 0>(own, hid, p.st + 3 * n, 1, 0, 1, nullptr, nullptr, 0, rows, logit, 1);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x)
-    p.out[row0 + r] = fused::sigmoid(logit[r]);
-}
 
 // ---------------------------------------------------------------------------
 // AdaSparse
@@ -311,43 +238,6 @@ int epnet_fused_infer_f32(const void* sce, const void* agn, void* out, int B, in
   const size_t smem = smem_for(tb * (p.ld_s + 2 * (size_t)p.ld_a + p.ld_h), block_rows);
   *smem_bytes = smem;
   return fused::launch(epnet_fused_infer_kernel, p, B, block_rows, smem, stream);
-}
-
-int ppnet_fused_infer_f32(const void* g, const void* did, void* out, int B, int G, int D,
-                          int n_lay, float gemma, const void* w_ptrs, const void* b_ptrs,
-                          const void* dims, int block_rows, void* stream,
-                          size_t* smem_bytes) {
-  PpnetArgs p = {};
-  if (!rows_ok(B, block_rows) || G < 1 || D < 1 || n_lay < 0 || n_lay > kMaxLayers)
-    return (int)cudaErrorInvalidValue;
-  Stage st[3 * kMaxLayers + 1];
-  const int n = 3 * n_lay + 1;
-  if (n > fused::kMaxStages || !fused::fill_stages(st, n, w_ptrs, b_ptrs, dims))
-    return (int)cudaErrorInvalidValue;
-  int width = G, ld_w = 1;
-  for (int i = 0; i < n_lay; ++i) {
-    const Stage &L = st[i], &g1 = st[n_lay + i], &g2 = st[2 * n_lay + i];
-    if (L.K != width || g1.K != G || g2.K != g1.N || g2.N != L.N)
-      return (int)cudaErrorInvalidValue;
-    width = L.N;
-    ld_w = L.N > ld_w ? L.N : ld_w;
-    ld_w = g1.N > ld_w ? g1.N : ld_w;
-  }
-  if (st[3 * n_lay].K != width || st[3 * n_lay].N != 1) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n; ++i) {
-    if (st[i].b == nullptr) return (int)cudaErrorInvalidValue;
-    p.st[i] = st[i];
-  }
-  p.g = static_cast<const float*>(g);
-  p.did = static_cast<const int*>(did);
-  p.out = static_cast<float*>(out);
-  p.B = B; p.G = G; p.D = D; p.n_lay = n_lay; p.tb = block_rows; p.gemma = gemma;
-  p.ld_g = fused::round4(G);
-  p.ld_w = fused::round4(ld_w);
-  const size_t tb = block_rows;
-  const size_t smem = smem_for(tb * (p.ld_g + 3 * (size_t)p.ld_w), block_rows);
-  *smem_bytes = smem;
-  return fused::launch(ppnet_fused_infer_kernel, p, B, block_rows, smem, stream);
 }
 
 int adasparse_fused_infer_f32(const void* sce, const void* agn, void* out, int B, int S,

@@ -7,10 +7,11 @@
 - ``tower_infer``, ``star_infer``, ``ple_infer``, ``sarnet_infer``: the
   same for SharedBottom, STAR, PLE and SAR-Net
   (``csrc/{tower,star,ple,sarnet}_infer.cu``);
-- ``gated_infer``: the same for EPNet, PPNet and AdaSparse, three kernels
-  in ``csrc/gated_infer.cu`` (``epnet_fused_infer``, ``ppnet_fused_infer``,
-  ``adasparse_fused_infer``, with ``adasparse_threshold_margin`` for
-  comparing the last across its hard threshold);
+- ``gated_infer``: the same for EPNet, PPNet and AdaSparse
+  (``epnet_fused_infer`` and ``adasparse_fused_infer`` in
+  ``csrc/gated_infer.cu``, with ``adasparse_threshold_margin`` for
+  comparing the last across its hard threshold; ``ppnet_fused_infer`` in
+  ``csrc/ppnet_infer.cu``, each block on rows of one domain);
 - ``hamur_infer``: HAMUR's eval cut at its adapters' batch-statistics norms,
   one launch of the segment kernel ``hamur_segment`` (``csrc/hamur_infer.cu``)
   per segment, the hyper-network and the norms' statistics in PyTorch
@@ -23,8 +24,8 @@
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's is built over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds
-  their Python side.
+  MMOE's, HAMUR's and PPNet's (``csrc/mma_ring.cuh``) is built over the
+  shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

@@ -3,9 +3,11 @@
 what their kernels take, the stage list they pass (``csrc/fused_mlp.cuh``),
 the ctypes launch, and the plain versions' gate mixture. ``mmoe_infer``
 uses its batch check and its ctypes arrays, ``hamur_infer`` its tensor
-checks, stage list and launch.
+checks, stage list and launch, ``gated_infer``'s PPNet wrapper its tensor
+checks, stage list and ctypes function.
 
-Nothing here builds or loads a kernel until :func:`launch` is called.
+Nothing here builds or loads a kernel until :func:`launch` or
+:func:`function` is called.
 """
 
 from __future__ import annotations
@@ -106,7 +108,10 @@ def mix(gate: torch.Tensor, experts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _function(source: str, symbol: str, argtypes: tuple):
+def function(source: str, symbol: str, argtypes: tuple):
+    """``symbol`` of ``csrc/<source>.cu`` (built and loaded on first use), its
+    arguments ``argtypes`` then ``block_rows``, the stream and a ``size_t*``
+    for the shared memory a block takes; it returns a cudaError_t."""
     from . import _build
 
     fn = getattr(_build.load(source), symbol)
@@ -121,7 +126,7 @@ def launch(source: str, symbol: str, argtypes: tuple, args: tuple, emb: torch.Te
     """Calls ``symbol`` of ``csrc/<source>.cu`` with ``args``, then
     ``block_rows``, the current stream and the shared-memory report, on
     ``emb``'s device; raises if the launch fails."""
-    fn = _function(source, symbol, argtypes)
+    fn = function(source, symbol, argtypes)
     smem = ctypes.c_size_t(0)
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):

@@ -1,13 +1,16 @@
 """Fused inference of the gated-personalization family: EPNet, PPNet and
-AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` and their plain
-PyTorch versions.
+AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` (EPNet, AdaSparse)
+and ``csrc/ppnet_infer.cu`` (PPNet) and their plain PyTorch versions.
 
 - :func:`epnet_fused_infer`: ``gate = gemma·sigmoid(relu([sce ‖ agn] W1 +
   b1) W2 + b2)``, then ``sigmoid((agn · gate) Wo + bo)``.
 - :func:`ppnet_fused_infer`: per domain, from the gate input ``g``, each
   layer ``relu(h W_i + b_i) · GateNU_i(g)`` (BatchNorm folded), then
   ``sigmoid(h Wf + bf)``, each row's own domain selected. The kernel runs
-  only the row's own domain's tower.
+  only the row's own domain's tower: each block takes rows of one domain,
+  partitioned inside the launch, and runs the products on the tensor cores
+  in 3xTF32 (about f32's accuracy; the design note is at the top of the
+  source).
 - :func:`adasparse_fused_infer`: the agnostic embedding and every hidden
   activation multiplied by its pruner's weights, then ``sigmoid(h Wf +
   bf)``; ``alpha`` comes folded into the pruner weights (Binarization,
@@ -31,9 +34,11 @@ import torch
 
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import ROW_TILE, check_block_rows
 
 FORMS = ("Binarization", "Scaling", "Fusion")  # the kernel's form flag is the index
 MAX_LAYERS = 30  # csrc kMaxLayers
+MAX_DOMAINS = 256  # ppnet_infer.cu kMaxDomains
 
 
 def _check_pair(sce, agn):
@@ -147,13 +152,20 @@ def ppnet_fused_infer_ref(
 
 def ppnet_fused_infer(gate_in, domain_id, layer_stages: Sequence[Affine],
                       gate_l1s: Sequence[Affine], gate_l2s: Sequence[Affine], final: Affine,
-                      gemma: float = 2.0,
-                      block_rows: int = _fused.DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+                      gemma: float = 2.0, block_rows: int | None = None) -> torch.Tensor:
     """probs[B] = fused PPNet eval forward on the gate input ``gate_in``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tile fits in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit. A shape whose tile does not fit raises a RuntimeError; it
+    never falls back. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    for its ``block_rows`` raises there too. The card takes at most
+    ``MAX_LAYERS`` layers and ``MAX_DOMAINS`` domains; int32 and int64
+    domain ids are read as they are.
     """
+    check_block_rows(block_rows)
     if gate_in.device.type == "cpu":
         return ppnet_fused_infer_ref(gate_in, domain_id, layer_stages, gate_l1s, gate_l2s,
                                      final, gemma)
@@ -161,18 +173,29 @@ def ppnet_fused_infer(gate_in, domain_id, layer_stages: Sequence[Affine],
     n = len(layer_stages)
     if n > MAX_LAYERS:
         raise ValueError(f"ppnet_fused_infer takes at most {MAX_LAYERS} layers, got {n}")
+    if D > MAX_DOMAINS:
+        raise ValueError(f"ppnet_fused_infer takes at most {MAX_DOMAINS} domains, got {D}")
     stages = list(layer_stages) + list(gate_l1s) + list(gate_l2s) + [final]
-    _fused.check_launch("ppnet_fused_infer", gate_in, domain_id,
-                        [t for s in stages for t in s], len(stages), block_rows)
+    _fused.check_tensors("ppnet_fused_infer", gate_in, domain_id,
+                         [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=gate_in.device)
     if B == 0:
         return out
-    did = domain_id.to(torch.int32).contiguous()
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch("gated_infer", "ppnet_fused_infer_f32",
-                  (p, p, p, i, i, i, i, ctypes.c_float, p, p, p),
-                  (gate_in.data_ptr(), did.data_ptr(), out.data_ptr(), B, G, D, n, gemma,
-                   *_fused.stage_args(stages)), gate_in, block_rows)
+    fn = _fused.function("ppnet_infer", "ppnet_fused_infer_f32",
+                         (p, p, i, p, i, i, i, i, ctypes.c_float, p, p, p))
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(gate_in.device).cuda_stream
+    with torch.cuda.device(gate_in.device):
+        err = fn(gate_in.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(),
+                 B, G, D, n, gemma, *_fused.stage_args(stages), block_rows or 0, stream,
+                 ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"ppnet_fused_infer launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows or ROW_TILE})")
     ppnet_fused_infer.launches += 1
     return out
 

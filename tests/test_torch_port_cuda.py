@@ -590,23 +590,113 @@ def _ppnet_args(gen, G, D, dims, hidden=None):
     return lay, g1, g2, _affines(gen, (D,), [dims[-1] if dims else G, 1])[0]
 
 
+ALI_PPNET = (376, 3, [256, 128, 64, 32, 16, 8])  # G, D, layer dims (gate hidden alike)
+# KuaiRand's PPNet ladder: 5 domains, layers [128, 64, 32]; G = 832, MMOE's
+# F 800 less user_id and video_id (16 each) moved to the ids (32) plus the
+# scenario feature twice (the ppnet loader keeps domain_indicator sparse, 16,
+# and as the scenario feature, 16)
+KUAIRAND_PPNET = (832, 5, [128, 64, 32])
+
+
+def _ppnet_ids(gen, B, D, counts=None):
+    """``[B]`` ids: uniform over -2 .. D + 2 (clipped by the kernel), or the
+    given count of each domain, shuffled."""
+    if counts is None:
+        return torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
+    did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
+    return did[torch.randperm(B, generator=gen, device="cuda")]
+
+
+def _ppnet_unwritten_nan(wrapper, g, did, *args, **kw):
+    """The wrapper's output where the caching allocator hands it a block just
+    freed full of NaN: a row the kernel leaves unwritten reads NaN."""
+    torch.cuda.synchronize()
+    nan = torch.full((g.shape[0],), float("nan"), device="cuda")
+    del nan
+    return wrapper(g, did, *args, **kw)
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, G, D, layer dims, gate hidden, block_rows, domains present)
-    (4096, 376, 3, [256, 128, 64, 32, 16, 8], None, 16, None),  # Ali-CCP
-    (4096, 376, 3, [256, 128, 64, 32, 16, 8], None, 16, [0, 2]),  # domain 1 absent
-    (333, 41, 2, [7, 3], [9, 5], 8, None),
-    (64, 12, 4, [], None, 32, None),                    # no layer
+    # (B, G, D, layer dims, gate hidden, block_rows, counts of each domain)
+    (4096, *ALI_PPNET, None, None, None),               # Ali-CCP, the kernel's tile (32)
+    (4096, *ALI_PPNET, None, 16, None),
+    (4096, *ALI_PPNET, None, 32, None),
+    (4096, *ALI_PPNET, None, 48, None),
+    (4096, *ALI_PPNET, None, 64, None),                 # a 64-row tile beside the smallest ring
+    (4096, *ALI_PPNET, None, None, [2000, 0, 2096]),    # domain 1 absent
+    (4096, *ALI_PPNET, None, None, [0, 4096, 0]),       # every row in one domain
+    (66, *ALI_PPNET, None, 16, [33, 32, 1]),            # counts astride 16-row tiles
+    (100, *ALI_PPNET, None, 32, [33, 1, 66]),
+    (4096, *KUAIRAND_PPNET, None, None, None),           # KuaiRand's width
+    (4096, *KUAIRAND_PPNET, None, 48, None),
+    (333, 41, 2, [7, 3], [9, 5], 16, None),             # widths off 8; gate hidden != layer
+    (64, 12, 4, [], None, 32, None),                    # no layer: the final on g
+    (200, 30, 1, [24, 8], None, 16, None),              # D = 1
+    (300, 40, 3, [300, 20, 270], [30, 280, 7], 16, None),  # layers past one 256-column pass
+    (64, 10, 2, [4] * 30, None, 16, None),              # the deepest tower
+    (1, *ALI_PPNET, None, None, None),
+    (65_536, *ALI_PPNET, None, None, None),             # the largest B the partition is held to
 ])
 def test_ppnet_kernel_matches_plain(gen, cfg):
-    B, G, D, dims, hidden, rows, present = cfg
+    B, G, D, dims, hidden, rows, counts = cfg
     g = torch.randn(B, G, generator=gen, device="cuda")
-    if present is None:
-        did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
-    else:
-        pick = torch.randint(0, len(present), (B,), generator=gen, device="cuda")
-        did = torch.tensor(present, device="cuda")[pick]
-    _launch_and_compare(gen, kg.ppnet_fused_infer, kg.ppnet_fused_infer_ref, g, did,
-                        *_ppnet_args(gen, G, D, dims, hidden), rows=rows)
+    did = _ppnet_ids(gen, B, D, counts)
+    args = _ppnet_args(gen, G, D, dims, hidden)
+    before = kg.ppnet_fused_infer.launches
+    got = _ppnet_unwritten_nan(kg.ppnet_fused_infer, g, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kg.ppnet_fused_infer.launches == before + 1
+    want = kg.ppnet_fused_infer_ref(g, did, *args)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())  # every row written
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_ppnet_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch), taken modulo 2^32 as
+    int32 and clipped: the same outputs as the int32 ids, bit for bit."""
+    G, D, dims = ALI_PPNET
+    args = _ppnet_args(gen, G, D, dims)
+    g = torch.randn(4096, G, generator=gen, device="cuda")
+    did = _ppnet_ids(gen, 4096, D)
+    got = kg.ppnet_fused_infer(g, did.to(torch.int32), *args)
+    assert torch.equal(got, kg.ppnet_fused_infer(g, did.to(torch.int64), *args))
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    g8 = g[:8].contiguous()
+    assert torch.equal(kg.ppnet_fused_infer(g8, wrap, *args), kg.ppnet_fused_infer(
+        g8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *args))
+    assert (kg.ppnet_fused_infer(g8, wrap, *args)
+            - kg.ppnet_fused_infer_ref(g8, wrap, *args)).abs().max().item() <= TOL
+
+
+def test_ppnet_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of g leaves every other row of its
+    domain's tile as the plain version computes it."""
+    G, D, dims = ALI_PPNET
+    args = _ppnet_args(gen, G, D, dims)
+    g = torch.randn(100, G, generator=gen, device="cuda")
+    g[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = kg.ppnet_fused_infer(g, did, *args, block_rows=64)
+    want = kg.ppnet_fused_infer_ref(g, did, *args)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
+
+
+def test_ppnet_kernel_rejects_what_it_does_not_take(gen):
+    G, D, dims = KUAIRAND_PPNET
+    g = torch.randn(64, G, generator=gen, device="cuda")
+    did = torch.zeros(64, dtype=torch.int32, device="cuda")
+    args = _ppnet_args(gen, G, D, dims)
+    with pytest.raises(RuntimeError, match="shared memory"):  # 64 rows of G 832 do not fit
+        kg.ppnet_fused_infer(g, did, *args, block_rows=64)
+    for rows in (8, 24, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            kg.ppnet_fused_infer(g, did, *args, block_rows=rows)
+    with pytest.raises(ValueError, match="domains"):
+        kg.ppnet_fused_infer(g[:, :20].contiguous(), did, *_ppnet_args(gen, 20, 257, [4]))
+    assert kg.ppnet_fused_infer(g[:0], did[:0], *args).shape == (0,)
 
 
 def _adasparse_args(gen, B, S, A, dims, alpha):

@@ -114,6 +114,60 @@ def test_ppnet_ref_matches_jax_kernel(cfg):
     _close(got, want)
 
 
+def _ppnet_inputs(r, B, G, Dn, dims):
+    g = r.normal(size=(B, G)).astype(np.float32)
+    lay = _affines(r, (Dn,), [G] + dims)
+    g1 = [_affines(r, (Dn,), [G, h])[0] for h in dims]
+    g2 = [_affines(r, (Dn,), [h, h])[0] for h in dims]
+    final = _affines(r, (Dn,), [dims[-1] if dims else G, 1])[0]
+    return g, lay, g1, g2, final
+
+
+@pytest.mark.parametrize("counts", [
+    # rows of each domain, shuffled; the JAX kernel's tiles are 16 rows
+    (0, 50, 0),       # every row in one domain
+    (20, 0, 30),      # one domain absent
+    (33, 32, 1),      # counts astride the 16-row tiles
+    (37,),            # one domain
+])
+def test_ppnet_ref_matches_jax_kernel_on_skewed_domains(counts):
+    """The plain version against the JAX kernel where the card kernel's
+    partition by domain is tested hardest: each domain's rows fill whole
+    tiles, one more, one fewer, or none."""
+    r = np.random.default_rng(sum(counts) + len(counts))
+    Dn = len(counts)
+    did = r.permutation(np.repeat(np.arange(Dn), counts))
+    g, lay, g1, g2, final = _ppnet_inputs(r, len(did), 20, Dn, [12, 8])
+    want = jgated.ppnet_fused_infer(jnp.asarray(g), jnp.asarray(did), _j(lay), _j(g1),
+                                    _j(g2), _j([final])[0], gemma=2.0, block_rows=16,
+                                    interpret=True)
+    got = pk_gated.ppnet_fused_infer(torch.tensor(g), torch.tensor(did), _t(lay), _t(g1),
+                                     _t(g2), _t([final])[0], gemma=2.0)
+    assert got.shape == (len(did),)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rows,ok", [(None, True), (16, True), (32, True), (48, True),
+                                     (64, True), (8, False), (24, False), (80, False),
+                                     (0, False)])
+def test_ppnet_wrapper_keeps_the_tile_rule_on_the_cpu(rows, ok):
+    """``block_rows`` is checked before the CPU branch, as on the card: a
+    multiple of 16 up to 64, or None. An accepted value runs the plain
+    version unchanged."""
+    r = np.random.default_rng(3)
+    g, lay, g1, g2, final = _ppnet_inputs(r, 9, 10, 2, [6])
+    args = (torch.tensor(g), torch.tensor(r.integers(0, 2, 9)), _t(lay), _t(g1), _t(g2),
+            _t([final])[0])
+    if not ok:
+        with pytest.raises(ValueError, match="block_rows"):
+            pk_gated.ppnet_fused_infer(*args, block_rows=rows)
+        return
+    before = pk_gated.ppnet_fused_infer.launches
+    got = pk_gated.ppnet_fused_infer(*args, block_rows=rows)
+    assert pk_gated.ppnet_fused_infer.launches == before  # plain on the CPU
+    assert torch.equal(got, pk_gated.ppnet_fused_infer_ref(*args))
+
+
 def _adasparse_args(r, S, A, dims, alpha):
     pw = [(alpha * (S + h) ** -0.5 * r.normal(size=(S + h, h))).astype(np.float32)
           for h in [A] + dims]
