@@ -112,9 +112,15 @@ Phases; each asserts, and any failure exits non-zero:
      MLP [64, 32]), ragged B = 4095 and B = 1 and a narrow configuration;
      ``m3oe_fused_infer`` at M3oE's (F = 376, star [512, 256], 4 experts and
      3 domain experts [256 -> 64], each layer with its LayerNorm), ragged,
-     narrow, domain ids -1, D and D+5, and one domain (the balance mix's own
-     branch); probabilities within 1e-5, with a ``block_rows`` sweep of 8,
-     16 and 24 (the rows whose activations fit in shared memory).
+     narrow, domain ids -1, D and D+5 (int64 ids also as int32 and plus
+     2^32: the same outputs), one domain (the balance mix's own branch), 90 %
+     of the rows in one domain, counts astride a tile, KuaiRand's width (F =
+     800, 5 domains, star [128, 64], experts 64 -> 32) and B = 65,536, each
+     into an output left full of NaN (no row unwritten); probabilities within
+     1e-5; the edge cases at every ``block_rows`` of the tile rule (48 and 64
+     must raise at Ali-CCP: the tile does not fit in shared memory), timed at
+     16, 32 and the kernel's choice, with the bound by the design's 3xTF32
+     products beside the f32 one.
 3. Serving path: MMOE at Ali-CCP width (23 sparse x 16, 8 dense, 3 domains,
    experts [256,128,64,32,16,8], tower [16]) with 467,000 ids per feature
    (a packed [10.74M, 16] f32 table) built on the card from ``--seed``;
@@ -231,9 +237,14 @@ NEW_MODELS = ("sharedbottom", "star", "ple")
 GATED_MODELS = ("sarnet", "epnet", "ppnet", "adasparse")
 HAMUR_MODELS = ("hamur", "adaptdhm")
 META_MODELS = ("m2m", "m3oe")
-# block_rows whose activations fit in shared memory at M2M's and M3oE's
-# Ali-CCP widths (each row keeps ~8 KB)
+# block_rows whose activations fit in shared memory at M2M's Ali-CCP widths
+# (each row keeps ~8 KB)
 META_BLOCK_ROWS = (8, 16, 24)
+# m3oe_fused_infer's tile rule: every value, and None (the kernel's choice);
+# at Ali-CCP 48 and 64 rows do not fit (the emb, skip and star tiles take
+# 1164 floats a row) and must raise
+M3OE_BLOCK_ROWS = (16, 32, 48, 64, None)
+M3OE_ALI_TOO_WIDE = (48, 64)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's and ppnet_fused_infer's: the tile rule's every value, and
@@ -1324,6 +1335,16 @@ def m3oe_work(emb, did, star, skip, star_mlp, gates, experts, dom_experts, tower
                                                             experts, dom_experts, towers)) + B * 4
 
 
+def m3oe_product_macs(star, skip, star_mlp, gates, experts, dom_experts, towers, w_exp, w_bal):
+    """Multiply-adds a row of the products the kernel runs on the tensor
+    cores: the own star slot, the skip, the star MLP, every expert, the gate
+    and the tower's first Linear (the 1-wide head is f32, a warp a row)."""
+    E, D = experts[0][0].shape[0], star[0].shape[0]
+    mac = lambda layers: sum(l[0].shape[-2] * l[0].shape[-1] for l in layers)
+    return (star[0].shape[1] * star[0].shape[2] + mac(skip) + mac(star_mlp) + E * mac(experts)
+            + D * mac(dom_experts) + mac([gates]) + mac([towers]))
+
+
 def ln_layers(gen, lead, dims):
     """``Mlp_N`` layers (W, b, gamma, beta) between the widths ``dims``."""
     return [(w, b, 0.5 + torch.rand(*lead, w.shape[-1], generator=gen, device="cuda"),
@@ -1368,13 +1389,14 @@ def phase_meta_kernels(gen, peak):
     # domain), skip 376 -> 256, 4 experts and 3 domain experts 256 -> 64,
     # gates 256 -> 4, towers 64 -> 64 -> 1, each layer but the star slot,
     # the gate and the tower head followed by a LayerNorm
-    def m3oe_args(s0, s1, s2, Dn, E, fcn, skip_hidden=()):
-        l1 = ln_layers(gen, (Dn,), [fcn[-1], fcn[-1]])[0]
-        return (affines(gen, (Dn,), [s0, s1])[0], ln_layers(gen, (), [s0, *skip_hidden, s2]),
-                ln_layers(gen, (), [s1, s2]), affines(gen, (Dn,), [s2, E])[0],
-                ln_layers(gen, (E,), [s2] + fcn), ln_layers(gen, (Dn,), [s2] + fcn),
-                (*l1, *affines(gen, (Dn,), [fcn[-1], 1])[0]),
-                torch.sigmoid(randn(1)), torch.sigmoid(randn(1)))
+    def m3oe_args(s0, s1, s2, Dn, E, fcn, skip_hidden=(), g=gen):
+        l1 = ln_layers(g, (Dn,), [fcn[-1], fcn[-1]])[0]
+        return (affines(g, (Dn,), [s0, s1])[0], ln_layers(g, (), [s0, *skip_hidden, s2]),
+                ln_layers(g, (), [s1, s2]), affines(g, (Dn,), [s2, E])[0],
+                ln_layers(g, (E,), [s2] + fcn), ln_layers(g, (Dn,), [s2] + fcn),
+                (*l1, *affines(g, (Dn,), [fcn[-1], 1])[0]),
+                torch.sigmoid(torch.randn(1, generator=g, device="cuda")),
+                torch.sigmoid(torch.randn(1, generator=g, device="cuda")))
 
     ali = m3oe_args(F, 512, 256, D, 4, [64])
     emb4096 = randn(4096, F)
@@ -1385,10 +1407,85 @@ def phase_meta_kernels(gen, peak):
                                 m3oe_args(42, 24, 16, 2, 3, [8, 4], (12,))),
              "d_domain_oob_b4096": ((emb4096, oob[ids(4096, len(oob))]), ali),
              "e_one_domain_b4096": ((emb4096, ids(4096, 1)), m3oe_args(F, 512, 256, 1, 4, [64]))}
-    err = run_cases("m3oe_fused_infer", k.m3oe_fused_infer, k.m3oe_fused_infer_ref, cases)
-    entries["m3oe"] = time_entry("m3oe_fused_infer", "m3oe", k.m3oe_fused_infer,
-                                 k.m3oe_fused_infer_ref, *cases["a_alicpp_b4096"], m3oe_work,
-                                 peak, err, sweep_rows=META_BLOCK_ROWS)
+    # the partition by domain at its edges, KuaiRand's width and B 65,536,
+    # from a generator of its own: the shared one feeds every later phase's data
+    mg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 5)
+
+    def counted(*counts):
+        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
+        return did[torch.randperm(len(did), generator=mg, device="cuda")]
+
+    def e_rows(B, Fi):
+        return torch.randn(B, Fi, generator=mg, device="cuda")
+
+    cases["f_skewed_b4096"] = ((e_rows(4096, F), counted(3700, 300, 96)), ali)  # 90 % in one
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["g_counts_astride_tiles_b66"] = ((e_rows(66, F), counted(33, 32, 1)), ali)
+    # KuaiRand's M3oE ladder (fcn_dims [128, 64, 64, 32], 5 domains) at MMOE's
+    # KuaiRand F 800
+    cases["h_kuairand_b4096"] = (
+        (e_rows(4096, 800), torch.randint(0, 5, (4096,), generator=mg, device="cuda")),
+        m3oe_args(800, 128, 64, 5, 4, [32], g=mg))
+    cases["i_b65536"] = (
+        (e_rows(65_536, F), torch.randint(0, D, (65_536,), generator=mg, device="cuda")), ali)
+
+    def unwritten_nan(*a, **kw):
+        """The kernel's output in a block just freed full of NaN: a row left
+        unwritten fails run_cases' finiteness check."""
+        torch.cuda.synchronize()
+        nan = torch.full((a[0].shape[0],), float("nan"), device="cuda")
+        del nan
+        return k.m3oe_fused_infer(*a, **kw)
+
+    err = run_cases("m3oe_fused_infer", unwritten_nan, k.m3oe_fused_infer_ref, cases)
+    for rows in M3OE_BLOCK_ROWS:  # every tile: at the edges of the partition, at KuaiRand's
+        for name in ("f_skewed_b4096", "g_counts_astride_tiles_b66", "h_kuairand_b4096"):
+            inputs, args = cases[name]
+            if rows == 64 and name == "h_kuairand_b4096":  # F 800: 64 rows do not fit
+                continue
+            if rows in M3OE_ALI_TOO_WIDE and name != "h_kuairand_b4096":
+                try:
+                    k.m3oe_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"m3oe_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"m3oe_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.m3oe_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"m3oe_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  m3oe_fused_infer block_rows {M3OE_ALI_TOO_WIDE} at Ali-CCP: raise, naming the "
+        f"shared memory")
+    # int64 ids as they are, modulo 2^32 as int32, then clipped
+    (emb, did), args = cases["d_domain_oob_b4096"]
+    check(torch.equal(k.m3oe_fused_infer(emb, did, *args),
+                      k.m3oe_fused_infer(emb, did.to(torch.int32), *args))
+          and torch.equal(k.m3oe_fused_infer(emb, did + 2**32, *args),
+                          k.m3oe_fused_infer(emb, did, *args)),
+          "m3oe_fused_infer: int64 ids differ from the same ids as int32")
+    fits = tuple(r for r in M3OE_BLOCK_ROWS if r not in M3OE_ALI_TOO_WIDE)
+    entry = time_entry("m3oe_fused_infer", "m3oe", k.m3oe_fused_infer, k.m3oe_fused_infer_ref,
+                       *cases["a_alicpp_b4096"], m3oe_work, peak, err, sweep_rows=fits)
+    # the design's own bound: every product as three TF32 products on the
+    # tensor cores, the norms, mixes and the head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    flops, moved = m3oe_work(*inputs, *args)
+    tc = 2.0 * inputs[0].shape[0] * m3oe_product_macs(*args)
+    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
+    entry["f32_simt_bound_ms"] = entry["bound_ms"]
+    entry["bound_ms"] = max(t_ops, moved / peak[1] * 1e3)
+    entry["bound_by"] = "operations" if t_ops >= moved / peak[1] * 1e3 else "bytes"
+    log(f"  m3oe_fused_infer bounds: f32 SIMT {entry['f32_simt_bound_ms']:.4f} ms; 3xTF32 "
+        f"design {entry['bound_ms']:.4f} ms ({3 * tc / 1e9:.3f} GFLOP TF32 at "
+        f"{peak[2] / 1e12:g} TFLOP/s + {(flops - tc) / 1e9:.4f} GFLOP f32), "
+        f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it")
+    for name in ("h_kuairand_b4096", "i_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"m3oe_fused_infer {name}, step 0",
+                            lambda: k.m3oe_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["m3oe"] = entry
     return entries
 
 

@@ -21,28 +21,18 @@
 //
 // What the design does about it (the split, the mma products, the ring's
 // barriers and bulk copies and the bias loads are mma_ring.cuh's, shared with
-// mmoe_infer.cu and hamur_infer.cu):
+// mmoe_infer.cu and hamur_infer.cu; the partition by domain, the slab of
+// whole rows and the rotating accumulators are domain_tiles.cuh's, shared
+// with m3oe_infer.cu):
 // - One domain a block. A block of 8 compute warps and a producer warp takes
-//   a tile of up to tb rows of one domain, so it streams that domain's
-//   weights only, once: 1.667 MB a block at Ali-CCP, ~0.22 GB from L2 a call
-//   (a tile of mixed domains would stream each of its domains in turn).
-// - The partition is made inside the one launch, with no sort and no host
-//   work: ceil(B/tb) + D - 1 blocks, enough since the tiles of all domains,
-//   sum over d of ceil(c_d / tb), are at most that many. Each block reads all
-//   B ids (int64 ids modulo 2^32 as int32, then clipped), each warp a
-//   contiguous segment, 4 ids a lane a 16-byte load, and counts each
-//   domain's rows in its segment (shared-memory atomics into the warp's own
-//   counts); warp 0 scans the domains' tile counts to find this block's
-//   (domain d, tile j); the warps holding ranks j*tb .. (j+1)*tb - 1 of
-//   domain d list those rows in row order (ballots, the ranks of earlier
-//   segments added). Blocks past the last tile leave. The block gathers its
-//   rows of g and writes out[row] for each.
-// - The cost of the partition: each block reads all B ids, so the ids
-//   traffic from L2 is B^2/tb words (2 MB of int32 ids at B 4096, tb 32),
-//   and its time grows with B^2 while the products' grows with B: on an
-//   H100 at B 65,536, the largest B the card tests run, the kernel took
-//   1.21x the time a row it takes at B 4096 (PERF.md, section 6). Past that,
-//   split the batch.
+//   a tile of up to tb rows of one domain, partitioned inside the one launch,
+//   so it streams that domain's weights only, once: 1.667 MB a block at
+//   Ali-CCP, ~0.22 GB from L2 a call (a tile of mixed domains would stream
+//   each of its domains in turn). The block gathers its rows of g and writes
+//   out[row] for each. The partition's ids traffic grows with B^2: on an H100
+//   at B 65,536, the largest B the card tests run, the kernel took 1.21x the
+//   time a row it takes at B 4096 (PERF.md, section 6). Past that, split the
+//   batch.
 // - The products in 3xTF32 (f32's accuracy): each f32 operand x is split
 //   into hi (a TF32 value) and lo = x - hi, and hi*hi + hi*lo + lo*hi go to
 //   mma.sync.m16n8k8 in f32 accumulators. A layer's three products do not
@@ -52,17 +42,9 @@
 //   the compute warps consume the same schedule and meet at each product's
 //   end. Every product, down to the narrow gates, runs on the tensor cores;
 //   the 1-wide final is a warp a row.
-// - A slab of whole rows (N <= kChunk, a multiple of 8, W 16-byte aligned)
-//   is contiguous in W[d], so it is one bulk copy, kept at stride N in its
-//   slot (copy_whole); other products take the header's bulk copy a row
-//   (issue_slab). A bulk copy is one copy-engine operation however short its
-//   row, and with a copy a row for all 3,632 weight rows of a block the
-//   kernel took 0.1725 ms on an H100, against 0.1258 with a copy a slab
-//   (PERF.md, section 6).
-// - A warp that owns one or two n-tiles of a product (N <= 128) takes the
-//   k-steps in turn into 4 or 2 sets of accumulators (mma_slab_rot), so the
-//   products of a narrow gate l1 (47 k-steps at G 376) are independent
-//   chains of mma.sync and not one chain of 141.
+// - A slab of whole rows is one bulk copy: with a copy a row for all 3,632
+//   weight rows of a block the kernel took 0.1725 ms on an H100, against
+//   0.1258 with a copy a slab (PERF.md, section 6).
 // - Shared memory: the g tile (the gates read it in every layer), two
 //   activation buffers X and Y, the ring in what the tile leaves. A layer of
 //   width N <= kChunk runs its gate first: gh into the layer's output buffer,
@@ -88,7 +70,7 @@
 
 #include <algorithm>
 
-#include "mma_ring.cuh"
+#include "domain_tiles.cuh"
 
 namespace {
 
@@ -96,8 +78,6 @@ using namespace ring;
 
 constexpr int kMaxLayers = 30;               // a tower's layers
 constexpr int kMaxProducts = 3 * kMaxLayers;
-constexpr int kMaxDomains = 256;             // per-warp domain counts in shared memory
-constexpr int kAllWarps = kWarps + 1;        // the producer warp takes part in the partition
 constexpr int kBarBytes = 64;                // a full and an empty barrier per ring slot
 static_assert(16 * kRing <= kBarBytes, "two 8-byte barriers a ring slot");
 
@@ -134,137 +114,6 @@ struct Args {
   float gemma;
   Product prod[kMaxProducts];
 };
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-// row r's domain: an int64 id is taken modulo 2^32 as an int32, then clipped,
-// as the plain version and the reference (int32 ids) take it
-__device__ __forceinline__ int domain_of(const Args& p, int r) {
-  const int d = p.id64 ? static_cast<int>(static_cast<const long long*>(p.did)[r])
-                       : static_cast<const int*>(p.did)[r];
-  return d < 0 ? 0 : (d >= p.D ? p.D - 1 : d);
-}
-
-constexpr int kIds = 4;  // loads of 4 ids a lane in flight together in the partition
-
-// the domains of rows r .. r + 3, -1 past s1: one 16-byte load of int32 ids
-// or two of int64 ids where the ids are 16-byte aligned (r is a multiple of 4)
-__device__ __forceinline__ void domains4(const Args& p, bool vec, int r, int s1, int (&d)[4]) {
-  if (vec && r + 4 <= s1) {
-    int v[4];
-    if (p.id64) {
-      const longlong2* q =
-          reinterpret_cast<const longlong2*>(static_cast<const long long*>(p.did) + r);
-      const longlong2 a = __ldg(q), b = __ldg(q + 1);
-      v[0] = static_cast<int>(a.x), v[1] = static_cast<int>(a.y);
-      v[2] = static_cast<int>(b.x), v[3] = static_cast<int>(b.y);
-    } else {
-      const int4 a = __ldg(reinterpret_cast<const int4*>(static_cast<const int*>(p.did) + r));
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] = v[e] < 0 ? 0 : (v[e] >= p.D ? p.D - 1 : v[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] = r + e < s1 ? domain_of(p, r + e) : -1;
-  }
-}
-
-// The producer warp's part for a product of whole rows (N <= kChunk, a
-// multiple of 8, W 16-byte aligned): rows k0 .. k0 + srows - 1 of W[dom] are
-// contiguous, so the slab is one bulk copy into the slot at stride N, rows
-// from K up to K rounded to 8 zero. Each lane arrives on the slot's full
-// barrier, which completes when the slab has landed.
-__device__ __forceinline__ void copy_whole(const Product& q, int dom, int k0, float* slot,
-                                           uint32_t full, int lane) {
-  const int rows = min(static_cast<int>(q.srows), q.K - k0);
-  const int pad = min(static_cast<int>(q.srows), round_up(q.K, 8) - k0) - rows;
-  for (int i = lane; i < pad * q.N; i += 32) slot[rows * q.N + i] = 0.f;
-  // the slot's earlier reads (generic proxy) before the copy's writes (async)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (lane == 0) {
-    const uint32_t bytes = static_cast<uint32_t>(rows * q.N * 4);
-    bar_arrive_tx(full, bytes);
-    bulk_row(smem_addr(slot), q.w + (static_cast<size_t>(dom) * q.K + k0) * q.N, bytes, full);
-  } else {
-    bar_arrive(full);
-  }
-}
-
-// any other product as the ring's one-layer stack, whose member is the domain
-// (issue_slab: a bulk copy a row into slot rows of stride ld_slab)
-__device__ __forceinline__ Stack one_layer(const Product& q) {
-  Stack st;
-  st.n = 1;
-  st.dim[0] = q.K;
-  st.dim[1] = q.N;
-  st.srows[0] = q.srows;
-  st.sld[0] = q.sld;
-  st.w[0] = q.w;
-  st.b[0] = q.b;
-  return st;
-}
-
-// The header's mma_slab for a warp that owns T <= 2 n-tiles of a chunk: the
-// k-steps go in turn to R = kNTW / T sets of accumulators (acc[m][i + T r]),
-// so a tile's products make R independent chains of mma, not one; fold()
-// sums the sets into acc[m][i] before the epilogue. A narrow product (a gate
-// l1 of width 8: 47 k-steps on one warp) is otherwise one chain of 141
-// dependent mma.sync.
-template <int MT, int T>
-__device__ __forceinline__ void mma_slab_rot(const float* A, int lda, int k0, int K, int rows,
-                                             const float* Ws, int ldw, int nt,
-                                             float (&acc)[MT][kNTW][4], int warp, int g, int t) {
-  constexpr int R = kNTW / T;
-  const int steps = min(rows / 8, (K - k0 + 7) / 8);
-  for (int s0 = 0; s0 < steps; s0 += R) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (s0 + r < steps) {
-        const int kk = 8 * (s0 + r);
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float* a = A + (m * 16 + g) * lda + k0 + kk + t;
-          split(a[0], ah[m][0], al[m][0]);
-          split(a[8 * lda], ah[m][1], al[m][1]);
-          split(a[4], ah[m][2], al[m][2]);
-          split(a[8 * lda + 4], ah[m][3], al[m][3]);
-        }
-#pragma unroll
-        for (int i = 0; i < T; ++i) {
-          if (warp + kWarps * i < nt) {
-            const float* b = Ws + (kk + t) * ldw + (warp + kWarps * i) * 8 + g;
-            uint32_t bh0, bl0, bh1, bl1;
-            split(b[0], bh0, bl0);
-            split(b[4 * ldw], bh1, bl1);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + T * r], al[m], bh0, bh1);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + T * r], ah[m], bl0, bl1);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + T * r], ah[m], bh0, bh1);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int MT, int T>
-__device__ __forceinline__ void fold(float (&acc)[MT][kNTW][4]) {
-#pragma unroll
-  for (int r = 1; r < kNTW / T; ++r)
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int i = 0; i < T; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m][i][e] += acc[m][i + T * r][e];
-          acc[m][i + T * r][e] = 0.f;
-        }
-}
 
 // A finished chunk of a product: v = acc + bias through the product's op into
 // out (rows of the tile, columns c0 + the warp's n-tiles) or the warp's
@@ -319,97 +168,10 @@ ppnet_fused_infer_kernel(const __grid_constant__ Args p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 
-  // 1. count each domain's rows in each warp's segment of the ids: a lane
-  //    takes 4 consecutive ids a load, kIds loads in flight
-  for (int i = threadIdx.x; i < kAllWarps * p.D; i += kThreads) cnt_s[i] = 0;
-  __syncthreads();
-  const int seg = round_up((p.B + kAllWarps - 1) / kAllWarps, 128);
-  const int s0 = min(p.B, warp * seg), s1 = min(p.B, s0 + seg);
-  const bool vec = (reinterpret_cast<uintptr_t>(p.did) & 15) == 0;
-  for (int r0 = s0; r0 < s1; r0 += 128 * kIds) {
-    int d[kIds][4];
-#pragma unroll
-    for (int u = 0; u < kIds; ++u) domains4(p, vec, r0 + 128 * u + 4 * lane, s1, d[u]);
-#pragma unroll
-    for (int u = 0; u < kIds; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (d[u][e] >= 0) atomicAdd(cnt_s + warp * p.D + d[u][e], 1);
-  }
-  __syncthreads();
-
-  // 2. this block's (domain, tile): warp 0 scans the domains' tile counts
-  if (warp == 0) {
-    int before = 0, dom = -1, tile = 0;
-    for (int d0 = 0; d0 < p.D && dom < 0; d0 += 32) {
-      const int d = d0 + lane;
-      int tiles = 0;
-      if (d < p.D) {
-        int n = 0;
-        for (int w = 0; w < kAllWarps; ++w) n += cnt_s[w * p.D + d];
-        tiles = (n + M - 1) / M;
-      }
-      int incl = tiles;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const int b = static_cast<int>(blockIdx.x) - before;
-      const unsigned hit = __ballot_sync(0xffffffffu, b >= incl - tiles && b < incl);
-      if (hit) {
-        const int src = __ffs(hit) - 1;
-        dom = d0 + src;
-        tile = b - __shfl_sync(0xffffffffu, incl - tiles, src);
-      }
-      before += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    if (lane == 0) {
-      blk_s[0] = dom;
-      blk_s[1] = tile;
-    }
-  }
-  __syncthreads();
-  const int dom = blk_s[0];
+  // 1-3. this block's domain and its tile of rows (domain_tiles.cuh)
+  int n_rows = 0;
+  const int dom = partition<M>(p.did, p.id64, p.B, p.D, rows_s, cnt_s, blk_s, &n_rows);
   if (dom < 0) return;  // past the last tile: the whole block leaves
-  const int lo = blk_s[1] * M;
-
-  // 3. the rows of domain dom with ranks lo .. lo + M - 1, in row order
-  int rank = 0, mine = 0, total = 0;
-  for (int w = 0; w < kAllWarps; ++w) {
-    const int c = cnt_s[w * p.D + dom];
-    rank += w < warp ? c : 0;
-    mine = w == warp ? c : mine;
-    total += c;
-  }
-  const int n_rows = min(M, total - lo);
-  if (rank < lo + M && rank + mine > lo) {  // this segment holds some of them
-    const unsigned before_me = (1u << lane) - 1u;
-    for (int r0 = s0; r0 < s1 && rank < lo + M; r0 += 128 * kIds) {
-      int d[kIds][4];
-#pragma unroll
-      for (int u = 0; u < kIds; ++u) domains4(p, vec, r0 + 128 * u + 4 * lane, s1, d[u]);
-#pragma unroll
-      for (int u = 0; u < kIds; ++u) {
-        // rows r0 + 128 u + 4 lane + e: the earlier lanes' hits, then this lane's in order
-        int k = rank, n = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const unsigned m = __ballot_sync(0xffffffffu, d[u][e] == dom);
-          k += __popc(m & before_me);
-          n += __popc(m);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (d[u][e] == dom) {
-            if (k >= lo && k < lo + M) rows_s[k - lo] = r0 + 128 * u + 4 * lane + e;
-            ++k;
-          }
-        }
-        rank += n;
-      }
-    }
-  }
 
   // 4. the ring's barriers
   if (threadIdx.x < kRing) {
@@ -419,44 +181,8 @@ ppnet_fused_infer_kernel(const __grid_constant__ Args p) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();  // rows_s
 
-  // 5. the g tile (rows past n_rows and pad columns zero); each thread
-  //    issues a batch of loads before it stores any
-  constexpr int kBatch = 4;
-  if ((p.G & 3) == 0 && (reinterpret_cast<uintptr_t>(p.g) & 15) == 0) {
-    const int q4 = p.ld_g / 4;
-    for (int i0 = threadIdx.x; i0 < M * q4; i0 += kBatch * kThreads) {
-      float4 v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads, r = i / q4, c = 4 * (i % q4);
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < M * q4 && r < n_rows && c < p.G) {
-          const float* src = p.g + static_cast<size_t>(rows_s[r]) * p.G + c;
-          v[u] = __ldg(reinterpret_cast<const float4*>(src));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < M * q4) *reinterpret_cast<float4*>(g_s + (i / q4) * p.ld_g + 4 * (i % q4)) = v[u];
-      }
-    }
-  } else {
-    for (int i0 = threadIdx.x; i0 < M * p.ld_g; i0 += kBatch * kThreads) {
-      float v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads, r = i / p.ld_g, c = i % p.ld_g;
-        v[u] = i < M * p.ld_g && r < n_rows && c < p.G
-                   ? __ldg(p.g + static_cast<size_t>(rows_s[r]) * p.G + c) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < M * p.ld_g) g_s[i] = v[u];
-      }
-    }
-  }
+  // 5. the g tile (rows past n_rows and pad columns zero)
+  gather_rows<M>(p.g, p.G, p.ld_g, rows_s, n_rows, g_s);
   __syncthreads();
 
   auto buf = [&](int b) { return b == kG ? g_s : (b == kX ? x_s : y_s); };
@@ -471,11 +197,8 @@ ppnet_fused_infer_kernel(const __grid_constant__ Args p) {
         for (int k0 = 0; k0 < pr.K; k0 += pr.srows, ++s) {
           const int slot = s % kRing;
           bar_wait(empty + 8 * slot, ((s / kRing) & 1) ^ 1);  // the first pass finds it free
-          if (pr.whole)
-            copy_whole(pr, dom, k0, ring + slot * p.slot, full + 8 * slot, lane);
-          else
-            issue_slab(one_layer(pr), Slab{dom, 0, c, k0}, ring + slot * p.slot, full + 8 * slot,
-                       lane);
+          issue_product_slab(pr.w, dom, pr.K, pr.N, pr.srows, pr.sld, pr.whole, c, k0,
+                             ring + slot * p.slot, full + 8 * slot, lane);
         }
       }
     }
@@ -506,17 +229,11 @@ ppnet_fused_infer_kernel(const __grid_constant__ Args p) {
           const int slot = s % kRing;
           const float* Ws = ring + slot * p.slot;
           bar_wait(full + 8 * slot, (s / kRing) & 1);  // slab s has landed
-          if (tiles == 1)
-            mma_slab_rot<MT, 1>(A, lda, k0, pr.K, pr.srows, Ws, pr.sld, nt, acc, warp, g, t);
-          else if (tiles == 2)
-            mma_slab_rot<MT, 2>(A, lda, k0, pr.K, pr.srows, Ws, pr.sld, nt, acc, warp, g, t);
-          else
-            mma_slab<MT>(A, lda, k0, pr.K, pr.srows, Ws, pr.sld, nt, acc, warp, g, t);
+          mma_any<MT>(tiles, A, lda, k0, pr.K, pr.srows, Ws, pr.sld, nt, acc, warp, g, t);
           __syncwarp();
           if (lane == 0) bar_arrive(empty + 8 * slot);  // this warp is done with the slot
         }
-        if (tiles == 1) fold<MT, 1>(acc);
-        else if (tiles == 2) fold<MT, 2>(acc);
+        fold_any<MT>(tiles, acc);
         epilogue<MT>(pr.op, acc, fac, bias, nt, c0, buf(pr.out), ld(pr.out), p.gemma, warp, g, t);
         compute_sync();  // its output, before the next product reads or overwrites it
       }
@@ -525,15 +242,7 @@ ppnet_fused_infer_kernel(const __grid_constant__ Args p) {
   __syncthreads();
 
   // 7. the final and the sigmoid, a warp a row
-  const float* h = buf(p.fin);
-  const int ldh = ld(p.fin);
-  const float* __restrict__ fw = p.fw + static_cast<size_t>(dom) * p.kf;
-  for (int r = warp; r < n_rows; r += kAllWarps) {
-    float part = 0.f;
-    for (int k = lane; k < p.kf; k += 32) part = fmaf(h[r * ldh + k], __ldg(fw + k), part);
-    part = warp_sum(part);
-    if (lane == 0) p.out[rows_s[r]] = sigmoid(part + __ldg(p.fb + dom));
-  }
+  head_rows(buf(p.fin), ld(p.fin), p.kf, p.fw, p.fb, dom, rows_s, n_rows, p.out);
 }
 
 struct Layout {

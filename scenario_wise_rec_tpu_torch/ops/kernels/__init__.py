@@ -24,8 +24,9 @@
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's, HAMUR's and PPNet's (``csrc/mma_ring.cuh``) is built over the
-  shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
+  MMOE's, HAMUR's, PPNet's and M3oE's (``csrc/mma_ring.cuh``; PPNet's and
+  M3oE's, one domain a block, also ``csrc/domain_tiles.cuh``) is built over
+  the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

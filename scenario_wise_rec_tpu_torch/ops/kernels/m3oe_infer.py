@@ -6,7 +6,10 @@ batch statistics): the STAR-style slot of the row's domain and the skip
 ``Mlp_N``, the star ``Mlp_N``, the shared and the domain ``Mlp_N`` experts,
 the softmax gate, the cross-domain balance mix, the expert fusion, the
 tower (Linear → LayerNorm → relu → Linear), the sigmoid and the select of
-each row's domain. It replaces the TPU kernel
+each row's domain. The kernel gives each block rows of one domain and runs
+every product on the tensor cores in 3xTF32 (about f32's accuracy), the
+weights streamed through shared memory (the design note is at the top of
+the source). It replaces the TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/m3oe_infer.py:m3oe_fused_infer``.
 
 Weights, stacked on a leading member axis where the TPU kernel stacks them
@@ -36,15 +39,12 @@ import torch
 
 from ..nn import layernorm
 from . import _fused
+from .mmoe_infer import ROW_TILE, check_block_rows
 
 # (lin_w, lin_b, ln_gamma, ln_beta), possibly stacked on a member axis
 MlpNLayer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-# csrc kMaxLayers: Mlp_N layers of one chain
-MAX_LAYERS = 8
-# rows a thread block owns: 8 was the fastest tile of chip_smoke.py's sweep
-# at M3oE's Ali-CCP widths on an H100 (PERF.md)
-DEFAULT_BLOCK_ROWS = 8
+MAX_PRODUCTS = 48  # csrc kMaxSteps: the step list is a kernel parameter
 
 
 def _check_mlp_n(what, layers, lead, width):
@@ -152,44 +152,62 @@ def m3oe_fused_infer(
     towers: Tuple[torch.Tensor, ...],
     w_exp: torch.Tensor,
     w_bal: torch.Tensor,
-    block_rows: int = DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused M3oE eval forward on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64, as far as the tile's activations fit in shared memory: 24 at
-    M3oE's Ali-CCP widths). No effect on the CPU, where the plain version
-    runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at M3oE's Ali-CCP widths 16 and 32 fit, 48 and 64 do
+    not). A shape whose tile does not fit raises a RuntimeError; it never
+    falls back. On the CPU the plain version runs and the value only has to
+    keep the tile rule, so that a call that would raise on the card for its
+    ``block_rows`` raises there too. The card takes at most
+    ``MAX_PRODUCTS`` products: the layers of the skip and star MLP chains,
+    of the E shared and the D domain expert chains, the star slot, the gate
+    and the tower's first Linear (so at most 43 domains). int32 and int64
+    domain ids are read as they are.
     """
+    check_block_rows(block_rows)
     args = (emb, domain_id, star, skip, star_mlp, gates, experts, domain_experts, towers,
             w_exp, w_bal)
     if emb.device.type == "cpu":
         return m3oe_fused_infer_ref(*args)
     B, s0, D, E = _check_shapes(*args)
     chains = [skip, star_mlp, experts, domain_experts]
-    if any(len(c) > MAX_LAYERS for c in chains):
-        raise ValueError(f"m3oe_fused_infer takes at most {MAX_LAYERS} layers a chain")
+    products = len(skip) + len(star_mlp) + E * len(experts) + D * len(domain_experts) + 3
+    if products > MAX_PRODUCTS:
+        raise ValueError(f"m3oe_fused_infer takes at most {MAX_PRODUCTS} products a launch, "
+                         f"got {products}")
     # every stage as (w, b, gamma, beta): the star and the gate and the tower
     # head have no norm
     stages = ([(star[0], star[1], None, None)] + [tuple(l) for c in chains for l in c]
               + [(gates[0], gates[1], None, None), tuple(towers[:4]),
                  (towers[4], towers[5], None, None)])
     tensors = [t for s in stages for t in s if t is not None]
-    _fused.check_launch("m3oe_fused_infer", emb, domain_id, tensors + [w_exp, w_bal],
-                        len(stages), block_rows)
+    _fused.check_tensors("m3oe_fused_infer", emb, domain_id, tensors + [w_exp, w_bal])
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
-    did = domain_id.to(torch.int32).contiguous()
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     w_ptrs, b_ptrs, dims = _fused.stage_args([s[:2] for s in stages])
     p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch(
-        "m3oe_infer", "m3oe_fused_infer_f32", (p, p, p, i, i, i, i, p, p, p, p, p, p, p, p),
-        (emb.data_ptr(), did.data_ptr(), out.data_ptr(), B, s0, D, E,
-         _fused.ints([len(c) for c in chains]), w_ptrs, b_ptrs,
-         _fused.ptrs([s[2] for s in stages]), _fused.ptrs([s[3] for s in stages]), dims,
-         w_exp.data_ptr(), w_bal.data_ptr()),
-        emb, block_rows)
+    fn = _fused.function("m3oe_infer", "m3oe_fused_infer_f32",
+                         (p, p, i, p, i, i, i, i, p, p, p, p, p, p, p, p))
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(emb.device):
+        err = fn(emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B,
+                 s0, D, E, _fused.ints([len(c) for c in chains]), w_ptrs, b_ptrs,
+                 _fused.ptrs([s[2] for s in stages]), _fused.ptrs([s[3] for s in stages]),
+                 dims, w_exp.data_ptr(), w_bal.data_ptr(), block_rows or 0, stream,
+                 ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"m3oe_fused_infer launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows or ROW_TILE})")
     m3oe_fused_infer.launches += 1
     return out
 

@@ -607,7 +607,7 @@ def _ppnet_ids(gen, B, D, counts=None):
     return did[torch.randperm(B, generator=gen, device="cuda")]
 
 
-def _ppnet_unwritten_nan(wrapper, g, did, *args, **kw):
+def _unwritten_nan(wrapper, g, did, *args, **kw):
     """The wrapper's output where the caching allocator hands it a block just
     freed full of NaN: a row the kernel leaves unwritten reads NaN."""
     torch.cuda.synchronize()
@@ -643,7 +643,7 @@ def test_ppnet_kernel_matches_plain(gen, cfg):
     did = _ppnet_ids(gen, B, D, counts)
     args = _ppnet_args(gen, G, D, dims, hidden)
     before = kg.ppnet_fused_infer.launches
-    got = _ppnet_unwritten_nan(kg.ppnet_fused_infer, g, did, *args, block_rows=rows)
+    got = _unwritten_nan(kg.ppnet_fused_infer, g, did, *args, block_rows=rows)
     torch.cuda.synchronize()
     assert kg.ppnet_fused_infer.launches == before + 1
     want = kg.ppnet_fused_infer_ref(g, did, *args)
@@ -1092,35 +1092,121 @@ def _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden=()):
             torch.rand(1, generator=gen, device="cuda"))
 
 
+ALI_M3OE = (376, 512, 256, 3, 4, [64], ())  # s0, s1, s2, D, E, expert widths, skip hidden
+# KuaiRand's M3oE ladder (fcn_dims [128, 64, 64, 32], 5 domains) at MMOE's
+# KuaiRand F 800
+KUAIRAND_M3OE = (800, 128, 64, 5, 4, [32], ())
+
+
+def _m3oe_ids(gen, B, D, ids):
+    """``[B]`` ids: uniform over ``ids = (lo, hi)`` (clipped by the kernel),
+    or ``ids`` rows of each domain (a list of counts), shuffled."""
+    if isinstance(ids, tuple):
+        return torch.randint(*ids, (B,), generator=gen, device="cuda")
+    return _ppnet_ids(gen, B, D, ids)
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, s0, s1, s2, D, E, expert widths, skip hidden, ids drawn from, block_rows)
-    (4096, 376, 512, 256, 3, 4, [64], (), (0, 3), 16),     # Ali-CCP
-    (4095, 376, 512, 256, 3, 4, [64], (), (-2, 6), 24),    # ragged; ids -2..5, clipped
-    (333, 41, 23, 13, 2, 3, [9, 5], (11,), (0, 2), 8),     # two layers a chain
-    (130, 30, 16, 12, 1, 2, [6], (), (0, 1), 64),          # one domain: its own branch
-    (1, 20, 8, 8, 4, 2, [4], (), (3, 4), 16),
+    # (B, (s0, s1, s2, D, E, expert widths, skip hidden), ids: drawn from (lo, hi)
+    #  or counts of each domain, block_rows)
+    (4096, ALI_M3OE, (0, 3), 16),                       # Ali-CCP
+    (4095, ALI_M3OE, (-2, 6), 32),                      # ragged; ids -2..5, clipped
+    (333, (41, 23, 13, 2, 3, [9, 5], (11,)), (0, 2), 48),  # two layers a chain
+    (130, (30, 16, 12, 1, 2, [6], ()), (0, 1), 64),     # one domain: its own branch
+    (1, (20, 8, 8, 4, 2, [4], ()), (3, 4), None),
+    (4096, ALI_M3OE, [3700, 300, 96], None),            # skewed: 90 % in domain 0
+    (4096, ALI_M3OE, [0, 4096, 0], 32),                 # every row in one domain
+    (66, ALI_M3OE, [33, 32, 1], 32),                    # counts astride 32-row tiles
+    (100, ALI_M3OE, [33, 1, 66], 16),                   # and 16-row tiles
+    (4096, KUAIRAND_M3OE, (0, 5), None),                # KuaiRand's width
+    (4096, KUAIRAND_M3OE, (0, 5), 48),
+    (300, (40, 300, 270, 2, 2, [270, 20], (33,)), (0, 2), 16),  # widths past one 256-column pass
+    (1000, (100, 64, 48, 5, 6, [64], ()), (0, 5), 32),  # 6 experts, 5 domains
+    (65_536, ALI_M3OE, (0, 3), None),                   # the largest B the partition is held to
 ])
 def test_m3oe_kernel_matches_plain(gen, cfg):
-    B, s0, s1, s2, D, E, fcn, skip_hidden, (lo, hi), rows = cfg
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call."""
+    B, (s0, s1, s2, D, E, fcn, skip_hidden), ids, rows = cfg
     emb = torch.randn(B, s0, generator=gen, device="cuda")
-    did = torch.randint(lo, hi, (B,), generator=gen, device="cuda")
+    did = _m3oe_ids(gen, B, D, ids)
     args = _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden)
-    _launch_and_compare(gen, k3.m3oe_fused_infer, k3.m3oe_fused_infer_ref, emb, did, *args,
-                        rows=rows)
+    before = k3.m3oe_fused_infer.launches
+    got = _unwritten_nan(k3.m3oe_fused_infer, emb, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert k3.m3oe_fused_infer.launches == before + 1
+    want = k3.m3oe_fused_infer_ref(emb, did, *args)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_m3oe_kernel_every_tile_at_ali_ccp(gen, rows):
+    """At Ali-CCP's widths the emb, skip and star tiles of 16 or 32 rows fit
+    beside the ring and match the plain version; 48 and 64 rows do not fit
+    and raise, naming the shared memory."""
+    s0, s1, s2, D, E, fcn, skip_hidden = ALI_M3OE
+    emb = torch.randn(4096, s0, generator=gen, device="cuda")
+    did = torch.randint(0, D, (4096,), generator=gen, device="cuda")
+    args = _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden)
+    if rows in (48, 64):
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            k3.m3oe_fused_infer(emb, did, *args, block_rows=rows)
+        return
+    got = _unwritten_nan(k3.m3oe_fused_infer, emb, did, *args, block_rows=rows)
+    want = k3.m3oe_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_m3oe_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch), taken modulo 2^32 as
+    int32 and clipped: the same outputs as the int32 ids, bit for bit."""
+    s0, s1, s2, D, E, fcn, skip_hidden = ALI_M3OE
+    args = _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden)
+    emb = torch.randn(4096, s0, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (4096,), generator=gen, device="cuda")
+    got = k3.m3oe_fused_infer(emb, did.to(torch.int32), *args)
+    assert torch.equal(got, k3.m3oe_fused_infer(emb, did.to(torch.int64), *args))
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(k3.m3oe_fused_infer(e8, wrap, *args), k3.m3oe_fused_infer(
+        e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *args))
+    assert (k3.m3oe_fused_infer(e8, wrap, *args)
+            - k3.m3oe_fused_infer_ref(e8, wrap, *args)).abs().max().item() <= TOL
+
+
+def test_m3oe_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb leaves every other row of its
+    domain's tile as the plain version computes it."""
+    s0, s1, s2, D, E, fcn, skip_hidden = ALI_M3OE
+    args = _m3oe_args(gen, s0, s1, s2, D, E, fcn, skip_hidden)
+    emb = torch.randn(100, s0, generator=gen, device="cuda")
+    emb[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = k3.m3oe_fused_infer(emb, did, *args, block_rows=32)
+    want = k3.m3oe_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
 
 
 def test_m3oe_kernel_rejects_what_it_does_not_take(gen):
     emb = torch.randn(10, 20, generator=gen, device="cuda")
     did = torch.zeros(10, dtype=torch.long, device="cuda")
     args = _m3oe_args(gen, 20, 16, 8, 2, 2, [4])
-    with pytest.raises(ValueError):
-        k3.m3oe_fused_infer(emb, did, *args, block_rows=12)
+    for rows in (8, 12, 24, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            k3.m3oe_fused_infer(emb, did, *args, block_rows=rows)
     with pytest.raises(ValueError):
         k3.m3oe_fused_infer(emb, did.cpu(), *args)
     with pytest.raises(ValueError):
         k3.m3oe_fused_infer(emb.double(), did, *args)
     with pytest.raises(ValueError):
         k3.m3oe_fused_infer(emb, did.float(), *args)
+    with pytest.raises(ValueError, match="products"):  # 1 + 1 + 2 + 43 + 3 past 48
+        k3.m3oe_fused_infer(emb, did, *_m3oe_args(gen, 20, 16, 8, 43, 2, [4]))
     assert k3.m3oe_fused_infer(emb[:0], did[:0], *args).shape == (0,)
 
 

@@ -151,17 +151,13 @@ def _mlp_n(r, lead, dims):
             for i, o in zip(dims[:-1], dims[1:])]
 
 
-@pytest.mark.parametrize("cfg", [
-    # (B, s0, s1, s2, fcn hidden dims, h, E, D, w_exp, w_bal)
-    (39, 33, 32, 16, [], 8, 2, 3, 0.55, 0.62),   # the JAX test's widths
-    (21, 20, 12, 10, [7], 6, 3, 2, 0.3, 0.9),    # deeper experts, widths not multiples of 4
-    (17, 12, 8, 8, [], 4, 2, 1, 0.7, 0.4),       # one domain: the balance mix's own branch
-])
-def test_fused_infer_ref_matches_jax_kernel(cfg):
+def _ref_against_jax_kernel(cfg, ids=None):
+    """The plain version against the JAX kernel (interpret mode) on numpy
+    inputs; ``ids(r, B, D)`` makes the domain ids (default: -2 .. D + 2)."""
     B, s0, s1, s2, hid, h, E, D, w_exp, w_bal = cfg
     r = np.random.default_rng(B)
     emb = r.normal(size=(B, s0)).astype(np.float32)
-    did = r.integers(-2, D + 3, B)
+    did = r.integers(-2, D + 3, B) if ids is None else ids(r, B, D)
     star = ((s0 ** -0.5 * r.normal(size=(D, s0, s1))).astype(np.float32),
             (0.1 * r.normal(size=(D, s1))).astype(np.float32))
     skip, star_mlp = _mlp_n(r, (), [s0, s2]), _mlp_n(r, (), [s1, s2])
@@ -187,6 +183,60 @@ def test_fused_infer_ref_matches_jax_kernel(cfg):
     before = pk.m3oe_fused_infer.launches
     np.testing.assert_array_equal(pk.m3oe_fused_infer(*args).numpy(), got.numpy())
     assert pk.m3oe_fused_infer.launches == before
+    return args
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, s0, s1, s2, fcn hidden dims, h, E, D, w_exp, w_bal)
+    (39, 33, 32, 16, [], 8, 2, 3, 0.55, 0.62),   # the JAX test's widths
+    (21, 20, 12, 10, [7], 6, 3, 2, 0.3, 0.9),    # deeper experts, widths not multiples of 4
+    (17, 12, 8, 8, [], 4, 2, 1, 0.7, 0.4),       # one domain: the balance mix's own branch
+])
+def test_fused_infer_ref_matches_jax_kernel(cfg):
+    _ref_against_jax_kernel(cfg)
+
+
+def _skewed(r, B, D):
+    """90 % of the rows in domain D - 1, the rest spread over the others."""
+    did = np.where(r.random(B) < 0.9, D - 1, r.integers(0, D, B))
+    assert (did == D - 1).mean() >= 0.9
+    return did
+
+
+def _int64_wide(r, B, D):
+    """int64 ids far outside [0, D): each is taken modulo 2^32 as int32, then
+    clipped, as JAX's ``astype(int32)`` and the card take them."""
+    wide = np.array([2**32 + 1, 2**31, 2**33 + 2, -2**32 + 2, -2**31 - 7, 2**40], np.int64)
+    return np.where(r.random(B) < 0.5, wide[r.integers(0, len(wide), B)],
+                    r.integers(0, D, B)).astype(np.int64)
+
+
+@pytest.mark.parametrize("ids", [_skewed, _int64_wide])
+@pytest.mark.parametrize("cfg", [
+    (64, 33, 32, 16, [], 8, 2, 3, 0.55, 0.62),
+    (40, 20, 12, 10, [7], 6, 3, 4, 0.3, 0.9),
+])
+def test_fused_infer_ref_matches_jax_kernel_on_ids(cfg, ids):
+    args = _ref_against_jax_kernel(cfg, ids)
+    assert args[1].dtype == torch.int64
+
+
+@pytest.mark.parametrize("rows", [8, 12, 24, 80, 0, -16, 16.0])
+def test_fused_infer_tile_rule_raises_on_the_cpu(rows):
+    """The card's tile rule (a multiple of 16 up to 64, or None) holds on the
+    CPU too, where the plain version runs: a call that would raise on the
+    card raises here."""
+    _, _, _, pm = _models(seed=4)
+    _, xt = _batch(6)
+    emb = pm.embedding(xt, pm.features, squeeze_dim=True).detach()
+    did = xt["domain_indicator"]
+    folded = pm.fold_eval()
+    with pytest.raises(ValueError, match="block_rows"):
+        pk.m3oe_fused_infer(emb, did, *folded, block_rows=rows)
+    want = pk.m3oe_fused_infer_ref(emb, did, *folded)
+    for ok in (16, 32, 48, 64, None):
+        torch.testing.assert_close(pk.m3oe_fused_infer(emb, did, *folded, block_rows=ok), want,
+                                   rtol=0, atol=0)
 
 
 def test_fused_infer_checks_shapes():
