@@ -86,10 +86,16 @@ Phases; each asserts, and any failure exits non-zero:
      and the kernel's choice) and its 3xTF32 bound beside the f32 one;
      AdaSparse in all three forms, alpha = 1.37 folded into its
      pruners, and (e) pruner inputs that are exact integers, so that a few
-     percent of the factors are negative. AdaSparse's hard threshold: a row
-     in which some pruner element lies within 1e-5 of epsilon is excused
-     from the 1e-5 check, and such rows are counted, printed and held to
-     0.01 % of the batch;
+     percent of the factors are negative, (f) no layers (the head on
+     [sce ‖ agn]), (g) KuaiRand's width (S 16, A 796, [128, 64, 32]), (h)
+     B = 65,536 and (i) widths off 8 (S 5, A 41, [7, 3]), each output into
+     a block just freed full of NaN, the Ali-CCP, narrow and no-layer cases
+     at every tile of the rule (16, 32, 48, 64 and the kernel's choice),
+     48 and 64 rows at KuaiRand's width must raise, and its 3xTF32 bound
+     beside the f32 one. AdaSparse's hard threshold: a row in which some
+     pruner element lies within 1e-5 of epsilon is excused from the 1e-5
+     check, and such rows are counted, printed and held to 0.01 % of the
+     batch;
    - ``hamur_segment`` (HAMUR's segment kernel, one launch per segment) in
      each of its forms alone from identical inputs (outputs held to 1e-5 of
      their scale), and ``hamur_fused_infer`` (the whole chain: the
@@ -225,7 +231,7 @@ EVAL_KERNELS = {
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:47"),
     "ppnet": ("ppnet_fused_infer", "ppnet_infer",
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:91"),
-    "adasparse": ("adasparse_fused_infer", "gated_infer",
+    "adasparse": ("adasparse_fused_infer", "adasparse_infer",
                   "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:174"),
     "hamur": ("hamur_segment", "hamur_infer", "scenario_wise_rec_tpu/ops/pallas/hamur_infer.py:40"),
     "adaptdhm": ("adaptdhm_fused_infer", "adaptdhm_infer",
@@ -247,9 +253,12 @@ M3OE_BLOCK_ROWS = (16, 32, 48, 64, None)
 M3OE_ALI_TOO_WIDE = (48, 64)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
-# hamur_segment's and ppnet_fused_infer's: the tile rule's every value, and
-# None (the kernel's choice)
-HAMUR_BLOCK_ROWS = PPNET_BLOCK_ROWS = (16, 32, 48, 64, None)
+# hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
+# rule's every value, and None (the kernel's choice)
+HAMUR_BLOCK_ROWS = PPNET_BLOCK_ROWS = ADASPARSE_BLOCK_ROWS = (16, 32, 48, 64, None)
+# at KuaiRand's AdaSparse widths (A 796) the [s ‖ a] tile and pruner 0's
+# output take 1640 floats a row: 48 and 64 rows do not fit and must raise
+ADASPARSE_KUAIRAND_TOO_WIDE = (48, 64)
 # eval kernel launches a batch: HamurLarge runs 3 segments
 LAUNCHES_PER_BATCH = {"hamur": 3}
 # HamurLarge served fused against op by op, end to end: the op-by-op path
@@ -486,6 +495,23 @@ def wrapper_cost(label, fn):
             "profiled_busy_ms": busy_ms}
 
 
+def design_bound(label, flops, moved, tc, peak, device_ms=None):
+    """The bound of a kernel that runs ``tc`` of its ``flops`` as three TF32
+    products each on the tensor cores (3xTF32) and the rest in f32, beside
+    the f32 SIMT bound of the same work, both against ``moved`` bytes over
+    HBM; logged, with the share of it that ``device_ms`` reaches. Returns the
+    entry's ``bound_ms``, ``bound_by`` and ``f32_simt_bound_ms``."""
+    t_bytes = moved / peak[1] * 1e3
+    f32 = max(flops / peak[0] * 1e3, t_bytes)
+    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
+    bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    share = "" if device_ms is None else f", {100 * bound / device_ms:.1f}% of it"
+    log(f"  {label}bounds: f32 SIMT {f32:.4f} ms; 3xTF32 design {bound:.4f} ms ({by}: "
+        f"{3 * tc / 1e9:.3f} GFLOP TF32 at {peak[2] / 1e12:g} TFLOP/s + {(flops - tc) / 1e9:.4f} "
+        f"GFLOP f32 take {t_ops:.4f} ms, {moved / 1e6:.2f} MB {t_bytes:.4f} ms){share}")
+    return {"bound_ms": bound, "bound_by": by, "f32_simt_bound_ms": f32}
+
+
 def random_stages(gen, F, E, D, expert_dims, tower_dims):
     """Weights scaled like torch's Linear init (std ~ 1/sqrt(in))."""
     def n(*shape, scale=1.0):
@@ -601,29 +627,21 @@ def phase_kernels(gen, peak):
     cost = wrapper_cost("mmoe_fused_infer, default block_rows",
                         lambda: mmoe_fused_infer(emb, did, *st))
     flops, nbytes, expert_flops = work(emb, did, *st)
-    t_ops, t_bytes = flops / peak[0] * 1e3, nbytes / peak[1] * 1e3
-    f32_bound = max(t_ops, t_bytes)
     # the design's own: three TF32 products a multiply-add of the experts on
     # the tensor cores, the gate, tower and head in f32
-    t_ops = (3 * expert_flops / peak[2] + (flops - expert_flops) / peak[0]) * 1e3
-    bound = max(t_ops, t_bytes)
-    log(f"  bounds: f32 SIMT {f32_bound:.4f} ms; 3xTF32 design {bound:.4f} ms "
-        f"({3 * expert_flops / 1e9:.3f} GFLOP TF32 at {peak[2] / 1e12:g} TFLOP/s + "
-        f"{(flops - expert_flops) / 1e9:.4f} GFLOP f32)")
-    device = cost["device_ms"]
+    bounds = design_bound("", flops, nbytes, expert_flops, peak)
+    bound, device = bounds["bound_ms"], cost["device_ms"]
     log(f"  a_alicpp_b4096: kernel device {device:.4f} ms (back to back {kernel_ms:.4f}), "
         f"host {cost['host_us']:.1f} us, plain {plain_ms:.4f} ms, "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {bound:.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"({bounds['bound_by']}), "
         f"{flops / device / 1e9:.2f} TFLOP/s achieved ({100 * bound / device:.1f}% of bound)")
     fn, source, replaces = EVAL_KERNELS["mmoe"]
     return {"name": fn, "route": "cuda",
             "source": f"scenario_wise_rec_tpu_torch/csrc/{source}.cu", "replaces": replaces,
             "max_abs_err": max_err, "ms": device, "back_to_back_ms": kernel_ms,
             "host_us": cost["host_us"], "launches_per_call": cost["launches_per_call"],
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "f32_simt_bound_ms": f32_bound,
+            "plain_ms": plain_ms, **bounds, "library_ms": None,
             "block_rows_sweep_ms": sweep, "block_rows_sweep_device_ms": sweep_device}
 
 
@@ -710,6 +728,17 @@ def kernel_gap(got, want, near):
     if near is not None:
         diff = diff[~near]
     return diff.max().item() if diff.numel() else 0.0
+
+
+def nan_filled(wrapper):
+    """``wrapper`` with its output in a block just freed full of NaN: a row
+    the kernel leaves unwritten fails run_cases' finiteness check."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        nan = torch.full((a[0].shape[0],), float("nan"), device="cuda")
+        del nan
+        return wrapper(*a, **kw)
+    return call
 
 
 def run_cases(label, wrapper, ref, cases, margin_fn=None):
@@ -1019,14 +1048,7 @@ def phase_gated_kernels(gen, peak):
     cases["i_b65536"] = (
         (g_rows(65_536, G), torch.randint(0, D, (65_536,), generator=pg, device="cuda")), ali)
 
-    def unwritten_nan(*a, **kw):
-        """The kernel's output in a block just freed full of NaN: a row left
-        unwritten fails run_cases' finiteness check."""
-        torch.cuda.synchronize()
-        nan = torch.full((a[0].shape[0],), float("nan"), device="cuda")
-        del nan
-        return k.ppnet_fused_infer(*a, **kw)
-
+    unwritten_nan = nan_filled(k.ppnet_fused_infer)
     err = run_cases("ppnet_fused_infer", unwritten_nan, k.ppnet_fused_infer_ref, cases)
     for rows in PPNET_BLOCK_ROWS:  # every tile at the edges of the partition too
         for name in ("f_one_domain_b4096", "g_counts_astride_tiles_b66"):
@@ -1042,16 +1064,9 @@ def phase_gated_kernels(gen, peak):
     # the design's own bound: every product as three TF32 products on the
     # tensor cores, the gating and the final in f32
     inputs, args = cases["a_alicpp_b4096"]
-    flops, moved = ppnet_work(*inputs, *args)
     tc = 2.0 * inputs[0].shape[0] * macs(args[0] + args[1] + args[2])
-    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
-    entry["f32_simt_bound_ms"] = entry["bound_ms"]
-    entry["bound_ms"] = max(t_ops, moved / peak[1] * 1e3)
-    entry["bound_by"] = "operations" if t_ops >= moved / peak[1] * 1e3 else "bytes"
-    log(f"  ppnet_fused_infer bounds: f32 SIMT {entry['f32_simt_bound_ms']:.4f} ms; 3xTF32 "
-        f"design {entry['bound_ms']:.4f} ms ({3 * tc / 1e9:.3f} GFLOP TF32 at "
-        f"{peak[2] / 1e12:g} TFLOP/s + {(flops - tc) / 1e9:.4f} GFLOP f32), "
-        f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it")
+    entry.update(design_bound("ppnet_fused_infer ", *ppnet_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
     for name in ("h_kuairand_b4096", "i_b65536"):
         inputs, args = cases[name]
         cost = wrapper_cost(f"ppnet_fused_infer {name}, step 0",
@@ -1064,12 +1079,24 @@ def phase_gated_kernels(gen, peak):
     # 0.6 x a Linear's scale, times alpha = 1.37 folded: the pruner inputs have
     # a std near 0.6, and eps = 1e-2 lies 7 of them below 0, so rows near the
     # threshold stay rare; the negative factors are case (e)'s work.
-    def adasparse_args(S, A, dims, form, alpha=1.37):
-        pw = [0.6 * alpha * (S + h) ** -0.5 * randn(S + h, h) for h in [A] + dims]
-        return (pw, affines(gen, (), [S + A] + dims),
-                affines(gen, (), [dims[-1] if dims else S + A, 1])[0], form, 1e-2, 2.0)
+    def adasparse_args(S, A, dims, form, alpha=1.37, g=gen):
+        pw = [0.6 * alpha * (S + h) ** -0.5 * torch.randn(S + h, h, generator=g, device="cuda")
+              for h in [A] + dims]
+        return (pw, affines(g, (), [S + A] + dims),
+                affines(g, (), [dims[-1] if dims else S + A, 1])[0], form, 1e-2, 2.0)
 
-    A = (N_SPARSE - 1) * 16
+    # the cases past (a)-(e), from a generator of their own: the shared one
+    # feeds every later phase's data
+    ag = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 6)
+
+    def sce_agn(B, S, Ai):
+        return (torch.randn(B, S, generator=ag, device="cuda"),
+                torch.randn(B, Ai, generator=ag, device="cuda"))
+
+    # KuaiRand's AdaSparse ladder ([128, 64, 32]): its scenario loader gives
+    # sce the scenario feature (16) and agn the sparse features only, MMOE's
+    # KuaiRand F 800 less its 4 dense columns: A = 796
+    A, A_kr = (N_SPARSE - 1) * 16, 796
     err = 0.0
     for form in ("Binarization", "Scaling", "Fusion"):
         ali = adasparse_args(16, A, EXPERT_DIMS, form)
@@ -1079,14 +1106,59 @@ def phase_gated_kernels(gen, peak):
         v0 = inputs[0] @ args[0][0][:16]
         check(bool((v0 <= (-5 if form == "Binarization" else -6)).any()),
               "case e has no negative pruner factor")
+        cases["f_no_layers_b4096"] = (sce_agn(4096, 16, A),
+                                      adasparse_args(16, A, [], form, g=ag))
+        cases["g_kuairand_b4096"] = (sce_agn(4096, 16, A_kr),
+                                     adasparse_args(16, A_kr, [128, 64, 32], form, g=ag))
+        cases["h_b65536"] = (sce_agn(65_536, 16, A), ali)
+        cases["i_widths_off_8_b333"] = (sce_agn(333, 5, 41),
+                                        adasparse_args(5, 41, [7, 3], form, alpha=1.0, g=ag))
         label = f"adasparse_fused_infer {form}"
-        err = max(err, run_cases(label, k.adasparse_fused_infer, k.adasparse_fused_infer_ref,
-                                 cases, margin_fn=k.adasparse_threshold_margin))
-    # timed in the Fusion form, the Ali-CCP ladder's
-    entries["adasparse"] = time_entry(
+        kernel = nan_filled(k.adasparse_fused_infer)
+        err = max(err, run_cases(label, kernel, k.adasparse_fused_infer_ref, cases,
+                                 margin_fn=k.adasparse_threshold_margin))
+        for rows in ADASPARSE_BLOCK_ROWS:  # every tile at Ali-CCP, narrow and without layers
+            for name in ("a_alicpp_b4096", "c_narrow_b1000", "f_no_layers_b4096"):
+                inputs, args = cases[name]
+                got = kernel(*inputs, *args, block_rows=rows)
+                near = near_threshold(k.adasparse_threshold_margin, inputs, args)
+                gap = kernel_gap(got, k.adasparse_fused_infer_ref(*inputs, *args), near)
+                log(f"  {label} {name} block_rows={rows}: max_abs_err {gap:.3e}, "
+                    f"{int(near.sum())} of {len(got)} rows at the threshold")
+                check(bool(torch.isfinite(got).all()) and gap <= TOL
+                      and int(near.sum()) <= THRESHOLD_ROWS * len(got),
+                      f"{label} {name} block_rows={rows}: {gap}")
+                err = max(err, gap)
+    # the tile rule at KuaiRand's widths: the kernel's choice (16) fits, the
+    # widest tiles raise naming the shared memory
+    inputs, args = cases["g_kuairand_b4096"]
+    for rows in ADASPARSE_KUAIRAND_TOO_WIDE:
+        try:
+            k.adasparse_fused_infer(*inputs, *args, block_rows=rows)
+        except RuntimeError as e:
+            check("shared memory" in str(e), f"adasparse_fused_infer block_rows={rows}: {e}")
+        else:
+            check(False, f"adasparse_fused_infer block_rows={rows} at KuaiRand did not raise")
+    log(f"  adasparse_fused_infer block_rows {ADASPARSE_KUAIRAND_TOO_WIDE} at KuaiRand: raise, "
+        f"naming the shared memory")
+    # timed in the Fusion form (the loop's last), the Ali-CCP ladder's
+    entry = time_entry(
         "adasparse_fused_infer Fusion", "adasparse", k.adasparse_fused_infer,
         k.adasparse_fused_infer_ref, *cases["a_alicpp_b4096"], adasparse_work, peak, err,
-        margin_fn=k.adasparse_threshold_margin)
+        margin_fn=k.adasparse_threshold_margin, sweep_rows=ADASPARSE_BLOCK_ROWS)
+    # the design's own bound: every pruner and layer as three TF32 products
+    # on the tensor cores, the pruning and the head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * (sum(w.shape[0] * w.shape[1] for w in args[0])
+                                     + macs(args[1]))
+    entry.update(design_bound("adasparse_fused_infer ", *adasparse_work(*inputs, *args), tc,
+                              peak, entry["ms"]))
+    for name in ("g_kuairand_b4096", "h_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"adasparse_fused_infer {name}, step 0",
+                            lambda: k.adasparse_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["adasparse"] = entry
     return entries
 
 
@@ -1239,24 +1311,17 @@ def phase_hamur_kernels(gen, peak):
                         lambda: [k.hamur_segment(x, st, **kw) for x, st, kw in segs])
     works = [segment_work(x, st, **kw) for x, st, kw in segs]
     flops, moved = sum(f for f, _, _ in works), sum(b for _, b, _ in works)
-    tc = sum(t for _, _, t in works)
-    t_bytes = moved / peak[1] * 1e3
-    f32_bound = max(flops / peak[0] * 1e3, t_bytes)
     # the design's own: three TF32 products a multiply-add of the first and
     # middle forms' blocks on the tensor cores, the rest in f32
-    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
-    bound, kernel_ms = max(t_ops, t_bytes), cost["device_ms"]
-    log(f"  bounds: f32 SIMT {f32_bound:.4f} ms; 3xTF32 design {bound:.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}: {3 * tc / 1e9:.3f} GFLOP TF32 + "
-        f"{(flops - tc) / 1e9:.3f} GFLOP f32 take {t_ops:.4f} ms, {moved / 1e6:.2f} MB "
-        f"{t_bytes:.4f} ms)")
+    bounds = design_bound("", flops, moved, sum(t for _, _, t in works), peak)
+    bound, f32_bound, kernel_ms = bounds["bound_ms"], bounds["f32_simt_bound_ms"], cost["device_ms"]
     log(f"  hamur_segment a_alicpp_large_b4096: segments, step 0 device "
         f"{', '.join(f'{t:.4f}' for t in seg_device)} ms (back to back "
         f"{', '.join(f'{t:.4f}' for t in seg_ms)}; plain {', '.join(f'{t:.4f}' for t in seg_plain)}"
         f"); 3 launches device {kernel_ms:.4f} ms, host {cost['host_us']:.1f} us (back to back "
         f"{sum(seg_ms):.4f}), plain {sum(seg_plain):.4f} ms, {flops / 1e9:.3f} GFLOP, "
         f"{moved / 1e6:.2f} MB, bound {bound:.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"({bounds['bound_by']}), "
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved ({100 * bound / kernel_ms:.1f}% of "
         f"bound, {100 * f32_bound / kernel_ms:.1f}% of the f32 one); whole hamur_fused_infer "
         f"{chain_ms:.4f} ms (plain {chain_plain_ms:.4f} ms; the hyper-network's two products "
@@ -1267,8 +1332,7 @@ def phase_hamur_kernels(gen, peak):
         "replaces": replaces, "max_abs_err": max(err, pad_err), "segment_err_over_scale": seg_err,
         "ms": kernel_ms, "back_to_back_ms": sum(seg_ms), "host_us": cost["host_us"],
         "launches_per_call": cost["launches_per_call"], "plain_ms": sum(seg_plain),
-        "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "f32_simt_bound_ms": f32_bound,
+        **bounds, "library_ms": None,
         "segment_ms": seg_device, "segment_back_to_back_ms": seg_ms,
         "segment_plain_ms": seg_plain, "chain_ms": chain_ms,
         "chain_plain_ms": chain_plain_ms, "hyper_ms": hyper_ms,
@@ -1429,14 +1493,7 @@ def phase_meta_kernels(gen, peak):
     cases["i_b65536"] = (
         (e_rows(65_536, F), torch.randint(0, D, (65_536,), generator=mg, device="cuda")), ali)
 
-    def unwritten_nan(*a, **kw):
-        """The kernel's output in a block just freed full of NaN: a row left
-        unwritten fails run_cases' finiteness check."""
-        torch.cuda.synchronize()
-        nan = torch.full((a[0].shape[0],), float("nan"), device="cuda")
-        del nan
-        return k.m3oe_fused_infer(*a, **kw)
-
+    unwritten_nan = nan_filled(k.m3oe_fused_infer)
     err = run_cases("m3oe_fused_infer", unwritten_nan, k.m3oe_fused_infer_ref, cases)
     for rows in M3OE_BLOCK_ROWS:  # every tile: at the edges of the partition, at KuaiRand's
         for name in ("f_skewed_b4096", "g_counts_astride_tiles_b66", "h_kuairand_b4096"):
@@ -1470,16 +1527,9 @@ def phase_meta_kernels(gen, peak):
     # the design's own bound: every product as three TF32 products on the
     # tensor cores, the norms, mixes and the head in f32
     inputs, args = cases["a_alicpp_b4096"]
-    flops, moved = m3oe_work(*inputs, *args)
     tc = 2.0 * inputs[0].shape[0] * m3oe_product_macs(*args)
-    t_ops = (3 * tc / peak[2] + (flops - tc) / peak[0]) * 1e3
-    entry["f32_simt_bound_ms"] = entry["bound_ms"]
-    entry["bound_ms"] = max(t_ops, moved / peak[1] * 1e3)
-    entry["bound_by"] = "operations" if t_ops >= moved / peak[1] * 1e3 else "bytes"
-    log(f"  m3oe_fused_infer bounds: f32 SIMT {entry['f32_simt_bound_ms']:.4f} ms; 3xTF32 "
-        f"design {entry['bound_ms']:.4f} ms ({3 * tc / 1e9:.3f} GFLOP TF32 at "
-        f"{peak[2] / 1e12:g} TFLOP/s + {(flops - tc) / 1e9:.4f} GFLOP f32), "
-        f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it")
+    entry.update(design_bound("m3oe_fused_infer ", *m3oe_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
     for name in ("h_kuairand_b4096", "i_b65536"):
         inputs, args = cases[name]
         cost = wrapper_cost(f"m3oe_fused_infer {name}, step 0",

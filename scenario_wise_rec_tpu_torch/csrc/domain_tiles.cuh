@@ -1,6 +1,7 @@
-// What ppnet_infer.cu and m3oe_infer.cu share on NVIDIA Hopper (sm_90a): each
-// block takes a tile of rows of ONE domain, partitioned inside the one launch,
-// and runs that domain's products over mma_ring.cuh's weight ring.
+// What ppnet_infer.cu, m3oe_infer.cu and adasparse_infer.cu share on NVIDIA
+// Hopper (sm_90a): each block takes a tile of rows (of ONE domain in PPNet's
+// and M3oE's, partitioned inside the one launch) and runs its products over
+// mma_ring.cuh's weight ring.
 //
 // - The partition, with no sort and no host work: a launch has ceil(B/M) + D
 //   - 1 blocks, enough since the tiles of all domains, sum over d of
@@ -15,22 +16,35 @@
 //   words and grows with B^2 while the products' grows with B.
 // - A slab of whole rows (N <= kChunk, a multiple of 8, W 16-byte aligned)
 //   is contiguous in W[member], so it is one bulk copy, kept at stride N in
-//   its slot (copy_whole); other products take mma_ring.cuh's bulk copy a row
-//   (issue_slab). A bulk copy is one copy-engine operation however short its
-//   row (PERF.md, section 6).
+//   its slot (copy_whole); a product wider than a chunk (N a multiple of 4)
+//   is one tensor copy (TMA) of a [srows, kChunk] box a slab (tensor_slab,
+//   its map encoded on the host through the runtime's driver entry point,
+//   no link to the driver library); other products take mma_ring.cuh's bulk
+//   copy a row (issue_slab). A bulk copy is one copy-engine operation however
+//   short its row (PERF.md, section 6).
+// - The host lays out a kernel's products as a list of steps and places their
+//   activation tiles in shared memory by their lifetimes (Tiles); the ring
+//   takes what the tiles leave (size_ring).
 // - A warp that owns one or two n-tiles of a product (N <= 128) takes the
 //   k-steps in turn into 4 or 2 sets of accumulators (mma_slab_rot), so the
 //   products of a narrow layer are independent chains of mma.sync.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <math.h>
+
+#include <algorithm>
+#include <vector>
 
 #include "mma_ring.cuh"
 
 namespace ring {
 
 constexpr int kMaxDomains = 256;       // per-warp domain counts in shared memory
+constexpr int kMaxMaps = 2;      // tensor maps a launch: products wider than a chunk
+constexpr int kHeadBytes = 128;  // the ring's barriers, then the slots, 128-byte aligned
+static_assert(16 * kRing <= kHeadBytes, "two 8-byte barriers a ring slot");
 constexpr int kAllWarps = kWarps + 1;  // the producer warp takes part in the partition
 constexpr int kIds = 4;  // loads of 4 ids a lane in flight together in the partition
 
@@ -172,15 +186,20 @@ __device__ __forceinline__ int partition(const void* did, int id64, int B, int D
   return dom;
 }
 
-// rows rows_s[0 .. n_rows) of x [., cols] into the tile [M, ld] (rows past
-// n_rows and columns past cols zero); every thread of the block issues a
-// batch of loads before it stores any. Not synchronised.
+// rows rows_s[0 .. n_rows) of x [., cols] into columns at .. at + span - 1 of
+// the tile [M, ld] (by default the whole row), rows past n_rows and columns
+// past cols zero; every thread of the block issues a batch of loads before it
+// stores any. Not synchronised.
 template <int M>
 __device__ __forceinline__ void gather_rows(const float* __restrict__ x, int cols, int ld,
-                                            const int* rows_s, int n_rows, float* tile) {
+                                            const int* rows_s, int n_rows, float* tile,
+                                            int at = 0, int span = -1) {
   constexpr int kBatch = 4;
-  if ((cols & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const int q4 = ld / 4;
+  if (span < 0) span = ld;
+  tile += at;
+  if ((cols & 3) == 0 && (at & 3) == 0 && (span & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int q4 = span / 4;
     for (int i0 = threadIdx.x; i0 < M * q4; i0 += kBatch * kThreads) {
       float4 v[kBatch];
 #pragma unroll
@@ -199,18 +218,18 @@ __device__ __forceinline__ void gather_rows(const float* __restrict__ x, int col
       }
     }
   } else {
-    for (int i0 = threadIdx.x; i0 < M * ld; i0 += kBatch * kThreads) {
+    for (int i0 = threadIdx.x; i0 < M * span; i0 += kBatch * kThreads) {
       float v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads, r = i / ld, c = i % ld;
-        v[u] = i < M * ld && r < n_rows && c < cols
+        const int i = i0 + u * kThreads, r = i / span, c = i % span;
+        v[u] = i < M * span && r < n_rows && c < cols
                    ? __ldg(x + static_cast<size_t>(rows_s[r]) * cols + c) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int i = i0 + u * kThreads;
-        if (i < M * ld) tile[i] = v[u];
+        if (i < M * span) tile[(i / span) * ld + i % span] = v[u];
       }
     }
   }
@@ -232,6 +251,27 @@ __device__ __forceinline__ void copy_whole(const float* w, int K, int N, int sro
     const uint32_t bytes = static_cast<uint32_t>(rows * N * 4);
     bar_arrive_tx(full, bytes);
     bulk_row(smem_addr(slot), w + static_cast<size_t>(k0) * N, bytes, full);
+  } else {
+    bar_arrive(full);
+  }
+}
+
+// The producer warp's part for slab (chunk c, rows from k0) of a product
+// wider than a chunk: one tensor copy of the box [srows, kChunk] of member
+// `member`'s W from (k0, c kChunk) into the slot at stride kChunk, rows and
+// columns past W's zero-filled by the copy. Each lane arrives on the slot's
+// full barrier, which completes when the box has landed.
+__device__ __forceinline__ void tensor_slab(const CUtensorMap* map, int member, int srows, int c,
+                                            int k0, float* slot, uint32_t full, int lane) {
+  // the slot's earlier reads (generic proxy) before the copy's writes (async)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lane == 0) {
+    bar_arrive_tx(full, static_cast<uint32_t>(srows * kChunk * 4));
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(slot)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c * kChunk), "r"(k0), "r"(member), "r"(full)
+        : "memory");
   } else {
     bar_arrive(full);
   }
@@ -356,6 +396,128 @@ __device__ __forceinline__ void head_rows(const float* h, int ldh, int kf,
     part = warp_sum(part);
     if (lane == 0) out[rows_s[r]] = sigmoid(part + __ldg(fb + dom));
   }
+}
+
+// ---------------------------------------------------------------------------
+// Host code: the tensor maps, the tiles' places and the ring's size
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no link to the
+// driver library); null where the driver has none
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of W [members, K, N] for tensor_slab: boxes of kChunk
+// columns by srows rows of one member
+inline bool encode_map(const float* w, int K, int N, int members, int srows, CUtensorMap* map) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(members)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 4,
+                                 static_cast<cuuint64_t>(K) * N * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kChunk), static_cast<cuuint32_t>(srows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(w), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The activation tiles of a step list: each tile's width, the steps that
+// write it first and read it last (-1: before the first step), and its place
+// in the arena (floats a row, times the tile's rows when placed).
+struct Tiles {
+  struct Tile {
+    int width, first, last, at;
+  };
+  std::vector<Tile> t;
+
+  // a tile first written at step `step`
+  int add(int width, int step) {
+    t.push_back(Tile{width, step, step, 0});
+    return static_cast<int>(t.size()) - 1;
+  }
+  // tile i (-1: none) is read at step `step`
+  void use(int i, int step) {
+    if (i >= 0) t[i].last = std::max(t[i].last, step);
+  }
+
+  // First fit by lifetime: each tile, in the order it is first written, at the
+  // lowest place where it overlaps no tile alive at the same time (a step's
+  // input, output and the tiles its pass reads are all alive at that step).
+  // Returns the floats a row of the arena.
+  int place() {
+    int top = 0;
+    for (size_t i = 0; i < t.size(); ++i) {
+      Tile& a = t[i];
+      const int size = ld_act(a.width);
+      std::vector<int> at = {0};
+      auto alive = [&](const Tile& b) { return b.first <= a.last && a.first <= b.last; };
+      for (size_t j = 0; j < i; ++j)
+        if (alive(t[j])) at.push_back(t[j].at + ld_act(t[j].width));
+      std::sort(at.begin(), at.end());
+      for (int x : at) {
+        bool free = true;
+        for (size_t j = 0; j < i && free; ++j)
+          free = !alive(t[j]) || x + size <= t[j].at || t[j].at + ld_act(t[j].width) <= x;
+        if (free) {
+          a.at = x;
+          break;
+        }
+      }
+      top = std::max(top, a.at + size);
+    }
+    return top;
+  }
+};
+
+// The ring slot beside `tile_bytes` of tiles in `budget` bytes of shared
+// memory: the ring takes what the tiles leave, up to kRing slots of
+// kSlotFloats, and at least 8 weight rows of each product a slot. Sets each
+// step's copy and its slab rows (a multiple of 8) and their stride in the
+// slot: whole rows (one bulk copy a slab, N a multiple of 8 up to kChunk, W
+// 16-byte aligned, stride N), a tensor copy of a box kChunk wide (the first
+// kMaxMaps products wider than a chunk, N a multiple of 4, stride kChunk),
+// else a bulk copy a row (stride ld_slab). A Step has w, K, N, whole, map,
+// sld and srows.
+template <class Step>
+int size_ring(Step* steps, int n, size_t tile_bytes, size_t budget) {
+  int min_slot = 0, maps = 0;
+  for (int q = 0; q < n; ++q) {
+    Step& st = steps[q];
+    const bool aligned = (reinterpret_cast<uintptr_t>(st.w) & 15) == 0;
+    st.whole = st.N <= kChunk && st.N % 8 == 0 && aligned;
+    st.map = st.N > kChunk && st.N % 4 == 0 && aligned && maps < kMaxMaps ? maps++ : -1;
+    st.sld = static_cast<short>(st.whole ? st.N
+                                : st.map >= 0 ? kChunk : ld_slab(std::min(st.N, kChunk)));
+    min_slot = std::max(min_slot, 8 * st.sld);
+  }
+  const size_t room = budget > tile_bytes ? (budget - tile_bytes) / sizeof(float) / kRing : 0;
+  const int slot = static_cast<int>(room < kSlotFloats ? room : kSlotFloats) & ~31;
+  const int use = slot < min_slot ? min_slot : slot;
+  for (int q = 0; q < n; ++q)
+    steps[q].srows =
+        static_cast<short>(std::min((use / steps[q].sld) & ~7, round_up(steps[q].K, 8)));
+  return use;
 }
 
 }  // namespace ring

@@ -43,8 +43,9 @@
 //   section 6).
 // - A slab is one copy: whole rows (N a multiple of 8 up to kChunk) one bulk
 //   copy, and a product wider than a chunk (the star slot, 512 wide at
-//   Ali-CCP) one tensor copy of a [srows, kChunk] box (TMA): with a bulk copy
-//   a row the star slot waited on its slabs (PERF.md, section 6).
+//   Ali-CCP) one tensor copy of a [srows, kChunk] box (TMA, domain_tiles.cuh's
+//   tensor_slab): with a bulk copy a row the star slot waited on its slabs
+//   (PERF.md, section 6).
 // - A LayerNorm is a reduction across a row's output columns, which the
 //   compute warps hold in parts: a product's epilogue writes x W + b to
 //   shared memory, the compute warps meet, and a pass takes each row's mean
@@ -58,7 +59,7 @@
 //   its coefficient into one fused tile: g_i for shared expert i, w_exp w_bal
 //   for the own domain's expert and w_exp off for every other domain's.
 // - Shared memory: the host places each step's tiles by their lifetimes
-//   (first fit), so the emb tile, dead after the skip and the star slot, and
+//   (first fit, domain_tiles.cuh's Tiles), so the emb tile, dead after the skip and the star slot, and
 //   the star tile, dead after the star MLP, hold the later tiles; the ring
 //   takes what the peak (emb, skip and star tiles: 149 KB at 32 Ali-CCP rows,
 //   so 48 and 64 rows do not fit) leaves. The 1-wide tower head is a warp a
@@ -73,7 +74,6 @@
 // Bound through ctypes: a plain C interface, every pointer and the stream as
 // void*, the cudaError_t of the launch returned.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <math.h>
 
 #include <algorithm>
@@ -86,9 +86,6 @@ namespace {
 using namespace ring;
 
 constexpr int kMaxSteps = 48;  // products a launch: the step list is a kernel parameter
-constexpr int kMaxMaps = 2;    // tensor maps a launch: products wider than a chunk
-constexpr int kHeadBytes = 128;  // the ring's barriers, then the slots, 128-byte aligned
-static_assert(16 * kRing <= kHeadBytes, "two 8-byte barriers a ring slot");
 constexpr float kEps = 1e-5f;
 enum { kSkip, kStarMlp, kExperts, kDomExperts, kChains };
 
@@ -135,27 +132,6 @@ struct Args {
   Step step[kMaxSteps];
 };
 static_assert(sizeof(Args) <= 4096, "the kernel parameters' limit");
-
-// The producer warp's part for slab (chunk c, rows from k0) of a product
-// wider than a chunk: one tensor copy of the box [srows, kChunk] of member
-// `member`'s W from (k0, c kChunk) into the slot at stride kChunk, rows and
-// columns past W's zero-filled by the copy. Each lane arrives on the slot's
-// full barrier, which completes when the box has landed.
-__device__ __forceinline__ void tensor_slab(const CUtensorMap* map, int member, int srows, int c,
-                                            int k0, float* slot, uint32_t full, int lane) {
-  // the slot's earlier reads (generic proxy) before the copy's writes (async)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (lane == 0) {
-    bar_arrive_tx(full, static_cast<uint32_t>(srows * kChunk * 4));
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(slot)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(c * kChunk), "r"(k0), "r"(member), "r"(full)
-        : "memory");
-  } else {
-    bar_arrive(full);
-  }
-}
 
 // sum and max over the 8 lanes of a row (lanes 8q .. 8q + 7 of a warp)
 __device__ __forceinline__ float row_sum(float v) {
@@ -357,13 +333,6 @@ struct LnStage {
   int K, N;
 };
 
-// A tile of the schedule: its width, the steps that write it first and read
-// it last (-1: before the first step), and its place in the arena (floats a
-// row, times the tile's rows when placed).
-struct Tile {
-  int width, first, last, at;
-};
-
 // The steps of the schedule and their tiles, in the order the kernel runs
 // them: the skip chain, the star slot, the star MLP (its last pass adds the
 // skip), the gate and its softmax, each shared expert's chain and each
@@ -371,18 +340,13 @@ struct Tile {
 // first Linear and its LayerNorm; the head reads the tower's tile after the
 // last step.
 struct Schedule {
-  std::vector<Tile> tiles;
+  Tiles tiles;
   Step step[kMaxSteps];
   int in[kMaxSteps], out[kMaxSteps], aux[kMaxSteps];  // tile indices, -1: none
   int n = 0, emb, gate = -1, fused = -1, t = -1;
 
-  int tile(int width) {
-    tiles.push_back(Tile{width, n, n, 0});
-    return static_cast<int>(tiles.size()) - 1;
-  }
-  void use(int i) {
-    if (i >= 0) tiles[i].last = std::max(tiles[i].last, n);
-  }
+  int tile(int width) { return tiles.add(width, n); }
+  void use(int i) { tiles.use(i, n); }
   // a product of stage S's member `member` (per_dom: the block's domain)
   // from tile x into a new tile, then its pass; returns the new tile
   int add(const LnStage& S, int member, bool per_dom, int x, Pass pass, int aux_tile = -1,
@@ -423,35 +387,6 @@ struct Schedule {
               l == count - 1 ? aux_tile : -1, coef);
     return x;
   }
-
-  // First fit by lifetime: each tile, in the order it is first written, at the
-  // lowest place where it overlaps no tile alive at the same time (a step's
-  // input, output and the tiles its pass reads are all alive at that step).
-  // Returns the floats a row of the arena.
-  int place() {
-    int top = 0;
-    for (size_t i = 0; i < tiles.size(); ++i) {
-      Tile& a = tiles[i];
-      const int size = ld_act(a.width);
-      std::vector<int> at = {0};
-      auto alive = [&](const Tile& b) { return b.first <= a.last && a.first <= b.last; };
-      for (size_t j = 0; j < i; ++j)
-        if (alive(tiles[j])) at.push_back(tiles[j].at + ld_act(tiles[j].width));
-      std::sort(at.begin(), at.end());
-      for (int x : at) {
-        bool free = true;
-        for (size_t j = 0; j < i && free; ++j)
-          free = !alive(tiles[j]) || x + size <= tiles[j].at ||
-                 tiles[j].at + ld_act(tiles[j].width) <= x;
-        if (free) {
-          a.at = x;
-          break;
-        }
-      }
-      top = std::max(top, a.at + size);
-    }
-    return top;
-  }
 };
 
 size_t smem_bytes(int tb, int D, int arena_row, int slot) {
@@ -460,74 +395,10 @@ size_t smem_bytes(int tb, int D, int arena_row, int slot) {
          (static_cast<size_t>(tb) + static_cast<size_t>(kAllWarps) * D + 2) * sizeof(int);
 }
 
-// The ring slot of a tb-row tile in `budget` bytes of shared memory: the ring
-// takes what the tiles leave, up to kRing slots of kSlotFloats, and at least 8
-// weight rows of each product a slot; sets each step's slab rows and stride.
-// weight rows a slab where the slot's rows are stride ld_slab(wc) floats:
-// whole rows (one bulk copy a slab, N a multiple of 8 up to kChunk, W 16-byte
-// aligned, stride N), a tensor copy of a box kChunk wide (the first kMaxMaps
-// products wider than a chunk, N a multiple of 4, stride kChunk), else a bulk
-// copy a row (stride ld_slab).
+// The ring slot of a tb-row tile in `budget` bytes of shared memory
+// (domain_tiles.cuh's size_ring); sets each step's copy, slab rows and stride.
 int ring_slot(Schedule& S, int tb, int D, int arena_row, size_t budget) {
-  int min_slot = 0, maps = 0;
-  for (int q = 0; q < S.n; ++q) {
-    Step& st = S.step[q];
-    const bool aligned = (reinterpret_cast<uintptr_t>(st.w) & 15) == 0;
-    st.whole = st.N <= kChunk && st.N % 8 == 0 && aligned;
-    st.map = st.N > kChunk && st.N % 4 == 0 && aligned && maps < kMaxMaps ? maps++ : -1;
-    st.sld = static_cast<short>(st.whole ? st.N
-                                : st.map >= 0 ? kChunk : ld_slab(std::min(st.N, kChunk)));
-    min_slot = std::max(min_slot, 8 * st.sld);
-  }
-  const size_t tile = smem_bytes(tb, D, arena_row, 0);
-  const size_t room = budget > tile ? (budget - tile) / sizeof(float) / kRing : 0;
-  const int slot = static_cast<int>(room < kSlotFloats ? room : kSlotFloats) & ~31;
-  const int use = slot < min_slot ? min_slot : slot;
-  for (int q = 0; q < S.n; ++q)
-    S.step[q].srows =
-        static_cast<short>(std::min((use / S.step[q].sld) & ~7, round_up(S.step[q].K, 8)));
-  return use;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no link to the
-// driver library); null where the driver has none
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// step st's tensor map: W [members, K, N] (members D where per_dom, else the
-// step's own member), boxes of kChunk columns by srows rows of one member
-bool encode_map(const Step& st, int D, CUtensorMap* map) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(st.N), static_cast<cuuint64_t>(st.K),
-                              static_cast<cuuint64_t>(st.per_dom ? D : 1)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st.N) * 4,
-                                 static_cast<cuuint64_t>(st.K) * st.N * 4};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kChunk), static_cast<cuuint32_t>(st.srows),
-                             1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(st.w), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return size_ring(S.step, S.n, smem_bytes(tb, D, arena_row, 0), budget);
 }
 
 template <int MT>
@@ -613,7 +484,7 @@ int m3oe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, 
 
   Schedule S;
   S.emb = S.tile(F);
-  S.tiles[S.emb].first = -1;  // loaded before the first step
+  S.tiles.t[S.emb].first = -1;  // loaded before the first step
   const int skip = S.chain(first[kSkip], c[kSkip], 0, S.emb, kLn);
   const int star = S.add(st[0], 0, true, S.emb, kNone);
   const int e = S.chain(first[kStarMlp], c[kStarMlp], 0, star, kLnPlus, skip);
@@ -622,7 +493,7 @@ int m3oe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, 
   for (int k = 0; k < D; ++k) S.chain(first[kDomExperts], c[kDomExperts], k, e, kLnMix, -1, -1 - k);
   S.t = S.add(l1, 0, true, S.fused, kLn);
   S.use(S.t);  // the head, after the last step
-  const int arena_row = S.place();
+  const int arena_row = S.tiles.place();
 
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -639,8 +510,8 @@ int m3oe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, 
 
   Args p = {};
   const int M = block_rows;
-  auto at = [&](int i) { return i < 0 ? 0 : M * S.tiles[i].at; };
-  auto ld = [&](int i) { return static_cast<short>(i < 0 ? 0 : ld_act(S.tiles[i].width)); };
+  auto at = [&](int i) { return i < 0 ? 0 : M * S.tiles.t[i].at; };
+  auto ld = [&](int i) { return static_cast<short>(i < 0 ? 0 : ld_act(S.tiles.t[i].width)); };
   for (int q = 0; q < S.n; ++q) {
     Step& x = S.step[q];
     x.in = at(S.in[q]);
@@ -649,7 +520,7 @@ int m3oe_fused_infer_f32(const void* emb, const void* did, int id64, void* out, 
     x.ld_out = ld(S.out[q]);
     x.aux = at(S.aux[q]);
     x.ld_aux = ld(S.aux[q]);
-    if (x.map >= 0 && !encode_map(x, D, &p.map[x.map]))
+    if (x.map >= 0 && !encode_map(x.w, x.K, x.N, x.per_dom ? D : 1, x.srows, &p.map[x.map]))
       return static_cast<int>(cudaErrorNotSupported);
     p.step[q] = x;
   }

@@ -3,8 +3,9 @@
 what their kernels take, the stage list they pass (``csrc/fused_mlp.cuh``),
 the ctypes launch, and the plain versions' gate mixture. ``mmoe_infer``
 uses its batch check and its ctypes arrays, ``hamur_infer`` its tensor
-checks, stage list and launch, ``gated_infer``'s PPNet wrapper and
-``m3oe_infer`` its tensor checks, stage list and ctypes function.
+checks, stage list and launch, ``gated_infer``'s PPNet and AdaSparse
+wrappers and ``m3oe_infer`` its tensor checks, stage list and ctypes
+function.
 
 Nothing here builds or loads a kernel until :func:`launch` or
 :func:`function` is called.

@@ -1,6 +1,7 @@
 """Fused inference of the gated-personalization family: EPNet, PPNet and
-AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` (EPNet, AdaSparse)
-and ``csrc/ppnet_infer.cu`` (PPNet) and their plain PyTorch versions.
+AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` (EPNet),
+``csrc/ppnet_infer.cu`` (PPNet) and ``csrc/adasparse_infer.cu``
+(AdaSparse) and their plain PyTorch versions.
 
 - :func:`epnet_fused_infer`: ``gate = gemma·sigmoid(relu([sce ‖ agn] W1 +
   b1) W2 + b2)``, then ``sigmoid((agn · gate) Wo + bo)``.
@@ -14,7 +15,10 @@ and ``csrc/ppnet_infer.cu`` (PPNet) and their plain PyTorch versions.
 - :func:`adasparse_fused_infer`: the agnostic embedding and every hidden
   activation multiplied by its pruner's weights, then ``sigmoid(h Wf +
   bf)``; ``alpha`` comes folded into the pruner weights (Binarization,
-  Fusion) and ``form`` picks the threshold's form.
+  Fusion) and ``form`` picks the threshold's form. The kernel gives each
+  block a tile of consecutive rows and runs every pruner and layer on the
+  tensor cores in 3xTF32 (about f32's accuracy; the design note is at the
+  top of the source).
 
 They replace the TPU kernels of ``scenario_wise_rec_tpu/ops/pallas/
 gated_infer.py``. Products with a concatenation are split, ``[s ‖ a] W =
@@ -37,7 +41,7 @@ from ._fused import Affine
 from .mmoe_infer import ROW_TILE, check_block_rows
 
 FORMS = ("Binarization", "Scaling", "Fusion")  # the kernel's form flag is the index
-MAX_LAYERS = 30  # csrc kMaxLayers
+MAX_LAYERS = 30  # csrc kMaxLayers (ppnet_infer.cu, adasparse_infer.cu)
 MAX_DOMAINS = 256  # ppnet_infer.cu kMaxDomains
 
 
@@ -281,12 +285,19 @@ def adasparse_fused_infer_ref(
 def adasparse_fused_infer(sce, agn, pruner_ws: Sequence[torch.Tensor],
                           layer_stages: Sequence[Affine], final: Affine,
                           form: str = "Fusion", epsilon: float = 1e-2, beta: float = 2.0,
-                          block_rows: int = _fused.DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+                          block_rows: int | None = None) -> torch.Tensor:
     """probs[B] = fused AdaSparse eval forward on the embedded ``sce``, ``agn``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: consecutive rows that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit. A shape whose tile does not fit raises a RuntimeError; it
+    never falls back. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    for its ``block_rows`` raises there too. The card takes at most
+    ``MAX_LAYERS`` layers.
     """
+    check_block_rows(block_rows)
     if sce.device.type == "cpu":
         return adasparse_fused_infer_ref(sce, agn, pruner_ws, layer_stages, final, form,
                                          epsilon, beta)
@@ -295,18 +306,24 @@ def adasparse_fused_infer(sce, agn, pruner_ws: Sequence[torch.Tensor],
     if n > MAX_LAYERS:
         raise ValueError(f"adasparse_fused_infer takes at most {MAX_LAYERS} layers, got {n}")
     stages = [(p, None) for p in pruner_ws] + list(layer_stages) + [final]
-    _fused.check_launch("adasparse_fused_infer", sce, None,
-                        [agn] + [t for s in stages for t in s if t is not None],
-                        len(stages), block_rows)
+    _fused.check_tensors("adasparse_fused_infer", sce, None,
+                         [agn] + [t for s in stages for t in s if t is not None])
     out = torch.empty(B, dtype=torch.float32, device=sce.device)
     if B == 0:
         return out
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    _fused.launch("gated_infer", "adasparse_fused_infer_f32",
-                  (p, p, p, i, i, i, i, i, f, f, p, p, p),
-                  (sce.data_ptr(), agn.data_ptr(), out.data_ptr(), B, S, A, n,
-                   FORMS.index(form), epsilon, beta, *_fused.stage_args(stages)),
-                  sce, block_rows)
+    fn = _fused.function("adasparse_infer", "adasparse_fused_infer_f32",
+                         (p, p, p, i, i, i, i, i, f, f, p, p, p))
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(sce.device).cuda_stream
+    with torch.cuda.device(sce.device):
+        err = fn(sce.data_ptr(), agn.data_ptr(), out.data_ptr(), B, S, A, n,
+                 FORMS.index(form), epsilon, beta, *_fused.stage_args(stages),
+                 block_rows or 0, stream, ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"adasparse_fused_infer launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows or ROW_TILE})")
     adasparse_fused_infer.launches += 1
     return out
 

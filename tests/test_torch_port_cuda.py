@@ -721,25 +721,69 @@ def _adasparse_gap(got, want, margin):
     return (err.max().item() if err.numel() else 0.0), int(near.sum())
 
 
+ALI_ADASPARSE = (16, 352, [256, 128, 64, 32, 16, 8])  # S, A, layer dims
+# KuaiRand's AdaSparse ladder ([128, 64, 32]): its scenario loader gives sce
+# the scenario feature (16) and agn the sparse features only, MMOE's KuaiRand
+# F 800 less its 4 dense columns
+KUAIRAND_ADASPARSE = (16, 796, [128, 64, 32])
+TILES = [16, 32, 48, 64, None]
+
+
 @pytest.mark.parametrize("form", ["Binarization", "Scaling", "Fusion"])
 @pytest.mark.parametrize("cfg", [
     # (B, S, A, layer dims, alpha, block_rows)
-    (4096, 16, 352, [256, 128, 64, 32, 16, 8], 1.37, 16),  # Ali-CCP, alpha folded
-    (333, 5, 41, [7, 3], 1.0, 8),
-    (130, 16, 40, [], 0.8, 24),                             # head on [sce ‖ agn]
+    *[(4096, *ALI_ADASPARSE, 1.37, rows) for rows in TILES],  # Ali-CCP, alpha folded
+    *[(333, 5, 41, [7, 3], 1.0, rows) for rows in TILES],      # widths off 8
+    *[(130, 16, 40, [], 0.8, rows) for rows in TILES],         # head on [sce ‖ agn]
+    (1000, 16, 42, [16, 8], 1.0, None),
+    (1, *ALI_ADASPARSE, 1.37, None),
+    (4095, *ALI_ADASPARSE, 1.37, None),
+    (65_536, *ALI_ADASPARSE, 1.37, None),
+    (4096, *KUAIRAND_ADASPARSE, 1.0, None),                   # the kernel's choice: 16
+    (4096, 16, 300, [300, 20], 1.0, 32),                       # a layer past one 256-column pass
 ])
 def test_adasparse_kernel_matches_plain(gen, form, cfg):
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version but for the rows the threshold rule excuses, one
+    launch a call."""
     B, S, A, dims, alpha, rows = cfg
     args = _adasparse_args(gen, B, S, A, dims, alpha)
     kw = dict(form=form, epsilon=1e-2, beta=2.0)
     before = kg.adasparse_fused_infer.launches
-    got = kg.adasparse_fused_infer(*args, **kw, block_rows=rows)
+    got = _unwritten_nan(kg.adasparse_fused_infer, *args, **kw, block_rows=rows)
     torch.cuda.synchronize()
     assert kg.adasparse_fused_infer.launches == before + 1
     want = kg.adasparse_fused_infer_ref(*args, **kw)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     err, near = _adasparse_gap(got, want, kg.adasparse_threshold_margin(*args, **kw))
     assert err <= TOL and near <= THRESHOLD_ROWS * B
+
+
+def test_adasparse_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of agn leaves every other row of its
+    tile as the plain version computes it."""
+    sce, agn, pw, lay, fin = _adasparse_args(gen, 100, *ALI_ADASPARSE, 1.37)
+    agn[50, 7] = float("nan")
+    got = kg.adasparse_fused_infer(sce, agn, pw, lay, fin, block_rows=64)
+    want = kg.adasparse_fused_infer_ref(sce, agn, pw, lay, fin)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    margin = kg.adasparse_threshold_margin(sce, agn, pw, lay, fin)[rest]
+    err, near = _adasparse_gap(got[rest], want[rest], margin)
+    assert err <= TOL and near == 0
+
+
+@pytest.mark.parametrize("rows", [48, 64])
+def test_adasparse_kernel_tile_that_does_not_fit_raises(gen, rows):
+    """At KuaiRand's widths the [sce ‖ agn] tile and pruner 0's output take
+    1640 floats a row: 48 and 64 rows do not fit beside the smallest ring
+    and raise, naming the shared memory; it never falls back."""
+    args = _adasparse_args(gen, 64, *KUAIRAND_ADASPARSE, 1.0)
+    with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+        kg.adasparse_fused_infer(*args, block_rows=rows)
+    for bad in (8, 24, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            kg.adasparse_fused_infer(*args, block_rows=bad)
 
 
 def _adasparse_both_signs(gen, B, S, A, dims):

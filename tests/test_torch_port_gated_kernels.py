@@ -198,6 +198,28 @@ def test_adasparse_ref_matches_jax_kernel(form, cfg):
     _close(got, want)
 
 
+@pytest.mark.parametrize("rows,ok", [(None, True), (16, True), (32, True), (48, True),
+                                     (64, True), (8, False), (24, False), (80, False),
+                                     (0, False), (16.0, False)])
+def test_adasparse_wrapper_keeps_the_tile_rule_on_the_cpu(rows, ok):
+    """``block_rows`` is checked before the CPU branch, as on the card: a
+    multiple of 16 up to 64, or None. An accepted value runs the plain
+    version unchanged."""
+    r = np.random.default_rng(4)
+    pw, lay, final = _adasparse_args(r, 5, 9, [6], 1.0)
+    args = (torch.tensor(r.normal(size=(9, 5)).astype(np.float32)),
+            torch.tensor(r.normal(size=(9, 9)).astype(np.float32)),
+            [torch.tensor(p) for p in pw], _t(lay), _t([final])[0])
+    if not ok:
+        with pytest.raises(ValueError, match="block_rows"):
+            pk_gated.adasparse_fused_infer(*args, block_rows=rows)
+        return
+    before = pk_gated.adasparse_fused_infer.launches
+    got = pk_gated.adasparse_fused_infer(*args, block_rows=rows)
+    assert pk_gated.adasparse_fused_infer.launches == before  # plain on the CPU
+    assert torch.equal(got, pk_gated.adasparse_fused_infer_ref(*args))
+
+
 @pytest.mark.parametrize("form", ["Binarization", "Scaling", "Fusion"])
 def test_adasparse_ref_sign_is_zero_at_the_threshold(form):
     """Zero pruner weights put every pruner input at sigmoid(0) = 0.5; with
