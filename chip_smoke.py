@@ -73,7 +73,13 @@ Phases; each asserts, and any failure exits non-zero:
      configuration, (d) domain ids -1, D and D+5, and (e) SharedBottom
      without a head, STAR on a batch padded with weight-0 rows (its norm's
      statistics masked), PLE at 2 levels with the Ali-CCP expert widths;
-     max |error| <= 1e-5, with a ``block_rows`` sweep;
+     max |error| <= 1e-5, with a ``block_rows`` sweep; PLE also with (f)
+     90 % of the rows in one domain, (g) domain counts astride its tiles,
+     (h) KuaiRand's ladder (F 800, 5 domains, experts [64, 32]) and (i) B =
+     65,536, each output into a block just freed full of NaN, its sweep
+     over the tile rule (16, 32, 48, 64 and the kernel's choice; 64 rows,
+     and 48 at 2 levels, must raise), int64 ids against int32, its 3xTF32
+     bound beside the f32 one and the Step 0 of its 2-level case;
    - ``sarnet_fused_infer``, ``epnet_fused_infer``, ``ppnet_fused_infer``
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
@@ -251,6 +257,12 @@ META_BLOCK_ROWS = (8, 16, 24)
 # 1164 floats a row) and must raise
 M3OE_BLOCK_ROWS = (16, 32, 48, 64, None)
 M3OE_ALI_TOO_WIDE = (48, 64)
+# ple_fused_infer's tile rule: every value, and None (the kernel's choice);
+# 64 rows do not fit at Ali-CCP's widths nor at KuaiRand's, nor 48 at 2
+# levels (the emb tile, an expert's 256- and 128-wide tiles and, at 2
+# levels, the D + 1 gates and streams), and must raise
+PLE_BLOCK_ROWS = (16, 32, 48, 64, None)
+PLE_TOO_WIDE, PLE_TWO_LEVELS_TOO_WIDE = (64,), (48, 64)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
@@ -715,6 +727,22 @@ def ple_work(emb, did, levels, towers, head):
     return 2.0 * B * per_row, nbytes(emb, did, *flat(levels, towers, head)) + B * 4
 
 
+def ple_product_macs(levels, towers):
+    """Multiply-adds per row of ple_work's products (all but the mixes and
+    the 1-wide head): what the kernel runs on the tensor cores."""
+    D, S = levels[0].spec_stages[0][0].shape[:2]
+    n_sh = levels[0].shared_stages[0][0].shape[0]
+    per_row = macs(towers)
+    for i, lv in enumerate(levels):
+        if i < len(levels) - 1:
+            per_row += D * S * macs(lv.spec_stages) + n_sh * macs(lv.shared_stages)
+            per_row += D * macs(lv.gate_stages) + macs(lv.gate_shared_stages)
+        else:
+            per_row += S * macs(lv.spec_stages) + n_sh * macs(lv.shared_stages)
+            per_row += macs(lv.gate_stages)
+    return per_row
+
+
 def near_threshold(margin_fn, inputs, args):
     """AdaSparse's threshold rule: the rows whose pruners lie within
     THRESHOLD_GAP of epsilon (``margin_fn`` gives each row's least gap, by
@@ -878,31 +906,95 @@ def phase_new_kernels(gen, peak):
 
     # PLE: 1 level of 2 specific + 1 shared experts [256,...,8], tower [16];
     # and 2 levels at the same expert widths (the shared gate's path)
-    def ple_args(F_in, Dn, S, n_sh, levels, towers):
+    def ple_args(F_in, Dn, S, n_sh, levels, towers, g=gen):
         out, width = [], F_in
         for i, dims in enumerate(levels):
-            gs = None if i == len(levels) - 1 else affines(gen, (), [width, Dn * S + n_sh])
-            out.append(k.LevelSpec(affines(gen, (Dn, S), [width] + dims),
-                                   affines(gen, (n_sh,), [width] + dims),
-                                   affines(gen, (Dn,), [width, S + n_sh]), gs))
+            gs = None if i == len(levels) - 1 else affines(g, (), [width, Dn * S + n_sh])
+            out.append(k.LevelSpec(affines(g, (Dn, S), [width] + dims),
+                                   affines(g, (n_sh,), [width] + dims),
+                                   affines(g, (Dn,), [width, S + n_sh]), gs))
             width = dims[-1]
-        tw = affines(gen, (Dn,), [width] + towers)
-        return out, tw, affines(gen, (Dn,), [towers[-1] if towers else width, 1])[0]
+        tw = affines(g, (Dn,), [width] + towers)
+        return out, tw, affines(g, (Dn,), [towers[-1] if towers else width, 1])[0]
 
     ali = ple_args(F, D, 2, 1, [EXPERT_DIMS], TOWER_DIMS)
     narrow = ple_args(42, 2, 2, 1, [[16, 8], [8]], [4])
     two = ple_args(F, D, 2, 1, [EXPERT_DIMS, EXPERT_DIMS], TOWER_DIMS)
     cases = shaped(ali, narrow, {"e_two_levels_b4096": ((emb4096, ids(4096)), two)})
-    err = run_cases("ple_fused_infer", k.ple_fused_infer, k.ple_fused_infer_ref, cases)
+    # the partition by domain at its edges, KuaiRand's ladder and B 65,536,
+    # from a generator of its own: the shared one feeds every later phase's data
+    pg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 7)
+
+    def counted(*counts):
+        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
+        return did[torch.randperm(len(did), generator=pg, device="cuda")]
+
+    def p_rows(B, Fi):
+        return torch.randn(B, Fi, generator=pg, device="cuda")
+
+    cases["f_skewed_b4096"] = ((p_rows(4096, F), counted(3700, 300, 96)), ali)  # 90 % in one
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["g_counts_astride_tiles_b66"] = ((p_rows(66, F), counted(33, 32, 1)), ali)
+    # KuaiRand's PLE ladder (1 level, experts [64, 32], tower [16], 5 domains)
+    # at MMOE's KuaiRand F 800
+    cases["h_kuairand_b4096"] = (
+        (p_rows(4096, 800), torch.randint(0, 5, (4096,), generator=pg, device="cuda")),
+        ple_args(800, 5, 2, 1, [[64, 32]], [16], g=pg))
+    cases["i_b65536"] = (
+        (p_rows(65_536, F), torch.randint(0, D, (65_536,), generator=pg, device="cuda")), ali)
+    unwritten_nan = nan_filled(k.ple_fused_infer)
+    err = run_cases("ple_fused_infer", unwritten_nan, k.ple_fused_infer_ref, cases)
+    for rows in PLE_BLOCK_ROWS:  # every tile: at the edges of the partition, KuaiRand's, 2 levels
+        for name in ("f_skewed_b4096", "g_counts_astride_tiles_b66", "h_kuairand_b4096",
+                     "e_two_levels_b4096"):
+            inputs, args = cases[name]
+            wide = PLE_TWO_LEVELS_TOO_WIDE if name.startswith("e_") else PLE_TOO_WIDE
+            if rows in wide:
+                try:
+                    k.ple_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"ple_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"ple_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.ple_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"ple_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  ple_fused_infer block_rows {PLE_TOO_WIDE} (at 2 levels {PLE_TWO_LEVELS_TOO_WIDE}): "
+        f"raise, naming the shared memory")
+    # int64 ids as they are, modulo 2^32 as int32, then clipped
+    (emb, did), args = cases["d_domain_oob_b4096"]
+    check(torch.equal(k.ple_fused_infer(emb, did, *args),
+                      k.ple_fused_infer(emb, did.to(torch.int32), *args))
+          and torch.equal(k.ple_fused_infer(emb, did + 2**32, *args),
+                          k.ple_fused_infer(emb, did, *args)),
+          "ple_fused_infer: int64 ids differ from the same ids as int32")
     two_ids = cases["e_two_levels_b4096"][0][1]
     two_ms = time_ms(lambda: k.ple_fused_infer(emb4096, two_ids, *two))
     flops, _ = ple_work(emb4096, two_ids, *two)
     log(f"  ple_fused_infer e_two_levels_b4096: kernel {two_ms:.4f} ms, {flops / 1e9:.3f} GFLOP, "
         f"{flops / two_ms / 1e9:.2f} TFLOP/s achieved")
-    entries["ple"] = time_entry("ple_fused_infer", "ple", k.ple_fused_infer,
-                                k.ple_fused_infer_ref, *cases["a_alicpp_b4096"], ple_work, peak,
-                                err)
-    entries["ple"]["two_levels_ms"] = two_ms
+    fits = tuple(r for r in PLE_BLOCK_ROWS if r not in PLE_TOO_WIDE)
+    entry = time_entry("ple_fused_infer", "ple", k.ple_fused_infer, k.ple_fused_infer_ref,
+                       *cases["a_alicpp_b4096"], ple_work, peak, err, sweep_rows=fits)
+    entry["two_levels_ms"] = two_ms
+    # the design's own bound: every product as three TF32 products on the
+    # tensor cores, the mixes, the softmaxes and the head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * ple_product_macs(args[0], args[1])
+    entry.update(design_bound("ple_fused_infer ", *ple_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
+    for name in ("e_two_levels_b4096", "h_kuairand_b4096", "i_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"ple_fused_infer {name}, step 0",
+                            lambda: k.ple_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    inputs, args = cases["e_two_levels_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * ple_product_macs(args[0], args[1])
+    design_bound("ple_fused_infer e_two_levels_b4096 ", *ple_work(*inputs, *args), tc, peak,
+                 entry["e_two_levels_b4096_device_ms"])
+    entries["ple"] = entry
     return entries
 
 

@@ -1,7 +1,7 @@
-// What ppnet_infer.cu, m3oe_infer.cu and adasparse_infer.cu share on NVIDIA
-// Hopper (sm_90a): each block takes a tile of rows (of ONE domain in PPNet's
-// and M3oE's, partitioned inside the one launch) and runs its products over
-// mma_ring.cuh's weight ring.
+// What ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu and ple_infer.cu
+// share on NVIDIA Hopper (sm_90a): each block takes a tile of rows (of ONE
+// domain in PPNet's, M3oE's and PLE's, partitioned inside the one launch)
+// and runs its products over mma_ring.cuh's weight ring.
 //
 // - The partition, with no sort and no host work: a launch has ceil(B/M) + D
 //   - 1 blocks, enough since the tiles of all domains, sum over d of
@@ -380,6 +380,19 @@ __device__ __forceinline__ void fold_any(int tiles, float (&acc)[MT][kNTW][4]) {
 }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// sum and max over the 8 lanes of a row (lanes 8q .. 8q + 7 of a warp), for
+// the row passes of m3oe_infer.cu and ple_infer.cu
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 // out[rows_s[r]] = sigmoid(h[r] . fw[dom] + fb[dom]) for the tile's rows, a
 // warp a row over every warp of the block: h [M, ldh] of width kf, fw [D,

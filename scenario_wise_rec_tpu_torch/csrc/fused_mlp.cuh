@@ -1,7 +1,7 @@
 // Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// tower_infer.cu, star_infer.cu, ple_infer.cu, sarnet_infer.cu,
-// gated_infer.cu (EPNet), adaptdhm_infer.cu and m2m_infer.cu (mmoe_infer.cu,
-// hamur_infer.cu, ppnet_infer.cu, m3oe_infer.cu and adasparse_infer.cu are
+// tower_infer.cu, star_infer.cu, sarnet_infer.cu, gated_infer.cu (EPNet),
+// adaptdhm_infer.cu and m2m_infer.cu (mmoe_infer.cu, hamur_infer.cu,
+// ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu and ple_infer.cu are
 // built over mma_ring.cuh).
 //
 // Each of those kernels runs a model's whole eval stack after the embedding
@@ -15,9 +15,9 @@
 // - Shared-weight stages (a trunk, shared experts, an aux MLP, every stage
 //   of a model without domains) take the tile's rows in order, R =
 //   kSharedRows at a time, as one domain.
-// - Per-domain stages (towers, STAR's FCN, PLE's own-domain experts) take
-//   the rows of one domain, R = kDomainRows at a time. A row computes only
-//   its own domain, where the TPU kernels compute every domain and select.
+// - Per-domain stages (towers, STAR's FCN) take the rows of one domain, R =
+//   kDomainRows at a time. A row computes only its own domain, where the TPU
+//   kernels compute every domain and select.
 //
 // In a dense stage a thread owns one output column of one group: one weight
 // load from L2 feeds R FMAs, and the activations are read from shared memory

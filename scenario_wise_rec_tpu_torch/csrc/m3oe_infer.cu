@@ -133,18 +133,6 @@ struct Args {
 };
 static_assert(sizeof(Args) <= 4096, "the kernel parameters' limit");
 
-// sum and max over the 8 lanes of a row (lanes 8q .. 8q + 7 of a warp)
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // A finished chunk of a product: out = acc + bias (rows of the tile, columns
 // c0 + the warp's n-tiles; columns past N come out zero). Resets the
 // accumulators.

@@ -25,9 +25,9 @@
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's, HAMUR's, PPNet's, M3oE's and AdaSparse's (``csrc/mma_ring.cuh``;
-  PPNet's and M3oE's, one domain a block, and AdaSparse's also
-  ``csrc/domain_tiles.cuh``) is built over the shared
+  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's and PLE's
+  (``csrc/mma_ring.cuh``; PPNet's, M3oE's and PLE's, one domain a block,
+  and AdaSparse's also ``csrc/domain_tiles.cuh``) is built over the shared
   ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),

@@ -5,8 +5,10 @@ PLE's eval forward after the embedding: per CGC level, the D·S specific
 and n_sh shared relu expert MLPs, each domain's softmax gate over its own
 specifics and the shared experts, and before the last level a shared
 softmax gate over all experts; then each domain's relu tower and 1-unit
-head, sigmoid, and each row's own domain selected. At the last level the
-kernel computes only what the row's own domain needs (the design note is
+head, sigmoid, and each row's own domain selected. The kernel gives each
+block rows of one domain, runs at the last level only what that domain
+needs, and runs every product on the tensor cores in 3xTF32 (about f32's
+accuracy), the weights streamed through shared memory (the design note is
 at the top of the source). It replaces the TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/ple_infer.py:ple_fused_infer``.
 
@@ -27,8 +29,13 @@ import torch
 
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import ROW_TILE, check_block_rows
 
 MAX_LEVELS = 4  # csrc kMaxLevels
+# csrc kMaxSteps and kMaxMixes: the schedule is a kernel parameter
+MAX_PRODUCTS = 256
+MAX_MIXES = 256
+MAX_DOMAINS = 256  # csrc kMaxDomains: the partition's counts in shared memory
 
 
 class LevelSpec:
@@ -149,40 +156,82 @@ def ple_fused_infer_ref(
     return out
 
 
+def _schedule_size(levels, D, S, n_sh, n_tower):
+    """``(products, mixes)`` of the kernel's schedule: at the last level the
+    row's own S specific experts, the shared ones and its own gate; before
+    it every domain's experts and gates and the shared gate, each expert's
+    output mixed into the streams it feeds; then the own tower."""
+    products, mixes = n_tower, 0
+    for li, lv in enumerate(levels):
+        sp, sh, g = len(lv.spec_stages), len(lv.shared_stages), len(lv.gate_stages)
+        if li == len(levels) - 1:
+            products += S * sp + n_sh * sh + g
+            mixes += S + n_sh
+        else:
+            products += D * S * sp + n_sh * sh + D * g + len(lv.gate_shared_stages)
+            mixes += 2 * D * S + n_sh * (D + 1)
+    return products, mixes
+
+
 def ple_fused_infer(
     emb: torch.Tensor,
     domain_id: torch.Tensor,
     levels: Sequence[LevelSpec],
     tower_stages: Sequence[Affine],
     tower_out: Affine,
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused PLE eval forward on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at PLE's Ali-CCP widths 16, 32 and 48 fit at 1 level, 16
+    and 32 at 2 levels; 64 does not). A shape whose tile does not fit raises
+    a RuntimeError; it never falls back. On the CPU the plain version runs
+    and the value only has to keep the tile rule, so that a call that would
+    raise on the card for its ``block_rows`` raises there too. The card
+    takes at most ``MAX_LEVELS`` levels, ``MAX_DOMAINS`` domains and a
+    schedule of ``MAX_PRODUCTS`` products and ``MAX_MIXES`` mixes (see
+    :func:`_schedule_size`; Ali-CCP's expert ladder takes 20 and 3 at 1
+    level, 158 and 51 at 4). int32 and int64 domain ids are read as they
+    are.
     """
+    check_block_rows(block_rows)
     if emb.device.type == "cpu":
         return ple_fused_infer_ref(emb, domain_id, levels, tower_stages, tower_out)
     B, F, D, S, n_sh = _check_shapes(emb, domain_id, levels, tower_stages, tower_out)
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"ple_fused_infer takes at most {MAX_LEVELS} levels")
+    if D > MAX_DOMAINS:
+        raise ValueError(f"ple_fused_infer takes at most {MAX_DOMAINS} domains, got {D}")
+    products, mixes = _schedule_size(levels, D, S, n_sh, len(tower_stages))
+    if products > MAX_PRODUCTS or mixes > MAX_MIXES:
+        raise ValueError(f"ple_fused_infer takes at most {MAX_PRODUCTS} products and "
+                         f"{MAX_MIXES} mixes a launch, got {products} and {mixes}")
     stages = _flat_stages(levels, tower_stages, tower_out)
-    _fused.check_launch("ple_fused_infer", emb, domain_id,
-                        [t for s in stages for t in s], len(stages), block_rows)
+    _fused.check_tensors("ple_fused_infer", emb, domain_id, [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
     counts = _fused.ints([n for lv in levels for n in (
         len(lv.spec_stages), len(lv.shared_stages), len(lv.gate_stages),
         len(lv.gate_shared_stages or []))])
-    did = domain_id.to(torch.int32).contiguous()
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch(
-        "ple_infer", "ple_fused_infer_f32", (p, p, p, i, i, i, i, i, i, p, i, p, p, p),
-        (emb.data_ptr(), did.data_ptr(), out.data_ptr(), B, F, D, S, n_sh, len(levels),
-         counts, len(tower_stages), *_fused.stage_args(stages)),
-        emb, block_rows)
+    fn = _fused.function("ple_infer", "ple_fused_infer_f32",
+                         (p, p, i, p, i, i, i, i, i, i, p, i, p, p, p))
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(emb.device):
+        err = fn(emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B,
+                 F, D, S, n_sh, len(levels), counts, len(tower_stages),
+                 *_fused.stage_args(stages), block_rows or 0, stream, ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"ple_fused_infer launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows or ROW_TILE})")
     ple_fused_infer.launches += 1
     return out
 

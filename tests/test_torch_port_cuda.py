@@ -486,20 +486,109 @@ def _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden=()):
     return out, tw, _affines(gen, (D,), [towers[-1] if towers else width, 1])[0]
 
 
+ALI_PLE_DIMS = [256, 128, 64, 32, 16, 8]
+# (F, D, S, n_sh, levels' expert dims, tower dims, gate hidden)
+ALI_PLE = (376, 3, 2, 1, [ALI_PLE_DIMS], [16], ())
+ALI_PLE_2 = (376, 3, 2, 1, [ALI_PLE_DIMS] * 2, [16], ())
+# KuaiRand's PLE ladder (1 level, experts [64, 32], tower [16], 5 domains) at
+# MMOE's KuaiRand F 800
+KUAIRAND_PLE = (800, 5, 2, 1, [[64, 32]], [16], ())
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, D, S, n_sh, levels' expert dims, tower dims, gate hidden, block_rows)
-    (4096, 376, 3, 2, 1, [[256, 128, 64, 32, 16, 8]], [16], (), 16),  # Ali-CCP
-    (1000, 376, 3, 2, 1, [[256, 128, 64, 32, 16, 8]] * 2, [16], (), 16),  # 2 levels
-    (333, 41, 2, 1, 2, [[7], [5], [3]], [], (6,), 8),  # 3 levels, 2-stage gates
-    (130, 30, 4, 3, 1, [[9, 6], [10]], [4, 3], (), 24),
+    # (B, (F, D, S, n_sh, levels' expert dims, tower dims, gate hidden), ids:
+    #  drawn from (lo, hi) or counts of each domain, block_rows)
+    (4096, ALI_PLE, (-2, 6), 16),                                # Ali-CCP
+    (1000, ALI_PLE_2, (-2, 6), 16),                              # 2 levels
+    (333, (41, 2, 1, 2, [[7], [5], [3]], [], (6,)), (-2, 5), 16),  # 3 levels, 2-stage gates
+    (130, (30, 4, 3, 1, [[9, 6], [10]], [4, 3], ()), (-2, 7), 48),
+    (4096, ALI_PLE, [3700, 300, 96], None),                      # skewed: 90 % in domain 0
+    (4096, ALI_PLE, [96, 300, 3700], 48),
+    (4096, ALI_PLE_2, [3700, 300, 96], 32),
+    (66, ALI_PLE, [33, 32, 1], 32),                              # counts astride 32-row tiles
+    (100, ALI_PLE, [33, 1, 66], 16),                             # and 16-row tiles
+    (66, ALI_PLE_2, [1, 33, 32], None),
+    (1, ALI_PLE, (0, 3), None),
+    (4095, ALI_PLE, (0, 3), 32),
+    (4096, KUAIRAND_PLE, (0, 5), None),                          # KuaiRand's width
+    (4096, KUAIRAND_PLE, (0, 5), 48),
+    (65_536, ALI_PLE, (0, 3), None),                  # the largest B the partition is held to
+    # products at most 8 wide and at least 64 deep split over the warps: a
+    # relu stage before a level's mix, an expert's mixing stage at the last
+    # level and before it (into every stream, 5 wide: a slab at stride 8)
+    (500, (100, 3, 2, 1, [[8, 6], [8]], [4], ()), (-2, 6), 32),
+    (300, (100, 3, 2, 2, [[8]], [4], (16,)), (0, 3), 16),
+    (300, (100, 2, 1, 1, [[5], [7]], [], ()), (-1, 3), 48),
 ])
 def test_ple_kernel_matches_plain(gen, cfg):
-    B, F, D, S, n_sh, levels, towers, gate_hidden, rows = cfg
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call."""
+    B, (F, D, S, n_sh, levels, towers, gate_hidden), ids, rows = cfg
     args = _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden)
     emb = torch.randn(B, F, generator=gen, device="cuda")
-    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
-    _launch_and_compare(gen, kp.ple_fused_infer, kp.ple_fused_infer_ref, emb, did, *args,
-                        rows=rows)
+    did = _m3oe_ids(gen, B, D, ids)
+    before = kp.ple_fused_infer.launches
+    got = _unwritten_nan(kp.ple_fused_infer, emb, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kp.ple_fused_infer.launches == before + 1
+    want = kp.ple_fused_infer_ref(emb, did, *args)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+@pytest.mark.parametrize("cfg", [ALI_PLE, ALI_PLE_2])
+def test_ple_kernel_every_tile_at_ali_ccp(gen, cfg, rows):
+    """At Ali-CCP's widths the tiles of 16, 32 or 48 rows (at 2 levels 16 or
+    32) fit beside the ring and match the plain version; wider tiles do not
+    fit and raise, naming the shared memory."""
+    F, D, S, n_sh, levels, towers, gate_hidden = cfg
+    args = _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden)
+    emb = torch.randn(4096, F, generator=gen, device="cuda")
+    did = torch.randint(0, D, (4096,), generator=gen, device="cuda")
+    if rows == 64 or (rows == 48 and len(levels) == 2):
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            kp.ple_fused_infer(emb, did, *args, block_rows=rows)
+        return
+    got = _unwritten_nan(kp.ple_fused_infer, emb, did, *args, block_rows=rows)
+    want = kp.ple_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_ple_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch), taken modulo 2^32 as
+    int32 and clipped: the same outputs as the int32 ids, bit for bit."""
+    F, D, S, n_sh, levels, towers, gate_hidden = ALI_PLE
+    args = _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden)
+    emb = torch.randn(4096, F, generator=gen, device="cuda")
+    did = torch.randint(-2, D + 3, (4096,), generator=gen, device="cuda")
+    got = kp.ple_fused_infer(emb, did.to(torch.int32), *args)
+    assert torch.equal(got, kp.ple_fused_infer(emb, did.to(torch.int64), *args))
+    assert torch.equal(got, kp.ple_fused_infer(emb, did + 2**32, *args))
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(kp.ple_fused_infer(e8, wrap, *args), kp.ple_fused_infer(
+        e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *args))
+    assert (kp.ple_fused_infer(e8, wrap, *args)
+            - kp.ple_fused_infer_ref(e8, wrap, *args)).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("cfg", [ALI_PLE, ALI_PLE_2])
+def test_ple_kernel_keeps_a_nan_in_its_row(gen, cfg):
+    """Rows never mix: a NaN in one row of emb leaves every other row of its
+    domain's tile as the plain version computes it."""
+    F, D, S, n_sh, levels, towers, gate_hidden = cfg
+    args = _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden)
+    emb = torch.randn(100, F, generator=gen, device="cuda")
+    emb[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = kp.ple_fused_infer(emb, did, *args, block_rows=32)
+    want = kp.ple_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
 
 
 def test_new_kernels_reject_what_they_do_not_take(gen):
@@ -522,6 +611,15 @@ def test_new_kernels_reject_what_they_do_not_take(gen):
     levels, ptw, pout = _ple_args(gen, 20, 2, 2, 1, [[8]] * 5, [4])
     with pytest.raises(ValueError, match="levels"):
         kp.ple_fused_infer(emb, did, levels, ptw, pout)
+    levels, ptw, pout = _ple_args(gen, 20, 2, 2, 1, [[8]], [4])
+    for rows in (8, 24, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            kp.ple_fused_infer(emb, did, levels, ptw, pout, block_rows=rows)
+    with pytest.raises(ValueError):
+        kp.ple_fused_infer(emb, did.float(), levels, ptw, pout)
+    with pytest.raises(ValueError, match="products"):  # 2 levels of 100 domains: 307 products
+        kp.ple_fused_infer(emb, did, *_ple_args(gen, 20, 100, 2, 1, [[8]] * 2, [4]))
+    assert kp.ple_fused_infer(emb[:0], did[:0], levels, ptw, pout).shape == (0,)
 
 
 # -- sarnet_fused_infer and the gated kernels ---------------------------------
