@@ -73,13 +73,19 @@ Phases; each asserts, and any failure exits non-zero:
      configuration, (d) domain ids -1, D and D+5, and (e) SharedBottom
      without a head, STAR on a batch padded with weight-0 rows (its norm's
      statistics masked), PLE at 2 levels with the Ali-CCP expert widths;
-     max |error| <= 1e-5, with a ``block_rows`` sweep; PLE also with (f)
-     90 % of the rows in one domain, (g) domain counts astride its tiles,
-     (h) KuaiRand's ladder (F 800, 5 domains, experts [64, 32]) and (i) B =
-     65,536, each output into a block just freed full of NaN, its sweep
-     over the tile rule (16, 32, 48, 64 and the kernel's choice; 64 rows,
-     and 48 at 2 levels, must raise), int64 ids against int32, its 3xTF32
-     bound beside the f32 one and the Step 0 of its 2-level case;
+     max |error| <= 1e-5, with a ``block_rows`` sweep; SharedBottom also
+     with (g) 90 % of the rows in one domain, (h) domain counts astride its
+     tiles, (i) KuaiRand's ladder (F 800, 5 domains, trunk [128], towers
+     [64, 32]), (j) Amazon's (F 48, trunk [128], towers [8]) and (k) B =
+     65,536, PLE with (f) 90 % of the rows in one domain, (g) domain counts
+     astride its tiles, (h) KuaiRand's ladder (F 800, 5 domains, experts
+     [64, 32]) and (i) B = 65,536; for both, each output into a block just
+     freed full of NaN, the sweep over the tile rule (16, 32, 48, 64 and the
+     kernel's choice; 64 rows at SharedBottom's Ali-CCP and KuaiRand widths,
+     and at PLE's, and 48 at 2 levels, must raise), int64 ids against
+     int32, the 3xTF32 bound beside the f32 one and the Step 0 of
+     SharedBottom's KuaiRand, Amazon and B 65,536 cases and of PLE's 2-level
+     case;
    - ``sarnet_fused_infer``, ``epnet_fused_infer``, ``ppnet_fused_infer``
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
@@ -206,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -263,6 +270,12 @@ M3OE_ALI_TOO_WIDE = (48, 64)
 # levels, the D + 1 gates and streams), and must raise
 PLE_BLOCK_ROWS = (16, 32, 48, 64, None)
 PLE_TOO_WIDE, PLE_TWO_LEVELS_TOO_WIDE = (64,), (48, 64)
+# trunk_towers_fused_infer's tile rule: every value, and None (the kernel's
+# choice); 64 rows do not fit at SharedBottom's Ali-CCP widths (the emb tile
+# and the trunk's 512-wide tile take 936 floats a row) nor at KuaiRand's
+# (1000 floats at F 800), and must raise
+TOWER_BLOCK_ROWS = (16, 32, 48, 64, None)
+TOWER_TOO_WIDE = (64,)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
@@ -769,6 +782,17 @@ def nan_filled(wrapper):
     return call
 
 
+def counted(g, *counts):
+    """``counts[d]`` ids of each domain d, shuffled by ``g``."""
+    did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
+    return did[torch.randperm(len(did), generator=g, device="cuda")]
+
+
+def rows_of(g, B, F):
+    """``[B, F]`` normal rows drawn from ``g``."""
+    return torch.randn(B, F, generator=g, device="cuda")
+
+
 def run_cases(label, wrapper, ref, cases, margin_fn=None):
     """Each case's kernel output against the plain version's, and the
     out-of-range ids (the last input) against the same ids clipped; returns
@@ -864,11 +888,74 @@ def phase_new_kernels(gen, peak):
               affines(gen, (2,), [4, 1])[0])
     no_head = (ali[0], affines(gen, (D,), tower_dims + [1]), None)
     cases = shaped(ali, narrow, {"f_no_head_b4096": ((emb4096, ids(4096)), no_head)})
-    err = run_cases("trunk_towers_fused_infer", k.trunk_towers_fused_infer,
-                    k.trunk_towers_fused_infer_ref, cases)
-    entries["sharedbottom"] = time_entry(
-        "trunk_towers_fused_infer", "sharedbottom", k.trunk_towers_fused_infer,
-        k.trunk_towers_fused_infer_ref, *cases["a_alicpp_b4096"], tower_work, peak, err)
+    # the partition by domain at its edges, KuaiRand's and Amazon's ladders and
+    # B 65,536, from a generator of its own: the shared one feeds every later
+    # phase's data
+    tg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 8)
+    t_counted, t_rows = partial(counted, tg), partial(rows_of, tg)
+
+    def ladder(Fi, Dn, trunk, towers):
+        return (affines(tg, (), [Fi] + trunk), affines(tg, (Dn,), trunk[-1:] + towers),
+                affines(tg, (Dn,), [towers[-1], 1])[0])
+
+    cases["g_skewed_b4096"] = ((t_rows(4096, F), t_counted(3700, 300, 96)), ali)  # 90 % in one
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["h_counts_astride_tiles_b66"] = ((t_rows(66, F), t_counted(33, 32, 1)), ali)
+    # KuaiRand's SharedBottom (trunk [128], towers [64, 32], 5 domains) at
+    # MMOE's KuaiRand F 800; Amazon's (trunk [128], towers [8]) at its 3
+    # sparse features of 16
+    cases["i_kuairand_b4096"] = (
+        (t_rows(4096, 800), torch.randint(0, 5, (4096,), generator=tg, device="cuda")),
+        ladder(800, 5, [128], [64, 32]))
+    cases["j_amazon_b4096"] = (
+        (t_rows(4096, 48), torch.randint(0, D, (4096,), generator=tg, device="cuda")),
+        ladder(48, D, [128], [8]))
+    cases["k_b65536"] = (
+        (t_rows(65_536, F), torch.randint(0, D, (65_536,), generator=tg, device="cuda")), ali)
+    unwritten_nan = nan_filled(k.trunk_towers_fused_infer)
+    err = run_cases("trunk_towers_fused_infer", unwritten_nan, k.trunk_towers_fused_infer_ref,
+                    cases)
+    for rows in TOWER_BLOCK_ROWS:  # every tile: at the edges of the partition, the ladders
+        for name in ("g_skewed_b4096", "h_counts_astride_tiles_b66", "f_no_head_b4096",
+                     "i_kuairand_b4096", "j_amazon_b4096"):
+            inputs, args = cases[name]
+            if rows in TOWER_TOO_WIDE and not name.startswith("j_amazon"):
+                try:
+                    k.trunk_towers_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"trunk_towers_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"trunk_towers_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.trunk_towers_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"trunk_towers_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  trunk_towers_fused_infer block_rows {TOWER_TOO_WIDE} at Ali-CCP's and KuaiRand's "
+        f"widths: raise, naming the shared memory")
+    # int64 ids as they are, modulo 2^32 as int32, then clipped
+    (emb, did), args = cases["d_domain_oob_b4096"]
+    check(torch.equal(k.trunk_towers_fused_infer(emb, did, *args),
+                      k.trunk_towers_fused_infer(emb, did.to(torch.int32), *args))
+          and torch.equal(k.trunk_towers_fused_infer(emb, did + 2**32, *args),
+                          k.trunk_towers_fused_infer(emb, did, *args)),
+          "trunk_towers_fused_infer: int64 ids differ from the same ids as int32")
+    fits = tuple(r for r in TOWER_BLOCK_ROWS if r is not None and r not in TOWER_TOO_WIDE)
+    entry = time_entry("trunk_towers_fused_infer", "sharedbottom", k.trunk_towers_fused_infer,
+                       k.trunk_towers_fused_infer_ref, *cases["a_alicpp_b4096"], tower_work,
+                       peak, err, sweep_rows=fits)
+    # the design's own bound: every product (trunk, tower, head) as three TF32
+    # products on the tensor cores
+    inputs, args = cases["a_alicpp_b4096"]
+    flops, moved = tower_work(*inputs, *args)
+    entry.update(design_bound("trunk_towers_fused_infer ", flops, moved, flops, peak,
+                              entry["ms"]))
+    for name in ("i_kuairand_b4096", "j_amazon_b4096", "k_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"trunk_towers_fused_infer {name}, step 0",
+                            lambda: k.trunk_towers_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["sharedbottom"] = entry
 
     # STAR: FCN [256,...,8,1] per domain, aux [16]; mean/rstd of each batch
     def star_args(emb, Dn, fcn, aux, w=None):
@@ -924,17 +1011,10 @@ def phase_new_kernels(gen, peak):
     # the partition by domain at its edges, KuaiRand's ladder and B 65,536,
     # from a generator of its own: the shared one feeds every later phase's data
     pg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 7)
-
-    def counted(*counts):
-        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
-        return did[torch.randperm(len(did), generator=pg, device="cuda")]
-
-    def p_rows(B, Fi):
-        return torch.randn(B, Fi, generator=pg, device="cuda")
-
-    cases["f_skewed_b4096"] = ((p_rows(4096, F), counted(3700, 300, 96)), ali)  # 90 % in one
+    p_counted, p_rows = partial(counted, pg), partial(rows_of, pg)
+    cases["f_skewed_b4096"] = ((p_rows(4096, F), p_counted(3700, 300, 96)), ali)  # 90 % in one
     # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
-    cases["g_counts_astride_tiles_b66"] = ((p_rows(66, F), counted(33, 32, 1)), ali)
+    cases["g_counts_astride_tiles_b66"] = ((p_rows(66, F), p_counted(33, 32, 1)), ali)
     # KuaiRand's PLE ladder (1 level, experts [64, 32], tower [16], 5 domains)
     # at MMOE's KuaiRand F 800
     cases["h_kuairand_b4096"] = (
@@ -1121,16 +1201,10 @@ def phase_gated_kernels(gen, peak):
     # shared one feeds every later phase's data
     pg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 4)
 
-    def counted(*counts):
-        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
-        return did[torch.randperm(len(did), generator=pg, device="cuda")]
-
-    def g_rows(B, Gi):
-        return torch.randn(B, Gi, generator=pg, device="cuda")
-
-    cases["f_one_domain_b4096"] = ((g_rows(4096, G), counted(0, 4096, 0)), ali)
+    p_counted, g_rows = partial(counted, pg), partial(rows_of, pg)
+    cases["f_one_domain_b4096"] = ((g_rows(4096, G), p_counted(0, 4096, 0)), ali)
     # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
-    cases["g_counts_astride_tiles_b66"] = ((g_rows(66, G), counted(33, 32, 1)), ali)
+    cases["g_counts_astride_tiles_b66"] = ((g_rows(66, G), p_counted(33, 32, 1)), ali)
     # KuaiRand's PPNet ladder ([128, 64, 32], 5 domains): G = 832, MMOE's F 800
     # less user_id and video_id moved to the ids (2 x 16), plus the scenario
     # feature as a sparse feature and as itself (2 x 16)
@@ -1567,16 +1641,10 @@ def phase_meta_kernels(gen, peak):
     # from a generator of its own: the shared one feeds every later phase's data
     mg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 5)
 
-    def counted(*counts):
-        did = torch.cat([torch.full((c,), d, device="cuda") for d, c in enumerate(counts)])
-        return did[torch.randperm(len(did), generator=mg, device="cuda")]
-
-    def e_rows(B, Fi):
-        return torch.randn(B, Fi, generator=mg, device="cuda")
-
-    cases["f_skewed_b4096"] = ((e_rows(4096, F), counted(3700, 300, 96)), ali)  # 90 % in one
+    m_counted, e_rows = partial(counted, mg), partial(rows_of, mg)
+    cases["f_skewed_b4096"] = ((e_rows(4096, F), m_counted(3700, 300, 96)), ali)  # 90 % in one
     # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
-    cases["g_counts_astride_tiles_b66"] = ((e_rows(66, F), counted(33, 32, 1)), ali)
+    cases["g_counts_astride_tiles_b66"] = ((e_rows(66, F), m_counted(33, 32, 1)), ali)
     # KuaiRand's M3oE ladder (fcn_dims [128, 64, 64, 32], 5 domains) at MMOE's
     # KuaiRand F 800
     cases["h_kuairand_b4096"] = (

@@ -1,112 +1,339 @@
 // Fused "shared trunk -> per-domain towers -> select" eval forward for NVIDIA
-// Hopper (sm_90a), f32.
+// Hopper (sm_90a), f32 in and out.
 //
 // Replaces the TPU kernel scenario_wise_rec_tpu/ops/pallas/tower_infer.py:
 // trunk_towers_fused_infer. For each row b of emb[B, F]: a relu trunk of
 // shared affine stages, then the relu tower of the row's own domain
-// d = clip(domain_id[b], 0, D-1), then domain d's 1-unit head if there is
-// one (else the last tower stage has width 1), then the sigmoid. The TPU
-// kernel computes all D towers for every row and selects with jnp.where;
-// the value per row is the same.
+// d = clip(int32(domain_id[b]), 0, D-1), then domain d's 1-unit head if there
+// is one (else the last tower stage has width 1 and its relu comes before the
+// sigmoid), then the sigmoid. The TPU kernel computes all D towers for every
+// row and selects with jnp.where; the value per row is the same.
 //
 // What bounds it on this card: arithmetic. At SharedBottom's Ali-CCP shape
-// (F = 376, trunk [512], towers [256,128,64,32,16,8], 3 domains) a row
-// costs 192,512 multiply-adds in the trunk and 174,728 in its own tower and
-// moves ~1.5 KB, so a 4096-row batch is ~3.0 GFLOP against ~6 MB: f32
-// without tensor cores, the FP32 SIMT peak bounds it, not HBM.
+// (F = 376, trunk [512], towers [256,128,64,32,16,8], head 8 -> 1, 3
+// domains) a row costs 192,512 multiply-adds in the trunk and 174,728 in its
+// own tower and head against ~1.5 KB of its own data: 3.008 GFLOP for B =
+// 4096. As three TF32 products each on the tensor cores that is 3 x 3.008
+// GFLOP / 495 TFLOP/s = 0.0182 ms; in f32 without tensor cores 0.0449 ms at
+// 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less.
 //
-// What the design does about it (fused_mlp.cuh): everything after the
-// embedding stays on chip. One block of 256 threads owns tb rows (default
-// 16); the tile lives in two ping-pong activation buffers in dynamic shared
-// memory, [tb, max width]. The trunk runs on the tile's rows 8 at a time;
-// the towers on rows grouped by domain, 4 at a time, so a row pays for its
-// own tower only. Weights (~1.8 MB) stream from L2. Blocks are independent;
-// the ragged last tile is masked here (no pad copy).
+// What the design does about it (the split, the mma products, the ring and
+// its bulk copies are mma_ring.cuh's; the partition by domain, the slab
+// copies, the rotating accumulators, the tiles' placement and the ring's size
+// are domain_tiles.cuh's, shared with ppnet_infer.cu, m3oe_infer.cu,
+// adasparse_infer.cu and ple_infer.cu):
+// - One domain a block: a block of 8 compute warps and a producer warp takes
+//   a tile of up to tb rows of one domain, partitioned inside the one launch
+//   from int32 or int64 ids, so it streams the trunk and its own domain's
+//   tower once (1.5 MB at Ali-CCP), not one tower for each domain its rows
+//   hold. The trunk is the same in every block: the partition costs at most
+//   D - 1 partial tiles more than tiles of consecutive rows.
+// - Every product in 3xTF32 mma.sync (f32's accuracy) through the ring: the
+//   host lays out the chain of products (the trunk's stages, the own tower's,
+//   the head), each from the tile the one before wrote. The producer warp
+//   streams each product's W slab by slab (the 512-wide trunk stage one
+//   tensor copy of a [rows, 256] box a slab, a slab of whole rows one bulk
+//   copy); the compute warps run the same chain and meet at each chunk's
+//   end. A warp with one or two n-tiles of a product (N <= 128) takes the
+//   k-steps in turn into 4 or 2 sets of accumulators.
+// - The epilogue adds the bias and applies relu (not after the head) into the
+//   next tile; columns from N to N rounded to 8 come out zero, which the next
+//   product reads. A last pass writes the sigmoid of each row's column 0.
+// - Shared memory: the host places each product's tiles by their lifetimes
+//   (Tiles), and the ring takes what the peak leaves (size_ring): at 32
+//   Ali-CCP rows the emb tile and the trunk's 512-wide tile take 120 KB; 48
+//   rows fit, 64 do not.
+// Rows never mix: a NaN stays in its row. The last tile of a domain is
+// partial; its missing rows are zero and never written out.
 //
 // Bound through ctypes: a plain C interface, every pointer and the stream as
 // void*, the cudaError_t of the launch returned.
 
-#include "fused_mlp.cuh"
+#include <vector>
+
+#include "domain_tiles.cuh"
 
 namespace {
 
-using fused::Act;
-using fused::Groups;
-using fused::Stage;
+using namespace ring;
 
-struct Args {
-  const float* emb;  // [B, F]
-  const int* did;    // [B]
-  float* out;        // [B]
-  int B, F, D, tb, ld;
-  int n_trunk, n_tow, has_head;
-  Stage st[fused::kMaxStages];  // trunk stages, tower stages, head
+// Products a launch takes (trunk, tower and head stages): the chain is a
+// kernel parameter, past the 4 KB of old (CUDA 12.1 and later take 32,764
+// bytes).
+constexpr int kMaxSteps = 96;
+
+// A step: one product, v = x W + b, then relu (not after the head).
+struct Step {
+  const float* w;  // W [members, K, N] from member 0
+  const float* b;  // b [members, N]
+  int K, N;
+  int in, out;        // tiles: float offsets in the arena
+  int ld_in, ld_out;  // their row strides
+  short srows, sld;   // weight rows a slab (a multiple of 8) and their stride in a slot
+  unsigned char dmul;   // the member: the block's domain (1) or member 0 (0, the trunk)
+  unsigned char relu;
+  unsigned char whole;  // a slab is one bulk copy of whole rows (copy_whole)
+  signed char map;  // a slab is one tensor copy of Args::map[map] (-1: whole or row copies)
 };
 
-__global__ void __launch_bounds__(fused::kThreads)
+struct Args {
+  CUtensorMap map[kMaxMaps];  // W [members, K, N] of a product wider than a chunk
+  const float* emb;  // [B, F]
+  const void* did;   // [B], int64 when id64, else int32
+  float* out;        // [B]
+  int id64, B, F, D, n_steps;
+  int emb_at, ld_emb;  // the emb tile
+  int t, ld_t;         // the last tile: the logit in column 0
+  int arena, slot;     // floats of the tiles and of a ring slot
+  Step step[kMaxSteps];
+};
+static_assert(sizeof(Args) <= 32764, "the kernel parameters' limit");
+
+// A finished chunk of step st's product: bias, then relu where the step has
+// it, into the step's tile (rows of the tile, columns c0 + the warp's
+// n-tiles; the columns past N come out zero). Resets the accumulators.
+template <int MT>
+__device__ __forceinline__ void epilogue(const Step& st, float (&acc)[MT][kNTW][4],
+                                         const float (&bias)[kNTW][2], int nt, int c0,
+                                         float* arena, int warp, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < kNTW; ++i) {
+    const int j = warp + kWarps * i;
+    if (j < nt) {
+      const int col = c0 + j * 8 + 2 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m-tile
+          const int r = m * 16 + g + 8 * h;
+          float v0 = acc[m][i][2 * h] + bias[i][0], v1 = acc[m][i][2 * h + 1] + bias[i][1];
+          acc[m][i][2 * h] = acc[m][i][2 * h + 1] = 0.f;
+          if (st.relu) {
+            v0 = relu(v0);
+            v1 = relu(v1);
+          }
+          *reinterpret_cast<float2*>(arena + st.out + r * st.ld_out + col) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
 tower_fused_infer_kernel(const __grid_constant__ Args p) {
-  extern __shared__ __align__(16) float smem[];
-  const int tb = p.tb;
-  float* buf0 = smem;                       // [tb, ld]
-  float* buf1 = buf0 + tb * p.ld;           // [tb, ld]
-  float* logit = buf1 + tb * p.ld;          // [tb]
-  int* did_s = reinterpret_cast<int*>(logit + fused::round4(tb));
+  constexpr int M = MT * 16;
+  extern __shared__ __align__(128) float smem[];
+  const uint32_t full = smem_addr(smem);     // [kRing] barriers: the slot has landed
+  const uint32_t empty = full + 8 * kRing;   // [kRing] barriers: the slot has been read
+  float* ring = smem + kHeadBytes / 4;       // [kRing, slot], each slot 128-byte aligned
+  float* arena = ring + kRing * p.slot;      // the tiles, each [M, its ld]
+  int* rows_s = reinterpret_cast<int*>(arena + p.arena);  // [M] the block's rows
+  int* cnt_s = rows_s + M;                   // [kAllWarps, D] rows of each domain a segment
+  int* blk_s = cnt_s + kAllWarps * p.D;      // [2] the block's domain (-1: none) and tile
 
-  const int row0 = blockIdx.x * tb;
-  const int rows = min(tb, p.B - row0);
-  fused::stage_tile(p.emb, p.did, row0, rows, p.F, p.D, buf0, p.ld, tb, did_s);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // 1. this block's domain and its tile of rows (domain_tiles.cuh)
+  int n_rows = 0;
+  const int dom = partition<M>(p.did, p.id64, p.B, p.D, rows_s, cnt_s, blk_s, &n_rows);
+  if (dom < 0) return;  // past the last tile: the whole block leaves
+
+  // 2. the ring's barriers
+  if (threadIdx.x < kRing) {
+    bar_init(full + 8 * threadIdx.x, 32);       // the producer warp's lanes
+    bar_init(empty + 8 * threadIdx.x, kWarps);  // a lane of each compute warp
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();  // rows_s
+
+  // 3. the emb tile (rows past n_rows and pad columns zero)
+  gather_rows<M>(p.emb, p.F, p.ld_emb, rows_s, n_rows, arena + p.emb_at);
   __syncthreads();
-  Groups all, own;
-  fused::build_groups(did_s, rows, tb, did_s + tb, &all, &own);
 
-  Act h{buf0, 0, p.ld};
-  h = fused::chain<fused::kSharedRows, 1>(all, h, p.st, p.n_trunk, 0, 0, buf0, buf1,
-                                          p.ld, rows);
-  h = fused::chain<fused::kDomainRows, 1>(own, h, p.st + p.n_trunk, p.n_tow, 0, 1,
-                                          buf0, buf1, p.ld, rows);
-  if (p.has_head)
-    h = fused::chain<fused::kDomainRows, 0>(own, h, p.st + p.n_trunk + p.n_tow, 1, 0,
-                                            1, buf0, buf1, p.ld, rows, logit, 1);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x)
-    p.out[row0 + r] = fused::sigmoid(h.p[(size_t)r * h.ld]);
+  if (warp == kWarps) {
+    // 4p. the producer warp: each step's W of its member, slab by slab,
+    //     through the ring, as far ahead as the compute warps free slots
+    int s = 0;
+    for (int q = 0; q < p.n_steps; ++q) {
+      const Step& st = p.step[q];
+      const int member = st.dmul * dom;
+      for (int c = 0; c * kChunk < st.N; ++c) {
+        for (int k0 = 0; k0 < st.K; k0 += st.srows, ++s) {
+          const int slot = s % kRing;
+          bar_wait(empty + 8 * slot, ((s / kRing) & 1) ^ 1);  // the first pass finds it free
+          if (st.map >= 0)
+            tensor_slab(&p.map[st.map], member, st.srows, c, k0, ring + slot * p.slot,
+                        full + 8 * slot, lane);
+          else
+            issue_product_slab(st.w, member, st.K, st.N, st.srows, st.sld, st.whole, c, k0,
+                               ring + slot * p.slot, full + 8 * slot, lane);
+        }
+      }
+    }
+  } else {
+    // 4. the steps in order: each product from the ring, then its epilogue
+    float acc[MT][kNTW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < kNTW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+    float bias[kNTW][2];
+    int s = 0;
+    for (int q = 0; q < p.n_steps; ++q) {
+      const Step& st = p.step[q];
+      const float* A = arena + st.in;
+      const float* b = st.b + static_cast<size_t>(st.dmul * dom) * st.N;
+      for (int c = 0; c * kChunk < st.N; ++c) {
+        const int c0 = c * kChunk;
+        const int nt = (min(kChunk, st.N - c0) + 7) / 8;
+        const int tiles = (nt + kWarps - 1) / kWarps;  // n-tiles a warp
+        load_bias(bias, b, nt, c0, st.N, warp, t);
+        for (int k0 = 0; k0 < st.K; k0 += st.srows, ++s) {
+          const int slot = s % kRing;
+          bar_wait(full + 8 * slot, (s / kRing) & 1);  // slab s has landed
+          mma_any<MT>(tiles, A, st.ld_in, k0, st.K, st.srows, ring + slot * p.slot, st.sld, nt,
+                      acc, warp, g, t);
+          __syncwarp();
+          if (lane == 0) bar_arrive(empty + 8 * slot);  // this warp is done with the slot
+        }
+        fold_any<MT>(tiles, acc);
+        epilogue<MT>(st, acc, bias, nt, c0, arena, warp, g, t);
+        compute_sync();  // the chunk, before the next product reads it
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. the sigmoid of each row's logit
+  for (int r = threadIdx.x; r < n_rows; r += kThreads)
+    p.out[rows_s[r]] = sigmoid(arena[p.t + r * p.ld_t]);
+}
+
+size_t smem_bytes(int tb, int D, int arena_row, int slot) {
+  const size_t floats = static_cast<size_t>(tb) * arena_row + static_cast<size_t>(kRing) * slot;
+  return kHeadBytes + floats * sizeof(float) +
+         (static_cast<size_t>(tb) + static_cast<size_t>(kAllWarps) * D + 2) * sizeof(int);
+}
+
+template <int MT>
+cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tower_fused_infer_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.B + MT * 16 - 1) / (MT * 16) + p.D - 1;
+  tower_fused_infer_kernel<MT><<<tiles, kThreads, smem, stream>>>(p);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
+// emb [B, F] f32; did [B] domain ids, int64 when id64, else int32.
 // w_ptrs/b_ptrs: host arrays of device pointers, one per stage, in the order
-// trunk stages, tower stages, head (when has_head); dims: (K, N) per stage.
-// Writes the dynamic shared memory a block needs to *smem_bytes. Returns a
-// cudaError_t.
-int tower_fused_infer_f32(const void* emb, const void* did, void* out, int B, int F,
-                          int D, int n_trunk, int n_tow, int has_head,
-                          const void* w_ptrs, const void* b_ptrs, const void* dims,
-                          int block_rows, void* stream, size_t* smem_bytes) {
-  Args p = {};
+// trunk stages (W [K, N]), tower stages (W [D, K, N]), head (W [D, K, 1],
+// when has_head); dims: (K, N) per stage. block_rows: rows of one block, a
+// multiple of 16 up to 64, or 0: 32 where a 32-row tile fits in shared
+// memory, else 16. Writes the dynamic shared memory a block of the tile it
+// tried takes to *smem and returns a cudaError_t (cudaErrorInvalidValue when
+// that tile does not fit, or the chain takes more than kMaxSteps products).
+int tower_fused_infer_f32(const void* emb, const void* did, int id64, void* out, int B, int F,
+                          int D, int n_trunk, int n_tow, int has_head, const void* w_ptrs,
+                          const void* b_ptrs, const void* dims, int block_rows, void* stream,
+                          size_t* smem) {
+  *smem = 0;
   const int n = n_trunk + n_tow + (has_head ? 1 : 0);
-  if (B < 0 || F < 1 || D < 1 || n_trunk < 0 || n_tow < 0 ||
-      block_rows < fused::kSharedRows || block_rows > fused::kMaxBlockRows ||
-      block_rows % fused::kSharedRows != 0 ||
-      !fused::fill_stages(p.st, n, w_ptrs, b_ptrs, dims))
-    return (int)cudaErrorInvalidValue;
-  int width = F, max_w = F;
-  for (int s = 0; s < n; ++s) {
-    if (p.st[s].K != width) return (int)cudaErrorInvalidValue;
-    width = p.st[s].N;
-    max_w = width > max_w ? width : max_w;
+  if (B < 0 || F < 1 || D < 1 || D > kMaxDomains || n_trunk < 0 || n_tow < 0 || n < 1 ||
+      n > kMaxSteps || block_rows < 0 || block_rows % 16 != 0 || block_rows > 16 * kMaxMT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* const* w = static_cast<const float* const*>(w_ptrs);
+  const float* const* b = static_cast<const float* const*>(b_ptrs);
+  const int* kn = static_cast<const int*>(dims);
+
+  // the chain: each stage from the tile the one before wrote, the emb tile
+  // loaded before the first step
+  Tiles tiles;
+  std::vector<Step> steps(n);
+  std::vector<int> in(n), outs(n), members(n);
+  const int emb_tile = tiles.add(F, -1);
+  int x = emb_tile, width = F;
+  for (int q = 0; q < n; ++q) {
+    Step& s = steps[q];
+    s = Step{};
+    s.w = w[q];
+    s.b = b[q];
+    s.K = kn[2 * q];
+    s.N = kn[2 * q + 1];
+    if (s.K != width || s.N < 1 || s.w == nullptr || s.b == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    s.dmul = q >= n_trunk;
+    s.relu = !(has_head && q == n - 1);
+    members[q] = s.dmul ? D : 1;
+    tiles.use(x, q);
+    in[q] = x;
+    x = outs[q] = tiles.add(s.N, q);
+    width = s.N;
   }
-  if (width != 1) return (int)cudaErrorInvalidValue;
+  if (width != 1) return static_cast<int>(cudaErrorInvalidValue);
+  tiles.use(x, n);  // the sigmoid pass, after the last step
+  const int arena_row = tiles.place();
+
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t budget = static_cast<size_t>(optin);
+  auto ring_slot = [&](int tb) {
+    return size_ring(steps.data(), n, smem_bytes(tb, D, arena_row, 0), budget);
+  };
+  if (block_rows == 0)
+    block_rows = smem_bytes(32, D, arena_row, ring_slot(32)) <= budget ? 32 : 16;
+  const int slot = ring_slot(block_rows);
+  *smem = smem_bytes(block_rows, D, arena_row, slot);
+  if (*smem > budget) return static_cast<int>(cudaErrorInvalidValue);
+
+  Args p = {};
+  const int M = block_rows;
+  auto at = [&](int tile) { return M * tiles.t[tile].at; };
+  for (int q = 0; q < n; ++q) {
+    Step& s = steps[q];
+    s.in = at(in[q]);
+    s.ld_in = ld_act(tiles.t[in[q]].width);
+    s.out = at(outs[q]);
+    s.ld_out = ld_act(s.N);
+    if (s.map >= 0 && !encode_map(s.w, s.K, s.N, members[q], s.srows, &p.map[s.map]))
+      return static_cast<int>(cudaErrorNotSupported);
+    p.step[q] = s;
+  }
   p.emb = static_cast<const float*>(emb);
-  p.did = static_cast<const int*>(did);
+  p.did = did;
   p.out = static_cast<float*>(out);
-  p.B = B; p.F = F; p.D = D; p.tb = block_rows;
-  p.ld = fused::round4(max_w);
-  p.n_trunk = n_trunk; p.n_tow = n_tow; p.has_head = has_head ? 1 : 0;
-  const size_t smem = (2 * (size_t)block_rows * p.ld + fused::round4(block_rows)) * sizeof(float)
-                      + (size_t)fused::group_ints(block_rows) * sizeof(int);
-  *smem_bytes = smem;
-  return fused::launch(tower_fused_infer_kernel, p, B, block_rows, smem, stream);
+  p.id64 = id64;
+  p.B = B; p.F = F; p.D = D; p.n_steps = n;
+  p.emb_at = at(emb_tile); p.ld_emb = ld_act(F);
+  p.t = at(x); p.ld_t = ld_act(1);
+  p.arena = M * arena_row;
+  p.slot = slot;
+
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  switch (block_rows / 16) {
+    case 1: err = launch<1>(p, *smem, strm); break;
+    case 2: err = launch<2>(p, *smem, strm); break;
+    case 3: err = launch<3>(p, *smem, strm); break;
+    default: err = launch<4>(p, *smem, strm); break;
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -25,10 +25,11 @@
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's and PLE's
-  (``csrc/mma_ring.cuh``; PPNet's, M3oE's and PLE's, one domain a block,
-  and AdaSparse's also ``csrc/domain_tiles.cuh``) is built over the shared
-  ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python side.
+  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's, PLE's and SharedBottom's
+  (``csrc/mma_ring.cuh``; PPNet's, M3oE's, PLE's and SharedBottom's, one
+  domain a block, and AdaSparse's also ``csrc/domain_tiles.cuh``) is built
+  over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python
+  side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

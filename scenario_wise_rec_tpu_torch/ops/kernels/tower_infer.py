@@ -3,9 +3,11 @@ kernel ``csrc/tower_infer.cu`` and its plain PyTorch version.
 
 SharedBottom's eval forward after the embedding: a relu trunk of shared
 affine stages, D relu towers, an optional 1-unit head per domain, sigmoid,
-and each row's own domain selected. The kernel runs it for a tile of rows
-on chip and computes only the row's own tower (the design note is at the
-top of the source). It replaces the TPU kernel
+and each row's own domain selected. The kernel gives each block rows of one
+domain, computes only that domain's tower, and runs every product on the
+tensor cores in 3xTF32 (about f32's accuracy), the weights streamed through
+shared memory (the design note is at the top of the source). It replaces the
+TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/tower_infer.py:trunk_towers_fused_infer``.
 
 Preconditions: eval mode (BatchNorm folded to affine, see ``folding.py``),
@@ -27,6 +29,10 @@ import torch
 
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import ROW_TILE, check_block_rows
+
+MAX_STAGES = 96    # csrc kMaxSteps: trunk, tower and head stages a launch
+MAX_DOMAINS = 256  # csrc kMaxDomains: the partition's counts in shared memory
 
 
 def _check_shapes(emb, domain_id, trunk_stages, tower_stages, tower_out):
@@ -45,6 +51,17 @@ def _check_shapes(emb, domain_id, trunk_stages, tower_stages, tower_out):
         raise ValueError(f"the towers end at width {width}: without a head "
                          "the last tower stage must have width 1")
     return B, F, D
+
+
+def check_card_limits(n_stages: int, D: int) -> None:
+    """What the card takes beyond the tile rule: at most ``MAX_STAGES``
+    stages (trunk, towers and head together) and ``MAX_DOMAINS`` domains."""
+    if n_stages > MAX_STAGES:
+        raise ValueError(f"trunk_towers_fused_infer takes at most {MAX_STAGES} stages, "
+                         f"got {n_stages}")
+    if D > MAX_DOMAINS:
+        raise ValueError(f"trunk_towers_fused_infer takes at most {MAX_DOMAINS} domains, "
+                         f"got {D}")
 
 
 def trunk_towers_fused_infer_ref(
@@ -78,31 +95,50 @@ def trunk_towers_fused_infer(
     trunk_stages: Sequence[Affine],
     tower_stages: Sequence[Affine],
     tower_out: Optional[Affine],
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused trunk → towers → select on the embedded batch.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at SharedBottom's Ali-CCP widths 16, 32 and 48 fit; 64
+    does not). A shape whose tile does not fit raises a RuntimeError; it
+    never falls back. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    for its ``block_rows`` raises there too. The card takes at most
+    ``MAX_STAGES`` stages (trunk, towers and head together) and
+    ``MAX_DOMAINS`` domains. int32 and int64 domain ids are read as they
+    are.
     """
+    check_block_rows(block_rows)
     if emb.device.type == "cpu":
         return trunk_towers_fused_infer_ref(emb, domain_id, trunk_stages,
                                             tower_stages, tower_out)
     B, F, D = _check_shapes(emb, domain_id, trunk_stages, tower_stages, tower_out)
     stages = list(trunk_stages) + list(tower_stages) + (
         [tower_out] if tower_out is not None else [])
-    _fused.check_launch("trunk_towers_fused_infer", emb, domain_id,
-                        [t for s in stages for t in s], len(stages), block_rows)
+    check_card_limits(len(stages), D)
+    _fused.check_tensors("trunk_towers_fused_infer", emb, domain_id,
+                         [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
-    did = domain_id.to(torch.int32).contiguous()
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch(
-        "tower_infer", "tower_fused_infer_f32", (p, p, p, i, i, i, i, i, i, p, p, p),
-        (emb.data_ptr(), did.data_ptr(), out.data_ptr(), B, F, D, len(trunk_stages),
-         len(tower_stages), int(tower_out is not None), *_fused.stage_args(stages)),
-        emb, block_rows)
+    fn = _fused.function("tower_infer", "tower_fused_infer_f32",
+                         (p, p, i, p, i, i, i, i, i, i, p, p, p))
+    smem = ctypes.c_size_t(0)
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(emb.device):
+        err = fn(emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B,
+                 F, D, len(trunk_stages), len(tower_stages), int(tower_out is not None),
+                 *_fused.stage_args(stages), block_rows or 0, stream, ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"trunk_towers_fused_infer launch failed with cudaError {err} ({smem.value} "
+            f"bytes of shared memory per block, block_rows={block_rows or ROW_TILE})")
     trunk_towers_fused_infer.launches += 1
     return out
 

@@ -428,24 +428,117 @@ def _launch_and_compare(gen, wrapper, ref, emb, did, *args, rows=16):
     assert (got - want).abs().max().item() <= TOL
 
 
-@pytest.mark.parametrize("cfg", [
-    # (B, F, D, trunk dims, tower dims, head, block_rows)
-    (4096, 376, 3, [512], [256, 128, 64, 32, 16, 8], True, 16),  # Ali-CCP
-    (333, 41, 2, [7], [3], True, 8),           # widths not multiples of 4
-    (130, 50, 5, [33, 20], [40, 70, 1], False, 24),  # no head: width-1 last stage
-    (64, 12, 1, [], [5] * 8, True, 64),        # no trunk; deep towers; widest tile
-    (17, 9, 3, [6], [], True, 16),             # head on the trunk
-])
-def test_tower_kernel_matches_plain(gen, cfg):
-    B, F, D, trunk, towers, head, rows = cfg
+ALI_TOWER = (376, 3, [512], [256, 128, 64, 32, 16, 8], True)
+# KuaiRand's SharedBottom (trunk [128], towers [64, 32], 5 domains) at
+# MMOE's KuaiRand F 800; Amazon's (trunk [128], towers [8], 3 domains) at
+# its 3 sparse features of 16
+KUAIRAND_TOWER = (800, 5, [128], [64, 32], True)
+AMAZON_TOWER = (48, 3, [128], [8], True)
+
+
+def _tower_args(gen, F, D, trunk, towers, head):
     tr = _affines(gen, (), [F] + trunk)
     w_in = trunk[-1] if trunk else F
     tw = _affines(gen, (D,), [w_in] + towers)
     out = _affines(gen, (D,), [towers[-1] if towers else w_in, 1])[0] if head else None
+    return tr, tw, out
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, (F, D, trunk dims, tower dims, head), ids: drawn from (lo, hi) or
+    #  counts of each domain, block_rows)
+    (4096, ALI_TOWER, (-2, 6), 16),                          # Ali-CCP
+    (4096, ALI_TOWER, (-2, 6), None),
+    (333, (41, 2, [7], [3], True), (-2, 5), 16),            # widths not multiples of 4
+    (130, (50, 5, [33, 20], [40, 70, 1], False), (-2, 8), 48),  # no head: width-1 last stage
+    (64, (12, 1, [], [5] * 8, True), (-2, 4), 64),          # no trunk; deep towers; widest tile
+    (17, (9, 3, [6], [], True), (-2, 6), 16),               # head on the trunk
+    (41, (18, 5, [], [], True), (-2, 8), 32),               # the head alone, on the embedding
+    (4096, ALI_TOWER, [3700, 300, 96], None),               # skewed: 90 % in domain 0
+    (4096, ALI_TOWER, [96, 300, 3700], 48),
+    (4096, ALI_TOWER, [0, 4096, 0], 32),                    # every row in one domain
+    (66, ALI_TOWER, [33, 32, 1], 32),                       # counts astride 32-row tiles
+    (100, ALI_TOWER, [33, 1, 66], 16),                      # and 16-row tiles
+    (1, ALI_TOWER, (0, 3), None),
+    (4095, ALI_TOWER, (0, 3), 32),
+    (4096, KUAIRAND_TOWER, (0, 5), None),                   # KuaiRand's ladder
+    (4096, KUAIRAND_TOWER, (0, 5), 48),
+    (4096, AMAZON_TOWER, (0, 3), None),                     # Amazon's and Douban's
+    (4096, AMAZON_TOWER, (0, 3), 64),
+    (65_536, ALI_TOWER, (0, 3), None),                # the largest B the partition is held to
+    (300, (70, 256, [33], [7], True), (-2, 260), 16),       # the most domains
+    (200, (100, 3, [600, 300], [257, 8], False), (0, 3), 16),  # no head at width 8: its last stage 8 -> 1
+])
+def test_tower_kernel_matches_plain(gen, cfg):
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call."""
+    B, (F, D, trunk, towers, head), ids, rows = cfg
+    if not head and towers[-1] != 1:
+        towers = towers + [1]
+    tr, tw, out = _tower_args(gen, F, D, trunk, towers, head)
     emb = torch.randn(B, F, generator=gen, device="cuda")
-    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
-    _launch_and_compare(gen, kt.trunk_towers_fused_infer, kt.trunk_towers_fused_infer_ref,
-                        emb, did, tr, tw, out, rows=rows)
+    did = _m3oe_ids(gen, B, D, ids)
+    before = kt.trunk_towers_fused_infer.launches
+    got = _unwritten_nan(kt.trunk_towers_fused_infer, emb, did, tr, tw, out, block_rows=rows)
+    torch.cuda.synchronize()
+    assert kt.trunk_towers_fused_infer.launches == before + 1
+    want = kt.trunk_towers_fused_infer_ref(emb, did, tr, tw, out)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_tower_kernel_every_tile_at_ali_ccp(gen, rows):
+    """At Ali-CCP's widths the tiles of 16, 32 or 48 rows fit beside the
+    ring and match the plain version; 64 rows do not fit and raise, naming
+    the shared memory."""
+    tr, tw, out = _tower_args(gen, *ALI_TOWER)
+    emb = torch.randn(4096, 376, generator=gen, device="cuda")
+    did = torch.randint(0, 3, (4096,), generator=gen, device="cuda")
+    if rows == 64:
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            kt.trunk_towers_fused_infer(emb, did, tr, tw, out, block_rows=rows)
+        return
+    got = _unwritten_nan(kt.trunk_towers_fused_infer, emb, did, tr, tw, out, block_rows=rows)
+    want = kt.trunk_towers_fused_infer_ref(emb, did, tr, tw, out)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_tower_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch: one launch a call),
+    taken modulo 2^32 as int32 and clipped: the same outputs as the int32
+    ids, bit for bit."""
+    tr, tw, out = _tower_args(gen, *ALI_TOWER)
+    emb = torch.randn(4096, 376, generator=gen, device="cuda")
+    did = torch.randint(-2, 6, (4096,), generator=gen, device="cuda")
+    got = kt.trunk_towers_fused_infer(emb, did.to(torch.int32), tr, tw, out)
+    before = kt.trunk_towers_fused_infer.launches
+    assert torch.equal(got, kt.trunk_towers_fused_infer(emb, did.to(torch.int64), tr, tw, out))
+    assert torch.equal(got, kt.trunk_towers_fused_infer(emb, did + 2**32, tr, tw, out))
+    assert kt.trunk_towers_fused_infer.launches == before + 2
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(kt.trunk_towers_fused_infer(e8, wrap, tr, tw, out),
+                       kt.trunk_towers_fused_infer(
+                           e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), tr, tw, out))
+    assert (kt.trunk_towers_fused_infer(e8, wrap, tr, tw, out)
+            - kt.trunk_towers_fused_infer_ref(e8, wrap, tr, tw, out)).abs().max().item() <= TOL
+
+
+def test_tower_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb leaves every other row of its
+    domain's tile as the plain version computes it."""
+    tr, tw, out = _tower_args(gen, *ALI_TOWER)
+    emb = torch.randn(100, 376, generator=gen, device="cuda")
+    emb[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = kt.trunk_towers_fused_infer(emb, did, tr, tw, out, block_rows=32)
+    want = kt.trunk_towers_fused_infer_ref(emb, did, tr, tw, out)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
 
 
 def _star_args(gen, B, F, D, fcn, aux):
@@ -596,9 +689,17 @@ def test_new_kernels_reject_what_they_do_not_take(gen):
     out = _affines(gen, (2,), [4, 1])[0]
     emb = torch.randn(10, 20, generator=gen, device="cuda")
     did = torch.zeros(10, dtype=torch.long, device="cuda")
-    for rows in (12, 0, 72):
-        with pytest.raises(ValueError):
+    for rows in (8, 12, 24, 0, 72, 80):
+        with pytest.raises(ValueError, match="block_rows"):
             kt.trunk_towers_fused_infer(emb, did, tr, tw, out, block_rows=rows)
+    with pytest.raises(ValueError):
+        kt.trunk_towers_fused_infer(emb, did.float(), tr, tw, out)
+    with pytest.raises(ValueError, match="stages"):  # 97 stages: 96 trunk stages and the head
+        kt.trunk_towers_fused_infer(emb, did, _affines(gen, (), [20] + [8] * 96), [],
+                                    _affines(gen, (2,), [8, 1])[0])
+    with pytest.raises(ValueError, match="domains"):
+        kt.trunk_towers_fused_infer(emb, did, tr, _affines(gen, (257,), [8, 4]),
+                                    _affines(gen, (257,), [4, 1])[0])
     with pytest.raises(ValueError):
         kt.trunk_towers_fused_infer(emb.double(), did, tr, tw, out)
     with pytest.raises(ValueError):
