@@ -122,9 +122,18 @@ Phases; each asserts, and any failure exits non-zero:
      probabilities within 1e-5; HamurLarge's three launches timed at every
      ``block_rows`` of the tile rule (16, 32, 48, 64 and the kernel's
      choice), each segment's Step 0 beside its plain version, and the bound
-     by the design's 3xTF32 blocks beside the f32 one; ``adaptdhm_fused_infer`` at
-     AdaptDHM's Ali-CCP shape (F = 368, [256,...,8,1], 3 clusters), ragged,
-     narrow, router ids -1, C and C+5, and with a cluster absent;
+     by the design's 3xTF32 blocks beside the f32 one;
+     ``adaptdhm_fused_infer`` (SharedBottom's chain kernel without trunk and
+     biases) at AdaptDHM's Ali-CCP shape (F = 368, [256,...,8,1], 3
+     clusters), ragged, narrow, router ids -1, C and C+5 (int64 ids also as
+     int32 and plus 2^32: the same outputs, one launch a call on AdaptDHM's
+     counter and none on SharedBottom's), with a cluster absent, 90 % of the
+     rows in one cluster, counts astride a tile, KuaiRand's ladder ([64, 64]
+     at F 812) and B = 65,536, each into an output left full of NaN; the
+     edge cases at every ``block_rows`` of the tile rule (64 rows must raise
+     at KuaiRand's width: the tile does not fit in shared memory), timed at
+     each, Step 0 at KuaiRand and B = 65,536, and its 3xTF32 bound beside
+     the f32 one;
    - ``m2m_fused_infer`` (M2M after its transformer) at M2M's Ali-CCP shape
      (F = 376, scenario embedding 16, 4 experts of 16, vw 16 -> 1024, output
      MLP [64, 32]), ragged B = 4095 and B = 1 and a narrow configuration;
@@ -247,7 +256,7 @@ EVAL_KERNELS = {
     "adasparse": ("adasparse_fused_infer", "adasparse_infer",
                   "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:174"),
     "hamur": ("hamur_segment", "hamur_infer", "scenario_wise_rec_tpu/ops/pallas/hamur_infer.py:40"),
-    "adaptdhm": ("adaptdhm_fused_infer", "adaptdhm_infer",
+    "adaptdhm": ("adaptdhm_fused_infer", "tower_infer",
                  "scenario_wise_rec_tpu/ops/pallas/adaptdhm_infer.py:29"),
     "m2m": ("m2m_fused_infer", "m2m_infer", "scenario_wise_rec_tpu/ops/pallas/m2m_infer.py:43"),
     "m3oe": ("m3oe_fused_infer", "m3oe_infer", "scenario_wise_rec_tpu/ops/pallas/m3oe_infer.py:43"),
@@ -276,6 +285,12 @@ PLE_TOO_WIDE, PLE_TWO_LEVELS_TOO_WIDE = (64,), (48, 64)
 # (1000 floats at F 800), and must raise
 TOWER_BLOCK_ROWS = (16, 32, 48, 64, None)
 TOWER_TOO_WIDE = (64,)
+# adaptdhm_fused_infer's (the same kernel without trunk and biases): every
+# value fits at AdaptDHM's Ali-CCP widths (the emb tile and the first
+# 256-wide tile take 648 floats a row); 64 rows do not at KuaiRand's (904
+# floats a row at F 812) and must raise
+ADAPTDHM_BLOCK_ROWS = (16, 32, 48, 64, None)
+ADAPTDHM_KUAIRAND_TOO_WIDE = (64,)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
@@ -1523,11 +1538,67 @@ def phase_hamur_kernels(gen, peak):
              "d_router_oob_b4096": ((emb_a, oob[ids(4096, len(oob))]), ali),
              "e_cluster_1_absent_b4096": (
                  (emb_a, torch.tensor([0, 2], device="cuda")[ids(4096, 2)]), ali)}
-    err = run_cases("adaptdhm_fused_infer", k.adaptdhm_fused_infer, k.adaptdhm_fused_infer_ref,
-                    cases)
-    entries["adaptdhm"] = time_entry(
-        "adaptdhm_fused_infer", "adaptdhm", k.adaptdhm_fused_infer, k.adaptdhm_fused_infer_ref,
-        *cases["a_alicpp_b4096"], adaptdhm_work, peak, err)
+    # the partition by cluster at its edges, KuaiRand's ladder and B 65,536,
+    # from a generator of its own: the shared one feeds every later phase's
+    # data
+    ag = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 9)
+    a_counted, a_rows = partial(counted, ag), partial(rows_of, ag)
+    cases["f_skewed_b4096"] = ((a_rows(4096, Fa), a_counted(3700, 300, 96)), ali)  # 90 % in one
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["g_counts_astride_tiles_b66"] = ((a_rows(66, Fa), a_counted(33, 32, 1)), ali)
+    # KuaiRand's AdaptDHM ([64, 64], 3 clusters) at its 796 sparse columns
+    # and the scenario feature's 16
+    cases["h_kuairand_b4096"] = (
+        (a_rows(4096, 812), torch.randint(0, D, (4096,), generator=ag, device="cuda")),
+        ([w_ for w_, _ in affines(ag, (D,), [812, 64, 64, 1])],))
+    cases["i_b65536"] = (
+        (a_rows(65_536, Fa), torch.randint(0, D, (65_536,), generator=ag, device="cuda")), ali)
+    unwritten_nan = nan_filled(k.adaptdhm_fused_infer)
+    err = run_cases("adaptdhm_fused_infer", unwritten_nan, k.adaptdhm_fused_infer_ref, cases)
+    for rows in ADAPTDHM_BLOCK_ROWS:  # every tile: at the edges of the partition, the ladder
+        for name in ("b_ragged_b4095", "e_cluster_1_absent_b4096", "f_skewed_b4096",
+                     "g_counts_astride_tiles_b66", "h_kuairand_b4096"):
+            inputs, args = cases[name]
+            if rows in ADAPTDHM_KUAIRAND_TOO_WIDE and name.startswith("h_kuairand"):
+                try:
+                    k.adaptdhm_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"adaptdhm_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"adaptdhm_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.adaptdhm_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"adaptdhm_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  adaptdhm_fused_infer every tile {ADAPTDHM_BLOCK_ROWS} at Ali-CCP's widths holds; "
+        f"{ADAPTDHM_KUAIRAND_TOO_WIDE} at KuaiRand's raises, naming the shared memory")
+    # int64 ids (argmax's) as they are, modulo 2^32 as int32, then clipped;
+    # one launch a call on AdaptDHM's counter, none on SharedBottom's
+    (emb, rid), args = cases["d_router_oob_b4096"]
+    before = read_counts()
+    same = (torch.equal(k.adaptdhm_fused_infer(emb, rid, *args),
+                        k.adaptdhm_fused_infer(emb, rid.to(torch.int32), *args))
+            and torch.equal(k.adaptdhm_fused_infer(emb, rid + 2**32, *args),
+                            k.adaptdhm_fused_infer(emb, rid, *args)))
+    delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+    check(same, "adaptdhm_fused_infer: int64 ids differ from the same ids as int32")
+    check(delta == {"adaptdhm_fused_infer": 4},
+          f"adaptdhm_fused_infer: 4 calls moved the counts by {delta}")
+    entry = time_entry("adaptdhm_fused_infer", "adaptdhm", k.adaptdhm_fused_infer,
+                       k.adaptdhm_fused_infer_ref, *cases["a_alicpp_b4096"], adaptdhm_work,
+                       peak, err, sweep_rows=ADAPTDHM_BLOCK_ROWS)
+    # the design's own bound: every product (the stages and the width-1 last
+    # one) as three TF32 products on the tensor cores
+    inputs, args = cases["a_alicpp_b4096"]
+    flops, moved = adaptdhm_work(*inputs, *args)
+    entry.update(design_bound("adaptdhm_fused_infer ", flops, moved, flops, peak, entry["ms"]))
+    for name in ("h_kuairand_b4096", "i_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"adaptdhm_fused_infer {name}, step 0",
+                            lambda: k.adaptdhm_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["adaptdhm"] = entry
     return entries
 
 

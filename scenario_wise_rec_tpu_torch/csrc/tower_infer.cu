@@ -9,13 +9,21 @@
 // sigmoid), then the sigmoid. The TPU kernel computes all D towers for every
 // row and selects with jnp.where; the value per row is the same.
 //
+// It also replaces scenario_wise_rec_tpu/ops/pallas/adaptdhm_infer.py:
+// adaptdhm_fused_infer, the same chain without a trunk and without biases: a
+// step may have no bias. AdaptDHM's routed cluster c = clip(int32(router[b]),
+// 0, C-1) is the domain, its relu stages the tower and its last, width-1
+// stage the head.
+//
 // What bounds it on this card: arithmetic. At SharedBottom's Ali-CCP shape
 // (F = 376, trunk [512], towers [256,128,64,32,16,8], head 8 -> 1, 3
 // domains) a row costs 192,512 multiply-adds in the trunk and 174,728 in its
 // own tower and head against ~1.5 KB of its own data: 3.008 GFLOP for B =
 // 4096. As three TF32 products each on the tensor cores that is 3 x 3.008
 // GFLOP / 495 TFLOP/s = 0.0182 ms; in f32 without tensor cores 0.0449 ms at
-// 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less.
+// 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less. AdaptDHM's (F = 368, stages
+// [256,128,64,32,16,8], then 8 -> 1, 3 clusters) costs 137,864 a row: 1.129
+// GFLOP, 0.0068 ms in 3xTF32, 0.0169 ms in f32.
 //
 // What the design does about it (the split, the mma products, the ring and
 // its bulk copies are mma_ring.cuh's; the partition by domain, the slab
@@ -36,13 +44,15 @@
 //   copy); the compute warps run the same chain and meet at each chunk's
 //   end. A warp with one or two n-tiles of a product (N <= 128) takes the
 //   k-steps in turn into 4 or 2 sets of accumulators.
-// - The epilogue adds the bias and applies relu (not after the head) into the
-//   next tile; columns from N to N rounded to 8 come out zero, which the next
-//   product reads. A last pass writes the sigmoid of each row's column 0.
+// - The epilogue adds the bias (none where the step has none: its loads are
+//   skipped) and applies relu (not after the head) into the next tile;
+//   columns from N to N rounded to 8 come out zero, which the next product
+//   reads. A last pass writes the sigmoid of each row's column 0.
 // - Shared memory: the host places each product's tiles by their lifetimes
 //   (Tiles), and the ring takes what the peak leaves (size_ring): at 32
 //   Ali-CCP rows the emb tile and the trunk's 512-wide tile take 120 KB; 48
-//   rows fit, 64 do not.
+//   rows fit, 64 do not. AdaptDHM's peak, the emb tile and the first
+//   256-wide tile, is 648 floats a row: 64 rows fit.
 // Rows never mix: a NaN stays in its row. The last tile of a domain is
 // partial; its missing rows are zero and never written out.
 //
@@ -65,7 +75,7 @@ constexpr int kMaxSteps = 96;
 // A step: one product, v = x W + b, then relu (not after the head).
 struct Step {
   const float* w;  // W [members, K, N] from member 0
-  const float* b;  // b [members, N]
+  const float* b;  // b [members, N], or null: no bias
   int K, N;
   int in, out;        // tiles: float offsets in the arena
   int ld_in, ld_out;  // their row strides
@@ -186,12 +196,17 @@ tower_fused_infer_kernel(const __grid_constant__ Args p) {
     for (int q = 0; q < p.n_steps; ++q) {
       const Step& st = p.step[q];
       const float* A = arena + st.in;
-      const float* b = st.b + static_cast<size_t>(st.dmul * dom) * st.N;
       for (int c = 0; c * kChunk < st.N; ++c) {
         const int c0 = c * kChunk;
         const int nt = (min(kChunk, st.N - c0) + 7) / 8;
         const int tiles = (nt + kWarps - 1) / kWarps;  // n-tiles a warp
-        load_bias(bias, b, nt, c0, st.N, warp, t);
+        if (st.b != nullptr) {
+          load_bias(bias, st.b + static_cast<size_t>(st.dmul * dom) * st.N, nt, c0, st.N, warp,
+                    t);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kNTW; ++i) bias[i][0] = bias[i][1] = 0.f;
+        }
         for (int k0 = 0; k0 < st.K; k0 += st.srows, ++s) {
           const int slot = s % kRing;
           bar_wait(full + 8 * slot, (s / kRing) & 1);  // slab s has landed
@@ -237,11 +252,12 @@ extern "C" {
 // emb [B, F] f32; did [B] domain ids, int64 when id64, else int32.
 // w_ptrs/b_ptrs: host arrays of device pointers, one per stage, in the order
 // trunk stages (W [K, N]), tower stages (W [D, K, N]), head (W [D, K, 1],
-// when has_head); dims: (K, N) per stage. block_rows: rows of one block, a
-// multiple of 16 up to 64, or 0: 32 where a 32-row tile fits in shared
-// memory, else 16. Writes the dynamic shared memory a block of the tile it
-// tried takes to *smem and returns a cudaError_t (cudaErrorInvalidValue when
-// that tile does not fit, or the chain takes more than kMaxSteps products).
+// when has_head), a null b for a stage without bias; dims: (K, N) per
+// stage. block_rows: rows of one block, a multiple of 16 up to 64, or 0: 32
+// where a 32-row tile fits in shared memory, else 16. Writes the dynamic
+// shared memory a block of the tile it tried takes to *smem and returns a
+// cudaError_t (cudaErrorInvalidValue when that tile does not fit, or the
+// chain takes more than kMaxSteps products).
 int tower_fused_infer_f32(const void* emb, const void* did, int id64, void* out, int B, int F,
                           int D, int n_trunk, int n_tow, int has_head, const void* w_ptrs,
                           const void* b_ptrs, const void* dims, int block_rows, void* stream,
@@ -269,7 +285,7 @@ int tower_fused_infer_f32(const void* emb, const void* did, int id64, void* out,
     s.b = b[q];
     s.K = kn[2 * q];
     s.N = kn[2 * q + 1];
-    if (s.K != width || s.N < 1 || s.w == nullptr || s.b == nullptr)
+    if (s.K != width || s.N < 1 || s.w == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     s.dmul = q >= n_trunk;
     s.relu = !(has_head && q == n - 1);

@@ -19,7 +19,9 @@ The JAX package's ``models/adaptdhm.py``:
 
 ``apply_fused_eval`` routes by ``argmax(emb @ center.T)`` (the softmax is
 monotone) and runs the routed FCN in one CUDA kernel
-(``ops/kernels/adaptdhm_infer.py``).
+(``ops/kernels/adaptdhm_infer.py``): SharedBottom's chain kernel,
+``csrc/tower_infer.cu``, without a trunk and without biases, one cluster a
+block, every product on the tensor cores.
 """
 
 from __future__ import annotations

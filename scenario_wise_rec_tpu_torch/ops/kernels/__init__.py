@@ -17,19 +17,22 @@
   one launch of the segment kernel ``hamur_segment`` (``csrc/hamur_infer.cu``)
   per segment, the hyper-network and the norms' statistics in PyTorch
   between them (``hamur_fused_infer``);
-- ``adaptdhm_infer``: AdaptDHM's routed-cluster FCN
-  (``csrc/adaptdhm_infer.cu``), with ``adaptdhm_route_margin`` for comparing
-  it across a near-tie of the routing logits;
+- ``adaptdhm_infer``: AdaptDHM's routed-cluster FCN on SharedBottom's
+  chain kernel (``csrc/tower_infer.cu``, without a trunk and without
+  biases: one cluster a block, every product on the tensor cores), with
+  ``adaptdhm_route_margin`` for comparing it across a near-tie of the
+  routing logits;
 - ``m2m_infer``: M2M's eval after its transformer (``csrc/m2m_infer.cu``):
   the experts, the hyper-MLPs, the meta-attention over each row's generated
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
   MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's, PLE's and SharedBottom's
-  (``csrc/mma_ring.cuh``; PPNet's, M3oE's, PLE's and SharedBottom's, one
-  domain a block, and AdaSparse's also ``csrc/domain_tiles.cuh``) is built
-  over the shared ``csrc/fused_mlp.cuh``; ``_fused`` holds their Python
-  side.
+  (with AdaptDHM's) (``csrc/mma_ring.cuh``; PPNet's, M3oE's, PLE's and
+  SharedBottom's, one domain a block, and AdaSparse's also
+  ``csrc/domain_tiles.cuh``) is built over the shared
+  ``csrc/fused_mlp.cuh``: STAR's, SAR-Net's, EPNet's and M2M's; ``_fused``
+  holds their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

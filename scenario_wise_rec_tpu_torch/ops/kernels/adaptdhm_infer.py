@@ -1,13 +1,18 @@
-"""Fused AdaptDHM inference: the CUDA kernel ``csrc/adaptdhm_infer.cu`` and
-its plain PyTorch version.
+"""Fused AdaptDHM inference: SharedBottom's chain kernel
+``csrc/tower_infer.cu`` without a trunk and without biases, and its plain
+PyTorch version.
 
 AdaptDHM's eval forward after the embedding and the routing: the routed
 cluster's FCN, each stage ``W_shared ⊙ W_cluster`` stacked to ``[C, in,
 out]`` with no bias, relu after every stage but the last, which has width 1
 and takes the sigmoid. The router (the argmax of each row's logits against
 the frozen centers) is computed outside, as in the JAX package; ids are
-clipped to ``[0, C-1]``. The kernel computes only the row's own cluster (the
-design note is at the top of the source). It replaces the TPU kernel
+taken modulo 2^32 as int32 and clipped to ``[0, C-1]``. The kernel gives
+each block rows of one cluster, partitioned inside the one launch from the
+int64 or int32 router ids, computes only that cluster's stages, and runs
+every product on the tensor cores in 3xTF32 (about f32's accuracy), the
+weights streamed through shared memory (the design note is at the top of
+the source). It replaces the TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/adaptdhm_infer.py:adaptdhm_fused_infer``.
 
 :func:`adaptdhm_fused_infer` takes the plain version for a tensor on the CPU
@@ -17,12 +22,13 @@ back. ``adaptdhm_fused_infer.launches`` counts launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
 from . import _fused
+from .mmoe_infer import check_block_rows
+from .tower_infer import _launch_chain, check_card_limits
 
 
 def _check_shapes(emb, router, stages):
@@ -62,30 +68,30 @@ def adaptdhm_fused_infer(
     emb: torch.Tensor,
     router: torch.Tensor,
     stages: Sequence[torch.Tensor],
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = the routed cluster's FCN on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one cluster that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at AdaptDHM's Ali-CCP widths 16, 32, 48 and 64 fit; at
+    KuaiRand's 64 does not). A shape whose tile does not fit raises a
+    RuntimeError; it never falls back. On the CPU the plain version runs and
+    the value only has to keep the tile rule, so that a call that would
+    raise on the card for its ``block_rows`` raises there too. The card
+    takes at most ``MAX_STAGES`` (96) stages and ``MAX_DOMAINS`` (256)
+    clusters. int32 and int64 router ids are read as they are.
     """
+    check_block_rows(block_rows)
     if emb.device.type == "cpu":
         return adaptdhm_fused_infer_ref(emb, router, stages)
-    B, F, C = _check_shapes(emb, router, stages)
-    _fused.check_launch("adaptdhm_fused_infer", emb, router, list(stages), len(stages),
-                        block_rows)
-    out = torch.empty(B, dtype=torch.float32, device=emb.device)
-    if B == 0:
-        return out
-    rid = router.to(torch.int32).contiguous()
-    p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch(
-        "adaptdhm_infer", "adaptdhm_fused_infer_f32", (p, p, p, i, i, i, i, p, p, p),
-        (emb.data_ptr(), rid.data_ptr(), out.data_ptr(), B, F, C, len(stages),
-         *_fused.stage_args([(w, None) for w in stages])),
-        emb, block_rows)
-    adaptdhm_fused_infer.launches += 1
-    return out
+    _, _, C = _check_shapes(emb, router, stages)
+    check_card_limits(len(stages), C, "adaptdhm_fused_infer", "clusters")
+    _fused.check_tensors("adaptdhm_fused_infer", emb, router, list(stages))
+    # no trunk: every stage is the cluster's, the last the unrelu'd head
+    return _launch_chain(adaptdhm_fused_infer, emb, router, C, 0, len(stages) - 1, True,
+                         [(w, None) for w in stages], block_rows)
 
 
 adaptdhm_fused_infer.launches = 0

@@ -9,6 +9,8 @@ tensor cores in 3xTF32 (about f32's accuracy), the weights streamed through
 shared memory (the design note is at the top of the source). It replaces the
 TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/tower_infer.py:trunk_towers_fused_infer``.
+AdaptDHM's routed FCN (``adaptdhm_infer.py``) runs on the same kernel, as a
+chain without a trunk and without biases (:func:`_launch_chain`).
 
 Preconditions: eval mode (BatchNorm folded to affine, see ``folding.py``),
 relu activations. Without a head (``tower_out=None``) the last stage has
@@ -53,15 +55,15 @@ def _check_shapes(emb, domain_id, trunk_stages, tower_stages, tower_out):
     return B, F, D
 
 
-def check_card_limits(n_stages: int, D: int) -> None:
+def check_card_limits(n_stages: int, D: int, name: str = "trunk_towers_fused_infer",
+                      members: str = "domains") -> None:
     """What the card takes beyond the tile rule: at most ``MAX_STAGES``
-    stages (trunk, towers and head together) and ``MAX_DOMAINS`` domains."""
+    stages (trunk, towers and head together) and ``MAX_DOMAINS`` domains
+    (AdaptDHM's clusters)."""
     if n_stages > MAX_STAGES:
-        raise ValueError(f"trunk_towers_fused_infer takes at most {MAX_STAGES} stages, "
-                         f"got {n_stages}")
+        raise ValueError(f"{name} takes at most {MAX_STAGES} stages, got {n_stages}")
     if D > MAX_DOMAINS:
-        raise ValueError(f"trunk_towers_fused_infer takes at most {MAX_DOMAINS} domains, "
-                         f"got {D}")
+        raise ValueError(f"{name} takes at most {MAX_DOMAINS} {members}, got {D}")
 
 
 def trunk_towers_fused_infer_ref(
@@ -121,6 +123,17 @@ def trunk_towers_fused_infer(
     check_card_limits(len(stages), D)
     _fused.check_tensors("trunk_towers_fused_infer", emb, domain_id,
                          [t for s in stages for t in s])
+    return _launch_chain(trunk_towers_fused_infer, emb, domain_id, D, len(trunk_stages),
+                         len(tower_stages), tower_out is not None, stages, block_rows)
+
+
+def _launch_chain(wrapper, emb, domain_id, D, n_trunk, n_tow, has_head, stages, block_rows):
+    """probs[B] from one launch of the chain kernel: ``n_trunk`` shared
+    stages, ``n_tow`` stages of the row's domain, then its head (unrelu'd)
+    where ``has_head``; each stage ``(W, b)``, ``b`` None for a stage without
+    bias. Adds one to ``wrapper.launches`` where it launches; raises a
+    RuntimeError, naming ``wrapper``, if the launch fails."""
+    B, F = emb.shape
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
@@ -133,13 +146,13 @@ def trunk_towers_fused_infer(
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):
         err = fn(emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B,
-                 F, D, len(trunk_stages), len(tower_stages), int(tower_out is not None),
-                 *_fused.stage_args(stages), block_rows or 0, stream, ctypes.byref(smem))
+                 F, D, n_trunk, n_tow, int(has_head), *_fused.stage_args(stages),
+                 block_rows or 0, stream, ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(
-            f"trunk_towers_fused_infer launch failed with cudaError {err} ({smem.value} "
-            f"bytes of shared memory per block, block_rows={block_rows or ROW_TILE})")
-    trunk_towers_fused_infer.launches += 1
+            f"{wrapper.__name__} launch failed with cudaError {err} ({smem.value} bytes of "
+            f"shared memory per block, block_rows={block_rows or ROW_TILE})")
+    wrapper.launches += 1
     return out
 
 

@@ -163,19 +163,41 @@ def _stages(r, C, dims):
             for i, o in zip(dims[:-1], dims[1:])]
 
 
+def _skewed(r, B, C):
+    """90 % of the rows in cluster C - 1, the rest spread over the others."""
+    rid = np.where(r.random(B) < 0.9, C - 1, r.integers(0, C, B))
+    assert (rid == C - 1).mean() >= 0.9
+    return rid
+
+
+def _int64_wide(r, B, C):
+    """int64 ids far outside [0, C), ± 2^32 offsets among them: each is taken
+    modulo 2^32 as int32, then clipped, as JAX's ``astype(int32)`` and the
+    card take them."""
+    wide = np.array([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, -2**31 - 7, 2**40,
+                     -3], np.int64)
+    return np.where(r.random(B) < 0.5, wide[r.integers(0, len(wide), B)],
+                    r.integers(0, C, B)).astype(np.int64)
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, C, hidden dims, router ids drawn from, block_rows)
+    # (B, F, C, hidden dims, router ids: drawn from (lo, hi) or made by a
+    #  function, block_rows of the JAX kernel)
     (37, 24, 3, [16, 8], (-2, 6), 16),   # ragged; ids -2..5, clipped
     (20, 10, 2, [], (0, 2), 8),          # one stage: width 1 straight away
     (33, 17, 4, [9, 5, 3], (0, 4), 8),
     (16, 12, 3, [6], (2, 3), 8),         # clusters 0 and 1 absent
+    (60, 24, 3, [16, 8], _skewed, 16),   # skewed: 90 % of the rows in one cluster
+    (45, 20, 3, [12, 6], _int64_wide, 16),  # int64 ids with ± 2^32 offsets: wrap, then clip
+    (50, 18, 5, [10, 4], (0, 5), 16),    # 5 clusters
+    (40, 48, 3, [64, 64], (0, 3), 8),    # KuaiRand's ladder, [64, 64]
 ])
 def test_kernel_ref_matches_jax_kernel(cfg):
-    B, F, Cn, dims, (lo, hi), rows = cfg
+    B, F, Cn, dims, ids, rows = cfg
     r = np.random.default_rng(B)
     emb = r.normal(size=(B, F)).astype(np.float32)
     stages = _stages(r, Cn, [F] + dims + [1])
-    rid = r.integers(lo, hi, B)
+    rid = r.integers(*ids, B) if isinstance(ids, tuple) else ids(r, B, Cn)
     want = j_adaptdhm(jnp.asarray(emb), jnp.asarray(rid), [jnp.asarray(w) for w in stages],
                       block_rows=rows, interpret=True)
     before = pk.adaptdhm_fused_infer.launches
@@ -184,6 +206,24 @@ def test_kernel_ref_matches_jax_kernel(cfg):
     assert pk.adaptdhm_fused_infer.launches == before  # plain on the CPU
     assert got.shape == (B,)
     _close(got, want)
+
+
+@pytest.mark.parametrize("rows", [8, 24, 72])
+def test_tile_rule_raises_on_the_cpu(rows):
+    """The card's tile rule (a multiple of 16 from 16 to 64, or None) holds
+    on the CPU too, where the plain version runs: a call that would raise on
+    the card raises here, and every tile the rule takes gives the plain
+    version's output."""
+    r = np.random.default_rng(7)
+    emb = torch.tensor(r.normal(size=(21, 18)).astype(np.float32))
+    rid = torch.tensor(r.integers(-1, 4, 21))
+    st = [torch.tensor(w) for w in _stages(r, 3, [18, 12, 8, 1])]
+    with pytest.raises(ValueError, match="block_rows"):
+        pk.adaptdhm_fused_infer(emb, rid, st, block_rows=rows)
+    want = pk.adaptdhm_fused_infer_ref(emb, rid, st)
+    for ok in (16, 32, 48, 64, None):
+        torch.testing.assert_close(pk.adaptdhm_fused_infer(emb, rid, st, block_rows=ok), want,
+                                   rtol=0, atol=0)
 
 
 def test_route_margin():

@@ -1227,39 +1227,134 @@ def test_hamur_segment_kernel_keeps_a_nan_in_its_row(gen):
     held([kh.hamur_segment(h, [], **kw)], [kh.hamur_segment_ref(h, [], **kw)])
 
 
+# AdaptDHM at Ali-CCP (scenario loader: F = 22 x 16 + 16, [256, ..., 8], 3
+# clusters) and on KuaiRand's ladder ([64, 64], 3 clusters; 796 sparse
+# columns and the scenario feature's 16)
+ALI_DHM = (368, 3, [256, 128, 64, 32, 16, 8])
+KUAIRAND_DHM = (812, 3, [64, 64])
+
+
+def _adaptdhm_stages(gen, F, C, dims):
+    return [w for w, _ in _affines(gen, (C,), [F] + dims + [1])]
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, C, hidden dims, router ids drawn from, block_rows)
-    (4096, 368, 3, [256, 128, 64, 32, 16, 8], (0, 3), 16),  # Ali-CCP
-    (4095, 368, 3, [256, 128, 64, 32, 16, 8], (-2, 8), 16),  # ragged; ids -2..7, clipped
-    (333, 41, 2, [7], (0, 2), 8),
-    (130, 50, 5, [], (0, 5), 24),                        # one stage
-    (64, 12, 4, [9, 5, 3], (1, 3), 64),                   # clusters 0 and 3 absent
+    # (B, (F, C, hidden dims), router ids: drawn from (lo, hi) or counts of
+    #  each cluster, block_rows)
+    (4096, ALI_DHM, (0, 3), 16),                        # Ali-CCP
+    (4096, ALI_DHM, (0, 3), None),
+    (4095, ALI_DHM, (-2, 8), 32),                       # ragged; ids -2..7, clipped
+    (333, (41, 2, [7]), (0, 2), 16),                    # widths not multiples of 8
+    (130, (50, 5, []), (0, 5), 48),                     # one stage: the head alone
+    (64, (12, 4, [9, 5, 3]), (1, 3), 64),               # clusters 0 and 3 absent
+    (4096, ALI_DHM, [3700, 300, 96], None),             # skewed: 90 % in cluster 0
+    (4096, ALI_DHM, [96, 300, 3700], 48),
+    (4096, ALI_DHM, [0, 4096, 0], 64),                  # every row in one cluster
+    (66, ALI_DHM, [33, 32, 1], 32),                     # counts astride 32-row tiles
+    (100, ALI_DHM, [33, 1, 66], 16),                    # and 16-row tiles
+    (1, ALI_DHM, (0, 3), None),
+    (65_536, ALI_DHM, (0, 3), None),            # the largest B the partition is held to
+    (4096, KUAIRAND_DHM, (0, 3), None),                 # KuaiRand's ladder
+    (4096, KUAIRAND_DHM, (0, 3), 48),
+    (300, (70, 256, [33]), (-2, 260), 16),              # the most clusters
 ])
 def test_adaptdhm_kernel_matches_plain(gen, cfg):
-    B, F, C, dims, (lo, hi), rows = cfg
-    stages = [w for w, _ in _affines(gen, (C,), [F] + dims + [1])]
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call on AdaptDHM's counter and none on
+    SharedBottom's, whose kernel it runs."""
+    B, (F, C, dims), ids, rows = cfg
+    stages = _adaptdhm_stages(gen, F, C, dims)
     emb = torch.randn(B, F, generator=gen, device="cuda")
-    rid = torch.randint(lo, hi, (B,), generator=gen, device="cuda")
+    rid = _m3oe_ids(gen, B, C, ids)
     before = ka.adaptdhm_fused_infer.launches
-    got = ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=rows)
+    tower_before = kt.trunk_towers_fused_infer.launches
+    got = _unwritten_nan(ka.adaptdhm_fused_infer, emb, rid, stages, block_rows=rows)
     torch.cuda.synchronize()
     assert ka.adaptdhm_fused_infer.launches == before + 1
+    assert kt.trunk_towers_fused_infer.launches == tower_before
     want = ka.adaptdhm_fused_infer_ref(emb, rid, stages)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("ladder", [ALI_DHM, KUAIRAND_DHM])
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_adaptdhm_kernel_every_tile(gen, ladder, rows):
+    """At Ali-CCP's widths every tile of the rule fits beside the ring (the
+    emb tile and the first 256-wide tile take 648 floats a row) and matches
+    the plain version; at KuaiRand's (the emb tile and the first 64-wide
+    tile take 904 floats a row) 64 rows do not fit and raise, naming the
+    shared memory."""
+    F, C, dims = ladder
+    stages = _adaptdhm_stages(gen, F, C, dims)
+    emb = torch.randn(4096, F, generator=gen, device="cuda")
+    rid = torch.argmax(torch.randn(4096, C, generator=gen, device="cuda"), dim=1)
+    if ladder is KUAIRAND_DHM and rows == 64:
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=rows)
+        return
+    got = _unwritten_nan(ka.adaptdhm_fused_infer, emb, rid, stages, block_rows=rows)
+    want = ka.adaptdhm_fused_infer_ref(emb, rid, stages)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_adaptdhm_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 router ids (argmax's) are read as they are (no cast launch: one
+    launch a call), taken modulo 2^32 as int32 and clipped: the same outputs
+    as the int32 ids, bit for bit."""
+    stages = _adaptdhm_stages(gen, *ALI_DHM)
+    emb = torch.randn(4096, 368, generator=gen, device="cuda")
+    rid = torch.randint(-2, 6, (4096,), generator=gen, device="cuda")
+    got = ka.adaptdhm_fused_infer(emb, rid.to(torch.int32), stages)
+    before = ka.adaptdhm_fused_infer.launches
+    assert torch.equal(got, ka.adaptdhm_fused_infer(emb, rid.to(torch.int64), stages))
+    assert torch.equal(got, ka.adaptdhm_fused_infer(emb, rid + 2**32, stages))
+    assert ka.adaptdhm_fused_infer.launches == before + 2
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(ka.adaptdhm_fused_infer(e8, wrap, stages),
+                       ka.adaptdhm_fused_infer(
+                           e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), stages))
+    assert (ka.adaptdhm_fused_infer(e8, wrap, stages)
+            - ka.adaptdhm_fused_infer_ref(e8, wrap, stages)).abs().max().item() <= TOL
+
+
+def test_adaptdhm_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb leaves every other row of its
+    cluster's tile as the plain version computes it."""
+    stages = _adaptdhm_stages(gen, *ALI_DHM)
+    emb = torch.randn(100, 368, generator=gen, device="cuda")
+    emb[50, 7] = float("nan")
+    rid = torch.zeros(100, dtype=torch.long, device="cuda")
+    got = ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=32)
+    want = ka.adaptdhm_fused_infer_ref(emb, rid, stages)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
 
 
 def test_adaptdhm_kernel_rejects_what_it_does_not_take(gen):
     stages = [w for w, _ in _affines(gen, (2,), [20, 8, 1])]
     emb = torch.randn(10, 20, generator=gen, device="cuda")
     rid = torch.zeros(10, dtype=torch.long, device="cuda")
-    with pytest.raises(ValueError):
-        ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=12)
+    for rows in (8, 12, 24, 0, 72):
+        with pytest.raises(ValueError, match="block_rows"):
+            ka.adaptdhm_fused_infer(emb, rid, stages, block_rows=rows)
     with pytest.raises(ValueError):
         ka.adaptdhm_fused_infer(emb, rid.cpu(), stages)
     with pytest.raises(ValueError):
         ka.adaptdhm_fused_infer(emb, rid, [stages[0].double(), stages[1]])
+    with pytest.raises(ValueError, match="clusters"):
+        ka.adaptdhm_fused_infer(emb, rid, [w for w, _ in _affines(gen, (257,), [20, 8, 1])])
+    with pytest.raises(ValueError, match="stages"):
+        ka.adaptdhm_fused_infer(emb, rid, [w for w, _ in _affines(gen, (2,), [20] + [8] * 96
+                                                                   + [1])])
     assert ka.adaptdhm_fused_infer(emb[:0], rid[:0], stages).shape == (0,)
+    wide = [w for w, _ in _affines(gen, (2,), [20, 3000, 1])]  # 64 x 3000 rows exceed it
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ka.adaptdhm_fused_infer(emb, rid, wide, block_rows=64)
 
 
 # -- m2m_fused_infer and m3oe_fused_infer -------------------------------------
