@@ -90,7 +90,14 @@ Phases; each asserts, and any failure exits non-zero:
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
      S = 16, A = 352), ragged, narrow and (SAR-Net, PPNet: the others have
-     no domain ids) out-of-range domain ids; PPNet also with (e) domain 1
+     no domain ids) out-of-range domain ids; EPNet (AdaSparse's kernel on
+     two steps) also with (d) KuaiRand's width (S 16, A 800), (e) B =
+     65,536 and (f) widths off 8 (S 5, A 41, gate hidden 7), each output
+     into a block just freed full of NaN, every tile of the rule (16, 32,
+     48, 64 and the kernel's choice; 32, 48 and 64 rows at KuaiRand's width
+     must raise), a NaN kept in its row, one launch a call on its own
+     counter and none on AdaSparse's, and its 3xTF32 bound beside the f32
+     one; PPNet also with (e) domain 1
      absent, (f) every row in one domain, (g) domain counts astride its
      tiles, (h) KuaiRand's width (G 832, 5 domains, [128, 64, 32]) and (i)
      B = 65,536, each output into a block just freed full of NaN so that a
@@ -249,7 +256,7 @@ EVAL_KERNELS = {
     "ple": ("ple_fused_infer", "ple_infer", "scenario_wise_rec_tpu/ops/pallas/ple_infer.py:58"),
     "sarnet": ("sarnet_fused_infer", "sarnet_infer",
                "scenario_wise_rec_tpu/ops/pallas/sarnet_infer.py:33"),
-    "epnet": ("epnet_fused_infer", "gated_infer",
+    "epnet": ("epnet_fused_infer", "adasparse_infer",
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:47"),
     "ppnet": ("ppnet_fused_infer", "ppnet_infer",
               "scenario_wise_rec_tpu/ops/pallas/gated_infer.py:91"),
@@ -299,6 +306,12 @@ HAMUR_BLOCK_ROWS = PPNET_BLOCK_ROWS = ADASPARSE_BLOCK_ROWS = (16, 32, 48, 64, No
 # at KuaiRand's AdaSparse widths (A 796) the [s ‖ a] tile and pruner 0's
 # output take 1640 floats a row: 48 and 64 rows do not fit and must raise
 ADASPARSE_KUAIRAND_TOO_WIDE = (48, 64)
+# epnet_fused_infer's (AdaSparse's kernel on two steps): every value fits at
+# Ali-CCP (the [s ‖ a] tile and the gate's hidden tile, 776 floats a row);
+# at KuaiRand's (A 800, 1640 floats a row) 32, 48 and 64 rows do not and
+# must raise
+EPNET_BLOCK_ROWS = (16, 32, 48, 64, None)
+EPNET_KUAIRAND_TOO_WIDE = (32, 48, 64)
 # eval kernel launches a batch: HamurLarge runs 3 segments
 LAUNCHES_PER_BATCH = {"hamur": 3}
 # HamurLarge served fused against op by op, end to end: the op-by-op path
@@ -1187,17 +1200,74 @@ def phase_gated_kernels(gen, peak):
                                    sarnet_work, peak, err)
 
     # EPNet: scenario loader, S = 16, A = 22 x 16 + 8 = 360; gate 376 -> 360
-    # -> 360, head 360 -> 1
-    def epnet_args(A, H):
-        return (*affines(gen, (), [16 + A, H]), *affines(gen, (), [H, A]),
-                affines(gen, (), [A, 1])[0], 2.0)
+    # -> 360, head 360 -> 1 (AdaSparse's kernel on a list of two steps)
+    def epnet_args(A, H, S=16, g=gen):
+        return (*affines(g, (), [S + A, H]), *affines(g, (), [H, A]),
+                affines(g, (), [A, 1])[0], 2.0)
 
     A = (N_SPARSE - 1) * 16 + N_DENSE
-    cases = shaped(A, epnet_args(A, A), epnet_args(42, 24), domains=False)
-    err = run_cases("epnet_fused_infer", k.epnet_fused_infer, k.epnet_fused_infer_ref, cases)
-    entries["epnet"] = time_entry("epnet_fused_infer", "epnet", k.epnet_fused_infer,
-                                  k.epnet_fused_infer_ref, *cases["a_alicpp_b4096"], epnet_work,
-                                  peak, err)
+    ali = epnet_args(A, A)
+    cases = shaped(A, ali, epnet_args(42, 24), domains=False)
+    # the cases past (a)-(c), from a generator of their own: the shared one
+    # feeds every later phase's data
+    eg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 10)
+    e_rows = partial(rows_of, eg)
+    # KuaiRand's EPNet: its scenario loader gives sce the scenario feature
+    # (16) and agn the sparse and dense features, MMOE's KuaiRand F 800
+    cases["d_kuairand_b4096"] = ((e_rows(4096, 16), e_rows(4096, 800)),
+                                 epnet_args(800, 800, g=eg))
+    cases["e_b65536"] = ((e_rows(65_536, 16), e_rows(65_536, A)), ali)
+    cases["f_widths_off_8_b333"] = ((e_rows(333, 5), e_rows(333, 41)),
+                                    epnet_args(41, 7, S=5, g=eg))
+    unwritten_nan = nan_filled(k.epnet_fused_infer)
+    err = run_cases("epnet_fused_infer", unwritten_nan, k.epnet_fused_infer_ref, cases)
+    for rows in EPNET_BLOCK_ROWS:  # every tile: Ali-CCP, ragged, narrow, KuaiRand, off 8
+        for name in ("a_alicpp_b4096", "b_ragged_b4095", "c_narrow_b1000", "d_kuairand_b4096",
+                     "f_widths_off_8_b333"):
+            inputs, args = cases[name]
+            if rows in EPNET_KUAIRAND_TOO_WIDE and name.startswith("d_kuairand"):
+                try:
+                    k.epnet_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"epnet_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"epnet_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.epnet_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"epnet_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  epnet_fused_infer every tile {EPNET_BLOCK_ROWS} at Ali-CCP's widths holds; "
+        f"{EPNET_KUAIRAND_TOO_WIDE} at KuaiRand's raise, naming the shared memory")
+    # a NaN stays in its row; one launch a call on EPNet's counter, none on
+    # AdaSparse's, whose kernel it runs
+    (sce, agn), args = cases["a_alicpp_b4096"]
+    bad = agn.clone()
+    bad[50, 7] = float("nan")
+    before = read_counts()
+    got, want = k.epnet_fused_infer(sce, bad, *args), k.epnet_fused_infer_ref(sce, bad, *args)
+    delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+    nan = torch.isnan(got)
+    check(nan.nonzero().flatten().tolist() == [50] and bool(torch.isnan(want[50]))
+          and kernel_gap(got[~nan], want[~nan], None) <= TOL,
+          "epnet_fused_infer: a NaN left its row")
+    check(delta == {"epnet_fused_infer": 1},
+          f"epnet_fused_infer: 1 call moved the counts by {delta}")
+    entry = time_entry("epnet_fused_infer", "epnet", k.epnet_fused_infer,
+                       k.epnet_fused_infer_ref, *cases["a_alicpp_b4096"], epnet_work, peak, err,
+                       sweep_rows=EPNET_BLOCK_ROWS)
+    # the design's own bound: the gate's two products as three TF32 products
+    # on the tensor cores, the gating and the head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * macs(args[:2])
+    entry.update(design_bound("epnet_fused_infer ", *epnet_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
+    for name in ("d_kuairand_b4096", "e_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"epnet_fused_infer {name}, step 0",
+                            lambda: k.epnet_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["epnet"] = entry
 
     # PPNet: ppnet loader, G = 2 x 16 ids + 20 x 16 + 8 + 16 = 376; towers
     # [256, 128, 64, 32, 16, 8] with a GateNU per layer, 3 domains

@@ -1,7 +1,7 @@
 // Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// star_infer.cu, sarnet_infer.cu, gated_infer.cu (EPNet) and m2m_infer.cu
-// (mmoe_infer.cu, hamur_infer.cu, ppnet_infer.cu, m3oe_infer.cu,
-// adasparse_infer.cu, ple_infer.cu and tower_infer.cu, which also runs
+// star_infer.cu, sarnet_infer.cu and m2m_infer.cu (mmoe_infer.cu,
+// hamur_infer.cu, ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu, which
+// also runs EPNet's, ple_infer.cu and tower_infer.cu, which also runs
 // AdaptDHM's FCN, are built over mma_ring.cuh).
 //
 // Each of those kernels runs a model's whole eval stack after the embedding

@@ -8,11 +8,11 @@
   same for SharedBottom, STAR, PLE and SAR-Net
   (``csrc/{tower,star,ple,sarnet}_infer.cu``);
 - ``gated_infer``: the same for EPNet, PPNet and AdaSparse
-  (``epnet_fused_infer`` in ``csrc/gated_infer.cu``; ``ppnet_fused_infer``
-  in ``csrc/ppnet_infer.cu``, each block on rows of one domain;
-  ``adasparse_fused_infer`` in ``csrc/adasparse_infer.cu``, with
-  ``adasparse_threshold_margin`` for comparing it across its hard
-  threshold);
+  (``ppnet_fused_infer`` in ``csrc/ppnet_infer.cu``, each block on rows of
+  one domain; ``adasparse_fused_infer`` in ``csrc/adasparse_infer.cu``,
+  with ``adasparse_threshold_margin`` for comparing it across its hard
+  threshold; ``epnet_fused_infer`` on the same kernel, two of its steps
+  and the head);
 - ``hamur_infer``: HAMUR's eval cut at its adapters' batch-statistics norms,
   one launch of the segment kernel ``hamur_segment`` (``csrc/hamur_infer.cu``)
   per segment, the hyper-network and the norms' statistics in PyTorch
@@ -27,12 +27,12 @@
   matrix, the meta-tower and the output MLP;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's, PLE's and SharedBottom's
-  (with AdaptDHM's) (``csrc/mma_ring.cuh``; PPNet's, M3oE's, PLE's and
-  SharedBottom's, one domain a block, and AdaSparse's also
-  ``csrc/domain_tiles.cuh``) is built over the shared
-  ``csrc/fused_mlp.cuh``: STAR's, SAR-Net's, EPNet's and M2M's; ``_fused``
-  holds their Python side.
+  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's (with EPNet's), PLE's and
+  SharedBottom's (with AdaptDHM's) (``csrc/mma_ring.cuh``; PPNet's,
+  M3oE's, PLE's and SharedBottom's, one domain a block, and AdaSparse's
+  also ``csrc/domain_tiles.cuh``) is built over the shared
+  ``csrc/fused_mlp.cuh``: STAR's, SAR-Net's and M2M's; ``_fused`` holds
+  their Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

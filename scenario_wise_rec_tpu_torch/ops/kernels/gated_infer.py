@@ -1,10 +1,14 @@
 """Fused inference of the gated-personalization family: EPNet, PPNet and
-AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` (EPNet),
-``csrc/ppnet_infer.cu`` (PPNet) and ``csrc/adasparse_infer.cu``
-(AdaSparse) and their plain PyTorch versions.
+AdaSparse, the CUDA kernels of ``csrc/ppnet_infer.cu`` (PPNet) and
+``csrc/adasparse_infer.cu`` (AdaSparse and EPNet) and their plain PyTorch
+versions.
 
 - :func:`epnet_fused_infer`: ``gate = gemma·sigmoid(relu([sce ‖ agn] W1 +
-  b1) W2 + b2)``, then ``sigmoid((agn · gate) Wo + bo)``.
+  b1) W2 + b2)``, then ``sigmoid((agn · gate) Wo + bo)``. The kernel is
+  AdaSparse's, run on a list of two steps: gate l1 reads ``[sce ‖ agn]`` as
+  one operand, gate l2's epilogue multiplies the gate into ``agn`` in
+  place, and the head reads the gated ``agn``; every product on the tensor
+  cores in 3xTF32 (about f32's accuracy).
 - :func:`ppnet_fused_infer`: per domain, from the gate input ``g``, each
   layer ``relu(h W_i + b_i) · GateNU_i(g)`` (BatchNorm folded), then
   ``sigmoid(h Wf + bf)``, each row's own domain selected. The kernel runs
@@ -21,8 +25,10 @@ AdaSparse, the CUDA kernels of ``csrc/gated_infer.cu`` (EPNet),
   top of the source).
 
 They replace the TPU kernels of ``scenario_wise_rec_tpu/ops/pallas/
-gated_infer.py``. Products with a concatenation are split, ``[s ‖ a] W =
-s W[:S] + a W[S:]``, in the kernels and in the plain versions alike.
+gated_infer.py``. The plain versions split a product with a
+concatenation, ``[s ‖ a] W = s W[:S] + a W[S:]``; the kernels keep ``s`` in
+the first columns of the activation tile and read ``[s ‖ a]`` as one
+operand.
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for one on a CUDA device, or raises; it never falls back. Each
@@ -82,27 +88,31 @@ def epnet_fused_infer_ref(
 
 
 def epnet_fused_infer(sce, agn, gate_l1: Affine, gate_l2: Affine, head: Affine,
-                      gemma: float = 2.0,
-                      block_rows: int = _fused.DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+                      gemma: float = 2.0, block_rows: int | None = None) -> torch.Tensor:
     """probs[B] = fused EPNet eval forward on the embedded ``sce``, ``agn``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: consecutive rows that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit. A shape whose tile does not fit raises a RuntimeError; it
+    never falls back. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    for its ``block_rows`` raises there too.
     """
+    check_block_rows(block_rows)
     if sce.device.type == "cpu":
         return epnet_fused_infer_ref(sce, agn, gate_l1, gate_l2, head, gemma)
     B, S, A = _epnet_shapes(sce, agn, gate_l1, gate_l2, head)
     stages = [gate_l1, gate_l2, head]
-    _fused.check_launch("epnet_fused_infer", sce, None,
-                        [agn] + [t for s in stages for t in s], len(stages), block_rows)
+    _fused.check_tensors("epnet_fused_infer", sce, None, [agn] + [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=sce.device)
     if B == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch("gated_infer", "epnet_fused_infer_f32",
+    _fused.launch("adasparse_infer", "epnet_fused_infer_f32",
                   (p, p, p, i, i, i, ctypes.c_float, p, p, p),
                   (sce.data_ptr(), agn.data_ptr(), out.data_ptr(), B, S, A, gemma,
-                   *_fused.stage_args(stages)), sce, block_rows)
+                   *_fused.stage_args(stages)), sce, block_rows or 0)
     epnet_fused_infer.launches += 1
     return out
 

@@ -14,9 +14,8 @@ Fusion form at the default tile, where the time goes: B = 65,536, the stack
 cut to pruner 0 alone (no layers: the head on [sce ‖ agn], pruner 0's 36 %
 of a row's multiply-adds kept), and the layers 8 wide (every pruner and layer
 but pruner 0 nearly gone, their 12 steps kept). Last, EPNet's kernel at
-Ali-CCP (S 16, A 360, gate 376 -> 360 -> 360), the neighbour AdaSparse's
-kernel shared ``csrc/gated_infer.cu`` with. Random weights and inputs from
-``--seed``.
+Ali-CCP (S 16, A 360, gate 376 -> 360 -> 360), which runs on AdaSparse's
+kernel. Random weights and inputs from ``--seed``.
 
 Run from the root of a checkout (or of an unpacked older commit, to compare
 two trees on one card in one call: cd there and run this file of the newer

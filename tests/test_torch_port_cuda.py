@@ -760,25 +760,77 @@ def test_sarnet_kernel_matches_plain(gen, cfg):
                         *args, rows=rows)
 
 
-@pytest.mark.parametrize("cfg", [
-    # (B, S, A, gate hidden, block_rows)
-    (4096, 16, 360, 360, 16),  # Ali-CCP
-    (333, 5, 41, 7, 8),        # widths not multiples of 4
-    (130, 16, 100, 300, 40),
-])
-def test_epnet_kernel_matches_plain(gen, cfg):
-    B, S, A, H, rows = cfg
+ALI_EPNET = (16, 360, 360)  # S, A (22 x 16 + 8), gate hidden
+# KuaiRand's EPNet: its scenario loader gives sce the scenario feature (16)
+# and agn the sparse and dense features, MMOE's KuaiRand F 800; the gate's
+# hidden width is its output's
+KUAIRAND_EPNET = (16, 800, 800)
+
+
+def _epnet_args(gen, B, S, A, H):
     sce = torch.randn(B, S, generator=gen, device="cuda")
     agn = torch.randn(B, A, generator=gen, device="cuda")
-    args = (*_affines(gen, (), [S + A, H]), *_affines(gen, (), [H, A]),
-            _affines(gen, (), [A, 1])[0])
-    before = kg.epnet_fused_infer.launches
-    got = kg.epnet_fused_infer(sce, agn, *args, gemma=1.5, block_rows=rows)
+    return sce, agn, (*_affines(gen, (), [S + A, H]), *_affines(gen, (), [H, A]),
+                      _affines(gen, (), [A, 1])[0])
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, S, A, gate hidden, block_rows; None: the kernel's choice)
+    (4096, *ALI_EPNET, 16),                      # Ali-CCP
+    (333, 5, 41, 7, 16),                         # widths not multiples of 4
+    (130, 16, 100, 300, 48),
+    *[(4096, *ALI_EPNET, rows) for rows in (32, 48, 64, None)],  # every tile fits
+    (4096, *KUAIRAND_EPNET, None),               # the kernel's choice: 16
+    (1, *ALI_EPNET, None),
+    (4095, *ALI_EPNET, None),                    # a last tile of 31 rows
+    (65_536, *ALI_EPNET, None),
+    (100, 7, 13, 21, 32),                        # A off 8, S odd, H != A
+    (64, 16, 300, 24, 64),                       # a gate 300 wide: two chunks, the second 44
+])
+def test_epnet_kernel_matches_plain(gen, cfg):
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call on EPNet's counter and none on
+    AdaSparse's, whose kernel it runs."""
+    B, S, A, H, rows = cfg
+    sce, agn, args = _epnet_args(gen, B, S, A, H)
+    before, other = kg.epnet_fused_infer.launches, kg.adasparse_fused_infer.launches
+    got = _unwritten_nan(kg.epnet_fused_infer, sce, agn, *args, gemma=1.5, block_rows=rows)
     torch.cuda.synchronize()
     assert kg.epnet_fused_infer.launches == before + 1
+    assert kg.adasparse_fused_infer.launches == other
     want = kg.epnet_fused_infer_ref(sce, agn, *args, gemma=1.5)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= TOL
+
+
+def test_epnet_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of agn, another in one row of sce,
+    leave every other row of their tiles as the plain version computes it."""
+    sce, agn, args = _epnet_args(gen, 100, *ALI_EPNET)
+    agn[50, 7] = float("nan")
+    sce[70, 3] = float("nan")
+    got = kg.epnet_fused_infer(sce, agn, *args, block_rows=64)
+    want = kg.epnet_fused_infer_ref(sce, agn, *args)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want)) and nan.nonzero().flatten().tolist() == [50, 70]
+    assert (got[~nan] - want[~nan]).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows", [32, 48, 64])
+def test_epnet_kernel_tile_that_does_not_fit_raises(gen, rows):
+    """At KuaiRand's widths the [sce ‖ agn] tile and the gate's hidden tile
+    take 1640 floats a row: 32, 48 and 64 rows do not fit beside the
+    smallest ring and raise, naming the shared memory; it never falls
+    back."""
+    sce, agn, args = _epnet_args(gen, 64, *KUAIRAND_EPNET)
+    before = kg.epnet_fused_infer.launches
+    with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+        kg.epnet_fused_infer(sce, agn, *args, block_rows=rows)
+    for bad in (8, 24, 40, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            kg.epnet_fused_infer(sce, agn, *args, block_rows=bad)
+    assert kg.epnet_fused_infer.launches == before
+    assert kg.epnet_fused_infer(sce[:0], agn[:0], *args).shape == (0,)
 
 
 def _ppnet_args(gen, G, D, dims, hidden=None):

@@ -72,12 +72,19 @@ def test_sarnet_ref_matches_jax_kernel(cfg):
     _close(got, want)
 
 
-@pytest.mark.parametrize("cfg", [(37, 8, 30, 30, 16), (20, 5, 11, 7, 8), (9, 16, 4, 20, 8)])
+@pytest.mark.parametrize("cfg", [
+    # (B, S, A, gate hidden, block_rows[, a row with a NaN])
+    (37, 8, 30, 30, 16), (20, 5, 11, 7, 8), (9, 16, 4, 20, 8),
+    (41, 7, 24, 40, 16),       # H != A, S odd
+    (33, 16, 13, 13, 16, 17),  # A off 8; a NaN in row 17 stays there
+])
 def test_epnet_ref_matches_jax_kernel(cfg):
-    B, S, A, H, block_rows = cfg  # (B, S, A, gate hidden, block_rows)
+    B, S, A, H, block_rows, *nan_row = cfg
     r = np.random.default_rng(B + 1)
     sce = r.normal(size=(B, S)).astype(np.float32)
     agn = r.normal(size=(B, A)).astype(np.float32)
+    for row in nan_row:
+        agn[row, A // 2] = np.nan
     l1, l2 = _affines(r, (), [S + A, H]), _affines(r, (), [H, A])
     head = _affines(r, (), [A, 1])[0]
     want = jgated.epnet_fused_infer(jnp.asarray(sce), jnp.asarray(agn), *_j(l1 + l2),
@@ -87,6 +94,27 @@ def test_epnet_ref_matches_jax_kernel(cfg):
                                      _t([head])[0], gemma=1.5)
     assert got.shape == (B,)
     _close(got, want)
+    assert np.isnan(got.numpy()).nonzero()[0].tolist() == nan_row  # no row but its own
+
+
+@pytest.mark.parametrize("rows,ok", [(None, True), (16, True), (32, True), (48, True),
+                                     (64, True), (8, False), (40, False), (80, False)])
+def test_epnet_wrapper_keeps_the_tile_rule_on_the_cpu(rows, ok):
+    """``block_rows`` is checked before the CPU branch, as on the card: a
+    multiple of 16 up to 64, or None. An accepted value runs the plain
+    version unchanged."""
+    r = np.random.default_rng(6)
+    args = (torch.tensor(r.normal(size=(9, 5)).astype(np.float32)),
+            torch.tensor(r.normal(size=(9, 11)).astype(np.float32)),
+            *_t(_affines(r, (), [16, 7]) + _affines(r, (), [7, 11]) + _affines(r, (), [11, 1])))
+    if not ok:
+        with pytest.raises(ValueError, match="block_rows"):
+            pk_gated.epnet_fused_infer(*args, block_rows=rows)
+        return
+    before = pk_gated.epnet_fused_infer.launches
+    got = pk_gated.epnet_fused_infer(*args, block_rows=rows)
+    assert pk_gated.epnet_fused_infer.launches == before  # plain on the CPU
+    assert torch.equal(got, pk_gated.epnet_fused_infer_ref(*args))
 
 
 @pytest.mark.parametrize("cfg", [
