@@ -77,15 +77,18 @@ Phases; each asserts, and any failure exits non-zero:
      with (g) 90 % of the rows in one domain, (h) domain counts astride its
      tiles, (i) KuaiRand's ladder (F 800, 5 domains, trunk [128], towers
      [64, 32]), (j) Amazon's (F 48, trunk [128], towers [8]) and (k) B =
-     65,536, PLE with (f) 90 % of the rows in one domain, (g) domain counts
-     astride its tiles, (h) KuaiRand's ladder (F 800, 5 domains, experts
-     [64, 32]) and (i) B = 65,536; for both, each output into a block just
-     freed full of NaN, the sweep over the tile rule (16, 32, 48, 64 and the
-     kernel's choice; 64 rows at SharedBottom's Ali-CCP and KuaiRand widths,
+     65,536, STAR with (g) 90 % of the rows in one domain, (h) domain
+     counts astride its tiles, (i) KuaiRand's ladder (F 800, 5 domains, FCN
+     [128, 64, 32], aux [32]) and (j) B = 65,536, PLE with (f) 90 % of the
+     rows in one domain, (g) domain counts astride its tiles, (h) KuaiRand's
+     ladder (F 800, 5 domains, experts [64, 32]) and (i) B = 65,536; for all
+     three, each output into a block just freed full of NaN, the sweep over
+     the tile rule (16, 32, 48, 64 and the kernel's choice; 64 rows at
+     SharedBottom's Ali-CCP and KuaiRand widths, at STAR's KuaiRand widths
      and at PLE's, and 48 at 2 levels, must raise), int64 ids against
      int32, the 3xTF32 bound beside the f32 one and the Step 0 of
-     SharedBottom's KuaiRand, Amazon and B 65,536 cases and of PLE's 2-level
-     case;
+     SharedBottom's KuaiRand, Amazon and B 65,536 cases, of STAR's KuaiRand
+     and B 65,536 cases and of PLE's 2-level case;
    - ``sarnet_fused_infer``, ``epnet_fused_infer``, ``ppnet_fused_infer``
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
@@ -252,7 +255,7 @@ EVAL_KERNELS = {
     "mmoe": ("mmoe_fused_infer", "mmoe_infer", "scenario_wise_rec_tpu/ops/pallas/mmoe_infer.py:34"),
     "sharedbottom": ("trunk_towers_fused_infer", "tower_infer",
                      "scenario_wise_rec_tpu/ops/pallas/tower_infer.py:29"),
-    "star": ("star_fused_infer", "star_infer", "scenario_wise_rec_tpu/ops/pallas/star_infer.py:35"),
+    "star": ("star_fused_infer", "tower_infer", "scenario_wise_rec_tpu/ops/pallas/star_infer.py:35"),
     "ple": ("ple_fused_infer", "ple_infer", "scenario_wise_rec_tpu/ops/pallas/ple_infer.py:58"),
     "sarnet": ("sarnet_fused_infer", "sarnet_infer",
                "scenario_wise_rec_tpu/ops/pallas/sarnet_infer.py:33"),
@@ -298,6 +301,12 @@ TOWER_TOO_WIDE = (64,)
 # floats a row at F 812) and must raise
 ADAPTDHM_BLOCK_ROWS = (16, 32, 48, 64, None)
 ADAPTDHM_KUAIRAND_TOO_WIDE = (64,)
+# star_fused_infer's (the same kernel, two chains and the domain norm):
+# every value fits at STAR's Ali-CCP widths (the emb tile, the aux logit's and
+# the first 256-wide tile take 684 floats a row); 64 rows do not at
+# KuaiRand's (972 floats a row at F 800) and must raise
+STAR_BLOCK_ROWS = (16, 32, 48, 64, None)
+STAR_KUAIRAND_TOO_WIDE = (64,)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
@@ -986,11 +995,13 @@ def phase_new_kernels(gen, peak):
     entries["sharedbottom"] = entry
 
     # STAR: FCN [256,...,8,1] per domain, aux [16]; mean/rstd of each batch
-    def star_args(emb, Dn, fcn, aux, w=None):
+    def star_args(emb, Dn, fcn, aux, w=None, g=gen):
         mean, var, _ = batch_stats(emb, w)
-        g, b = 0.5 + torch.rand(Dn, emb.shape[1], generator=gen, device="cuda"), 0.1 * randn(Dn, emb.shape[1])
-        return (mean, torch.rsqrt(var + 1e-6), g, b, affines(gen, (Dn,), [emb.shape[1]] + fcn + [1]),
-                affines(gen, (), [emb.shape[1]] + aux), affines(gen, (), [aux[-1], 1])[0])
+        gamma = 0.5 + torch.rand(Dn, emb.shape[1], generator=g, device="cuda")
+        beta = 0.1 * torch.randn(Dn, emb.shape[1], generator=g, device="cuda")
+        return (mean, torch.rsqrt(var + 1e-6), gamma, beta,
+                affines(g, (Dn,), [emb.shape[1]] + fcn + [1]),
+                affines(g, (), [emb.shape[1]] + aux), affines(g, (), [aux[-1], 1])[0])
 
     fcn_dims = [256, 128, 64, 32, 16, 8]
     cases = {}
@@ -1007,7 +1018,45 @@ def phase_new_kernels(gen, peak):
     pad_args = star_args(padded, D, fcn_dims, [16], w)
     pad_ids = ids(4096)
     cases["e_padded_rows_b4096"] = ((padded, pad_ids), pad_args)
-    err = run_cases("star_fused_infer", k.star_fused_infer, k.star_fused_infer_ref, cases)
+    # the partition by domain at its edges, KuaiRand's ladder and B 65,536,
+    # from a generator of its own: the shared one feeds every later phase's
+    # data
+    sg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 11)
+    s_counted, s_rows = partial(counted, sg), partial(rows_of, sg)
+
+    def star_case(emb, did, Dn=D, fcn=fcn_dims, aux=(16,)):
+        return (emb, did), star_args(emb, Dn, fcn, list(aux), g=sg)
+
+    cases["g_skewed_b4096"] = star_case(s_rows(4096, F), s_counted(3700, 300, 96))  # 90 % in one
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["h_counts_astride_tiles_b66"] = star_case(s_rows(66, F), s_counted(33, 32, 1))
+    # KuaiRand's STAR (FCN [128, 64, 32], aux [32], 5 domains) at MMOE's
+    # KuaiRand F 800
+    cases["i_kuairand_b4096"] = star_case(
+        s_rows(4096, 800), torch.randint(0, 5, (4096,), generator=sg, device="cuda"), 5,
+        [128, 64, 32], (32,))
+    cases["j_b65536"] = star_case(
+        s_rows(65_536, F), torch.randint(0, D, (65_536,), generator=sg, device="cuda"))
+    unwritten_nan = nan_filled(k.star_fused_infer)
+    err = run_cases("star_fused_infer", unwritten_nan, k.star_fused_infer_ref, cases)
+    for rows in STAR_BLOCK_ROWS:  # every tile: at the edges of the partition, the ladder
+        for name in ("b_ragged_b4095", "e_padded_rows_b4096", "g_skewed_b4096",
+                     "h_counts_astride_tiles_b66", "i_kuairand_b4096"):
+            inputs, args = cases[name]
+            if rows in STAR_KUAIRAND_TOO_WIDE and name.startswith("i_kuairand"):
+                try:
+                    k.star_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"star_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"star_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.star_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"star_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  star_fused_infer every tile {STAR_BLOCK_ROWS} at Ali-CCP's widths holds; "
+        f"{STAR_KUAIRAND_TOO_WIDE} at KuaiRand's raises, naming the shared memory")
     mean, var, _ = batch_stats(emb4096[:real])
     unpadded = k.star_fused_infer_ref(emb4096[:real].contiguous(), pad_ids[:real], mean,
                                       torch.rsqrt(var + 1e-6), *pad_args[2:])
@@ -1015,9 +1064,32 @@ def phase_new_kernels(gen, peak):
     log(f"  star_fused_infer e_padded_rows_b4096: real rows vs the unpadded batch, "
         f"max_abs_err {pad_err:.3e}")
     check(pad_err <= TOL, "STAR's padded rows move its real rows")
-    entries["star"] = time_entry("star_fused_infer", "star", k.star_fused_infer,
-                                 k.star_fused_infer_ref, *cases["a_alicpp_b4096"], star_work,
-                                 peak, max(err, pad_err))
+    # int64 ids as they are, modulo 2^32 as int32, then clipped; one launch a
+    # call on STAR's counter, none on SharedBottom's or AdaptDHM's
+    (emb, did), args = cases["d_domain_oob_b4096"]
+    before = read_counts()
+    same = (torch.equal(k.star_fused_infer(emb, did, *args),
+                        k.star_fused_infer(emb, did.to(torch.int32), *args))
+            and torch.equal(k.star_fused_infer(emb, did + 2**32, *args),
+                            k.star_fused_infer(emb, did, *args)))
+    delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+    check(same, "star_fused_infer: int64 ids differ from the same ids as int32")
+    check(delta == {"star_fused_infer": 4}, f"star_fused_infer: 4 calls moved the counts by {delta}")
+    entry = time_entry("star_fused_infer", "star", k.star_fused_infer, k.star_fused_infer_ref,
+                       *cases["a_alicpp_b4096"], star_work, peak, max(err, pad_err),
+                       sweep_rows=STAR_BLOCK_ROWS)
+    # the design's own bound: every product (the aux stages and head, the own
+    # FCN) as three TF32 products on the tensor cores, the norm in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    flops, moved = star_work(*inputs, *args)
+    entry.update(design_bound("star_fused_infer ", flops, moved,
+                              flops - 3.0 * inputs[0].numel(), peak, entry["ms"]))
+    for name in ("i_kuairand_b4096", "j_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"star_fused_infer {name}, step 0",
+                            lambda: k.star_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["star"] = entry
 
     # PLE: 1 level of 2 specific + 1 shared experts [256,...,8], tower [16];
     # and 2 levels at the same expert widths (the shared gate's path)

@@ -1,8 +1,8 @@
 // Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// star_infer.cu, sarnet_infer.cu and m2m_infer.cu (mmoe_infer.cu,
-// hamur_infer.cu, ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu, which
-// also runs EPNet's, ple_infer.cu and tower_infer.cu, which also runs
-// AdaptDHM's FCN, are built over mma_ring.cuh).
+// sarnet_infer.cu and m2m_infer.cu (mmoe_infer.cu, hamur_infer.cu,
+// ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu, which also runs EPNet's,
+// ple_infer.cu and tower_infer.cu, which also runs AdaptDHM's FCN and STAR's,
+// are built over mma_ring.cuh).
 //
 // Each of those kernels runs a model's whole eval stack after the embedding
 // for a tile of `tb` rows in one thread block, with every activation in
@@ -12,12 +12,12 @@
 // block sorts its rows by domain and cuts them into *groups*: rows that
 // share a weight matrix, at most R of them.
 //
-// - Shared-weight stages (a trunk, shared experts, an aux MLP, every stage
-//   of a model without domains) take the tile's rows in order, R =
-//   kSharedRows at a time, as one domain.
-// - Per-domain stages (towers, STAR's FCN) take the rows of one domain, R =
-//   kDomainRows at a time. A row computes only its own domain, where the TPU
-//   kernels compute every domain and select.
+// - Shared-weight stages (SAR-Net's shared experts, every stage of a model
+//   without domains) take the tile's rows in order, R = kSharedRows at a
+//   time, as one domain.
+// - Per-domain stages (SAR-Net's own experts) take the rows of one domain,
+//   R = kDomainRows at a time. A row computes only its own domain, where
+//   the TPU kernels compute every domain and select.
 //
 // In a dense stage a thread owns one output column of one group: one weight
 // load from L2 feeds R FMAs, and the activations are read from shared memory

@@ -15,6 +15,14 @@
 // 0, C-1) is the domain, its relu stages the tower and its last, width-1
 // stage the head.
 //
+// And scenario_wise_rec_tpu/ops/pallas/star_infer.py:star_fused_infer, as two
+// chains from the emb tile: STAR's aux relu MLP of shared stages and its
+// unrelu'd 1-unit head on the raw row, into a logit tile of its own; then the
+// domain norm in place, g[d] * ((x - mean) * rstd) + b[d] (the batch's mean
+// and rstd computed outside the kernel); then the FCN of domain d with a relu
+// after every stage, the width-1 last one too; the sigmoid of the sum of the
+// two logits.
+//
 // What bounds it on this card: arithmetic. At SharedBottom's Ali-CCP shape
 // (F = 376, trunk [512], towers [256,128,64,32,16,8], head 8 -> 1, 3
 // domains) a row costs 192,512 multiply-adds in the trunk and 174,728 in its
@@ -23,7 +31,10 @@
 // GFLOP / 495 TFLOP/s = 0.0182 ms; in f32 without tensor cores 0.0449 ms at
 // 67 TFLOP/s (H100 SXM, 700 W); HBM bounds less. AdaptDHM's (F = 368, stages
 // [256,128,64,32,16,8], then 8 -> 1, 3 clusters) costs 137,864 a row: 1.129
-// GFLOP, 0.0068 ms in 3xTF32, 0.0169 ms in f32.
+// GFLOP, 0.0068 ms in 3xTF32, 0.0169 ms in f32. STAR's (F = 376, aux [16]
+// then 16 -> 1, FCN [256,128,64,32,16,8,1], 3 domains) costs 139,912 in its
+// own FCN and 6,032 in the aux MLP a row: 1.196 GFLOP, 0.0072 ms in 3xTF32,
+// 0.0179 ms in f32; its norm, 3 operations an element, adds ~4.6 MFLOP.
 //
 // What the design does about it (the split, the mma products, the ring and
 // its bulk copies are mma_ring.cuh's; the partition by domain, the slab
@@ -47,14 +58,23 @@
 // - The epilogue adds the bias (none where the step has none: its loads are
 //   skipped) and applies relu (not after the head) into the next tile;
 //   columns from N to N rounded to 8 come out zero, which the next product
-//   reads. A last pass writes the sigmoid of each row's column 0.
+//   reads. A last pass writes the sigmoid of each row's column 0 (plus the
+//   aux logit's, STAR's).
+// - STAR's domain norm is a pass of the compute warps over the emb tile's
+//   columns [0, F) just before the first FCN step, a column a thread, in the
+//   plain version's order of operations; the pad columns stay zero. The
+//   producer warp takes no part: it streams the FCN's first slabs meanwhile.
 // - Shared memory: the host places each product's tiles by their lifetimes
 //   (Tiles), and the ring takes what the peak leaves (size_ring): at 32
 //   Ali-CCP rows the emb tile and the trunk's 512-wide tile take 120 KB; 48
 //   rows fit, 64 do not. AdaptDHM's peak, the emb tile and the first
-//   256-wide tile, is 648 floats a row: 64 rows fit.
+//   256-wide tile, is 648 floats a row: 64 rows fit. STAR's, at the first
+//   FCN product, is the emb tile, the aux logit's and the 256-wide output:
+//   684 floats a row, so 64 rows fit; at KuaiRand's F 800 it is 972 and 64
+//   rows do not.
 // Rows never mix: a NaN stays in its row. The last tile of a domain is
-// partial; its missing rows are zero and never written out.
+// partial; its missing rows are zero (after STAR's norm b - mean rstd g),
+// computed and never written out.
 //
 // Bound through ctypes: a plain C interface, every pointer and the stream as
 // void*, the cudaError_t of the launch returned.
@@ -67,9 +87,9 @@ namespace {
 
 using namespace ring;
 
-// Products a launch takes (trunk, tower and head stages): the chain is a
-// kernel parameter, past the 4 KB of old (CUDA 12.1 and later take 32,764
-// bytes).
+// Products a launch takes (trunk, tower and head stages; STAR's aux stages,
+// aux head and FCN stages): the chain is a kernel parameter, past the 4 KB of
+// old (CUDA 12.1 and later take 32,764 bytes).
 constexpr int kMaxSteps = 96;
 
 // A step: one product, v = x W + b, then relu (not after the head).
@@ -80,7 +100,7 @@ struct Step {
   int in, out;        // tiles: float offsets in the arena
   int ld_in, ld_out;  // their row strides
   short srows, sld;   // weight rows a slab (a multiple of 8) and their stride in a slot
-  unsigned char dmul;   // the member: the block's domain (1) or member 0 (0, the trunk)
+  unsigned char dmul;   // the member: the block's domain (1) or member 0 (0: trunk, aux)
   unsigned char relu;
   unsigned char whole;  // a slab is one bulk copy of whole rows (copy_whole)
   signed char map;  // a slab is one tensor copy of Args::map[map] (-1: whole or row copies)
@@ -94,10 +114,35 @@ struct Args {
   int id64, B, F, D, n_steps;
   int emb_at, ld_emb;  // the emb tile
   int t, ld_t;         // the last tile: the logit in column 0
+  int aux_t, ld_aux;   // the tile of a logit the sigmoid pass adds (-1: none)
+  int norm_at;         // the step before which the domain norm runs (-1: none)
+  const float* mean;   // [F] the norm's batch mean and rstd,
+  const float* rstd;   // [F]
+  const float* gamma;  // [D, F] and each domain's gamma and beta
+  const float* beta;   // [D, F]
   int arena, slot;     // floats of the tiles and of a ring slot
   Step step[kMaxSteps];
 };
 static_assert(sizeof(Args) <= 32764, "the kernel parameters' limit");
+
+// STAR's domain norm of domain dom in place over the columns [0, F) of the
+// emb tile x [M, ld_emb], g[dom] * ((x - mean) * rstd) + b[dom] rounded as the
+// plain version rounds it (no fused multiply-add); the pad columns stay zero.
+// The compute warps, a column a thread. Not synchronised.
+template <int M>
+__device__ __forceinline__ void domain_norm(const Args& p, int dom, float* x) {
+  const float* g = p.gamma + static_cast<size_t>(dom) * p.F;
+  const float* b = p.beta + static_cast<size_t>(dom) * p.F;
+  for (int k = threadIdx.x; k < p.F; k += kComputeThreads) {
+    const float mu = __ldg(p.mean + k), rs = __ldg(p.rstd + k);
+    const float gk = __ldg(g + k), bk = __ldg(b + k);
+#pragma unroll 8
+    for (int r = 0; r < M; ++r) {
+      float* v = x + r * p.ld_emb + k;
+      *v = __fadd_rn(__fmul_rn(gk, __fmul_rn(__fsub_rn(*v, mu), rs)), bk);
+    }
+  }
+}
 
 // A finished chunk of step st's product: bias, then relu where the step has
 // it, into the step's tile (rows of the tile, columns c0 + the warp's
@@ -195,6 +240,10 @@ tower_fused_infer_kernel(const __grid_constant__ Args p) {
     int s = 0;
     for (int q = 0; q < p.n_steps; ++q) {
       const Step& st = p.step[q];
+      if (q == p.norm_at) {
+        domain_norm<M>(p, dom, arena + p.emb_at);
+        compute_sync();  // the normalised tile, before the step reads it
+      }
       const float* A = arena + st.in;
       for (int c = 0; c * kChunk < st.N; ++c) {
         const int c0 = c * kChunk;
@@ -223,9 +272,12 @@ tower_fused_infer_kernel(const __grid_constant__ Args p) {
   }
   __syncthreads();
 
-  // 5. the sigmoid of each row's logit
-  for (int r = threadIdx.x; r < n_rows; r += kThreads)
-    p.out[rows_s[r]] = sigmoid(arena[p.t + r * p.ld_t]);
+  // 5. the sigmoid of each row's logit (plus its aux logit, STAR's)
+  for (int r = threadIdx.x; r < n_rows; r += kThreads) {
+    float v = arena[p.t + r * p.ld_t];
+    if (p.aux_t >= 0) v += arena[p.aux_t + r * p.ld_aux];
+    p.out[rows_s[r]] = sigmoid(v);
+  }
 }
 
 size_t smem_bytes(int tb, int D, int arena_row, int slot) {
@@ -243,6 +295,128 @@ cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
   const int tiles = (p.B + MT * 16 - 1) / (MT * 16) + p.D - 1;
   tower_fused_infer_kernel<MT><<<tiles, kThreads, smem, stream>>>(p);
   return cudaSuccess;
+}
+
+bool rows_ok(int block_rows) {
+  return block_rows >= 0 && block_rows % 16 == 0 && block_rows <= 16 * kMaxMT;
+}
+
+// Chains of products and their activation tiles, laid out on the host from
+// the host arrays of the stages (W and b device pointers, (K, N) a stage), a
+// step for each stage in their order. The emb tile is loaded before the
+// first step.
+struct Plan {
+  const float* const* w;
+  const float* const* b;
+  const int* kn;
+  Tiles tiles;
+  int emb;
+  std::vector<Step> steps;
+  std::vector<int> in, out;
+  int norm_at = -1;  // the step before which the domain norm runs (-1: none)
+  int aux = -1;      // the tile of a logit the sigmoid pass adds (-1: none)
+
+  Plan(const void* w_ptrs, const void* b_ptrs, const void* dims, int F)
+      : w(static_cast<const float* const*>(w_ptrs)),
+        b(static_cast<const float* const*>(b_ptrs)),
+        kn(static_cast<const int*>(dims)),
+        emb(tiles.add(F, -1)) {}
+
+  // The next n stages as a chain from tile x, each from the tile the one
+  // before wrote: of member 0 (dmul 0) or the block's domain (dmul 1), relu
+  // after each but, where `head`, the last. The last writes tile `into`
+  // where given, else a new tile. Returns the last tile, or -1 where a stage
+  // has no W or does not follow its input's width, or past kMaxSteps.
+  int chain(int n, int x, int dmul, bool head, int into = -1) {
+    for (int i = 0; i < n; ++i) {
+      const int q = static_cast<int>(steps.size());
+      if (q >= kMaxSteps) return -1;
+      Step s = {};
+      s.w = w[q];
+      s.b = b[q];
+      s.K = kn[2 * q];
+      s.N = kn[2 * q + 1];
+      const bool last = i == n - 1;
+      if (s.w == nullptr || s.K != tiles.t[x].width || s.N < 1 ||
+          (last && into >= 0 && tiles.t[into].width != s.N))
+        return -1;
+      s.dmul = static_cast<unsigned char>(dmul);
+      s.relu = !(head && last);
+      tiles.use(x, q);
+      in.push_back(x);
+      x = last && into >= 0 ? into : tiles.add(s.N, q);
+      out.push_back(x);
+      steps.push_back(s);
+    }
+    return x;
+  }
+};
+
+// What both entry points share once the chains are laid out: the tiles
+// placed (the sigmoid pass reads tile `logit` and plan.aux after the last
+// step), the tile chosen (block_rows 0: 32 where a 32-row tile fits, else
+// 16) and the ring sized beside it, the steps' places and tensor maps
+// written into p, and the launch. Writes the dynamic shared memory a block of
+// the tile it tried takes to *smem; returns a cudaError_t
+// (cudaErrorInvalidValue when that tile does not fit).
+int run(Plan& plan, Args& p, int logit, int block_rows, void* stream, size_t* smem) {
+  const int n = static_cast<int>(plan.steps.size());
+  Tiles& tiles = plan.tiles;
+  tiles.use(logit, n);
+  tiles.use(plan.aux, n);
+  const int arena_row = tiles.place();
+
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t budget = static_cast<size_t>(optin);
+  auto ring_slot = [&](int tb) {
+    return size_ring(plan.steps.data(), n, smem_bytes(tb, p.D, arena_row, 0), budget);
+  };
+  if (block_rows == 0)
+    block_rows = smem_bytes(32, p.D, arena_row, ring_slot(32)) <= budget ? 32 : 16;
+  const int slot = ring_slot(block_rows);
+  *smem = smem_bytes(block_rows, p.D, arena_row, slot);
+  if (*smem > budget) return static_cast<int>(cudaErrorInvalidValue);
+
+  const int M = block_rows;
+  auto at = [&](int tile) { return M * tiles.t[tile].at; };
+  auto ld = [&](int tile) { return ld_act(tiles.t[tile].width); };
+  for (int q = 0; q < n; ++q) {
+    Step& s = plan.steps[q];
+    s.in = at(plan.in[q]);
+    s.ld_in = ld(plan.in[q]);
+    s.out = at(plan.out[q]);
+    s.ld_out = ld(plan.out[q]);
+    if (s.map >= 0 &&
+        !encode_map(s.w, s.K, s.N, s.dmul ? p.D : 1, s.srows, &p.map[s.map]))
+      return static_cast<int>(cudaErrorNotSupported);
+    p.step[q] = s;
+  }
+  p.n_steps = n;
+  p.emb_at = at(plan.emb); p.ld_emb = ld(plan.emb);
+  p.t = at(logit); p.ld_t = ld(logit);
+  p.aux_t = plan.aux >= 0 ? at(plan.aux) : -1;
+  p.ld_aux = plan.aux >= 0 ? ld(plan.aux) : 0;
+  p.norm_at = plan.norm_at;
+  p.arena = M * arena_row;
+  p.slot = slot;
+
+  if (p.B == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  switch (block_rows / 16) {
+    case 1: err = launch<1>(p, *smem, strm); break;
+    case 2: err = launch<2>(p, *smem, strm); break;
+    case 3: err = launch<3>(p, *smem, strm); break;
+    default: err = launch<4>(p, *smem, strm); break;
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -263,93 +437,61 @@ int tower_fused_infer_f32(const void* emb, const void* did, int id64, void* out,
                           const void* b_ptrs, const void* dims, int block_rows, void* stream,
                           size_t* smem) {
   *smem = 0;
-  const int n = n_trunk + n_tow + (has_head ? 1 : 0);
-  if (B < 0 || F < 1 || D < 1 || D > kMaxDomains || n_trunk < 0 || n_tow < 0 || n < 1 ||
-      n > kMaxSteps || block_rows < 0 || block_rows % 16 != 0 || block_rows > 16 * kMaxMT)
+  if (B < 0 || F < 1 || D < 1 || D > kMaxDomains || n_trunk < 0 || n_tow < 0 ||
+      n_trunk + n_tow + (has_head ? 1 : 0) < 1 || !rows_ok(block_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* const* w = static_cast<const float* const*>(w_ptrs);
-  const float* const* b = static_cast<const float* const*>(b_ptrs);
-  const int* kn = static_cast<const int*>(dims);
-
-  // the chain: each stage from the tile the one before wrote, the emb tile
-  // loaded before the first step
-  Tiles tiles;
-  std::vector<Step> steps(n);
-  std::vector<int> in(n), outs(n), members(n);
-  const int emb_tile = tiles.add(F, -1);
-  int x = emb_tile, width = F;
-  for (int q = 0; q < n; ++q) {
-    Step& s = steps[q];
-    s = Step{};
-    s.w = w[q];
-    s.b = b[q];
-    s.K = kn[2 * q];
-    s.N = kn[2 * q + 1];
-    if (s.K != width || s.N < 1 || s.w == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    s.dmul = q >= n_trunk;
-    s.relu = !(has_head && q == n - 1);
-    members[q] = s.dmul ? D : 1;
-    tiles.use(x, q);
-    in[q] = x;
-    x = outs[q] = tiles.add(s.N, q);
-    width = s.N;
-  }
-  if (width != 1) return static_cast<int>(cudaErrorInvalidValue);
-  tiles.use(x, n);  // the sigmoid pass, after the last step
-  const int arena_row = tiles.place();
-
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t budget = static_cast<size_t>(optin);
-  auto ring_slot = [&](int tb) {
-    return size_ring(steps.data(), n, smem_bytes(tb, D, arena_row, 0), budget);
-  };
-  if (block_rows == 0)
-    block_rows = smem_bytes(32, D, arena_row, ring_slot(32)) <= budget ? 32 : 16;
-  const int slot = ring_slot(block_rows);
-  *smem = smem_bytes(block_rows, D, arena_row, slot);
-  if (*smem > budget) return static_cast<int>(cudaErrorInvalidValue);
+  // the trunk from the emb tile, then the own tower and head
+  Plan plan(w_ptrs, b_ptrs, dims, F);
+  int x = plan.chain(n_trunk, plan.emb, 0, false);
+  if (x >= 0) x = plan.chain(n_tow + (has_head ? 1 : 0), x, 1, has_head);
+  if (x < 0 || plan.tiles.t[x].width != 1) return static_cast<int>(cudaErrorInvalidValue);
 
   Args p = {};
-  const int M = block_rows;
-  auto at = [&](int tile) { return M * tiles.t[tile].at; };
-  for (int q = 0; q < n; ++q) {
-    Step& s = steps[q];
-    s.in = at(in[q]);
-    s.ld_in = ld_act(tiles.t[in[q]].width);
-    s.out = at(outs[q]);
-    s.ld_out = ld_act(s.N);
-    if (s.map >= 0 && !encode_map(s.w, s.K, s.N, members[q], s.srows, &p.map[s.map]))
-      return static_cast<int>(cudaErrorNotSupported);
-    p.step[q] = s;
-  }
   p.emb = static_cast<const float*>(emb);
   p.did = did;
   p.out = static_cast<float*>(out);
   p.id64 = id64;
-  p.B = B; p.F = F; p.D = D; p.n_steps = n;
-  p.emb_at = at(emb_tile); p.ld_emb = ld_act(F);
-  p.t = at(x); p.ld_t = ld_act(1);
-  p.arena = M * arena_row;
-  p.slot = slot;
+  p.B = B; p.F = F; p.D = D;
+  return run(plan, p, x, block_rows, stream, smem);
+}
 
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  switch (block_rows / 16) {
-    case 1: err = launch<1>(p, *smem, strm); break;
-    case 2: err = launch<2>(p, *smem, strm); break;
-    case 3: err = launch<3>(p, *smem, strm); break;
-    default: err = launch<4>(p, *smem, strm); break;
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // not left for the next launch's check
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+// STAR: emb [B, F] f32; did [B] domain ids, int64 when id64, else int32;
+// mean, rstd [F], gamma, beta [D, F] f32. w_ptrs/b_ptrs: host arrays of
+// device pointers, one per stage, in the order aux stages (W [K, N], b [N]),
+// the aux head (W [K, 1], b [1]), FCN stages (W [D, K, N], b [D, N]); dims:
+// (K, N) per stage. block_rows, *smem and the returned cudaError_t as
+// tower_fused_infer_f32's; both chains must end at width 1.
+int star_fused_infer_f32(const void* emb, const void* did, int id64, void* out, int B, int F,
+                         int D, int n_aux, int n_fcn, const void* mean, const void* rstd,
+                         const void* gamma, const void* beta, const void* w_ptrs,
+                         const void* b_ptrs, const void* dims, int block_rows, void* stream,
+                         size_t* smem) {
+  *smem = 0;
+  if (B < 0 || F < 1 || D < 1 || D > kMaxDomains || n_aux < 0 || n_fcn < 1 ||
+      !rows_ok(block_rows) || mean == nullptr || rstd == nullptr || gamma == nullptr ||
+      beta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the aux stages and head from the emb tile into the aux logit's tile, made
+  // first so that it lies beside the emb tile and the FCN's first output
+  // fits after both; the norm, in place; the FCN from the emb tile
+  Plan plan(w_ptrs, b_ptrs, dims, F);
+  plan.aux = plan.tiles.add(1, n_aux);
+  const int aux = plan.chain(n_aux + 1, plan.emb, 0, true, plan.aux);
+  plan.norm_at = static_cast<int>(plan.steps.size());
+  const int x = aux < 0 ? -1 : plan.chain(n_fcn, plan.emb, 1, false);
+  if (x < 0 || plan.tiles.t[x].width != 1) return static_cast<int>(cudaErrorInvalidValue);
+
+  Args p = {};
+  p.emb = static_cast<const float*>(emb);
+  p.did = did;
+  p.out = static_cast<float*>(out);
+  p.id64 = id64;
+  p.B = B; p.F = F; p.D = D;
+  p.mean = static_cast<const float*>(mean);
+  p.rstd = static_cast<const float*>(rstd);
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  return run(plan, p, x, block_rows, stream, smem);
 }
 
 }  // extern "C"

@@ -4,9 +4,12 @@
   precondition of the fused kernels).
 - ``mmoe_infer``: the whole post-embedding MMOE eval stack in one CUDA
   kernel (``csrc/mmoe_infer.cu``), with its plain version.
-- ``tower_infer``, ``star_infer``, ``ple_infer``, ``sarnet_infer``: the
-  same for SharedBottom, STAR, PLE and SAR-Net
-  (``csrc/{tower,star,ple,sarnet}_infer.cu``);
+- ``tower_infer``, ``ple_infer``, ``sarnet_infer``: the same for
+  SharedBottom, PLE and SAR-Net (``csrc/{tower,ple,sarnet}_infer.cu``);
+- ``star_infer``: STAR's eval on SharedBottom's chain kernel
+  (``csrc/tower_infer.cu``: its aux MLP and head, the domain norm in place,
+  then its own domain's FCN, one domain a block, every product on the
+  tensor cores);
 - ``gated_infer``: the same for EPNet, PPNet and AdaSparse
   (``ppnet_fused_infer`` in ``csrc/ppnet_infer.cu``, each block on rows of
   one domain; ``adasparse_fused_infer`` in ``csrc/adasparse_infer.cu``,
@@ -28,11 +31,11 @@
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
   MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's (with EPNet's), PLE's and
-  SharedBottom's (with AdaptDHM's) (``csrc/mma_ring.cuh``; PPNet's,
-  M3oE's, PLE's and SharedBottom's, one domain a block, and AdaSparse's
-  also ``csrc/domain_tiles.cuh``) is built over the shared
-  ``csrc/fused_mlp.cuh``: STAR's, SAR-Net's and M2M's; ``_fused`` holds
-  their Python side.
+  SharedBottom's (with AdaptDHM's and STAR's) (``csrc/mma_ring.cuh``;
+  PPNet's, M3oE's, PLE's and SharedBottom's, one domain a block, and
+  AdaSparse's also ``csrc/domain_tiles.cuh``) is built over the shared
+  ``csrc/fused_mlp.cuh``: SAR-Net's and M2M's; ``_fused`` holds their
+  Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

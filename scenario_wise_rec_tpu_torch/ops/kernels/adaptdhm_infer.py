@@ -90,8 +90,8 @@ def adaptdhm_fused_infer(
     check_card_limits(len(stages), C, "adaptdhm_fused_infer", "clusters")
     _fused.check_tensors("adaptdhm_fused_infer", emb, router, list(stages))
     # no trunk: every stage is the cluster's, the last the unrelu'd head
-    return _launch_chain(adaptdhm_fused_infer, emb, router, C, 0, len(stages) - 1, True,
-                         [(w, None) for w in stages], block_rows)
+    return _launch_chain(adaptdhm_fused_infer, "tower_fused_infer_f32", emb, router, C,
+                         (0, len(stages) - 1, 1), (), [(w, None) for w in stages], block_rows)
 
 
 adaptdhm_fused_infer.launches = 0

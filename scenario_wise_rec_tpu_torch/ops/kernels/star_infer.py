@@ -1,14 +1,20 @@
-"""Fused STAR inference: the CUDA kernel ``csrc/star_infer.cu`` and its plain
-PyTorch version.
+"""Fused STAR inference: SharedBottom's chain kernel ``csrc/tower_infer.cu``
+run as two chains with the domain norm between them, and its plain PyTorch
+version.
 
 STAR's eval forward after the embedding: the domain norm with the batch's
 mean and rstd (reduced outside the kernel, the padded rows masked out) and
 each domain's gamma and beta, the domain's FCN (``W_shared ⊙ W_d`` with its
 BatchNorm folded) with a relu after every stage, the width-1 one included,
 an aux relu MLP on the raw embedding whose logit is added, the sigmoid, and
-each row's own domain selected. The kernel computes only the row's own
-domain (the design note is at the top of the source). It replaces the TPU
-kernel ``scenario_wise_rec_tpu/ops/pallas/star_infer.py:star_fused_infer``.
+each row's own domain selected; ids are taken modulo 2^32 as int32 and
+clipped to ``[0, D-1]``. The kernel gives each block rows of one domain,
+partitioned inside the one launch from the int64 or int32 ids, runs the aux
+MLP and its head, then the norm over the block's tile in place, then only
+that domain's FCN, every product on the tensor cores in 3xTF32 (about f32's
+accuracy), the weights streamed through shared memory (the design note is
+at the top of the source). It replaces the TPU kernel
+``scenario_wise_rec_tpu/ops/pallas/star_infer.py:star_fused_infer``.
 
 :func:`star_fused_infer` takes the plain version for a tensor on the CPU
 and launches the kernel for one on a CUDA device, or raises; it never falls
@@ -17,13 +23,14 @@ back. ``star_fused_infer.launches`` counts launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import check_block_rows
+from .tower_infer import _launch_chain, check_card_limits
 
 
 def _check_shapes(emb, domain_id, mean, rstd, dn_gamma, dn_beta, fcn_stages,
@@ -85,35 +92,36 @@ def star_fused_infer(
     fcn_stages: Sequence[Affine],
     aux_stages: Sequence[Affine],
     aux_out: Affine,
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused STAR eval forward on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at STAR's Ali-CCP widths 16, 32, 48 and 64 fit; at
+    KuaiRand's 64 does not). A shape whose tile does not fit raises a
+    RuntimeError; it never falls back. On the CPU the plain version runs and
+    the value only has to keep the tile rule, so that a call that would
+    raise on the card for its ``block_rows`` raises there too. The card
+    takes at most ``MAX_STAGES`` (96) stages (the aux stages, the aux head
+    and the FCN stages together) and ``MAX_DOMAINS`` (256) domains. int32
+    and int64 domain ids are read as they are.
     """
+    check_block_rows(block_rows)
     if emb.device.type == "cpu":
         return star_fused_infer_ref(emb, domain_id, mean, rstd, dn_gamma, dn_beta,
                                     fcn_stages, aux_stages, aux_out)
-    B, F, D = _check_shapes(emb, domain_id, mean, rstd, dn_gamma, dn_beta,
+    _, _, D = _check_shapes(emb, domain_id, mean, rstd, dn_gamma, dn_beta,
                             fcn_stages, aux_stages, aux_out)
-    stages = list(fcn_stages) + list(aux_stages) + [aux_out]
+    # the chain kernel's order: the aux stages and head, then the FCN
+    stages = list(aux_stages) + [aux_out] + list(fcn_stages)
+    check_card_limits(len(stages), D, "star_fused_infer")
     vectors = [mean, rstd, dn_gamma, dn_beta]
-    _fused.check_launch("star_fused_infer", emb, domain_id,
-                        vectors + [t for s in stages for t in s], len(stages),
-                        block_rows)
-    out = torch.empty(B, dtype=torch.float32, device=emb.device)
-    if B == 0:
-        return out
-    did = domain_id.to(torch.int32).contiguous()
-    p, i = ctypes.c_void_p, ctypes.c_int
-    _fused.launch(
-        "star_infer", "star_fused_infer_f32", (p, p, p, p, p, p, p, i, i, i, i, i, p, p, p),
-        (emb.data_ptr(), did.data_ptr(), out.data_ptr(), *[v.data_ptr() for v in vectors],
-         B, F, D, len(fcn_stages), len(aux_stages), *_fused.stage_args(stages)),
-        emb, block_rows)
-    star_fused_infer.launches += 1
-    return out
+    _fused.check_tensors("star_fused_infer", emb, domain_id,
+                         vectors + [t for s in stages for t in s])
+    return _launch_chain(star_fused_infer, "star_fused_infer_f32", emb, domain_id, D,
+                         (len(aux_stages), len(fcn_stages)), vectors, stages, block_rows)
 
 
 star_fused_infer.launches = 0

@@ -10,7 +10,9 @@ shared memory (the design note is at the top of the source). It replaces the
 TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/tower_infer.py:trunk_towers_fused_infer``.
 AdaptDHM's routed FCN (``adaptdhm_infer.py``) runs on the same kernel, as a
-chain without a trunk and without biases (:func:`_launch_chain`).
+chain without a trunk and without biases, and STAR's eval (``star_infer.py``)
+as two chains, its aux MLP and its domain's FCN, with the domain norm between
+them (:func:`_launch_chain`).
 
 Preconditions: eval mode (BatchNorm folded to affine, see ``folding.py``),
 relu activations. Without a head (``tower_out=None``) the last stage has
@@ -123,16 +125,18 @@ def trunk_towers_fused_infer(
     check_card_limits(len(stages), D)
     _fused.check_tensors("trunk_towers_fused_infer", emb, domain_id,
                          [t for s in stages for t in s])
-    return _launch_chain(trunk_towers_fused_infer, emb, domain_id, D, len(trunk_stages),
-                         len(tower_stages), tower_out is not None, stages, block_rows)
+    return _launch_chain(trunk_towers_fused_infer, "tower_fused_infer_f32", emb, domain_id, D,
+                         (len(trunk_stages), len(tower_stages), int(tower_out is not None)),
+                         (), stages, block_rows)
 
 
-def _launch_chain(wrapper, emb, domain_id, D, n_trunk, n_tow, has_head, stages, block_rows):
-    """probs[B] from one launch of the chain kernel: ``n_trunk`` shared
-    stages, ``n_tow`` stages of the row's domain, then its head (unrelu'd)
-    where ``has_head``; each stage ``(W, b)``, ``b`` None for a stage without
-    bias. Adds one to ``wrapper.launches`` where it launches; raises a
-    RuntimeError, naming ``wrapper``, if the launch fails."""
+def _launch_chain(wrapper, symbol, emb, domain_id, D, counts, tensors, stages, block_rows):
+    """probs[B] from one launch of ``symbol`` of ``csrc/tower_infer.cu``, the
+    chain kernel: its arguments emb, the ids (int32 or int64 as they are),
+    out, B, F, D, then the entry's ``counts`` (ints) and ``tensors``, then
+    the stages' arrays (each stage ``(W, b)``, ``b`` None for a stage
+    without bias). Adds one to ``wrapper.launches`` where it launches;
+    raises a RuntimeError, naming ``wrapper``, if the launch fails."""
     B, F = emb.shape
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
@@ -140,13 +144,14 @@ def _launch_chain(wrapper, emb, domain_id, D, n_trunk, n_tow, has_head, stages, 
     did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
         domain_id.to(torch.int32)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _fused.function("tower_infer", "tower_fused_infer_f32",
-                         (p, p, i, p, i, i, i, i, i, i, p, p, p))
+    fn = _fused.function("tower_infer", symbol,
+                         (p, p, i, p, i, i, i) + (i,) * len(counts) + (p,) * len(tensors)
+                         + (p, p, p))
     smem = ctypes.c_size_t(0)
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     with torch.cuda.device(emb.device):
         err = fn(emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(), B,
-                 F, D, n_trunk, n_tow, int(has_head), *_fused.stage_args(stages),
+                 F, D, *counts, *[t.data_ptr() for t in tensors], *_fused.stage_args(stages),
                  block_rows or 0, stream, ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(

@@ -471,7 +471,7 @@ def _tower_args(gen, F, D, trunk, towers, head):
 ])
 def test_tower_kernel_matches_plain(gen, cfg):
     """Every row written (the output starts out as NaN) and within TOL of
-    the plain version, one launch a call."""
+    the plain version, one launch a call, none on STAR's counter."""
     B, (F, D, trunk, towers, head), ids, rows = cfg
     if not head and towers[-1] != 1:
         towers = towers + [1]
@@ -479,9 +479,11 @@ def test_tower_kernel_matches_plain(gen, cfg):
     emb = torch.randn(B, F, generator=gen, device="cuda")
     did = _m3oe_ids(gen, B, D, ids)
     before = kt.trunk_towers_fused_infer.launches
+    star_before = ks.star_fused_infer.launches
     got = _unwritten_nan(kt.trunk_towers_fused_infer, emb, did, tr, tw, out, block_rows=rows)
     torch.cuda.synchronize()
     assert kt.trunk_towers_fused_infer.launches == before + 1
+    assert ks.star_fused_infer.launches == star_before
     want = kt.trunk_towers_fused_infer_ref(emb, did, tr, tw, out)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= TOL
@@ -551,19 +553,128 @@ def _star_args(gen, B, F, D, fcn, aux):
                  _affines(gen, (), [aux[-1] if aux else F, 1])[0])
 
 
+ALI_STAR = (376, 3, [256, 128, 64, 32, 16, 8], [16])
+# KuaiRand's STAR (FCN [128, 64, 32], aux [32], 5 domains) at MMOE's
+# KuaiRand F 800
+KUAIRAND_STAR = (800, 5, [128, 64, 32], [32])
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, D, fcn dims, aux dims, block_rows)
-    (4096, 376, 3, [256, 128, 64, 32, 16, 8], [16], 16),  # Ali-CCP
-    (333, 41, 2, [7], [3], 8),
-    (130, 50, 6, [33, 20, 9], [], 40),          # aux head on the raw row
-    (1, 20, 3, [8], [4, 4], 64),
+    # (B, (F, D, fcn dims, aux dims), ids: drawn from (lo, hi) or counts of
+    #  each domain, block_rows)
+    (4096, ALI_STAR, (-2, 6), 16),                          # Ali-CCP
+    (4096, ALI_STAR, (-2, 6), None),
+    (333, (41, 2, [7], [3]), (-2, 5), 16),                  # widths not multiples of 8
+    (130, (33, 6, [9, 3], [7]), (-2, 9), 48),               # and 6 domains
+    (130, (50, 6, [33, 20, 9], []), (-2, 9), 64),           # aux head on the raw row
+    (77, (20, 3, [], [4, 4]), (-2, 6), 32),                 # one FCN stage, F -> 1
+    (1, (20, 3, [8], [4, 4]), (-2, 6), 64),
+    (64, (12, 4, [5] * 8, [6]), (1, 3), 64),                # domains 0 and 3 absent
+    (4096, ALI_STAR, [3700, 300, 96], None),                # skewed: 90 % in domain 0
+    (4096, ALI_STAR, [96, 300, 3700], 48),
+    (4096, ALI_STAR, [0, 4096, 0], 32),                     # every row in one domain
+    (66, ALI_STAR, [33, 32, 1], 32),                        # counts astride 32-row tiles
+    (100, ALI_STAR, [33, 1, 66], 16),                       # and 16-row tiles
+    (1, ALI_STAR, (0, 3), None),
+    (4095, ALI_STAR, (0, 3), 32),
+    (4096, KUAIRAND_STAR, (0, 5), None),                    # KuaiRand's ladder
+    (4096, KUAIRAND_STAR, (0, 5), 48),
+    (65_536, ALI_STAR, (0, 3), None),                 # the largest B the partition is held to
+    (300, (70, 256, [33], [9]), (-2, 260), 16),             # the most domains
 ])
 def test_star_kernel_matches_plain(gen, cfg):
-    B, F, D, fcn, aux, rows = cfg
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call on STAR's counter and none on
+    SharedBottom's or AdaptDHM's, whose kernel it runs."""
+    B, (F, D, fcn, aux), ids, rows = cfg
     emb, args = _star_args(gen, B, F, D, fcn, aux)
-    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
-    _launch_and_compare(gen, ks.star_fused_infer, ks.star_fused_infer_ref, emb, did, *args,
-                        rows=rows)
+    did = _m3oe_ids(gen, B, D, ids)
+    before = ks.star_fused_infer.launches
+    others = kt.trunk_towers_fused_infer.launches, ka.adaptdhm_fused_infer.launches
+    got = _unwritten_nan(ks.star_fused_infer, emb, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert ks.star_fused_infer.launches == before + 1
+    assert (kt.trunk_towers_fused_infer.launches, ka.adaptdhm_fused_infer.launches) == others
+    want = ks.star_fused_infer_ref(emb, did, *args)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("ladder", [ALI_STAR, KUAIRAND_STAR])
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_star_kernel_every_tile(gen, ladder, rows):
+    """At Ali-CCP's widths every tile of the rule fits beside the ring (the
+    emb tile, the aux logit's and the first 256-wide tile take 684 floats a
+    row) and matches the plain version; at KuaiRand's (972 floats a row at
+    F 800) 64 rows do not fit and raise, naming the shared memory."""
+    F, D, fcn, aux = ladder
+    emb, args = _star_args(gen, 4096, F, D, fcn, aux)
+    did = torch.randint(0, D, (4096,), generator=gen, device="cuda")
+    if ladder is KUAIRAND_STAR and rows == 64:
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            ks.star_fused_infer(emb, did, *args, block_rows=rows)
+        return
+    got = _unwritten_nan(ks.star_fused_infer, emb, did, *args, block_rows=rows)
+    want = ks.star_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_star_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch: one launch a call),
+    taken modulo 2^32 as int32 and clipped: the same outputs as the int32
+    ids, bit for bit."""
+    emb, args = _star_args(gen, 4096, *ALI_STAR)
+    did = torch.randint(-2, 6, (4096,), generator=gen, device="cuda")
+    got = ks.star_fused_infer(emb, did.to(torch.int32), *args)
+    before = ks.star_fused_infer.launches
+    assert torch.equal(got, ks.star_fused_infer(emb, did.to(torch.int64), *args))
+    assert torch.equal(got, ks.star_fused_infer(emb, did + 2**32, *args))
+    assert ks.star_fused_infer.launches == before + 2
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(ks.star_fused_infer(e8, wrap, *args),
+                       ks.star_fused_infer(
+                           e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *args))
+    assert (ks.star_fused_infer(e8, wrap, *args)
+            - ks.star_fused_infer_ref(e8, wrap, *args)).abs().max().item() <= TOL
+
+
+def test_star_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb (the norm's statistics taken
+    before it) leaves every other row of its domain's tile as the plain
+    version computes it."""
+    emb, args = _star_args(gen, 100, *ALI_STAR)
+    emb[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = ks.star_fused_infer(emb, did, *args, block_rows=32)
+    want = ks.star_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isnan(got[50])) and bool(torch.isnan(want[50]))
+    rest = torch.arange(100, device="cuda") != 50
+    assert (got[rest] - want[rest]).abs().max().item() <= TOL
+
+
+def test_star_kernel_rejects_what_it_does_not_take(gen):
+    emb, args = _star_args(gen, 10, 20, 2, [8], [4])
+    did = torch.zeros(10, dtype=torch.long, device="cuda")
+    for rows in (8, 12, 24, 40, 0, 72, 80):
+        with pytest.raises(ValueError, match="block_rows"):
+            ks.star_fused_infer(emb, did, *args, block_rows=rows)
+    with pytest.raises(ValueError):
+        ks.star_fused_infer(emb, did.float(), *args)
+    with pytest.raises(ValueError):
+        ks.star_fused_infer(emb, did.cpu(), *args)
+    with pytest.raises(ValueError):
+        ks.star_fused_infer(emb.double(), did, *args)
+    with pytest.raises(ValueError, match="domains"):
+        ks.star_fused_infer(emb, did, *_star_args(gen, 10, 20, 257, [8], [4])[1])
+    with pytest.raises(ValueError, match="stages"):  # 97: the aux head and 96 FCN stages
+        ks.star_fused_infer(emb, did, *_star_args(gen, 10, 20, 2, [8] * 95, [])[1])
+    assert ks.star_fused_infer(emb[:0], did[:0], *args).shape == (0,)
+    wide = _star_args(gen, 10, 3000, 2, [8], [4])  # 64 x 3000 emb rows exceed it
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ks.star_fused_infer(wide[0], did, *wide[1], block_rows=64)
 
 
 def _ple_args(gen, F, D, S, n_sh, levels, towers, gate_hidden=()):
@@ -1313,17 +1424,17 @@ def _adaptdhm_stages(gen, F, C, dims):
 def test_adaptdhm_kernel_matches_plain(gen, cfg):
     """Every row written (the output starts out as NaN) and within TOL of
     the plain version, one launch a call on AdaptDHM's counter and none on
-    SharedBottom's, whose kernel it runs."""
+    SharedBottom's or STAR's, whose kernel it runs."""
     B, (F, C, dims), ids, rows = cfg
     stages = _adaptdhm_stages(gen, F, C, dims)
     emb = torch.randn(B, F, generator=gen, device="cuda")
     rid = _m3oe_ids(gen, B, C, ids)
     before = ka.adaptdhm_fused_infer.launches
-    tower_before = kt.trunk_towers_fused_infer.launches
+    others = kt.trunk_towers_fused_infer.launches, ks.star_fused_infer.launches
     got = _unwritten_nan(ka.adaptdhm_fused_infer, emb, rid, stages, block_rows=rows)
     torch.cuda.synchronize()
     assert ka.adaptdhm_fused_infer.launches == before + 1
-    assert kt.trunk_towers_fused_infer.launches == tower_before
+    assert (kt.trunk_towers_fused_infer.launches, ks.star_fused_infer.launches) == others
     want = ka.adaptdhm_fused_infer_ref(emb, rid, stages)
     assert got.shape == (B,) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= TOL
