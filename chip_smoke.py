@@ -146,7 +146,13 @@ Phases; each asserts, and any failure exits non-zero:
      the f32 one;
    - ``m2m_fused_infer`` (M2M after its transformer) at M2M's Ali-CCP shape
      (F = 376, scenario embedding 16, 4 experts of 16, vw 16 -> 1024, output
-     MLP [64, 32]), ragged B = 4095 and B = 1 and a narrow configuration;
+     MLP [64, 32]), ragged B = 4095 and B = 1, a narrow configuration, E = 5
+     with hidden expert and hyper stages, no output MLP, KuaiRand's widths
+     (F = 812) and B = 65,536, each into an output left full of NaN; the
+     edge cases at every ``block_rows`` of the tile rule (64 rows must raise
+     at KuaiRand's widths), a NaN in one row of each input that must stay
+     there; timed at each tile, Step 0 at KuaiRand and B = 65,536, with its
+     3xTF32 bound beside the f32 one;
      ``m3oe_fused_infer`` at M3oE's (F = 376, star [512, 256], 4 experts and
      3 domain experts [256 -> 64], each layer with its LayerNorm), ragged,
      narrow, domain ids -1, D and D+5 (int64 ids also as int32 and plus
@@ -275,9 +281,10 @@ NEW_MODELS = ("sharedbottom", "star", "ple")
 GATED_MODELS = ("sarnet", "epnet", "ppnet", "adasparse")
 HAMUR_MODELS = ("hamur", "adaptdhm")
 META_MODELS = ("m2m", "m3oe")
-# block_rows whose activations fit in shared memory at M2M's Ali-CCP widths
-# (each row keeps ~8 KB)
-META_BLOCK_ROWS = (8, 16, 24)
+# m2m_fused_infer's tile rule: every value, and None (the kernel's choice);
+# every tile fits at M2M's Ali-CCP widths (the tiles alive at vw's last
+# stage take 600 floats a row)
+M2M_BLOCK_ROWS = (16, 32, 48, 64, None)
 # m3oe_fused_infer's tile rule: every value, and None (the kernel's choice);
 # at Ali-CCP 48 and 64 rows do not fit (the emb, skip and star tiles take
 # 1164 floats a row) and must raise
@@ -1757,6 +1764,15 @@ def m2m_work(t_out, dom, experts, task, scen, vw, vb, tw, tb, v, out, head, E):
                                                           out, head)) + B * 4
 
 
+def m2m_product_macs(experts, task, scen, vw, vb, tw, tb, v, out, head, E):
+    """Multiply-adds a row of the products with shared weights, which the
+    kernel runs on the tensor cores: every expert, the hyper-MLPs and the
+    output MLP (the meta-attention, the mix, the meta-tower and the 1-wide
+    head are f32 row passes)."""
+    return (experts[0][0].shape[0] * macs(experts) + macs(task) + macs(scen) + macs(vw)
+            + macs(vb) + macs(tw) + macs(tb) + macs(out))
+
+
 def m3oe_work(emb, did, star, skip, star_mlp, gates, experts, dom_experts, towers, w_exp,
               w_bal):
     """(FLOPs, bytes): 2 per multiply-add of the skip, the row's own star
@@ -1810,12 +1826,12 @@ def phase_meta_kernels(gen, peak):
     # M2M after its transformer: scenario loader, F = 376 (22 x 16 + 8 + the
     # 16-wide domain embedding), the domain embedding 16, 4 experts of E = 16,
     # one-layer hyper-MLPs, output MLP [64, 32]; the last argument is E
-    def m2m_args(Fi, Fd, E, nE, expert_hidden, hyper_hidden, out_dims):
-        hyper = lambda i, o: affines(gen, (), [i] + hyper_hidden + [o])
-        return (affines(gen, (nE,), [Fi] + expert_hidden + [E]), hyper(Fd, E), hyper(Fd, E),
+    def m2m_args(Fi, Fd, E, nE, expert_hidden, hyper_hidden, out_dims, g=gen):
+        hyper = lambda i, o: affines(g, (), [i] + hyper_hidden + [o])
+        return (affines(g, (nE,), [Fi] + expert_hidden + [E]), hyper(Fd, E), hyper(Fd, E),
                 hyper(E, 4 * E * E), hyper(E, 2 * E), hyper(E, E * E), hyper(E, E),
-                randn(2 * E, 1), affines(gen, (), [E] + out_dims),
-                affines(gen, (), [out_dims[-1], 1])[0], E)
+                torch.randn(2 * E, 1, generator=g, device="cuda"), affines(g, (), [E] + out_dims),
+                affines(g, (), [(out_dims or [E])[-1], 1])[0], E)
 
     ali = m2m_args(F, 16, 16, 4, [], [], [64, 32])
     cases = {"a_alicpp_b4096": ((randn(4096, F), randn(4096, 16)), ali),
@@ -1823,10 +1839,63 @@ def phase_meta_kernels(gen, peak):
              "b_ragged_b1": ((randn(1, F), randn(1, 16)), ali),
              "c_narrow_b1000": ((randn(1000, 42), randn(1000, 8)),
                                 m2m_args(42, 8, 8, 3, [24], [12], [16]))}
-    err = run_cases("m2m_fused_infer", k.m2m_fused_infer, k.m2m_fused_infer_ref, cases)
-    entries["m2m"] = time_entry("m2m_fused_infer", "m2m", k.m2m_fused_infer,
-                                k.m2m_fused_infer_ref, *cases["a_alicpp_b4096"], m2m_work, peak,
-                                err, sweep_rows=META_BLOCK_ROWS)
+    # E 5 with hidden expert and hyper stages (widths off 8: a product an
+    # expert, vw 100 wide), no output MLP, KuaiRand's widths (F 812: its 796
+    # sparse columns and the scenario feature's 16) and B 65,536, from a
+    # generator of its own: the shared one feeds every later phase's data
+    m2 = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 12)
+    m2_rows, own = partial(rows_of, m2), partial(m2m_args, g=m2)
+    cases["d_e5_hidden_b333"] = ((m2_rows(333, 41), m2_rows(333, 7)),
+                                 own(41, 7, 5, 3, [9], [6], [7]))
+    cases["e_no_output_mlp_b300"] = ((m2_rows(300, 20), m2_rows(300, 8)),
+                                     own(20, 8, 8, 2, [], [], []))
+    cases["f_kuairand_b4096"] = ((m2_rows(4096, 812), m2_rows(4096, 16)),
+                                 own(812, 16, 16, 4, [], [], [64, 32]))
+    cases["g_b65536"] = ((m2_rows(65_536, F), m2_rows(65_536, 16)), ali)
+    err = run_cases("m2m_fused_infer", nan_filled(k.m2m_fused_infer), k.m2m_fused_infer_ref,
+                    cases)
+    for rows in M2M_BLOCK_ROWS:  # every tile: ragged, narrow, E 5 and KuaiRand's widths
+        for name in ("b_ragged_b4095", "c_narrow_b1000", "d_e5_hidden_b333",
+                     "f_kuairand_b4096"):
+            inputs, args = cases[name]
+            if rows == 64 and name == "f_kuairand_b4096":  # F 812: 64 rows do not fit
+                try:
+                    k.m2m_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"m2m_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"m2m_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = nan_filled(k.m2m_fused_infer)(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.m2m_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"m2m_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  m2m_fused_infer every tile {M2M_BLOCK_ROWS} holds; 64 rows at KuaiRand's widths "
+        f"raise, naming the shared memory")
+    # rows never mix: a NaN in one row of t_out and one of dom_emb stays there
+    (t_out, dom), args = cases["a_alicpp_b4096"]
+    t_nan, d_nan = t_out.clone(), dom.clone()
+    t_nan[2049, 100], d_nan[3000, 5] = float("nan"), float("nan")
+    got = k.m2m_fused_infer(t_nan, d_nan, *args)
+    nan = torch.isnan(got)
+    check(nan.nonzero().flatten().tolist() == [2049, 3000]
+          and kernel_gap(got[~nan], k.m2m_fused_infer_ref(t_nan, d_nan, *args)[~nan], None) <= TOL,
+          "m2m_fused_infer: a NaN left its row")
+    entry = time_entry("m2m_fused_infer", "m2m", k.m2m_fused_infer, k.m2m_fused_infer_ref,
+                       *cases["a_alicpp_b4096"], m2m_work, peak, err, sweep_rows=M2M_BLOCK_ROWS)
+    # the design's own bound: every product with shared weights as three TF32
+    # products on the tensor cores, the meta-attention, mix, meta-tower and
+    # head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * m2m_product_macs(*args)
+    entry.update(design_bound("m2m_fused_infer ", *m2m_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
+    for name in ("f_kuairand_b4096", "g_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"m2m_fused_infer {name}, step 0",
+                            lambda: k.m2m_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["m2m"] = entry
 
     # M3oE: default loader, s0 = 376; star [512, 256] (slot_w ⊙ shared_w per
     # domain), skip 376 -> 256, 4 experts and 3 domain experts 256 -> 64,

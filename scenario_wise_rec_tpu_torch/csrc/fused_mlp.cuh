@@ -1,10 +1,10 @@
-// Building blocks of the fused eval kernels for NVIDIA Hopper (sm_90a), f32:
-// sarnet_infer.cu and m2m_infer.cu (mmoe_infer.cu, hamur_infer.cu,
+// Building blocks of a fused eval kernel for NVIDIA Hopper (sm_90a), f32:
+// sarnet_infer.cu's (the others, mmoe_infer.cu, hamur_infer.cu,
 // ppnet_infer.cu, m3oe_infer.cu, adasparse_infer.cu, which also runs EPNet's,
-// ple_infer.cu and tower_infer.cu, which also runs AdaptDHM's FCN and STAR's,
-// are built over mma_ring.cuh).
+// ple_infer.cu, tower_infer.cu, which also runs AdaptDHM's FCN and STAR's,
+// and m2m_infer.cu, are built over mma_ring.cuh).
 //
-// Each of those kernels runs a model's whole eval stack after the embedding
+// Such a kernel runs a model's whole eval stack after the embedding
 // for a tile of `tb` rows in one thread block, with every activation in
 // dynamic shared memory: one read of the tile's embedding rows, one write of
 // its probabilities. The stack is a series of dense affine stages; what
@@ -12,8 +12,7 @@
 // block sorts its rows by domain and cuts them into *groups*: rows that
 // share a weight matrix, at most R of them.
 //
-// - Shared-weight stages (SAR-Net's shared experts, every stage of a model
-//   without domains) take the tile's rows in order, R = kSharedRows at a
+// - Shared-weight stages (SAR-Net's shared experts) take the tile's rows in order, R = kSharedRows at a
 //   time, as one domain.
 // - Per-domain stages (SAR-Net's own experts) take the rows of one domain,
 //   R = kDomainRows at a time. A row computes only its own domain, where
@@ -51,8 +50,6 @@ __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 // relu that keeps a NaN visible, as max(x, 0) does in XLA
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-// torch LeakyReLU(0.1), as where(x >= 0, x, 0.1 x)
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.1f * v; }
 
 // Row groups of a tile: group g holds rows[g * R + m] for m < cnt[g] (the
 // rest repeat its first row and are never written) and uses domain dom[g].
@@ -77,22 +74,16 @@ __host__ __device__ inline int group_ints(int tb) {
   return tb * (5 + kDomainRows + 2) + 2;
 }
 
-// Copies rows [row0, row0 + rows) of src [B, F] into dst [tb, ld], zeros
-// past the batch and in the pad columns.
-__device__ void stage_rows(const float* __restrict__ src, int row0, int rows, int F,
-                           float* dst, int ld, int tb) {
-  for (int i = threadIdx.x; i < tb * ld; i += blockDim.x) {
-    const int r = i / ld, c = i % ld;
-    dst[i] = (r < rows && c < F) ? src[(size_t)(row0 + r) * F + c] : 0.f;
-  }
-}
-
-// Stages the tile: emb rows [row0, row0 + rows) into dst [tb, ld] and the
-// domain ids clipped to [0, D) (all 0 when did is null: no domain).
+// Stages the tile: emb rows [row0, row0 + rows) into dst [tb, ld], zeros past
+// the batch and in the pad columns, and the domain ids clipped to [0, D) (all
+// 0 when did is null: no domain).
 __device__ void stage_tile(const float* __restrict__ emb, const int* __restrict__ did,
                            int row0, int rows, int F, int D, float* dst, int ld,
                            int tb, int* did_s) {
-  stage_rows(emb, row0, rows, F, dst, ld, tb);
+  for (int i = threadIdx.x; i < tb * ld; i += blockDim.x) {
+    const int r = i / ld, c = i % ld;
+    dst[i] = (r < rows && c < F) ? emb[(size_t)(row0 + r) * F + c] : 0.f;
+  }
   for (int r = threadIdx.x; r < tb; r += blockDim.x) {
     const int d = (r < rows && did != nullptr) ? did[row0 + r] : 0;
     did_s[r] = min(max(d, 0), D - 1);
@@ -156,8 +147,8 @@ __device__ void build_groups(const int* did_s, int rows, int tb, int* ints,
 }
 
 // The epilogue of a dense stage: column j of the group's valid rows, relu
-// (kRelu) or leakyrelu (kLeaky) after the bias.
-template <int R, bool kRelu, bool kAccum, bool kLeaky = false>
+// (kRelu) after the bias.
+template <int R, bool kRelu, bool kAccum>
 __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, const float* acc,
                                       const int* rr, const float* __restrict__ bias,
                                       size_t b_dstride, float* out, int ld_out) {
@@ -168,7 +159,7 @@ __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, cons
     if (m < c) {
       float* o = out + (size_t)rr[m] * ld_out + j;
       const float v = (kAccum ? *o + acc[m] : acc[m]) + bj;
-      *o = kRelu ? relu(v) : kLeaky ? lrelu(v) : v;
+      *o = kRelu ? relu(v) : v;
     }
 }
 
@@ -184,7 +175,7 @@ __device__ __forceinline__ void store(const Groups& G, int g, int d, int j, cons
 // over `ks` neighbouring lanes instead, ks a power of two up to 32, summed
 // by a shuffle: otherwise an aux layer of 16 columns would keep 32 of 256
 // threads busy, each walking all of k.
-template <int R, bool kRelu, bool kAccum = false, bool kLeaky = false>
+template <int R, bool kRelu, bool kAccum = false>
 __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __restrict__ W,
                               size_t w_dstride, const float* __restrict__ bias,
                               size_t b_dstride, int N, float* out, int ld_out, int ks) {
@@ -229,10 +220,10 @@ __device__ void dense_split_k(const Groups& G, Act in, int K, const float* __res
 #pragma unroll
     for (int m = 0; m < R; ++m) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
   if (active && part == 0)
-    store<R, kRelu, kAccum, kLeaky>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
+    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
 }
 
-template <int R, bool kRelu, bool kAccum = false, bool kLeaky = false>
+template <int R, bool kRelu, bool kAccum = false>
 __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ W,
                       size_t w_dstride, const float* __restrict__ bias,
                       size_t b_dstride, int N, float* out, int ld_out) {
@@ -240,8 +231,8 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
   int ks = 1;
   while (ks < 32 && 2 * ks * items <= (int)blockDim.x) ks *= 2;
   if (ks > 1) {
-    dense_split_k<R, kRelu, kAccum, kLeaky>(G, in, K, W, w_dstride, bias, b_dstride, N, out,
-                                            ld_out, ks);
+    dense_split_k<R, kRelu, kAccum>(G, in, K, W, w_dstride, bias, b_dstride, N, out, ld_out,
+                                    ks);
     return;
   }
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -278,7 +269,7 @@ __device__ void dense(const Groups& G, Act in, int K, const float* __restrict__ 
 #pragma unroll
       for (int m = 0; m < R; ++m) acc[m] = fmaf(ar[m][k], wk, acc[m]);
     }
-    store<R, kRelu, kAccum, kLeaky>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
+    store<R, kRelu, kAccum>(G, g, d, j, acc, rr, bias, b_dstride, out, ld_out);
   }
 }
 
@@ -299,8 +290,7 @@ __device__ void softmax_rows(float* x, int ld, int N, int rows) {
 }
 
 // Runs stages st[0..n) on `in`, each followed by relu (kAct = 1), by a
-// softmax over its columns (kAct = 2), by leakyrelu(0.1) (kAct = 3), or by
-// nothing (kAct = 0). Stage s of group g uses member
+// softmax over its columns (kAct = 2), or by nothing (kAct = 0). Stage s of group g uses member
 // `member + dom[g] * member_dmul` of its stacked weights. Intermediate results alternate between pp0 and pp1 [tb, ld_pp]
 // (never the buffer being read); the last stage writes to `last` [tb,
 // ld_last] when it is given. Returns where the result lies. Every thread
@@ -315,7 +305,7 @@ __device__ Act chain(const Groups& G, Act in, const Stage* st, int n, int member
     const bool to_last = last != nullptr && s == n - 1;
     float* out = to_last ? last : (in.p == pp0 ? pp1 : pp0);
     const int ld_out = to_last ? ld_last : ld_pp;
-    dense<R, kAct == 1, false, kAct == 3>(
+    dense<R, kAct == 1, false>(
         G, in, S.K, S.w + (size_t)member * kn, (size_t)member_dmul * kn,
         S.b + (size_t)member * S.N, (size_t)member_dmul * S.N, S.N, out, ld_out);
     __syncthreads();

@@ -27,15 +27,15 @@
   routing logits;
 - ``m2m_infer``: M2M's eval after its transformer (``csrc/m2m_infer.cu``):
   the experts, the hyper-MLPs, the meta-attention over each row's generated
-  matrix, the meta-tower and the output MLP;
+  matrix (a chunk of it at a time, never whole), the meta-tower and the
+  output MLP, consecutive rows a block, every shared-weight product on the
+  tensor cores;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
   a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  MMOE's, HAMUR's, PPNet's, M3oE's, AdaSparse's (with EPNet's), PLE's and
-  SharedBottom's (with AdaptDHM's and STAR's) (``csrc/mma_ring.cuh``;
-  PPNet's, M3oE's, PLE's and SharedBottom's, one domain a block, and
-  AdaSparse's also ``csrc/domain_tiles.cuh``) is built over the shared
-  ``csrc/fused_mlp.cuh``: SAR-Net's and M2M's; ``_fused`` holds their
-  Python side.
+  SAR-Net's is built over ``csrc/mma_ring.cuh`` (PPNet's, M3oE's, PLE's and
+  SharedBottom's, one domain a block, and AdaSparse's and M2M's also
+  ``csrc/domain_tiles.cuh``); SAR-Net's over ``csrc/fused_mlp.cuh``.
+  ``_fused`` holds the wrappers' shared Python side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

@@ -1,12 +1,12 @@
-"""What the fused eval wrappers of ``sarnet_infer`` and ``m2m_infer`` share:
-the checks of what their kernels take, the stage list they pass
+"""What the fused eval wrappers share. ``sarnet_infer`` uses all of it: the
+checks of what its kernel takes, the stage list it passes
 (``csrc/fused_mlp.cuh``), the ctypes launch, and the plain versions' gate
 mixture. ``mmoe_infer`` uses its batch check and its ctypes arrays,
-``hamur_infer`` and ``gated_infer``'s EPNet wrapper its tensor checks, stage
-list and launch, ``gated_infer``'s PPNet and AdaSparse wrappers,
-``m3oe_infer``, ``tower_infer`` (with ``adaptdhm_infer`` and
-``star_infer``) and ``ple_infer`` (with the gate mixture) its tensor
-checks, stage list and ctypes function.
+``hamur_infer``, ``m2m_infer`` and ``gated_infer``'s EPNet wrapper its
+tensor checks, stage list and launch, ``gated_infer``'s PPNet and AdaSparse
+wrappers, ``m3oe_infer``, ``tower_infer`` (with ``adaptdhm_infer`` and
+``star_infer``) and ``ple_infer`` (with the gate mixture) its tensor checks,
+stage list and ctypes function.
 
 Nothing here builds or loads a kernel until :func:`launch` or
 :func:`function` is called.

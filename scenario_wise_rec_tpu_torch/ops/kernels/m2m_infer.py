@@ -12,7 +12,13 @@ kernel ``scenario_wise_rec_tpu/ops/pallas/m2m_infer.py:m2m_fused_infer``.
 
 Each row's generated matrices are used as flat generator outputs: row ``e``
 of the meta matrix is ``vw[:, e·2E:(e+1)·2E]``, of the tower matrix
-``tw[:, e·E:(e+1)·E]``.
+``tw[:, e·E:(e+1)·E]``. The kernel gives each block a tile of consecutive
+rows and runs every product with shared weights on the tensor cores in
+3xTF32 (about f32's accuracy): the experts' first stage as one product of
+all experts side by side, and ``vw``'s and ``tw``'s last stages a chunk of
+256 columns at a time, each chunk added into the row's meta sums (or the
+tower's input) before the next, so that no generated matrix is ever whole
+in shared memory (the design note is at the top of the source).
 
 Preconditions: eval mode (BatchNorm folded to affine, see ``folding.py``),
 leakyrelu(0.1) experts and hyper-MLPs, a relu output MLP.
@@ -32,12 +38,10 @@ import torch
 from ...core.activations import leaky_relu
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import check_block_rows
 
-# csrc kMaxChain: stages of one hyper or output chain
-MAX_CHAIN = 8
-# rows a thread block owns: 8 and 16 time alike in chip_smoke.py's sweep at
-# M2M's Ali-CCP widths on an H100 (PERF.md); 8 fits three blocks an SM
-DEFAULT_BLOCK_ROWS = 8
+MAX_EXPERTS = 8    # csrc kMaxExperts
+MAX_PRODUCTS = 40  # csrc kMaxSteps: products of a launch, each expert's counted alone
 
 
 def _check_shapes(t_out, dom_emb, expert_stages, task_stages, scen_stages, vw_stages,
@@ -134,28 +138,37 @@ def m2m_fused_infer(
     out_stages: Sequence[Affine],
     out_head: Affine,
     E: int,
-    block_rows: int = DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused M2M eval forward after the transformer.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64, as far as the per-row generated matrices fit in shared
-    memory: 24 at M2M's Ali-CCP widths). No effect on the CPU, where the
-    plain version runs.
+    ``block_rows``: consecutive rows that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit. A shape whose tile does not fit raises a RuntimeError; it
+    never falls back. On the CPU the plain version runs and the value only
+    has to keep the tile rule, so that a call that would raise on the card
+    for its ``block_rows`` raises there too. The card takes at most
+    ``MAX_EXPERTS`` experts and ``MAX_PRODUCTS`` products (each expert's
+    stages counted once an expert).
     """
+    check_block_rows(block_rows)
     args = (t_out, dom_emb, expert_stages, task_stages, scen_stages, vw_stages, vb_stages,
             tw_stages, tb_stages, v, out_stages, out_head, E)
     if t_out.device.type == "cpu":
         return m2m_fused_infer_ref(*args)
     B, F, Fd, nE = _check_shapes(*args)
+    if nE > MAX_EXPERTS:
+        raise ValueError(f"m2m_fused_infer takes at most {MAX_EXPERTS} experts, got {nE}")
     groups = [expert_stages, task_stages, scen_stages, vw_stages, vb_stages, tw_stages,
               tb_stages, out_stages, [out_head]]
-    if any(len(g) > MAX_CHAIN for g in groups):
-        raise ValueError(f"m2m_fused_infer takes at most {MAX_CHAIN} stages a chain")
+    products = nE * len(expert_stages) + sum(len(g) for g in groups[1:-1])
+    if products > MAX_PRODUCTS:
+        raise ValueError(f"m2m_fused_infer takes at most {MAX_PRODUCTS} products, got "
+                         f"{products}")
     stages = [s for g in groups for s in g]
-    _fused.check_launch("m2m_fused_infer", t_out, None,
-                        [dom_emb, v] + [t for s in stages for t in s], len(stages),
-                        block_rows)
+    _fused.check_tensors("m2m_fused_infer", t_out, None,
+                         [dom_emb, v] + [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=t_out.device)
     if B == 0:
         return out
@@ -165,7 +178,7 @@ def m2m_fused_infer(
         (t_out.data_ptr(), dom_emb.data_ptr(), out.data_ptr(), B, F, Fd, nE, E,
          _fused.ints([len(g) for g in groups[:-1]]), v.data_ptr(),
          *_fused.stage_args(stages)),
-        t_out, block_rows)
+        t_out, block_rows or 0)
     m2m_fused_infer.launches += 1
     return out
 

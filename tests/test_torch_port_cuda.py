@@ -1536,20 +1536,43 @@ def _m2m_args(gen, F, Fd, E, nE, expert_dims, hyper_dims, out_dims):
             _affines(gen, (), [E] + out_dims), _affines(gen, (), [(out_dims or [E])[-1], 1])[0])
 
 
+# M2M at Ali-CCP: F 376, Fd 16, E 16, 4 experts, no hidden expert or hyper
+# stage, output MLP [64, 32]
+ALI_M2M = (376, 16, 16, 4, [], [], [64, 32])
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, Fd, E, nE, expert hidden, hyper hidden, output MLP, block_rows)
-    (4096, 376, 16, 16, 4, [], [], [64, 32], 16),  # Ali-CCP
-    (4095, 376, 16, 16, 4, [], [], [64, 32], 24),  # ragged, the widest tile that fits
-    (333, 41, 7, 5, 3, [9], [6], [7], 8),           # widths not multiples of 4
+    # (B, F, Fd, E, nE, expert hidden, hyper hidden, output MLP, block_rows;
+    # None: the kernel's choice)
+    *[(4096, *ALI_M2M, rows) for rows in (16, 32, 48, 64, None)],  # every tile fits
+    *[(4095, *ALI_M2M, rows) for rows in (16, 32, 48, 64, None)],  # a partial last tile
+    (1, *ALI_M2M, None),
+    (65_536, *ALI_M2M, None),
+    # E 5: widths off 8 (vw 100 wide, one chunk; tw 25), a product an expert,
+    # hidden expert and hyper stages
+    (333, 41, 7, 5, 3, [9], [6], [7], 16),
+    (333, 41, 7, 5, 3, [9], [6], [7], 64),
+    # the experts' first stage side by side (3 x 24), their second a product
+    # an expert
+    (200, 40, 8, 8, 3, [24], [12], [16], 32),
     (1, 20, 8, 8, 2, [], [], [], 64),               # no output MLP: the head on h
+    (300, 20, 8, 8, 2, [], [], [], None),
+    (50, 12, 4, 4, 1, [], [], [8], 16),             # one expert
+    # E 32: vw 4096 wide (16 chunks), tw 1024 (both tensor copies), 2 experts
+    # of 32 side by side
+    (100, 64, 8, 32, 2, [], [], [16], None),
+    (100, 30, 8, 4, 8, [], [], [8], 16),            # 8 experts of 4: a product each
+    (100, 30, 8, 16, 8, [], [], [8], 48),           # 8 experts of 16: 128 columns, a product each
 ])
 def test_m2m_kernel_matches_plain(gen, cfg):
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call."""
     B, F, Fd, E, nE, ed, hd, od, rows = cfg
     t_out = torch.randn(B, F, generator=gen, device="cuda")
     dom = torch.randn(B, Fd, generator=gen, device="cuda")
     args = _m2m_args(gen, F, Fd, E, nE, ed, hd, od)
     before = km.m2m_fused_infer.launches
-    got = km.m2m_fused_infer(t_out, dom, *args, E=E, block_rows=rows)
+    got = _unwritten_nan(km.m2m_fused_infer, t_out, dom, *args, E=E, block_rows=rows)
     torch.cuda.synchronize()
     assert km.m2m_fused_infer.launches == before + 1
     want = km.m2m_fused_infer_ref(t_out, dom, *args, E=E)
@@ -1557,22 +1580,48 @@ def test_m2m_kernel_matches_plain(gen, cfg):
     assert (got - want).abs().max().item() <= TOL
 
 
+def test_m2m_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of t_out, another in one row of
+    dom_emb, leave every other row of their tiles as the plain version
+    computes it."""
+    t_out = torch.randn(100, 376, generator=gen, device="cuda")
+    dom = torch.randn(100, 16, generator=gen, device="cuda")
+    args = _m2m_args(gen, 376, 16, 16, 4, [], [], [64, 32])
+    t_out[50, 7] = float("nan")
+    dom[70, 3] = float("nan")
+    got = km.m2m_fused_infer(t_out, dom, *args, E=16, block_rows=64)
+    want = km.m2m_fused_infer_ref(t_out, dom, *args, E=16)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want)) and nan.nonzero().flatten().tolist() == [50, 70]
+    assert (got[~nan] - want[~nan]).abs().max().item() <= TOL
+
+
 def test_m2m_kernel_rejects_what_it_does_not_take(gen):
     t_out = torch.randn(10, 20, generator=gen, device="cuda")
     dom = torch.randn(10, 8, generator=gen, device="cuda")
     args = _m2m_args(gen, 20, 8, 4, 2, [], [], [8])
-    with pytest.raises(ValueError):
-        km.m2m_fused_infer(t_out, dom, *args, E=4, block_rows=12)
+    before = km.m2m_fused_infer.launches
+    for rows in (8, 12, 24, 80, 0):
+        with pytest.raises(ValueError, match="block_rows"):
+            km.m2m_fused_infer(t_out, dom, *args, E=4, block_rows=rows)
     with pytest.raises(ValueError):
         km.m2m_fused_infer(t_out, dom.cpu(), *args, E=4)
     with pytest.raises(ValueError):
         km.m2m_fused_infer(t_out.double(), dom, *args, E=4)
     with pytest.raises(ValueError):  # E does not match the generated widths
         km.m2m_fused_infer(t_out, dom, *args, E=5)
+    with pytest.raises(ValueError, match="experts"):
+        km.m2m_fused_infer(t_out, dom, *_m2m_args(gen, 20, 8, 4, 9, [], [], [8]), E=4)
+    with pytest.raises(ValueError, match="products"):  # 8 experts of 5 stages: 40 + 7
+        km.m2m_fused_infer(t_out, dom, *_m2m_args(gen, 20, 8, 4, 8, [8] * 4, [], [8]), E=4)
+    assert km.m2m_fused_infer.launches == before
     assert km.m2m_fused_infer(t_out[:0], dom[:0], *args, E=4).shape == (0,)
-    with pytest.raises(RuntimeError, match="shared memory"):  # 64 rows of the Ali-CCP tile
-        km.m2m_fused_infer(torch.randn(64, 376, device="cuda"), torch.randn(64, 16, device="cuda"),
-                           *_m2m_args(gen, 376, 16, 16, 4, [], [], [64, 32]), E=16,
+    # at KuaiRand's widths (F 812) the t_out tile and those alive beside it
+    # take 1012 floats a row: 64 rows do not fit beside the smallest ring
+    wide = torch.randn(64, 812, generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="shared memory.*block_rows=64"):
+        km.m2m_fused_infer(wide, torch.randn(64, 16, device="cuda"),
+                           *_m2m_args(gen, 812, 16, 16, 4, [], [], [64, 32]), E=16,
                            block_rows=64)
 
 

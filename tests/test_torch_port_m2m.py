@@ -282,6 +282,7 @@ def _affines(r, lead, dims):
     (33, 40, 8, 4, 8, [], [], [64, 32]),    # M2M's shape at narrow widths
     (21, 12, 5, 3, 4, [6], [7], [5]),       # deeper chains, widths not multiples of 4
     (9, 16, 4, 1, 16, [], [], []),          # one expert, no output MLP
+    (37, 376, 16, 4, 16, [], [], [64, 32]),  # Ali-CCP's exact widths, a ragged B
 ])
 def test_fused_infer_ref_matches_jax_kernel(cfg):
     B, F, Fd, nE, E_, ex_h, hy_h, out_dims = cfg
@@ -307,6 +308,40 @@ def test_fused_infer_ref_matches_jax_kernel(cfg):
     before = pk.m2m_fused_infer.launches
     np.testing.assert_array_equal(pk.m2m_fused_infer(*args, E=E_).numpy(), got.numpy())
     assert pk.m2m_fused_infer.launches == before
+
+
+def _plain_args(B, F, Fd, nE, E_, out_dims, seed=0):
+    r = np.random.default_rng(seed)
+    t = lambda st: [tuple(torch.tensor(a) for a in s) for s in st]
+    hyper = [t(_affines(r, (), [i, o])) for i, o in
+             ((Fd, E_), (Fd, E_), (E_, 4 * E_ * E_), (E_, 2 * E_), (E_, E_ * E_), (E_, E_))]
+    return (torch.tensor(r.normal(size=(B, F)).astype(np.float32)),
+            torch.tensor(r.normal(size=(B, Fd)).astype(np.float32)),
+            t(_affines(r, (nE,), [F, E_])), *hyper,
+            torch.tensor(r.normal(size=(2 * E_, 1)).astype(np.float32)),
+            t(_affines(r, (), [E_] + out_dims)), t(_affines(r, (), [out_dims[-1], 1]))[0])
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_fused_infer_tile_rule_runs_the_plain_version(rows):
+    """Every block_rows of the kernel's tile rule (a multiple of 16 up to 64,
+    or None) runs the plain version on the CPU, bit for bit, and launches
+    nothing."""
+    args = _plain_args(21, 30, 6, 4, 4, [8])
+    want = pk.m2m_fused_infer_ref(*args, E=4)
+    before = pk.m2m_fused_infer.launches
+    got = pk.m2m_fused_infer(*args, E=4, block_rows=rows)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert pk.m2m_fused_infer.launches == before
+
+
+@pytest.mark.parametrize("rows", [8, 12, 24, 80, 0, 16.0])
+def test_fused_infer_tile_rule_is_checked_before_the_cpu_branch(rows):
+    """A block_rows off the rule raises on the CPU as it would on the card,
+    though the CPU runs no kernel."""
+    args = _plain_args(5, 12, 4, 2, 4, [8])
+    with pytest.raises(ValueError, match="block_rows"):
+        pk.m2m_fused_infer(*args, E=4, block_rows=rows)
 
 
 def test_fused_infer_checks_shapes():
