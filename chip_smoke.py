@@ -93,7 +93,14 @@ Phases; each asserts, and any failure exits non-zero:
      and ``adasparse_fused_infer`` the same at their model's Ali-CCP shape
      (SAR-Net F = 368; EPNet S = 16, A = 360; PPNet G = 376; AdaSparse
      S = 16, A = 352), ragged, narrow and (SAR-Net, PPNet: the others have
-     no domain ids) out-of-range domain ids; EPNet (AdaSparse's kernel on
+     no domain ids) out-of-range domain ids; SAR-Net also with (e) 90 % of
+     the rows in one domain, (f) every row in one domain, (g) domain counts
+     astride its tiles, (h) KuaiRand's widths (F 796, 5 domains) and (i) B =
+     65,536, each output into a block just freed full of NaN, every tile of
+     the rule (16, 32, 48, 64 and the kernel's choice; 64 rows at KuaiRand's
+     widths must raise), int64 ids against int32, a NaN kept in its row, one
+     launch a call on its own counter and none on another, its 3xTF32 bound
+     beside the f32 one and the Step 0 of (h) and (i); EPNet (AdaSparse's kernel on
      two steps) also with (d) KuaiRand's width (S 16, A 800), (e) B =
      65,536 and (f) widths off 8 (S 5, A 41, gate hidden 7), each output
      into a block just freed full of NaN, every tile of the rule (16, 32,
@@ -314,6 +321,12 @@ ADAPTDHM_KUAIRAND_TOO_WIDE = (64,)
 # KuaiRand's (972 floats a row at F 800) and must raise
 STAR_BLOCK_ROWS = (16, 32, 48, 64, None)
 STAR_KUAIRAND_TOO_WIDE = (64,)
+# sarnet_fused_infer's tile rule: every value, and None (the kernel's
+# choice); every tile fits at SAR-Net's Ali-CCP widths (the emb tile and the
+# experts' and gate's 176 columns take 584 floats a row); 64 rows do not at
+# KuaiRand's (1000 floats a row at F 796) and must raise
+SARNET_BLOCK_ROWS = (16, 32, 48, 64, None)
+SARNET_KUAIRAND_TOO_WIDE = (64,)
 # mmoe_fused_infer's block_rows sweep at the Ali-CCP shape
 MMOE_BLOCK_ROWS = (16, 32, 48, 64)
 # hamur_segment's, ppnet_fused_infer's and adasparse_fused_infer's: the tile
@@ -1197,6 +1210,15 @@ def sarnet_work(emb, did, dom_w, dom_b, shared, spec, gate, final, head):
                                                              head)) + B * 4
 
 
+def sarnet_product_macs(emb, did, dom_w, dom_b, shared, spec, gate, final, head):
+    """Multiply-adds per row of sarnet_work's products (the shared experts,
+    the row's own specific ones, the gate, the final MLP): what the kernel
+    runs on the tensor cores."""
+    F = emb.shape[1]
+    n_sh, n_sp, H = shared[0].shape[0], spec[0].shape[1], shared[0].shape[-1]
+    return (n_sh + n_sp) * F * H + macs([gate]) + macs(final)
+
+
 def epnet_work(sce, agn, l1, l2, head, gemma):
     """(FLOPs, bytes): the gate's two layers and the head (2 per
     multiply-add), and the gating (2 per agnostic element)."""
@@ -1264,19 +1286,87 @@ def phase_gated_kernels(gen, peak):
 
     # SAR-Net: default loader, F = 23 x 16; 8 shared + 2 specific experts
     # of width 16, gate 368 -> 10, final [32, 32] and head
-    def sarnet_args(F, Dn, n_sh, n_sp, final):
-        return (2 * torch.rand(Dn, F, generator=gen, device="cuda") - 1,
-                torch.rand(Dn, F, generator=gen, device="cuda"),
-                affines(gen, (n_sh,), [F, 16])[0], affines(gen, (Dn, n_sp), [F, 16])[0],
-                affines(gen, (), [F, n_sh + n_sp])[0], affines(gen, (), [16] + final),
-                affines(gen, (), [final[-1] if final else 16, 1])[0])
+    def sarnet_args(F, Dn, n_sh, n_sp, final, g=gen):
+        return (2 * torch.rand(Dn, F, generator=g, device="cuda") - 1,
+                torch.rand(Dn, F, generator=g, device="cuda"),
+                affines(g, (n_sh,), [F, 16])[0], affines(g, (Dn, n_sp), [F, 16])[0],
+                affines(g, (), [F, n_sh + n_sp])[0], affines(g, (), [16] + final),
+                affines(g, (), [final[-1] if final else 16, 1])[0])
 
     F = N_SPARSE * 16
-    cases = shaped(F, sarnet_args(F, D, 8, 2, [32, 32]), sarnet_args(42, 2, 3, 1, [8]))
-    err = run_cases("sarnet_fused_infer", k.sarnet_fused_infer, k.sarnet_fused_infer_ref, cases)
-    entries["sarnet"] = time_entry("sarnet_fused_infer", "sarnet", k.sarnet_fused_infer,
-                                   k.sarnet_fused_infer_ref, *cases["a_alicpp_b4096"],
-                                   sarnet_work, peak, err)
+    ali = sarnet_args(F, D, 8, 2, [32, 32])
+    cases = shaped(F, ali, sarnet_args(42, 2, 3, 1, [8]))
+    # the partition by domain at its edges, KuaiRand's widths and B 65,536,
+    # from a generator of its own: the shared one feeds every later phase's data
+    sg = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 13)
+    s_counted, s_rows = partial(counted, sg), partial(rows_of, sg)
+    cases["e_skewed_b4096"] = ((s_rows(4096, F), s_counted(3700, 300, 96)), ali)  # 90 % in one
+    cases["f_one_domain_b4096"] = ((s_rows(4096, F), s_counted(0, 4096, 0)), ali)
+    # 33 / 32 / 1 rows: a tile and one row, a whole tile, one row (32-row tiles)
+    cases["g_counts_astride_tiles_b66"] = ((s_rows(66, F), s_counted(33, 32, 1)), ali)
+    # KuaiRand's SAR-Net: its 796 sparse columns, 5 domains
+    cases["h_kuairand_b4096"] = (
+        (s_rows(4096, 796), torch.randint(0, 5, (4096,), generator=sg, device="cuda")),
+        sarnet_args(796, 5, 8, 2, [32, 32], g=sg))
+    cases["i_b65536"] = (
+        (s_rows(65_536, F), torch.randint(0, D, (65_536,), generator=sg, device="cuda")), ali)
+    unwritten_nan = nan_filled(k.sarnet_fused_infer)
+    err = run_cases("sarnet_fused_infer", unwritten_nan, k.sarnet_fused_infer_ref, cases)
+    for rows in SARNET_BLOCK_ROWS:  # every tile: Ali-CCP, the partition's edges, KuaiRand
+        for name in ("a_alicpp_b4096", "e_skewed_b4096", "f_one_domain_b4096",
+                     "g_counts_astride_tiles_b66", "h_kuairand_b4096"):
+            inputs, args = cases[name]
+            if rows in SARNET_KUAIRAND_TOO_WIDE and name.startswith("h_kuairand"):
+                try:
+                    k.sarnet_fused_infer(*inputs, *args, block_rows=rows)
+                except RuntimeError as e:
+                    check("shared memory" in str(e), f"sarnet_fused_infer block_rows={rows}: {e}")
+                    continue
+                check(False, f"sarnet_fused_infer {name} block_rows={rows} ran past shared memory")
+            got = unwritten_nan(*inputs, *args, block_rows=rows)
+            gap = kernel_gap(got, k.sarnet_fused_infer_ref(*inputs, *args), None)
+            check(bool(torch.isfinite(got).all()) and gap <= TOL,
+                  f"sarnet_fused_infer {name} block_rows={rows}: {gap}")
+            err = max(err, gap)
+    log(f"  sarnet_fused_infer every tile {SARNET_BLOCK_ROWS} at Ali-CCP's widths holds; "
+        f"{SARNET_KUAIRAND_TOO_WIDE} at KuaiRand's raise, naming the shared memory")
+    # int64 ids as they are, modulo 2^32 as int32, then clipped; a NaN stays in
+    # its row; one launch a call on SAR-Net's counter and on no other
+    (emb, did), args = cases["d_domain_oob_b4096"]
+    check(torch.equal(k.sarnet_fused_infer(emb, did, *args),
+                      k.sarnet_fused_infer(emb, did.to(torch.int32), *args))
+          and torch.equal(k.sarnet_fused_infer(emb, did + 2**32, *args),
+                          k.sarnet_fused_infer(emb, did, *args)),
+          "sarnet_fused_infer: int64 ids differ from the same ids as int32")
+    (emb, did), args = cases["a_alicpp_b4096"]
+    bad = emb.clone()
+    bad[50, 7] = float("nan")
+    before = read_counts()
+    got, want = k.sarnet_fused_infer(bad, did, *args), k.sarnet_fused_infer_ref(bad, did, *args)
+    delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+    nan = torch.isnan(got)
+    check(nan.nonzero().flatten().tolist() == [50] and bool(torch.isnan(want[50]))
+          and kernel_gap(got[~nan], want[~nan], None) <= TOL,
+          "sarnet_fused_infer: a NaN left its row")
+    check(delta == {"sarnet_fused_infer": 1},
+          f"sarnet_fused_infer: 1 call moved the counts by {delta}")
+    fits = tuple(r for r in SARNET_BLOCK_ROWS if r is not None)
+    entry = time_entry("sarnet_fused_infer", "sarnet", k.sarnet_fused_infer,
+                       k.sarnet_fused_infer_ref, *cases["a_alicpp_b4096"], sarnet_work, peak,
+                       err, sweep_rows=fits)
+    # the design's own bound: the experts, the gate and the final MLP as three
+    # TF32 products on the tensor cores; the scale and shift, the softmax,
+    # the mix and the 1-wide head in f32
+    inputs, args = cases["a_alicpp_b4096"]
+    tc = 2.0 * inputs[0].shape[0] * sarnet_product_macs(*inputs, *args)
+    entry.update(design_bound("sarnet_fused_infer ", *sarnet_work(*inputs, *args), tc, peak,
+                              entry["ms"]))
+    for name in ("h_kuairand_b4096", "i_b65536"):
+        inputs, args = cases[name]
+        cost = wrapper_cost(f"sarnet_fused_infer {name}, step 0",
+                            lambda: k.sarnet_fused_infer(*inputs, *args))
+        entry[f"{name}_device_ms"] = cost["device_ms"]
+    entries["sarnet"] = entry
 
     # EPNet: scenario loader, S = 16, A = 22 x 16 + 8 = 360; gate 376 -> 360
     # -> 360, head 360 -> 1 (AdaSparse's kernel on a list of two steps)

@@ -5,7 +5,8 @@
 - ``mmoe_infer``: the whole post-embedding MMOE eval stack in one CUDA
   kernel (``csrc/mmoe_infer.cu``), with its plain version.
 - ``tower_infer``, ``ple_infer``, ``sarnet_infer``: the same for
-  SharedBottom, PLE and SAR-Net (``csrc/{tower,ple,sarnet}_infer.cu``);
+  SharedBottom, PLE and SAR-Net (``csrc/{tower,ple,sarnet}_infer.cu``;
+  SAR-Net's experts and gate as one product side by side);
 - ``star_infer``: STAR's eval on SharedBottom's chain kernel
   (``csrc/tower_infer.cu``: its aux MLP and head, the domain norm in place,
   then its own domain's FCN, one domain a block, every product on the
@@ -31,11 +32,11 @@
   output MLP, consecutive rows a block, every shared-weight product on the
   tensor cores;
 - ``m3oe_infer``: M3oE's eval after the embedding (``csrc/m3oe_infer.cu``),
-  a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel but
-  SAR-Net's is built over ``csrc/mma_ring.cuh`` (PPNet's, M3oE's, PLE's and
-  SharedBottom's, one domain a block, and AdaSparse's and M2M's also
-  ``csrc/domain_tiles.cuh``); SAR-Net's over ``csrc/fused_mlp.cuh``.
-  ``_fused`` holds the wrappers' shared Python side.
+  a LayerNorm after every ``Mlp_N`` layer. Every fused eval kernel is built
+  over ``csrc/mma_ring.cuh`` (PPNet's, M3oE's, PLE's, SharedBottom's and
+  SAR-Net's, one domain a block, and AdaSparse's and M2M's also
+  ``csrc/domain_tiles.cuh``). ``_fused`` holds the wrappers' shared Python
+  side.
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.

@@ -1,12 +1,12 @@
-"""What the fused eval wrappers share. ``sarnet_infer`` uses all of it: the
-checks of what its kernel takes, the stage list it passes
-(``csrc/fused_mlp.cuh``), the ctypes launch, and the plain versions' gate
-mixture. ``mmoe_infer`` uses its batch check and its ctypes arrays,
-``hamur_infer``, ``m2m_infer`` and ``gated_infer``'s EPNet wrapper its
-tensor checks, stage list and launch, ``gated_infer``'s PPNet and AdaSparse
-wrappers, ``m3oe_infer``, ``tower_infer`` (with ``adaptdhm_infer`` and
-``star_infer``) and ``ple_infer`` (with the gate mixture) its tensor checks,
-stage list and ctypes function.
+"""What the fused eval wrappers share: the tensor and shape checks, the
+stage list a kernel reads its weights from (pointers and ``(K, N)`` per
+stage), the ctypes function and launch, and the plain versions' gate
+mixture. ``sarnet_infer``, ``hamur_infer``, ``m2m_infer`` and
+``gated_infer``'s EPNet wrapper launch through :func:`launch`;
+``gated_infer``'s PPNet and AdaSparse wrappers, ``m3oe_infer``,
+``tower_infer`` (with ``adaptdhm_infer`` and ``star_infer``) and
+``ple_infer`` call :func:`function` themselves; ``mmoe_infer`` uses the
+batch check and the ctypes arrays.
 
 Nothing here builds or loads a kernel until :func:`launch` or
 :func:`function` is called.
@@ -21,11 +21,6 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
-
-MAX_STAGES = 96       # affine stages one launch takes (csrc kMaxStages)
-MAX_BLOCK_ROWS = 64   # csrc kMaxBlockRows
-ROW_GROUP = 8         # csrc kSharedRows: block_rows is a multiple of it
-DEFAULT_BLOCK_ROWS = 16
 
 
 def check_batch(emb: torch.Tensor, domain_id: torch.Tensor):
@@ -50,21 +45,6 @@ def check_chain(what: str, stages: Sequence[Affine], lead: tuple, width: int) ->
                              f"not follow width {width} with members {lead}")
         width = w.shape[-1]
     return width
-
-
-def check_launch(name: str, emb: torch.Tensor, domain_id: Optional[torch.Tensor],
-                 tensors: Sequence[torch.Tensor], n_stages: int, block_rows: int):
-    """What the kernels take beyond shapes: one CUDA device, contiguous
-    float32 tensors (:func:`check_tensors`), at most ``MAX_STAGES`` stages
-    and a ``block_rows`` that is a multiple of ``ROW_GROUP`` up to
-    ``MAX_BLOCK_ROWS``. ``domain_id`` is None for a kernel without
-    domains."""
-    check_tensors(name, emb, domain_id, tensors)
-    if n_stages > MAX_STAGES:
-        raise ValueError(f"{name} takes at most {MAX_STAGES} stages, got {n_stages}")
-    if not (ROW_GROUP <= block_rows <= MAX_BLOCK_ROWS and block_rows % ROW_GROUP == 0):
-        raise ValueError(f"block_rows must be a multiple of {ROW_GROUP} up to "
-                         f"{MAX_BLOCK_ROWS}, got {block_rows}")
 
 
 def check_tensors(name: str, emb: torch.Tensor, domain_id: Optional[torch.Tensor],

@@ -7,8 +7,10 @@ own domain's scaled embedding and every domain's specific experts on its
 own, selected per row, a softmax gate over the experts, the gate-weighted
 mixture, the final relu MLP, its head and the sigmoid. The debias experts
 (BatchNorm -> Linear) come folded to affines (``folding.py``). The kernel
-runs only each row's own domain's specific experts (the design note is at
-the top of the source). It replaces the TPU kernel
+gives each block rows of one domain and runs only that domain's specific
+experts, the experts and the gate as one product on the tensor cores in
+3xTF32 (about f32's accuracy), the weights streamed through shared memory
+(the design note is at the top of the source). It replaces the TPU kernel
 ``scenario_wise_rec_tpu/ops/pallas/sarnet_infer.py:sarnet_fused_infer``.
 
 :func:`sarnet_fused_infer` takes the plain version for a tensor on the CPU
@@ -25,6 +27,11 @@ import torch
 
 from . import _fused
 from ._fused import Affine
+from .mmoe_infer import check_block_rows
+
+MAX_DOMAINS = 256  # csrc kMaxDomains: the partition's counts in shared memory
+MAX_FINAL = 31     # csrc kMaxSteps - 1: final stages a launch (the experts' product is one)
+MAX_COLUMNS = 256  # csrc kChunk: the experts' and the gate's columns, each padded to 8
 
 
 def _check_shapes(emb, domain_id, dom_w, dom_b, shared_lin, spec_lin, gate,
@@ -86,6 +93,27 @@ def sarnet_fused_infer_ref(
     return torch.sigmoid(h @ final_out[0] + final_out[1])[:, 0]
 
 
+def _columns(n_sh: int, n_sp: int, H: int) -> int:
+    """Columns of the kernel's one product of the experts and the gate:
+    each expert's H and the gate's n_sh + n_sp, each rounded up to 8."""
+    return (n_sh + n_sp) * (-(-H // 8) * 8) + -(-(n_sh + n_sp) // 8) * 8
+
+
+def check_card_limits(D: int, n_sh: int, n_sp: int, H: int, n_fin: int) -> None:
+    """What the card takes beyond the tile rule: at most ``MAX_DOMAINS``
+    domains, ``MAX_COLUMNS`` columns of experts and gate side by side (at
+    H 16, 15 experts) and ``MAX_FINAL`` final stages."""
+    if D > MAX_DOMAINS:
+        raise ValueError(f"sarnet_fused_infer takes at most {MAX_DOMAINS} domains, got {D}")
+    cols = _columns(n_sh, n_sp, H)
+    if cols > MAX_COLUMNS:
+        raise ValueError(f"sarnet_fused_infer takes at most {MAX_COLUMNS} columns of experts "
+                         f"and gate, got {cols} ({n_sh} + {n_sp} experts of width {H})")
+    if n_fin > MAX_FINAL:
+        raise ValueError(f"sarnet_fused_infer takes at most {MAX_FINAL} final stages, "
+                         f"got {n_fin}")
+
+
 def sarnet_fused_infer(
     emb: torch.Tensor,
     domain_id: torch.Tensor,
@@ -96,32 +124,44 @@ def sarnet_fused_infer(
     gate: Affine,
     final_stages: Sequence[Affine],
     final_out: Affine,
-    block_rows: int = _fused.DEFAULT_BLOCK_ROWS,
+    block_rows: int | None = None,
 ) -> torch.Tensor:
     """probs[B] = fused SAR-Net eval forward on the embedded batch ``emb``.
 
-    ``block_rows``: rows one thread block owns on the card (a multiple of 8
-    up to 64). It has no effect on the CPU, where the plain version runs.
+    ``block_rows``: rows of one domain that one block owns on the card, a
+    multiple of 16 up to 64 whose tiles fit in a block's shared memory
+    beside the smallest weight ring. None: 32, or 16 where a 32-row tile
+    does not fit (at SAR-Net's Ali-CCP widths every tile fits; at
+    KuaiRand's, F 796, 64 rows do not). A shape whose tile does not fit
+    raises a RuntimeError; it never falls back. On the CPU the plain
+    version runs and the value only has to keep the tile rule, so that a
+    call that would raise on the card for its ``block_rows`` raises there
+    too. The card takes at most ``MAX_DOMAINS`` domains, ``MAX_COLUMNS``
+    columns of experts and gate and ``MAX_FINAL`` final stages. int32 and
+    int64 domain ids are read as they are.
     """
+    check_block_rows(block_rows)
+    args = (emb, domain_id, dom_w, dom_b, shared_lin, spec_lin, gate, final_stages, final_out)
     if emb.device.type == "cpu":
-        return sarnet_fused_infer_ref(emb, domain_id, dom_w, dom_b, shared_lin, spec_lin,
-                                      gate, final_stages, final_out)
-    B, F, D, n_sh, n_sp = _check_shapes(emb, domain_id, dom_w, dom_b, shared_lin, spec_lin,
-                                        gate, final_stages, final_out)
+        return sarnet_fused_infer_ref(*args)
+    B, F, D, n_sh, n_sp = _check_shapes(*args)
+    H = shared_lin[0].shape[-1]
+    check_card_limits(D, n_sh, n_sp, H, len(final_stages))
     stages = [shared_lin, spec_lin, gate] + list(final_stages) + [final_out]
-    _fused.check_launch("sarnet_fused_infer", emb, domain_id,
-                        [dom_w, dom_b] + [t for s in stages for t in s], len(stages),
-                        block_rows)
+    _fused.check_tensors("sarnet_fused_infer", emb, domain_id,
+                         [dom_w, dom_b] + [t for s in stages for t in s])
     out = torch.empty(B, dtype=torch.float32, device=emb.device)
     if B == 0:
         return out
-    did = domain_id.to(torch.int32).contiguous()
+    did = domain_id if domain_id.dtype in (torch.int32, torch.int64) else \
+        domain_id.to(torch.int32)
     p, i = ctypes.c_void_p, ctypes.c_int
     _fused.launch(
-        "sarnet_infer", "sarnet_fused_infer_f32", (p, p, p, p, p, i, i, i, i, i, i, p, p, p),
-        (emb.data_ptr(), did.data_ptr(), out.data_ptr(), dom_w.data_ptr(), dom_b.data_ptr(),
-         B, F, D, n_sh, n_sp, len(final_stages), *_fused.stage_args(stages)),
-        emb, block_rows)
+        "sarnet_infer", "sarnet_fused_infer_f32", (p, p, i, p, p, p, i, i, i, i, i, i, p, p, p),
+        (emb.data_ptr(), did.data_ptr(), did.dtype == torch.int64, out.data_ptr(),
+         dom_w.data_ptr(), dom_b.data_ptr(), B, F, D, n_sh, n_sp, len(final_stages),
+         *_fused.stage_args(stages)),
+        emb, block_rows or 0)
     sarnet_fused_infer.launches += 1
     return out
 

@@ -12,8 +12,8 @@ tile that a tree does not take, or that does not fit, is logged as such).
 Then, at the default tile: B = 65,536 and KuaiRand's widths, the weights of
 ``configs.build_model("kuairand", "m2m", ...)`` folded for eval (its 796
 sparse columns and the scenario feature's 16: F 812). Beside them, SAR-Net's
-Step 0 at Ali-CCP, B = 4096, at the default tile, twice (its kernel is
-built over ``csrc/fused_mlp.cuh``, from which M2M's kernel moved). Random
+Step 0 at Ali-CCP, B = 4096, at the default tile, twice (``scripts/
+sarnet_step0.py`` reads SAR-Net's kernel at every tile and shape). Random
 weights and inputs from ``--seed``.
 
 Run from the root of a checkout (or of an unpacked older commit, to compare

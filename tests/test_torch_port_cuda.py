@@ -856,19 +856,133 @@ def _sarnet_args(gen, B, F, D, n_sh, n_sp, H, final):
                  _affines(gen, (), [H] + final), _affines(gen, (), [final[-1] if final else H, 1])[0])
 
 
+# SAR-Net at Ali-CCP (F 23 x 16, 3 domains, 8 shared + 2 own experts of
+# width 16, final [32, 32]) and at KuaiRand's widths (its 796 sparse
+# columns, 5 domains)
+ALI_SARNET = (368, 3, 8, 2, 16, [32, 32])
+KUAIRAND_SARNET = (796, 5, 8, 2, 16, [32, 32])
+
+
+def _eval_counts():
+    """Every fused eval kernel's launch counter."""
+    from scenario_wise_rec_tpu_torch.ops import kernels
+
+    return {n: getattr(kernels, n).launches for n in kernels.__all__
+            if hasattr(getattr(kernels, n), "launches")}
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, D, n_sh, n_sp, expert width, final dims, block_rows)
-    (4096, 368, 3, 8, 2, 16, [32, 32], 16),  # Ali-CCP
-    (333, 41, 2, 3, 1, 7, [5], 8),           # widths not multiples of 4
-    (130, 50, 5, 2, 3, 16, [], 24),          # head on the mixture
-    (1, 20, 3, 1, 1, 4, [8, 4], 64),
+    # (B, (F, D, n_sh, n_sp, expert width, final dims), ids: drawn from (lo, hi)
+    #  or counts of each domain, block_rows)
+    (4096, ALI_SARNET, (-2, 6), 16),                       # Ali-CCP
+    (333, (41, 2, 3, 1, 7, [5]), (-2, 5), 16),             # widths not multiples of 4
+    (130, (50, 5, 2, 3, 16, []), (-2, 8), 48),             # head on the mixture
+    (1, (20, 3, 1, 1, 4, [8, 4]), (-2, 6), 64),
+    (4096, ALI_SARNET, (-2, 6), None),
+    (4096, ALI_SARNET, [3700, 300, 96], None),             # skewed: 90 % in domain 0
+    (4096, ALI_SARNET, [96, 0, 4000], 48),                 # domain 1 absent
+    (4096, ALI_SARNET, [0, 4096, 0], 32),                  # every row in one domain
+    (66, ALI_SARNET, [33, 32, 1], 32),                     # counts astride 32-row tiles
+    (1, ALI_SARNET, (0, 3), None),
+    (4095, ALI_SARNET, (0, 3), 32),
+    (4096, KUAIRAND_SARNET, (0, 5), None),                 # KuaiRand's widths
+    (65_536, ALI_SARNET, (0, 3), None),                    # the largest B the partition is held to
+    (300, (30, 256, 2, 1, 8, [8]), (-2, 260), 16),         # the most domains
+    (200, (24, 3, 14, 1, 16, [300, 8]), (-2, 5), 16),      # 256 columns; a stage past a chunk
 ])
 def test_sarnet_kernel_matches_plain(gen, cfg):
-    B, F, D, n_sh, n_sp, H, final, rows = cfg
+    """Every row written (the output starts out as NaN) and within TOL of
+    the plain version, one launch a call on SAR-Net's counter and none on
+    any other kernel's."""
+    B, (F, D, n_sh, n_sp, H, final), ids, rows = cfg
     emb, args = _sarnet_args(gen, B, F, D, n_sh, n_sp, H, final)
-    did = torch.randint(-2, D + 3, (B,), generator=gen, device="cuda")
-    _launch_and_compare(gen, ksn.sarnet_fused_infer, ksn.sarnet_fused_infer_ref, emb, did,
-                        *args, rows=rows)
+    did = _m3oe_ids(gen, B, D, ids)
+    before = _eval_counts()
+    got = _unwritten_nan(ksn.sarnet_fused_infer, emb, did, *args, block_rows=rows)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _eval_counts().items() if c != before[n]}
+    assert moved == {"sarnet_fused_infer": 1}
+    want = ksn.sarnet_fused_infer_ref(emb, did, *args)
+    assert got.shape == (B,) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("ladder", [ALI_SARNET, KUAIRAND_SARNET])
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, None])
+def test_sarnet_kernel_every_tile(gen, ladder, rows):
+    """At Ali-CCP's widths every tile of the rule fits beside the ring (the
+    emb tile and the experts' 176 columns take 584 floats a row) and matches
+    the plain version; at KuaiRand's (1000 floats a row at F 796) 64 rows do
+    not fit and raise, naming the shared memory."""
+    F, D = ladder[:2]
+    emb, args = _sarnet_args(gen, 4096, *ladder)
+    did = torch.randint(0, D, (4096,), generator=gen, device="cuda")
+    if ladder is KUAIRAND_SARNET and rows == 64:
+        with pytest.raises(RuntimeError, match=f"shared memory.*block_rows={rows}"):
+            ksn.sarnet_fused_infer(emb, did, *args, block_rows=rows)
+        return
+    got = _unwritten_nan(ksn.sarnet_fused_infer, emb, did, *args, block_rows=rows)
+    want = ksn.sarnet_fused_infer_ref(emb, did, *args)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_sarnet_kernel_reads_int32_and_int64_ids_alike(gen):
+    """int64 ids are read as they are (no cast launch: one launch a call),
+    taken modulo 2^32 as int32 and clipped: the same outputs as the int32
+    ids, bit for bit."""
+    emb, args = _sarnet_args(gen, 4096, *ALI_SARNET)
+    did = torch.randint(-2, 6, (4096,), generator=gen, device="cuda")
+    got = ksn.sarnet_fused_infer(emb, did.to(torch.int32), *args)
+    before = ksn.sarnet_fused_infer.launches
+    assert torch.equal(got, ksn.sarnet_fused_infer(emb, did.to(torch.int64), *args))
+    assert torch.equal(got, ksn.sarnet_fused_infer(emb, did + 2**32, *args))
+    assert ksn.sarnet_fused_infer.launches == before + 2
+    wrap = torch.tensor([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, 1, 7, -5],
+                        device="cuda")
+    e8 = emb[:8].contiguous()
+    assert torch.equal(ksn.sarnet_fused_infer(e8, wrap, *args),
+                       ksn.sarnet_fused_infer(
+                           e8, torch.tensor([1, 0, 0, 2, 2, 1, 2, 0], device="cuda"), *args))
+    assert (ksn.sarnet_fused_infer(e8, wrap, *args)
+            - ksn.sarnet_fused_infer_ref(e8, wrap, *args)).abs().max().item() <= TOL
+
+
+def test_sarnet_kernel_keeps_a_nan_in_its_row(gen):
+    """Rows never mix: a NaN in one row of emb leaves every other row of its
+    domain's tile as the plain version computes it."""
+    emb, args = _sarnet_args(gen, 100, *ALI_SARNET)
+    emb[50, 7] = float("nan")
+    did = torch.zeros(100, dtype=torch.int32, device="cuda")
+    got = ksn.sarnet_fused_infer(emb, did, *args, block_rows=64)
+    want = ksn.sarnet_fused_infer_ref(emb, did, *args)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want)) and nan.nonzero().flatten().tolist() == [50]
+    assert (got[~nan] - want[~nan]).abs().max().item() <= TOL
+
+
+def test_sarnet_kernel_rejects_what_it_does_not_take(gen):
+    emb, args = _sarnet_args(gen, 10, 20, 2, 2, 1, 4, [4])
+    did = torch.zeros(10, dtype=torch.long, device="cuda")
+    before = ksn.sarnet_fused_infer.launches
+    for rows in (8, 12, 24, 40, 0, 72, 80):
+        with pytest.raises(ValueError, match="block_rows"):
+            ksn.sarnet_fused_infer(emb, did, *args, block_rows=rows)
+    with pytest.raises(ValueError):
+        ksn.sarnet_fused_infer(emb, did.cpu(), *args)
+    with pytest.raises(ValueError):
+        ksn.sarnet_fused_infer(emb.double(), did, *args)
+    with pytest.raises(ValueError, match="domains"):
+        ksn.sarnet_fused_infer(emb, did, *_sarnet_args(gen, 10, 20, 257, 2, 1, 4, [4])[1])
+    with pytest.raises(ValueError, match="columns"):  # 15 + 1 experts of 16 and the gate: 272
+        ksn.sarnet_fused_infer(emb, did, *_sarnet_args(gen, 10, 20, 2, 15, 1, 16, [4])[1])
+    with pytest.raises(ValueError, match="final stages"):
+        ksn.sarnet_fused_infer(emb, did, *_sarnet_args(gen, 10, 20, 2, 2, 1, 4, [4] * 32)[1])
+    assert ksn.sarnet_fused_infer.launches == before
+    assert ksn.sarnet_fused_infer(emb[:0], did[:0], *args).shape == (0,)
+    wide = _sarnet_args(gen, 10, 3000, 2, 2, 1, 4, [4])  # 64 x 3000 emb rows exceed it
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ksn.sarnet_fused_infer(wide[0], did, *wide[1], block_rows=64)
 
 
 ALI_EPNET = (16, 360, 360)  # S, A (22 x 16 + 8), gate hidden

@@ -42,34 +42,80 @@ def _t(stages):
     return [tuple(torch.tensor(a) for a in s) for s in stages]
 
 
+def _sarnet_ids(r, B, D, ids):
+    """``[B]`` domain ids: ``None`` uniform over -2 .. D + 3 (out-of-range ids
+    are clipped); ``"skewed"`` all in domain 0 but 3 in domain D - 1, none in
+    the domains between; ``"wide"`` int64 ids far outside [0, D), ± 2^32
+    offsets among them, each taken modulo 2^32 as int32, then clipped."""
+    if ids is None:
+        return r.integers(-2, D + 4, B)
+    if ids == "skewed":
+        did = np.zeros(B, np.int64)
+        did[r.choice(B, 3, replace=False)] = D - 1
+        return did
+    wide = np.array([2**32 + 1, 2**32 - 1, 2**31, 2**33 + 2, -2**32 + 2, -2**31 - 7, 2**40,
+                     -3], np.int64)
+    return np.where(r.random(B) < 0.5, wide[r.integers(0, len(wide), B)],
+                    r.integers(0, D, B)).astype(np.int64)
+
+
+def _sarnet_weights(r, F, Dn, n_sh, n_sp, H, final):
+    """(dom_w, dom_b, shared, specific, gate, final stages, head) as numpy."""
+    return (r.uniform(-1, 1, (Dn, F)).astype(np.float32),
+            r.uniform(0, 1, (Dn, F)).astype(np.float32),
+            _affines(r, (n_sh,), [F, H])[0], _affines(r, (Dn, n_sp), [F, H])[0],
+            _affines(r, (), [F, n_sh + n_sp])[0], _affines(r, (), [H] + final),
+            _affines(r, (), [final[-1] if final else H, 1])[0])
+
+
+def _sarnet_torch(w):
+    return (torch.tensor(w[0]), torch.tensor(w[1]), *_t(w[2:5]), _t(w[5]), _t([w[6]])[0])
+
+
 @pytest.mark.parametrize("cfg", [
-    # (B, F, D, n_sh, n_sp, expert width, final dims, block_rows)
-    (37, 42, 3, 4, 2, 16, [32, 32], 16),   # ragged: 37 = 2 * 16 + 5
-    (20, 30, 2, 2, 1, 6, [5], 8),
-    (16, 12, 4, 3, 3, 10, [], 8),          # head straight on the mixture
+    # (B, F, D, n_sh, n_sp, expert width, final dims, block_rows, ids)
+    (37, 42, 3, 4, 2, 16, [32, 32], 16, None),   # ragged: 37 = 2 * 16 + 5
+    (20, 30, 2, 2, 1, 6, [5], 8, None),
+    (16, 12, 4, 3, 3, 10, [], 8, None),          # head straight on the mixture
+    (64, 40, 3, 8, 2, 16, [32, 32], 16, "skewed"),  # domain 0 nearly all, domain 1 none
+    (50, 40, 3, 4, 2, 16, [32, 32], 16, "wide"),    # int64 ids, ± 2^32 offsets
+    (45, 36, 5, 3, 2, 8, [16, 8], 16, None),     # 5 domains
+    (24, 796, 5, 8, 2, 16, [32, 32], 16, None),  # KuaiRand's widths: 796 sparse columns
 ])
 def test_sarnet_ref_matches_jax_kernel(cfg):
-    B, F, Dn, n_sh, n_sp, H, final, block_rows = cfg
+    B, F, Dn, n_sh, n_sp, H, final, block_rows, ids = cfg
     r = np.random.default_rng(B)
     emb = r.normal(size=(B, F)).astype(np.float32)
-    dom_w = r.uniform(-1, 1, (Dn, F)).astype(np.float32)
-    dom_b = r.uniform(0, 1, (Dn, F)).astype(np.float32)
-    sh = _affines(r, (n_sh,), [F, H])[0]
-    sp = _affines(r, (Dn, n_sp), [F, H])[0]
-    gate = _affines(r, (), [F, n_sh + n_sp])[0]
-    fs = _affines(r, (), [H] + final)
-    out = _affines(r, (), [final[-1] if final else H, 1])[0]
-    did = r.integers(-2, Dn + 4, B)  # out-of-range ids are clipped
-    want = j_sarnet(jnp.asarray(emb), jnp.asarray(did), jnp.asarray(dom_w),
-                    jnp.asarray(dom_b), *_j([sh, sp, gate]), _j(fs), _j([out])[0],
-                    block_rows=block_rows, interpret=True)
+    w = _sarnet_weights(r, F, Dn, n_sh, n_sp, H, final)
+    did = _sarnet_ids(r, B, Dn, ids)
+    want = j_sarnet(jnp.asarray(emb), jnp.asarray(did), jnp.asarray(w[0]), jnp.asarray(w[1]),
+                    *_j(w[2:5]), _j(w[5]), _j([w[6]])[0], block_rows=block_rows,
+                    interpret=True)
     before = pk_sarnet.sarnet_fused_infer.launches
-    got = pk_sarnet.sarnet_fused_infer(torch.tensor(emb), torch.tensor(did),
-                                       torch.tensor(dom_w), torch.tensor(dom_b),
-                                       *_t([sh, sp, gate]), _t(fs), _t([out])[0])
+    got = pk_sarnet.sarnet_fused_infer(torch.tensor(emb), torch.tensor(did), *_sarnet_torch(w))
     assert pk_sarnet.sarnet_fused_infer.launches == before  # plain on the CPU
     assert got.shape == (B,) and got.dtype == torch.float32
     _close(got, want)
+
+
+@pytest.mark.parametrize("rows,ok", [(None, True), (16, True), (32, True), (48, True),
+                                     (64, True), (8, False), (24, False), (72, False)])
+def test_sarnet_wrapper_keeps_the_tile_rule_on_the_cpu(rows, ok):
+    """``block_rows`` is checked before the CPU branch, as on the card: a
+    multiple of 16 up to 64, or None. An accepted value runs the plain
+    version unchanged, the launch counter unmoved."""
+    r = np.random.default_rng(7)
+    args = (torch.tensor(r.normal(size=(9, 20)).astype(np.float32)),
+            torch.tensor(r.integers(0, 3, 9)),
+            *_sarnet_torch(_sarnet_weights(r, 20, 3, 2, 1, 8, [4])))
+    before = pk_sarnet.sarnet_fused_infer.launches
+    if not ok:
+        with pytest.raises(ValueError, match="block_rows"):
+            pk_sarnet.sarnet_fused_infer(*args, block_rows=rows)
+        return
+    got = pk_sarnet.sarnet_fused_infer(*args, block_rows=rows)
+    assert pk_sarnet.sarnet_fused_infer.launches == before  # plain on the CPU
+    assert torch.equal(got, pk_sarnet.sarnet_fused_infer_ref(*args))
 
 
 @pytest.mark.parametrize("cfg", [
