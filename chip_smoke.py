@@ -41,6 +41,17 @@ Phases; each asserts, and any failure exits non-zero:
      duplicates left out, one touched row's update undone), the nearest
      PyTorch composition (index_add_ + fused torch.optim.Adam) and a
      ``block_rows`` sweep on uniform and on hot-row ids;
+   - its bf16 form (table, mu and nu bf16) against the plain version at the
+     Ali-CCP shape with uniform and with hot-row ids, 3 steps, each from
+     one state: every element within one bf16 ulp or within its f32 order
+     slack plus one ulp (``bf16_held``), the elements that differ counted,
+     printed and held to ``AdamOrderRule``'s share; two planted
+     faults it must catch (results truncated instead of rounded, one
+     untouched row's decay left out); a ``block_rows`` sweep, each tile
+     held to the same rule; its time and Step 0 beside its bound, the plain
+     version and index_add_ + fused torch.optim.Adam over bf16 tensors; and
+     the Step 0 of the f32 form and of ``fused_dense_adam_apply`` beside it
+     (the three share ``csrc/embedding_adam.cuh``);
    - ``occurrence_segsum`` against ``occurrence_segsum_ref`` at the Ali-CCP
      ids as the trainer passes them (int64, one ``[23, 4096]`` launch) and
      as int32, a hot row (one feature's 4096 ids one row) with Zipf ids, two
@@ -213,20 +224,26 @@ Phases; each asserts, and any failure exits non-zero:
    takes the dense step (no sorted launch). The narrow M2M runs its
    transformer's dropout at 0 (the card's and the CPU's generators draw
    differently). Then MMOE's ``fit`` (8*4096+123 rows) and evaluation in
-   the occurrence, dense and winner modes (and the sorted one again beside
-   them, for step times alike), the counters read exactly
-   (occurrence: the segsum and the scatter once a step; dense:
-   ``fused_dense_adam_apply`` once a step; winner: none), a timed second
+   the sorted mode with bf16 storage (``sorted_dtype="bf16"``), the
+   occurrence, dense and winner modes (and the f32 sorted one again beside
+   them, for step times alike), the counters read exactly (bf16: the bf16
+   form once a step, the f32 form never; occurrence: the segsum and the
+   scatter once a step; dense: ``fused_dense_adam_apply`` once a step;
+   winner: none), for bf16 a ``save``/``load`` round trip bit for bit on
+   the card, a timed second
    epoch and a profile; the gates occurrence vs winner (both lazy
    SparseAdam) and dense vs sorted (both exact dense Adam), each from one
    state with planted faults it must catch (a segsum that drops duplicate
    sums, the old row written back; duplicate sums dropped); a narrow model
-   in each mode on the card against the CPU; and a narrow model with a
+   in each mode on the card against the CPU (the bf16 store within one ulp
+   but where its row's scale excuses it: ``bf16_store_gaps``); and a narrow
+   model with a
    frozen pretrained table in its packed table and a frozen loose one in
    all five modes (both bit-identical).
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
-   ``{"kernels": [...]}`` line with all sixteen kernels (an eval kernel's
+   ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
+   kernel's bf16 form (an eval kernel's
    ``ms`` is its Step-0 device time, beside ``back_to_back_ms``), and last
    the line ``{"ok": true, "device": {...}}``.
 """
@@ -407,7 +424,17 @@ BN_BIAS = re.compile(r"(layers\.\d+\.(lin\.b|bn\.mean)|fcn\.(share_b|dom_b)\.\d+
 # the softmax cancels.
 NOISY_MODELS, NOISY_MOMENT, NOISY_SHARE = ("m2m", "m3oe"), 1e-3, 0.03
 GROUP_TOL = {"table": (STEP_ATOL, STEP_RTOL), "table moments": (STEP_ATOL, STEP_RTOL),
-             "dense": (STEP_ATOL, STEP_RTOL), "BN-cancelled": (NOISE_ATOL, 0.0)}
+             "dense": (STEP_ATOL, STEP_RTOL), "BN-cancelled": (NOISE_ATOL, 0.0),
+             "bf16 store": None}  # bf16_store_gaps
+# The bf16 store (table, mu, nu) of one train step on the card against the
+# CPU, from one state: both round the same f32 chain to nearest even, but
+# the card's and the CPU's gradients differ by their BLAS's rounding, which
+# flips a rounding here and there. Every element must be within one bf16 ulp
+# or within BF16_ROW_SCALE of its row's largest magnitude (a moment whose
+# update cancels to a small fraction of its row carries the row's gradient
+# noise, not its own); the elements that differ at all may be at most
+# NOISY_SHARE.
+BF16_ROW_SCALE = 2.0 ** -10  # a quarter ulp of the row's largest value
 N_TRAIN = 16 * BATCH + 123
 N_TRAIN_NEW = 8 * BATCH + 123  # the new models' fit: fewer steps than MMOE's
 # the embedding-update kernels: wrapper -> (source, TPU original)
@@ -416,10 +443,24 @@ UPDATE_KERNELS = {
     "fused_dense_adam_apply": ("fused_adam", "scenario_wise_rec_tpu/ops/pallas/fused_adam.py:96"),
     "occurrence_segsum": ("row_update", "scenario_wise_rec_tpu/ops/pallas/row_update.py:71"),
     "scatter_rows": ("row_update", "scenario_wise_rec_tpu/ops/pallas/row_update.py:177"),
+    # the bf16 form of the sorted kernel (the TPU kernel on bf16 tiles)
+    "sorted_dense_adam_apply_bf16": (
+        "sorted_adam", "scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:281"),
 }
+# a kernel form counted apart from its wrapper's own count: name -> (wrapper,
+# counter attribute)
+FORM_COUNTERS = {"sorted_dense_adam_apply_bf16": ("sorted_dense_adam_apply", "launches_bf16")}
 # each embedding update's kernel launches per train step (the plain step: none)
-STEP_LAUNCHES = {"sorted": {"sorted_dense_adam_apply": 1}, "dense": {"fused_dense_adam_apply": 1},
+STEP_LAUNCHES = {"sorted": {"sorted_dense_adam_apply": 1},
+                 "sorted_bf16": {"sorted_dense_adam_apply_bf16": 1},
+                 "dense": {"fused_dense_adam_apply": 1},
                  "occurrence": {"occurrence_segsum": 1, "scatter_rows": 1}, "winner": {}}
+# CTRTrainer's keywords of each update mode this script names
+MODE_KW = {"sorted_bf16": dict(sparse_update_impl="sorted", sorted_dtype="bf16")}
+
+
+def mode_kw(mode):
+    return dict(sparse_embedding_updates=True, **MODE_KW.get(mode, {"sparse_update_impl": mode}))
 
 
 def check(cond, what):
@@ -2071,11 +2112,15 @@ def phase_meta_kernels(gen, peak):
     return entries
 
 
-def kernel_wrappers():
+def kernel_counters():
+    """``{name: (wrapper, counter attribute)}`` of every kernel and form."""
     from scenario_wise_rec_tpu_torch.ops import kernels
 
-    return {name: getattr(kernels, name) for name in
-            [k for k, _, _ in EVAL_KERNELS.values()] + list(UPDATE_KERNELS)}
+    out = {}
+    for name in [k for k, _, _ in EVAL_KERNELS.values()] + list(UPDATE_KERNELS):
+        fn, attr = FORM_COUNTERS.get(name, (name, "launches"))
+        out[name] = (getattr(kernels, fn), attr)
+    return out
 
 
 def step_launches(mode, steps):
@@ -2085,12 +2130,12 @@ def step_launches(mode, steps):
 
 
 def reset_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
 # the Ali-CCP loader each model's script uses (scripts/run_ali_ccp.py)
@@ -2250,16 +2295,22 @@ def trainer_groups(t):
 
     sd = dict(t.model.state_dict())
     p = t._opt_params
-    tables, implied = {}, {}
+    tables, implied, store = {}, {}, {}
     for name, table in packed_tables(t.model).items():
         key = f"{name}.packed"
         tables[key] = sd.pop(key)
+        if t._emb_mode and t._bf16_store and table is t.model.embedding.packed:
+            # the live table is the bf16 store's (the model's is a copy
+            # refreshed only for eval and save)
+            store = {f"{name}.{k}": t.emb_opt_state[k] for k in ("table", "mu", "nu")}
+            del tables[key]
+            continue
         mu, nu, step = table_moments(t, table)
         lr, _, _, _, bc1r, bc2r, eps = adam_hparams(
             step, t._lr_now, 0.0, p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8))
         implied[key] = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
     cancelled = lambda k: bn_cancelled(t.model, k)
-    return {"table": tables, "table moments": implied,
+    return {"table": tables, "table moments": implied, "bf16 store": store,
             "dense": {k: v for k, v in sd.items() if not cancelled(k)},
             "BN-cancelled": {k: v for k, v in sd.items() if cancelled(k)}}
 
@@ -2273,12 +2324,45 @@ def bn_cancelled(model, key):
     return bool(m) and model.adapter_after[int(m.group(1))] < len(model.blocks)
 
 
+def bf16_ulps(got, want):
+    """bf16 values between ``got`` and ``want``, elementwise (the bits in
+    sign-magnitude order, so +0 and -0 are one value)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(got) - key(want.to(got.device))).abs()
+
+
+def bf16_store_gaps(tensors, want):
+    """``(outside, elements, most ulps, {tensor: outside, "differing": n})``
+    of a bf16 store against another (BF16_ROW_SCALE, NOISY_SHARE)."""
+    outside, total, worst, where, differing = 0, 0, 0, {}, 0
+    for k, va in tensors.items():
+        vb = want[k].to(va.device)
+        check(bool(torch.isfinite(va.float()).all()), f"{k} not finite")
+        ulps = bf16_ulps(va, vb)
+        row = vb.float().abs().amax(dim=1, keepdim=True)
+        far = (ulps > 1) & ((va.float() - vb.float()).abs() > BF16_ROW_SCALE * row)
+        n = int(far.sum())
+        if n:
+            where[k] = n
+        outside, total = outside + n, total + ulps.numel()
+        worst, differing = max(worst, int(ulps.max())), differing + int((ulps > 0).sum())
+    if differing > NOISY_SHARE * total:
+        outside += differing
+    return outside, total, worst, {**where, "differing": differing}
+
+
 def group_gaps(a, b, noisy=None):
     """``{group: (elements outside its tolerance, elements, max |a - b|,
     {tensor: elements outside})}`` of ``trainer_groups`` a against b.
     ``noisy``: ``{tensor: bool mask}`` of elements held to NOISE_ATOL."""
     out = {}
     for grp, tensors in a.items():
+        if GROUP_TOL[grp] is None:
+            if tensors:
+                out[grp] = bf16_store_gaps(tensors, b[grp])
+            continue
         atol, rtol = GROUP_TOL[grp]
         loose, total, worst, where = 0, 0, 0.0, {}
         for k, va in tensors.items():
@@ -2298,8 +2382,9 @@ def group_gaps(a, b, noisy=None):
 
 
 def gaps_line(gaps):
-    return "; ".join(f"{g} {n}/{t} outside, max gap {w:.3e}"
-                     for g, (n, t, w, _) in gaps.items())
+    return "; ".join(f"{g} {n}/{t} outside, max gap {w:.3e}" if GROUP_TOL[g] else
+                     f"{g} {n}/{t} outside, {where['differing']} differ, most {w} ulp"
+                     for g, (n, t, w, where) in gaps.items())
 
 
 def outside(gaps):
@@ -2346,6 +2431,8 @@ def adopt_state(dst, src):
             for a, b in zip(table_moments(dst, table)[:2],
                             table_moments(src, src_tables[name])[:2]):
                 a.copy_(b)
+        if dst._emb_mode and dst._bf16_store:
+            dst.emb_opt_state["table"].copy_(src.emb_opt_state["table"])
 
 
 class AdamOrderRule:
@@ -2569,6 +2656,216 @@ def phase_sorted_adam(gen, peak):
             "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "hot_row_zipf_ms": hot_ms,
             "block_rows_sweep_ms": sweep}
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at each element of bf16 ``x``: the gap to the next value
+    away from zero."""
+    mag = x.abs()
+    up = (mag.view(torch.int16) + 1).view(torch.bfloat16)
+    return up.float() - mag.float()
+
+
+def bf16_held(got, want, rule, what):
+    """``(held, differing, beyond one ulp, most ulps)`` of one step of the
+    bf16 form (``got``) against its plain version's (``want``) from one
+    state. Both round the same f32 chain to nearest even; their f32 values
+    differ only by the order of the duplicate sums, at most ``rule``'s slack
+    (``AdamOrderRule`` stepped once on that state: mu's and nu's for every
+    element, the table's for its excused ones). Two f32 values s apart round
+    at most s + one ulp apart, so an element is held if within one ulp or
+    within its slack plus one ulp; the elements that differ at all may be at
+    most AdamOrderRule.SHARE of the array, and those beyond one ulp are
+    counted."""
+    ulps = bf16_ulps(got, want)
+    slack = rule.slack[what]
+    if what == "table":
+        slack = torch.where(rule.excused, slack, 0.0)
+    gap = (got.float() - want.float()).abs()
+    ok = (ulps <= 1) | (gap <= slack + bf16_ulp(torch.maximum(got.abs(), want.abs())))
+    n, beyond, most = int((ulps > 0).sum()), int((ulps > 1).sum()), int(ulps.max())
+    return bool(ok.all()) and n <= AdamOrderRule.SHARE * ulps.numel(), n, beyond, most
+
+
+def phase_sorted_adam_bf16(seed, peak):
+    """The bf16 form of ``sorted_dense_adam_apply`` (table, mu and nu bf16)
+    against its plain version at the Ali-CCP shape (V = 10,741,000, D = 16,
+    K = 94,208) with uniform ids and with the hot row plus Zipf ids, 3 steps,
+    each from one state, under ``bf16_held``; two planted faults that rule
+    must catch; a ``block_rows`` sweep; its time and Step 0 beside its
+    bound, the plain version and index_add_ + fused torch.optim.Adam over
+    bf16 tensors; and, in the same call, the Step 0 of the f32 form and of
+    ``fused_dense_adam_apply``, which share ``csrc/embedding_adam.cuh``.
+    Its data come from a generator of its own."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import fused_adam as fk
+    from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
+    from scenario_wise_rec_tpu_torch.train.optim import segment_sorted_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    V, D, K = N_SPARSE * VOCAB, 16, N_SPARSE * BATCH
+    bf = torch.bfloat16
+    r = np.random.default_rng(23)
+    zipf = lambda: np.minimum(r.zipf(1.2, BATCH) - 1, VOCAB - 1)
+    cases = {"a_alicpp_uniform": per_feature(lambda f: r.integers(0, VOCAB, BATCH)).cuda(),
+             "b_hot_row_zipf": per_feature(
+                 lambda f: np.full(BATCH, 17) if f == 0 else zipf()).cuda()}
+    hps = [sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8) for t in (1, 2, 3)]
+    start = torch.randn(V, D, generator=gen, device="cuda").to(bf)
+    max_err, differing = 0.0, {}
+    for name, ids in cases.items():
+        state = [start.clone(), torch.zeros_like(start), torch.zeros_like(start)]
+        differing[name] = []
+        for t, hp in enumerate(hps, 1):
+            ref = [x.clone() for x in state]
+            g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+            sid, gs = sa.owner_sorted_grads(ids, g)
+            rule = AdamOrderRule(ref[0].float())
+            rule.step(ref[0].float(), sid, gs, hp)
+            sa.sorted_dense_adam_apply(*state, sid, gs, hp)
+            sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+            torch.cuda.synchronize()
+            step = []
+            for got, want, what in zip(state, ref, ("table", "mu", "nu")):
+                check(got.dtype == bf and bool(torch.isfinite(got.float()).all()),
+                      f"bf16 {name}: {what} not finite bf16")
+                held, n, beyond, most = bf16_held(got, want, rule, what)
+                check(held, f"bf16 {name} step {t}: {what} {n} elements differ, {beyond} by "
+                      f"more than one ulp (at most {most})")
+                max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+                step.append((n, beyond))
+            differing[name].append(step)
+            del ref, rule
+        log(f"  sorted_dense_adam_apply bf16 {name}: V {V}, K {K}, 3 steps each from one "
+            f"state; elements that differ (table, mu, nu), each as (any, beyond one ulp "
+            f"within the order slack), per step {differing[name]} of {V * D} each (at most "
+            f"{AdamOrderRule.SHARE * V * D:.0f} differ)")
+    table, mu, nu = state
+
+    # planted faults, one step from the state above
+    hot = cases["b_hot_row_zipf"]
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(hot, g)
+    hp = hps[2]
+    ref = [x.clone() for x in (table, mu, nu)]
+    rule = AdamOrderRule(table.float())
+    rule.step(table.float(), sid, gs, hp)
+    sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+    hit = torch.zeros(V, dtype=torch.bool, device="cuda")
+    hit[sid.long()] = True
+    row = int((~hit).nonzero()[0])  # a row no id reaches: it only decays
+    for fault in ("results truncated instead of rounded", "one untouched row's decay left out"):
+        out = [x.clone() for x in (table, mu, nu)]
+        if fault.startswith("results"):
+            # the f32 form on widened copies, truncated (rounded toward zero)
+            wide = [x.float() for x in out]
+            sa.sorted_dense_adam_apply(*wide, sid, gs, hp)
+            for o, w in zip(out, wide):
+                o.copy_((w.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16))
+        else:
+            sa.sorted_dense_adam_apply(*out, sid, gs, hp)
+            for o, before in zip(out, (table, mu, nu)):
+                o[row] = before[row]
+        torch.cuda.synchronize()
+        held = [bf16_held(o, w, rule, what)[0]
+                for o, w, what in zip(out, ref, ("table", "mu", "nu"))]
+        log(f"  sorted_dense_adam_apply bf16 planted fault, {fault}: table, mu, nu held "
+            f"{held} (must fail)")
+        check(not all(held), f"bf16: the one-ulp rule let a planted fault pass ({fault})")
+        del out
+    del ref, rule
+
+    # block_rows sweep: each tile one step from one state, held and timed
+    sweep = {}
+    for name, ids in cases.items():
+        g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        ref = [x.clone() for x in (table, mu, nu)]
+        rule = AdamOrderRule(table.float())
+        rule.step(table.float(), sid, gs, hp)
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        sweep[name] = {}
+        for rows in (64, 128, 256, 512, 1024, 2048):
+            out = [x.clone() for x in (table, mu, nu)]
+            sa.sorted_dense_adam_apply(*out, sid, gs, hp, block_rows=rows)
+            torch.cuda.synchronize()
+            check(all(bf16_held(o, w, rule, what)[0]
+                      for o, w, what in zip(out, ref, ("table", "mu", "nu"))),
+                  f"bf16 {name} block_rows={rows} disagrees")
+            sweep[name][rows] = time_ms(lambda: sa.sorted_dense_adam_apply(
+                *out, sid, gs, hp, block_rows=rows))
+            del out
+        log(f"  sorted_dense_adam_apply bf16 {name} block_rows sweep, ms: "
+            + ", ".join(f"{k} -> {t:.4f}" for k, t in sweep[name].items()))
+        del ref, rule
+
+    hot_ms = time_ms(lambda: sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp))
+    ids = cases["a_alicpp_uniform"]
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, g)
+    kernel_ms = time_ms(lambda: sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp))
+    log("  Step 0 at the Ali-CCP shape, uniform ids:")
+    step0 = wrapper_cost("sorted_dense_adam_apply bf16",
+                         lambda: sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp))
+    plain_ms = time_ms(lambda: sa.sorted_dense_adam_apply_ref(table, mu, nu, sid, gs, hp),
+                       reps=3, inner=5)
+    # the nearest PyTorch composition over the same bf16 tensors (timed here
+    # only; the port never calls it): the gradient rows rounded to bf16, and
+    # summed in bf16, before fused Adam
+    param = torch.nn.Parameter(table.clone())
+    param.grad = torch.zeros_like(param)
+    opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=1e-5, fused=True)
+    sid_long, gs_bf = sid.long(), gs.to(bf)
+
+    def library():
+        param.grad.zero_()
+        param.grad.index_add_(0, sid_long, gs_bf)
+        opt.step()
+
+    library_ms = time_ms(library, reps=3, inner=10)
+    del param, opt
+    # the f32 form and fused_dense_adam_apply, Step 0 in the same call
+    f32 = [torch.randn(V, D, generator=gen, device="cuda"), torch.zeros(V, D, device="cuda"),
+           torch.zeros(V, D, device="cuda")]
+    f32_step0 = wrapper_cost("sorted_dense_adam_apply f32",
+                             lambda: sa.sorted_dense_adam_apply(*f32, sid, gs, hp))
+    segs = tuple((f"s{f}", f * BATCH, BATCH) for f in range(N_SPARSE))
+    fused_args = segment_sorted_ids(ids, segs)
+    fused = lambda: fk.fused_dense_adam_apply(*f32, g, *fused_args, hp)
+    # its wrapper copies the segment offsets from pageable host memory, which
+    # waits for the card: no Step 0 device reading; back to back beside it
+    fused_step0, fused_ms = wrapper_cost("fused_dense_adam_apply", fused), time_ms(fused)
+    del f32
+    nbytes = 6.0 * V * D * 2 + K * 4 + K * D * 4  # bf16 table, mu, nu in and out; ids; grads
+    flops = 16.0 * V * D + K * D                  # the Adam chain per element; the sums
+    t_ops, t_bytes = flops / peak[0] * 1e3, nbytes / peak[1] * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"  sorted_dense_adam_apply bf16 b_hot_row_zipf: kernel {hot_ms:.4f} ms")
+    fused_dev = ("not measurable, the call syncs" if fused_step0["device_ms"] is None
+                 else f"{fused_step0['device_ms']:.4f} ms")
+    log(f"  sorted_dense_adam_apply bf16 a_alicpp_uniform: kernel {kernel_ms:.4f} ms (Step 0 "
+        f"device {step0['device_ms']:.4f} ms), plain {plain_ms:.4f} ms, index_add_ + "
+        f"torch.optim.Adam(fused=True) on bf16 {library_ms:.4f} ms; {nbytes / 1e9:.4f} GB, "
+        f"bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{nbytes / kernel_ms / 1e9:.3f} TB/s achieved ({100 * bound / kernel_ms:.1f}% of "
+        f"bound); Step 0 device: f32 form {f32_step0['device_ms']:.4f} ms, "
+        f"fused_dense_adam_apply {fused_dev} (back to back {fused_ms:.4f} ms)")
+    del table, mu, nu, state, start
+    torch.cuda.empty_cache()
+    return {"name": "sorted_dense_adam_apply_bf16", "route": "cuda",
+            "source": "scenario_wise_rec_tpu_torch/csrc/sorted_adam.cu",
+            "replaces": UPDATE_KERNELS["sorted_dense_adam_apply_bf16"][1],
+            "form": "bf16 tiles (table, mu, nu bf16)",
+            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "library": "index_add_ + torch.optim.Adam(fused=True) "
+            "on bf16 tensors (gradients rounded to bf16)",
+            "step0_device_ms": step0["device_ms"], "step0_host_us": step0["host_us"],
+            "hot_row_zipf_ms": hot_ms, "block_rows_sweep_ms": sweep,
+            "differing_per_step": differing,
+            "f32_step0_device_ms": f32_step0["device_ms"],
+            "fused_dense_adam_apply_step0_device_ms": fused_step0["device_ms"],
+            "fused_dense_adam_apply_ms": fused_ms}
 
 
 def update_entry(name, max_err, kernel_ms, plain_ms, flops, moved, peak, library_ms, **extra):
@@ -2986,9 +3283,9 @@ def phase_train(seed, card):
 
 def narrow_train_card_vs_cpu(seed, name, impl="sorted"):
     """A narrow ``name``: 3 train steps with ``sparse_embedding_updates=True``
-    and ``sparse_update_impl=impl`` (or the dense step for a model without an
-    ``embedding`` collection) on the card and on the CPU, the card handed the
-    CPU's state before each. Every buffer is compared too (HAMUR's D-fold
+    in update mode ``impl`` (``mode_kw``; or the dense step for a model
+    without an ``embedding`` collection) on the card and on the CPU, the card
+    handed the CPU's state before each. Every buffer is compared too (HAMUR's D-fold
     hyper-network running stats, AdaptDHM's refined centers); each update
     kernel launches as many times as its mode says a step (STEP_LAUNCHES),
     and never in the dense step; AdaptDHM's unused biases and M3oE's
@@ -2998,7 +3295,7 @@ def narrow_train_card_vs_cpu(seed, name, impl="sorted"):
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
     small, sx, sy = narrow_model_and_data(seed, n=3 * 128, name=name)
-    kw = dict(sparse_embedding_updates=True, sparse_update_impl=impl)
+    kw = mode_kw(impl)
     cpu_t = CTRTrainer(small, device="cpu", **kw)
     gpu_t = CTRTrainer(copy.deepcopy(small), **kw)
     unused = {n: p.detach().clone() for n, p in gpu_t.model.named_parameters()
@@ -3015,14 +3312,14 @@ def narrow_train_card_vs_cpu(seed, name, impl="sorted"):
             noisy, n_noisy, n_dense = noisy_elements(gpu_t, cpu_t)
             note = f"; {n_noisy} of {n_dense} elements (tables too) noise-dominated"
         gaps = group_gaps(trainer_groups(gpu_t), trainer_groups(cpu_t), noisy)
-        mode = gpu_t._emb_mode or "plain dense"
+        mode = impl if gpu_t._emb_mode else "plain dense"
         log(f"  narrow {name}, {mode} train step {step}, card vs CPU: loss {lg:.7f} vs "
             f"{lc:.7f}; {gaps_line(gaps)}{note}")
         check(abs(lc - lg) <= 1e-5 * abs(lc), f"{name}: card loss {lg} vs CPU {lc}")
         check(not outside(gaps), f"narrow {name}, step {step}, card vs CPU: "
               f"{ {g: gaps[g][3] for g in outside(gaps)} } outside their tolerance")
     counts = read_counts()
-    check(all(counts[k] == n for k, n in step_launches(gpu_t._emb_mode, 3).items()),
+    check(all(counts[k] == n for k, n in step_launches(gpu_t._emb_mode and impl, 3).items()),
           f"narrow {name}, {mode}: update kernel launches {counts}")
     params = dict(gpu_t.model.named_parameters())
     for n, before in unused.items():
@@ -3254,10 +3551,11 @@ def mode_gate(model, batches, mode, ref, faults):
 
 
 def phase_train_modes(seed, card):
-    """MMOE's training path at Ali-CCP width in the occurrence, dense and
-    winner modes, and the sorted one again beside them (the same rows and
-    epoch length, for step times alike): fit (one epoch, validation,
-    checkpoint) and
+    """MMOE's training path at Ali-CCP width in the sorted mode with bf16
+    storage, the occurrence, dense and winner modes, and the f32 sorted one
+    again beside them (the same rows and epoch length, for step times
+    alike): fit (one epoch, validation, checkpoint; for bf16 a round trip of
+    that checkpoint, ``bf16_round_trip``) and
     evaluate_multi_domain_loss with every launch counter read exactly (each
     mode's update kernels STEP_LAUNCHES a step, the eval kernel once an eval
     batch, nothing else), a timed second epoch and a profile of 3 steps;
@@ -3276,10 +3574,11 @@ def phase_train_modes(seed, card):
     val_loader = BatchIterable(ColumnarDataset(vx, vy), BATCH)
     n_steps, n_val = len(train_loader), len(val_loader)
     out = {}
-    for mode in ("sorted", "occurrence", "dense", "winner"):  # sorted: beside them, alike
+    # sorted (f32): beside the others, alike
+    for mode in ("sorted", "sorted_bf16", "occurrence", "dense", "winner"):
         model = build_ali_model(seed + 1)
-        trainer = CTRTrainer(model, sparse_embedding_updates=True, sparse_update_impl=mode,
-                             fused_inference=True, n_epoch=1, data_set_type="smoke", seed=seed)
+        trainer = CTRTrainer(model, **mode_kw(mode), fused_inference=True, n_epoch=1,
+                             data_set_type="smoke", seed=seed)
         with tempfile.TemporaryDirectory() as tmp:
             trainer.model_path = tmp
             reset_counts()
@@ -3290,6 +3589,8 @@ def phase_train_modes(seed, card):
             torch.cuda.synchronize()
             counts = read_counts()
             saved = np.load(path)["model/embedding.packed"]
+            if mode == "sorted_bf16":
+                bf16_round_trip(trainer, path)
         log(f"  {mode}: training path launches {counts}: {n_steps} train steps, {n_val} eval "
             f"batches x 2 passes; fit {t1 - t0:.2f} s (one epoch, validation, checkpoint)")
         want = {**{k: 0 for k in counts}, **step_launches(mode, n_steps),
@@ -3324,6 +3625,7 @@ def phase_train_modes(seed, card):
         del trainer, model
         torch.cuda.empty_cache()
 
+    out["sorted_step_ms"] = sorted_step_ab(seed, batches)
     model = build_ali_model(seed + 4)
     gate_batches = batches[:2]
     segsum = lambda: patched(optim_mod, "occurrence_segsum", lambda f: lambda ids, g: g)
@@ -3339,10 +3641,61 @@ def phase_train_modes(seed, card):
                    lambda: patched(trainer_mod, dense, drop_duplicate_sums)})
     del model
     torch.cuda.empty_cache()
-    for mode in ("occurrence", "dense", "winner"):
+    for mode in ("sorted_bf16", "occurrence", "dense", "winner"):
         narrow_train_card_vs_cpu(seed, "mmoe", impl=mode)
     narrow_frozen_all_modes(seed)
     return out
+
+
+def sorted_step_ab(seed, batches):
+    """MMOE's sorted train step at Ali-CCP width with f32 and with bf16
+    storage, host clock around 5 synchronised steps a turn, in turns f32,
+    bf16, bf16, f32 after 2 warm-up steps each (the epochs timed above run
+    one mode after another and move by more than the difference). Returns
+    each kind's two turns, ms a step."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    trainers = {}
+    for mode in ("sorted", "sorted_bf16"):
+        trainers[mode] = t = CTRTrainer(build_ali_model(seed + 1), **mode_kw(mode), seed=seed)
+        for b in batches[:2]:
+            t._train_step(*t._device_batch(*b))
+    ms = {mode: [] for mode in trainers}
+    for mode in ("sorted", "sorted_bf16", "sorted_bf16", "sorted"):
+        t = trainers[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[2:7]:
+            t._train_step(*t._device_batch(*b))
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / 5)
+    log(f"  sorted train step, host clock, in turns f32, bf16, bf16, f32 (5 steps of {BATCH} "
+        f"a turn): f32 {[round(v, 2) for v in ms['sorted']]} ms, bf16 "
+        f"{[round(v, 2) for v in ms['sorted_bf16']]} ms")
+    del trainers
+    torch.cuda.empty_cache()
+    return ms
+
+
+def bf16_round_trip(trainer, path):
+    """``load`` of ``path`` (just saved by ``trainer``, sorted_dtype="bf16")
+    into the same trainer after its store and its model's table are zeroed:
+    the store comes back bit for bit and the model's table is its copy."""
+    st, packed = trainer.emb_opt_state, trainer.model.embedding.packed
+    before = {k: st[k].clone() for k in ("table", "mu", "nu")}
+    with torch.no_grad():
+        for t in (st["table"], st["mu"], st["nu"], packed):
+            t.zero_()
+    t0 = time.perf_counter()
+    trainer.load(path)
+    torch.cuda.synchronize()
+    same = {k: torch.equal(st[k].view(torch.int16), v.view(torch.int16))
+            for k, v in before.items()}
+    log(f"  sorted_bf16: save/load round trip on the card ({os.path.getsize(path) / 1e6:.1f} "
+        f"MB, load {time.perf_counter() - t0:.2f} s): store equal bit for bit {same}")
+    check(all(same.values()), f"sorted_bf16: the store did not round-trip: {same}")
+    check(torch.equal(packed.detach(), st["table"].float()),
+          "sorted_bf16: the model's table is not the store's after load")
 
 
 def narrow_frozen_all_modes(seed):
@@ -3712,6 +4065,8 @@ def main(argv=None):
         infer = phase_kernels(gen, peak)
     with phase("[2] sorted_dense_adam_apply"):
         sorted_adam = phase_sorted_adam(gen, peak)
+    with phase("[2] sorted_dense_adam_apply bf16"):
+        sorted_bf16 = phase_sorted_adam_bf16(args.seed, peak)
     with phase("[2] occurrence_segsum, scatter_rows"):
         updates = phase_row_update(gen, peak)
     with phase("[2] fused_dense_adam_apply"):
@@ -3753,19 +4108,21 @@ def main(argv=None):
     log("[4] training path: narrow MlpN, the plain dense step, card vs CPU")
     with phase("[4] training narrow mlpn"):
         narrow_train_card_vs_cpu(args.seed, "mlpn")
-    log("[4] training path: MMOE fit at Ali-CCP width in the occurrence, dense and winner "
-        "modes, 467k ids per feature")
+    log("[4] training path: MMOE fit at Ali-CCP width in the sorted mode with bf16 storage, "
+        "the occurrence, dense and winner modes, 467k ids per feature")
     with phase("[4] training mmoe modes"):
         mode_counts = phase_train_modes(args.seed, card)
     updates["occurrence_segsum"]["launches"] = mode_counts["occurrence"]["occurrence_segsum"]
     updates["scatter_rows"]["launches"] = mode_counts["occurrence"]["scatter_rows"]
     updates["fused_dense_adam_apply"]["launches"] = mode_counts["dense"]["fused_dense_adam_apply"]
+    sorted_bf16["launches"] = mode_counts["sorted_bf16"]["sorted_dense_adam_apply_bf16"]
+    sorted_bf16["train_step_ms_f32_bf16_in_turns"] = mode_counts["sorted_step_ms"]
     total = time.perf_counter() - t_start
     log(f"[5] done in {total:.1f} s; by phase (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
         + f"; outside the phases {total - sum(PHASE_S.values()):.1f}")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam] + [new[n] for n in models]
+    print(json.dumps({"kernels": [infer, sorted_adam, sorted_bf16] + [new[n] for n in models]
                       + [updates[k] for k in ("fused_dense_adam_apply", "occurrence_segsum",
                                               "scatter_rows")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,11 +14,21 @@
 // element rounds exactly as the plain PyTorch versions' chain of elementwise
 // ops does; the two differ only in the order in which three or more duplicate
 // gradients are summed.
+//
+// Table, mu and nu are stored in f32 or, for the sorted kernel's bf16 form,
+// in bf16 (the storage type T of `adam_tile`, `dense_adam_kernel` and
+// `launch`). The tile's accumulator and the gradient rows are f32 in both;
+// a bf16 element is widened, takes the same f32 chain and is rounded back to
+// nearest even, so a bf16 result differs from the plain version's only
+// where the f32 sums' order flips a rounding.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace emb_adam {
 
@@ -74,6 +84,19 @@ __device__ __forceinline__ float adam_element(float p, float& m, float& s,
   const float upd = __fdiv_rn(__fmul_rn(h.lr, __fmul_rn(m, h.bc1r)),
                               __fadd_rn(__fsqrt_rn(__fmul_rn(s, h.bc2r)), h.eps));
   return __fsub_rn(p, upd);
+}
+
+// A stored element as f32 (exact for both types), and an f32 result in the
+// storage type, bf16 rounded to nearest even.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // Sorted positions one staging pass of a block holds in shared memory.
@@ -150,42 +173,75 @@ __device__ __forceinline__ void accumulate_span(
 }
 
 // Adam over the tile's `rows` rows starting at row0, from the summed
-// gradients in acc; 16-byte loads and stores when vec4 (d % 4 == 0 and the
-// three arrays 16-byte aligned).
-__device__ __forceinline__ void adam_tile(float* __restrict__ table,
-                                          float* __restrict__ mu,
-                                          float* __restrict__ nu,
-                                          const float* acc, long long row0,
-                                          int rows, int d, int vec4, const Hp& h) {
+// gradients in acc. T is the storage type of table, mu and nu: float, or
+// __nv_bfloat16, whose elements are widened to f32 (exact), run through the
+// same f32 chain and rounded back to nearest even by __float2bfloat16_rn, as
+// `.to(torch.bfloat16)` and XLA's `astype` round. 16-byte loads and stores
+// when vec: 4 floats (d % 4 == 0) or 8 bf16 values (d % 8 == 0), the three
+// arrays 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void adam_tile(T* __restrict__ table, T* __restrict__ mu,
+                                          T* __restrict__ nu, const float* acc,
+                                          long long row0, int rows, int d, int vec,
+                                          const Hp& h) {
   const int n = rows * d, tid = threadIdx.x;
   const float omb1 = __fsub_rn(1.f, h.b1), omb2 = __fsub_rn(1.f, h.b2);
   const size_t off0 = static_cast<size_t>(row0) * d;
-  if (vec4) {
-    float4* t4 = reinterpret_cast<float4*>(table + off0);
-    float4* m4 = reinterpret_cast<float4*>(mu + off0);
-    float4* v4 = reinterpret_cast<float4*>(nu + off0);
-    const float4* a4 = reinterpret_cast<const float4*>(acc);
-    for (int i = tid; i < (n >> 2); i += kThreads) {
-      float4 p = t4[i], m = m4[i], s = v4[i];
-      const float4 a = a4[i];
-      p.x = adam_element(p.x, m.x, s.x, a.x, h, omb1, omb2);
-      p.y = adam_element(p.y, m.y, s.y, a.y, h, omb1, omb2);
-      p.z = adam_element(p.z, m.z, s.z, a.z, h, omb1, omb2);
-      p.w = adam_element(p.w, m.w, s.w, a.w, h, omb1, omb2);
-      t4[i] = p;
-      m4[i] = m;
-      v4[i] = s;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      float4* t4 = reinterpret_cast<float4*>(table + off0);
+      float4* m4 = reinterpret_cast<float4*>(mu + off0);
+      float4* v4 = reinterpret_cast<float4*>(nu + off0);
+      const float4* a4 = reinterpret_cast<const float4*>(acc);
+      for (int i = tid; i < (n >> 2); i += kThreads) {
+        float4 p = t4[i], m = m4[i], s = v4[i];
+        const float4 a = a4[i];
+        p.x = adam_element(p.x, m.x, s.x, a.x, h, omb1, omb2);
+        p.y = adam_element(p.y, m.y, s.y, a.y, h, omb1, omb2);
+        p.z = adam_element(p.z, m.z, s.z, a.z, h, omb1, omb2);
+        p.w = adam_element(p.w, m.w, s.w, a.w, h, omb1, omb2);
+        t4[i] = p;
+        m4[i] = m;
+        v4[i] = s;
+      }
+      return;
     }
   } else {
-    float* t = table + off0;
-    float* m = mu + off0;
-    float* s = nu + off0;
-    for (int i = tid; i < n; i += kThreads) {
-      float mi = m[i], si = s[i];
-      t[i] = adam_element(t[i], mi, si, acc[i], h, omb1, omb2);
-      m[i] = mi;
-      s[i] = si;
+    if (vec) {
+      uint4* t8 = reinterpret_cast<uint4*>(table + off0);
+      uint4* m8 = reinterpret_cast<uint4*>(mu + off0);
+      uint4* v8 = reinterpret_cast<uint4*>(nu + off0);
+      const float4* a4 = reinterpret_cast<const float4*>(acc);
+      for (int i = tid; i < (n >> 3); i += kThreads) {
+        uint4 pw = t8[i], mw = m8[i], sw = v8[i];
+        const float4 a0 = a4[2 * i], a1 = a4[2 * i + 1];
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(&pw);
+        __nv_bfloat16* m = reinterpret_cast<__nv_bfloat16*>(&mw);
+        __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(&sw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float mj = __bfloat162float(m[j]), sj = __bfloat162float(s[j]);
+          const float pj = adam_element(__bfloat162float(p[j]), mj, sj, a[j], h, omb1, omb2);
+          p[j] = __float2bfloat16_rn(pj);
+          m[j] = __float2bfloat16_rn(mj);
+          s[j] = __float2bfloat16_rn(sj);
+        }
+        t8[i] = pw;
+        m8[i] = mw;
+        v8[i] = sw;
+      }
+      return;
     }
+  }
+  T* t = table + off0;
+  T* m = mu + off0;
+  T* s = nu + off0;
+  for (int i = tid; i < n; i += kThreads) {
+    float mi = widen(m[i]), si = widen(s[i]);
+    t[i] = narrow<T>(adam_element(widen(t[i]), mi, si, acc[i], h, omb1, omb2));
+    m[i] = narrow<T>(mi);
+    s[i] = narrow<T>(si);
   }
 }
 
@@ -195,12 +251,13 @@ __device__ __forceinline__ void adam_tile(float* __restrict__ table,
 // Adam over the whole tile (rows with no id decay too). Ids are sorted within a segment, so a tile's ids in one
 // segment are one contiguous span and no row is shared with another block:
 // no cross-block reduction, no atomics.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dense_adam_kernel(float* __restrict__ table, float* __restrict__ mu,
-                  float* __restrict__ nu, const int* __restrict__ ids,
-                  const int* __restrict__ pos, const float* __restrict__ g,
-                  const int* __restrict__ starts, int nseg, int nb, long long v,
-                  int d, int block_rows, int stage_rows, int vec4, const Hp h) {
+dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
+                  const int* __restrict__ ids, const int* __restrict__ pos,
+                  const float* __restrict__ g, const int* __restrict__ starts, int nseg,
+                  int nb, long long v, int d, int block_rows, int stage_rows, int vec,
+                  const Hp h) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;                                           // [block_rows * d]
   float* s_g = acc + static_cast<size_t>(block_rows) * d;      // [stage_rows * (d | 1)]
@@ -221,12 +278,13 @@ dense_adam_kernel(float* __restrict__ table, float* __restrict__ mu,
     accumulate_span(acc, s_g, s_row, ids, pos, g, s_span[2 * s], s_span[2 * s + 1],
                     row0, d, stage_rows);
   }
-  adam_tile(table, mu, nu, acc, row0, rows, d, vec4, h);
+  adam_tile(table, mu, nu, acc, row0, rows, d, vec, h);
 }
 
-// Launches tile_starts_kernel, then dense_adam_kernel. Returns
+// Launches tile_starts_kernel, then dense_adam_kernel<T>. Returns
 // cudaGetLastError() after the launches (0 = success).
-inline cudaError_t launch(float* table, float* mu, float* nu, const int* ids,
+template <typename T>
+inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
                           const int* pos, const float* g, const int* seg_off,
                           int nseg, int* starts, long long v, int d, int k,
                           int block_rows, const Hp& h, void* stream) {
@@ -240,22 +298,23 @@ inline cudaError_t launch(float* table, float* mu, float* nu, const int* ids,
   const size_t smem = smem_bytes(d, block_rows, nseg);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        dense_adam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_adam_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int vec4 = (d % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(mu) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(nu) % 16 == 0);
+  // 16 bytes a thread: 4 floats or 8 bf16 values
+  const int vec = (d % (16 / static_cast<int>(sizeof(T))) == 0) &&
+                  (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(mu) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(nu) % 16 == 0);
   const long long n_starts = static_cast<long long>(nseg) * (nb + 1);
   tile_starts_kernel<<<static_cast<unsigned>((n_starts + 255) / 256), 256, 0, s>>>(
       ids, seg_off, nseg, k, v, block_rows, nb, starts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dense_adam_kernel<<<nb, kThreads, smem, s>>>(table, mu, nu, ids, pos, g, starts,
-                                               nseg, nb, v, d, block_rows,
-                                               stage_rows_for(d), vec4, h);
+  dense_adam_kernel<T><<<nb, kThreads, smem, s>>>(table, mu, nu, ids, pos, g, starts,
+                                                  nseg, nb, v, d, block_rows,
+                                                  stage_rows_for(d), vec, h);
   return cudaGetLastError();
 }
 

@@ -12,10 +12,17 @@
 // with bc1r = 1 / (1 - b1^t), bc2r = 1 / (1 - b2^t). Ids outside [0, V),
 // negative ones included, contribute nothing.
 //
+// Two storage forms, as the TPU kernel takes f32 or bf16 tiles: table, mu and
+// nu all f32 (`sorted_dense_adam_f32`) or all bf16 (`sorted_dense_adam_bf16`;
+// the ids int32 and the gradient rows f32 in both). The bf16 form does the
+// Adam math in f32 and rounds each stored result to nearest even.
+//
 // Bound: bytes. Every row of table, mu and nu is read and written once
 // (6 * V * D * 4 bytes; 4.12 GB at the Ali-CCP shape, V = 10,741,000, D = 16)
 // plus the K ids and K gradient rows, against ~14 flops per element. At
 // 3.35 TB/s that is ~1.23 ms; nothing here may cost more than the stream.
+// The bf16 form moves half: 6 * V * D * 2 bytes = 2.0623 GB, plus 6.4 MB of
+// ids and gradient rows (K = 94,208), 2.0687 GB in all, ~0.6175 ms.
 //
 // Design (not the TPU's: its lane-dispersed [K, 128] gradient matrix, one-hot
 // MXU segment sum and sequential work list exist for a core that runs its grid
@@ -37,7 +44,8 @@
 //      every warp at once, not by one thread. The order of the sum is fixed
 //      by the data, so the result is the same on every run.
 //   3. The same block streams Adam over its whole tile (rows with no id
-//      decay too) with 16-byte loads and stores where D % 4 == 0.
+//      decay too) with 16-byte loads and stores where D % 4 == 0 (f32) or
+//      D % 8 == 0 (bf16) and the three arrays are 16-byte aligned.
 // The device code (steps 1-3, and the rounding rule of the Adam chain) is
 // shared with csrc/fused_adam.cu in csrc/embedding_adam.cuh.
 //
@@ -50,7 +58,8 @@
 
 extern "C" {
 
-// Dynamic shared memory one block of the Adam kernel needs.
+// Dynamic shared memory one block of the Adam kernel needs, in either form
+// (the accumulator is f32 whatever the storage type).
 size_t sorted_dense_adam_smem_bytes(int d, int block_rows) {
   return emb_adam::smem_bytes(d, block_rows, 1);
 }
@@ -62,6 +71,16 @@ int sorted_dense_adam_f32(float* table, float* mu, float* nu, const int* ids,
                           const float* g, int* starts, long long v, int d, int k,
                           int block_rows, float lr, float wd, float b1, float b2,
                           float bc1r, float bc2r, float eps, void* stream) {
+  const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
+  return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
+                          d, k, block_rows, h, stream);
+}
+
+// The same with table, mu and nu bf16 [v, d]; ids and g as above.
+int sorted_dense_adam_bf16(__nv_bfloat16* table, __nv_bfloat16* mu, __nv_bfloat16* nu,
+                           const int* ids, const float* g, int* starts, long long v,
+                           int d, int k, int block_rows, float lr, float wd, float b1,
+                           float b2, float bc1r, float bc2r, float eps, void* stream) {
   const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
                           d, k, block_rows, h, stream);

@@ -49,7 +49,8 @@ raises. No JAX is imported.
 :func:`load_jax_trainer_state` carries a JAX ``CTRTrainer``'s training
 state across as well: optax's ``scale_by_adam`` state becomes the
 ``torch.optim.Adam`` state, and the embedding update's state becomes the
-port's: the sorted mode's packed ``[V2/r, 128]`` table and moments, the
+port's: the sorted mode's packed ``[V2/r, 128]`` table and moments (f32, or
+bf16 bit for bit into the port's bf16 store), the
 occurrence mode's combined ``[V, 3·D]`` store, the dense and winner modes'
 ``[V, D]`` moments.
 """
@@ -119,6 +120,18 @@ def load_jax_params(module: nn.Module, params, state=None) -> None:
             dst[key].copy_(torch.tensor(np.asarray(arr), dtype=dst[key].dtype))
 
 
+def _is_bf16(a) -> bool:
+    """A numpy array of the bfloat16 type JAX hands out (ml_dtypes'; numpy
+    has none of its own)."""
+    return np.asarray(a).dtype.name == "bfloat16"
+
+
+def _bf16_tensor(a) -> torch.Tensor:
+    """A bfloat16 numpy array as a torch tensor, bit for bit: ``torch``
+    refuses the array itself, so through its raw bits."""
+    return torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(torch.bfloat16)
+
+
 def _find_adam_state(tree):
     """optax's ``ScaleByAdamState`` inside an optimizer state (found by its
     ``count``/``mu``/``nu`` fields, so optax need not be imported)."""
@@ -145,9 +158,11 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
       model's ``[V, D]`` table (where the JAX params carry none) and the
       trainer's ``emb_opt_state``: in the sorted mode the packed
       ``[V2/r, 128]`` ``table``/``mu``/``nu``, padded past V (a reshape and a
-      ``[:V]`` slice); in the occurrence mode the combined ``comb [V, 3·D]``
-      (its first D columns the weights); in the dense and winner modes
-      ``mu``/``nu``; and ``step``.
+      ``[:V]`` slice), in float32 or, from a JAX trainer built with
+      ``sorted_dtype="bf16"``, in bfloat16 bit for bit into the port's bf16
+      store (the model's table its float32 copy); in the occurrence mode the
+      combined ``comb [V, 3·D]`` (its first D columns the weights); in the
+      dense and winner modes ``mu``/``nu``; and ``step``.
     """
     model = trainer.model
     base, emb = opt_state, None
@@ -157,7 +172,13 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
         v, d = col.packed_vocab, col.packed_dim
         unpack = lambda a: np.asarray(a).reshape(-1, d)[:v]
         if "table" in emb:
+            if _is_bf16(emb["table"]) != trainer._bf16_store:
+                raise ValueError(
+                    f"the JAX sorted table is {np.asarray(emb['table']).dtype} but the "
+                    f"trainer's sorted_dtype is {trainer._sorted_dtype!r}")
             packed = unpack(emb["table"])
+            if _is_bf16(packed):
+                packed = _bf16_tensor(packed).float().numpy()
         elif "comb" in emb:
             packed = np.asarray(emb["comb"])[:, :d]
         else:
@@ -188,6 +209,9 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
     with torch.no_grad():
         if "comb" in emb:
             st["comb"][:, d:].copy_(as_t(np.asarray(emb["comb"])[:, d:], st["comb"]))
+        elif trainer._bf16_store:
+            for k in ("table", "mu", "nu"):
+                st[k].copy_(_bf16_tensor(unpack(emb[k])))
         else:
             for k in ("mu", "nu"):
                 st[k].copy_(as_t(unpack(emb[k]) if "table" in emb else emb[k], st[k]))

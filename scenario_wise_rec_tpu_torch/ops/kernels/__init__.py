@@ -40,6 +40,8 @@
 - ``sorted_adam``: the duplicate-id gradient sum and exact dense Adam over
   the whole embedding table in one CUDA kernel (``csrc/sorted_adam.cu``),
   with its plain version and the id sort; the ``sorted`` embedding update.
+  The table and its moments are float32, or all bfloat16 (its bf16 form,
+  ``sorted_dtype="bf16"``: the Adam math in f32, each result rounded).
 - ``fused_adam``: the same from ids sorted within each feature's segment,
   the gradient rows read through their sorted positions
   (``csrc/fused_adam.cu``, ``fused_dense_adam_apply``); the ``dense``

@@ -16,16 +16,23 @@ The port's layout is the plain ``[V, D]`` table: the TPU's packed
 kernel updates ``table``, ``mu`` and ``nu`` **in place** (the JAX kernel
 aliases its inputs to its outputs); so does the plain version.
 
+Like the TPU kernel it takes the three in float32 or all three in bfloat16
+(``CTRTrainer(sorted_dtype="bf16")``, half the bytes to stream); the ids are
+int32 and the gradient rows float32 either way. The bf16 form does the Adam
+math in float32 and rounds each stored value to nearest even, as the JAX
+package's ``astype`` does.
+
 :func:`sorted_dense_adam_apply` takes the plain version for a tensor on the
 CPU and launches the kernel for one on a CUDA device, or raises; it never
-falls back. ``sorted_dense_adam_apply.launches`` counts kernel launches.
+falls back. ``sorted_dense_adam_apply.launches`` counts launches of the f32
+form, ``sorted_dense_adam_apply.launches_bf16`` those of the bf16 form.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,11 @@ import torch
 # K = 94,208) on an H100 SXM, both with uniform ids and with one 4096-long
 # hot row plus Zipf ids; 64..1024 lie within 4 % of each other there.
 DEFAULT_BLOCK_ROWS = 128
+# The same for the bf16 form, which moves half the bytes a row: the fastest
+# in chip_smoke.py's sweep at the same shape with uniform ids on an H100 SXM
+# (0.7298 ms; 256 and 1024 within 3 %, 128 13 % slower); with the hot row,
+# 256 (0.7847) and 512 (0.8060).
+DEFAULT_BLOCK_ROWS_BF16 = 512
 PRECISIONS = (None, "fast", "split", "highest")
 _SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
 
@@ -82,6 +94,9 @@ def owner_sorted_grads(ids: torch.Tensor, g_rows: torch.Tensor, segments=(),
     return sorted_ids, g_rows[perm]
 
 
+STORAGE = (torch.float32, torch.bfloat16)  # table, mu and nu: all of one
+
+
 def _check(table, mu, nu, sorted_ids, g_sorted):
     if table.ndim != 2:
         raise ValueError(f"table must be [V, D], got {tuple(table.shape)}")
@@ -94,9 +109,12 @@ def _check(table, mu, nu, sorted_ids, g_sorted):
     if g_sorted.shape != (sorted_ids.shape[0], D):
         raise ValueError(f"g_sorted must be [{sorted_ids.shape[0]}, {D}], got "
                          f"{tuple(g_sorted.shape)}")
-    for t in (table, mu, nu, g_sorted):
-        if t.dtype != torch.float32:
-            raise ValueError(f"sorted_dense_adam_apply takes float32, got {t.dtype}")
+    dtypes = (table.dtype, mu.dtype, nu.dtype)
+    if table.dtype not in STORAGE or len(set(dtypes)) != 1:
+        raise ValueError(f"table, mu and nu must be all float32 or all bfloat16, got "
+                         f"{[str(t) for t in dtypes]}")
+    if g_sorted.dtype != torch.float32:
+        raise ValueError(f"g_sorted must be float32, got {g_sorted.dtype}")
     return V, D
 
 
@@ -117,10 +135,20 @@ def sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp,
     """The plain PyTorch version: the math of the JAX package's
     ``fused_dense_adam_ref`` (``ops/pallas/fused_adam.py:172-183``), a dense
     ``index_add_`` of the gradient rows and vectorised Adam, each step of the
-    chain one elementwise op. Ids outside ``[0, V)`` add nothing. In place;
-    returns ``(table, mu, nu)``. ``dials`` are the kernel's and mean nothing
-    here."""
-    V, _ = _check(table, mu, nu, sorted_ids, g_sorted)
+    chain one elementwise op. Ids outside ``[0, V)`` add nothing. A bf16
+    trio is read as float32, takes the same chain and is written back
+    rounded to nearest even: the JAX package's XLA path for bf16 storage
+    (``train/optim.py:497-508``). In place; returns ``(table, mu, nu)``.
+    ``dials`` are the kernel's and mean nothing here."""
+    _check(table, mu, nu, sorted_ids, g_sorted)
+    if table.dtype == torch.bfloat16:
+        wide = [t.float() for t in (table, mu, nu)]
+        sorted_dense_adam_apply_ref(*wide, sorted_ids, g_sorted, hp)
+        with torch.no_grad():
+            for t, w in zip((table, mu, nu), wide):
+                t.copy_(w.to(torch.bfloat16))
+        return table, mu, nu
+    V = table.shape[0]
     lr, wd, b1, b2, bc1r, bc2r, eps = _hp32(hp)
     omb1 = float(np.float32(1.0) - np.float32(b1))
     omb2 = float(np.float32(1.0) - np.float32(b2))
@@ -145,6 +173,8 @@ def _lib():
     lib.sorted_dense_adam_f32.argtypes = [
         p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, f, f, f, f, f, f, p]
     lib.sorted_dense_adam_f32.restype = ctypes.c_int
+    lib.sorted_dense_adam_bf16.argtypes = lib.sorted_dense_adam_f32.argtypes
+    lib.sorted_dense_adam_bf16.restype = ctypes.c_int
     lib.sorted_dense_adam_smem_bytes.argtypes = [i, i]
     lib.sorted_dense_adam_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -153,11 +183,11 @@ def _lib():
 def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
                             nu: torch.Tensor, sorted_ids: torch.Tensor,
                             g_sorted: torch.Tensor, hp: Sequence[float], *,
-                            block_rows: int = DEFAULT_BLOCK_ROWS,
+                            block_rows: Optional[int] = None,
                             chunk_ids: int = 128,
                             precision=None):
-    """One dense-Adam pass over ``table``, ``mu``, ``nu`` (``[V, D]`` f32),
-    in place. Returns ``(table, mu, nu)``.
+    """One dense-Adam pass over ``table``, ``mu``, ``nu`` (``[V, D]``, all
+    float32 or all bfloat16), in place. Returns ``(table, mu, nu)``.
 
     Args:
         sorted_ids: ``[K]`` int32, ascending (:func:`owner_sorted_grads`).
@@ -166,14 +196,21 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
         g_sorted: ``[K, D]`` f32 gradient rows aligned with ``sorted_ids``.
         hp: 7 host numbers ``(lr, wd, b1, b2, 1/(1-b1^t), 1/(1-b2^t), eps)``
             (:func:`adam_hparams`), passed to the kernel by value.
-        block_rows: vocab rows one thread block owns on the card.
+        block_rows: vocab rows one thread block owns on the card (default:
+            :data:`DEFAULT_BLOCK_ROWS`, or :data:`DEFAULT_BLOCK_ROWS_BF16`
+            for a bf16 trio).
         chunk_ids: the TPU kernel's id-chunk width; it means nothing on the
             card and is only checked (a positive multiple of 128).
-        precision: "fast" | "split" | "highest" | None. On the TPU these set
-            how the one-hot segment sum rounds its gradient operand to bf16;
-            on the card no operand is rounded and all four sum in f32.
+        precision: "fast" | "split" | "highest" | None (None: "split" for
+            f32 storage, "fast" for bf16, as in the JAX package). On the TPU
+            these set how the one-hot segment sum rounds its gradient
+            operand to bf16; on the card no operand is rounded and all four
+            sum in f32, in either storage type.
     """
     check_jax_dials(chunk_ids, precision)
+    if block_rows is None:
+        block_rows = (DEFAULT_BLOCK_ROWS_BF16 if table.dtype == torch.bfloat16
+                      else DEFAULT_BLOCK_ROWS)
     if block_rows <= 0:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     if table.device.type == "cpu":
@@ -197,17 +234,23 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
     nb = -(-V // block_rows)
     starts = torch.empty(nb + 1, dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    bf16 = table.dtype == torch.bfloat16
+    entry = lib.sorted_dense_adam_bf16 if bf16 else lib.sorted_dense_adam_f32
     with torch.cuda.device(table.device):
-        err = lib.sorted_dense_adam_f32(
+        err = entry(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
             g_sorted.data_ptr(), starts.data_ptr(), V, D, sorted_ids.shape[0],
             block_rows, *_hp32(hp), stream)
     if err != 0:
         raise RuntimeError(
-            f"sorted_dense_adam_apply launch failed with cudaError {err} "
+            f"sorted_dense_adam_apply ({table.dtype}) launch failed with cudaError {err} "
             f"({smem} bytes of shared memory per block, block_rows={block_rows})")
-    sorted_dense_adam_apply.launches += 1
+    if bf16:
+        sorted_dense_adam_apply.launches_bf16 += 1
+    else:
+        sorted_dense_adam_apply.launches += 1
     return table, mu, nu
 
 
 sorted_dense_adam_apply.launches = 0
+sorted_dense_adam_apply.launches_bf16 = 0

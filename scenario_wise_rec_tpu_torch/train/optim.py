@@ -14,7 +14,9 @@ and update it from the batch's per-occurrence gradient rows (``g_rows
   :func:`sorted_dense_adam_update` (one global id sort, the kernel of
   ``ops/kernels/sorted_adam.py``) and :func:`fused_dense_adam_update`
   (per-segment sorts, the kernel of ``ops/kernels/fused_adam.py``), with
-  ``{"mu", "nu", "step"}`` state beside the model's own ``[V, D]`` table;
+  ``{"mu", "nu", "step"}`` state beside the model's own ``[V, D]`` table
+  (or, for the sorted update with bf16 storage, a bf16 store
+  ``{"table", "mu", "nu", "step"}`` of its own: :func:`sorted_dense_adam_init`);
 - lazy row-sparse Adam (``torch.optim.SparseAdam``'s semantics: only the
   touched rows move, untouched rows take no weight decay and their moments
   no decay): :func:`sparse_adam_rowgrads_update` (winner scatter, plain
@@ -35,7 +37,7 @@ capability parity.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +45,7 @@ import torch
 from ..ops.kernels.fused_adam import DEFAULT_BLOCK_ROWS as FUSED_BLOCK_ROWS
 from ..ops.kernels.fused_adam import fused_dense_adam_apply
 from ..ops.kernels.row_update import occurrence_segsum, scatter_rows
-from ..ops.kernels.sorted_adam import (DEFAULT_BLOCK_ROWS, adam_hparams,
-                                       owner_sorted_grads,
+from ..ops.kernels.sorted_adam import (adam_hparams, owner_sorted_grads,
                                        sorted_dense_adam_apply)
 from .freeze import frozen_ids_mask, rows_kept
 
@@ -79,7 +80,21 @@ def sparse_adam_init(table: torch.Tensor) -> Dict:
             "step": 0}
 
 
-sorted_dense_adam_init = sparse_adam_init
+def sorted_dense_adam_init(table: torch.Tensor, dtype=None) -> Dict:
+    """Optimizer state of the sorted update. With ``dtype=None`` (or float32)
+    that of :func:`sparse_adam_init`: the update steps the model's own
+    table. With ``dtype=torch.bfloat16`` the state is a bf16 store of its
+    own, ``{"table", "mu", "nu", "step"}``: the table rounded to bf16 (to
+    nearest even) and zero bf16 moments, which the update steps in place of
+    the model's table (the JAX package's ``sorted_dense_adam_init(dtype=)``;
+    its packed padded tile layout is not carried over)."""
+    if dtype in (None, torch.float32):
+        return sparse_adam_init(table)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"sorted storage is float32 or bfloat16, got {dtype}")
+    store = table.detach().to(dtype, memory_format=torch.contiguous_format)
+    return {"table": store, "mu": torch.zeros_like(store),
+            "nu": torch.zeros_like(store), "step": 0}
 
 
 def _bias_corrections(step: int, b1: float, b2: float) -> Tuple[float, float]:
@@ -303,11 +318,14 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
                              g_rows: torch.Tensor, ids: torch.Tensor, *,
                              lr: float = 1e-3, weight_decay: float = 1e-5,
                              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                             block_rows: int = DEFAULT_BLOCK_ROWS,
+                             block_rows: Optional[int] = None,
                              frozen_spans: Spans = ()) -> Dict:
     """One exact dense torch-Adam step of ``table`` (in place) from the
     per-occurrence gradient rows ``g_rows [K, D]`` of the packed rows
     ``ids [K]`` (``EmbeddingCollection.touched_ids``, duplicates allowed).
+    For a bf16 store (:func:`sorted_dense_adam_init` with ``dtype``),
+    ``table`` is the store's ``opt_state["table"]``: the kernel's bf16 form
+    steps it, each value rounded back to bf16.
 
     Identical semantics to the reference's ``torch.optim.Adam`` over
     ``nn.Embedding.weight``: every row receives weight decay and moment

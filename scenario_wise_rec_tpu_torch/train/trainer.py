@@ -12,7 +12,14 @@ protocol.
   updates the table by ``sparse_update_impl`` (``train/optim.py``):
 
   - ``"sorted"``: exact dense Adam on every row through the sorted kernel
-    (``ops/kernels/sorted_adam.py``), ids sorted globally;
+    (``ops/kernels/sorted_adam.py``), ids sorted globally. With
+    ``sorted_dtype="bf16"`` the table and its moments live in a bf16 store
+    of their own (``emb_opt_state["table"|"mu"|"nu"]``): the step gathers its
+    rows from the store and the kernel's bf16 form steps it, rounding every
+    value back to bf16. The model's ``embedding.packed`` is then a float32
+    copy, refreshed from the store before every eval or predict pass and
+    every ``save`` (so every early-stop snapshot); ``load`` and an early-stop
+    restore refill the store from it, which is exact;
   - ``"dense"``: the same semantics through the kernel of
     ``ops/kernels/fused_adam.py``, ids sorted within each feature's segment;
   - ``"occurrence"`` (the default): lazy ``torch.optim.SparseAdam``
@@ -60,14 +67,15 @@ import torch
 from . import checkpoint as ckpt_lib
 from ..core.config import make_generator, resolve_device
 from ..data.prefetch import prefetch
-from ..ops.kernels.sorted_adam import DEFAULT_BLOCK_ROWS, check_jax_dials
+from ..ops.kernels.sorted_adam import check_jax_dials
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
 from .metrics import auc_score, log_loss_score
-from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_update,
-                    sparse_adam_init, sparse_adam_occurrence_init,
-                    sparse_adam_occurrence_update, sparse_adam_rowgrads_update)
+from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_init,
+                    sorted_dense_adam_update, sparse_adam_init,
+                    sparse_adam_occurrence_init, sparse_adam_occurrence_update,
+                    sparse_adam_rowgrads_update)
 
 _EMB_MODES = ("dense", "winner", "occurrence", "sorted")
 
@@ -102,7 +110,12 @@ class CTRTrainer:
             of CUDA graphs (ROADMAP).
         prefetch_depth: host batches prepared ahead on a thread (0: none).
         sorted_block_rows: the sorted kernel's vocab tile (default: the
-            port's own, ``ops/kernels/sorted_adam.DEFAULT_BLOCK_ROWS``).
+            port's own for the storage type, ``DEFAULT_BLOCK_ROWS`` or
+            ``DEFAULT_BLOCK_ROWS_BF16`` of ``ops/kernels/sorted_adam.py``).
+        sorted_dtype: the sorted mode's storage of the table and its
+            moments, None or "float32" (the model's own table) or "bf16" (a
+            bf16 store; see the module docstring). The Adam math is float32
+            in both.
         sorted_reorder / sorted_chunk_ids / sorted_precision: the JAX dials,
             checked here and not used: on the card one stable sort orders
             the ids, no operand is rounded to bf16 and there are no id
@@ -112,9 +125,9 @@ class CTRTrainer:
             the tensor's device (``sorted_kernel=False`` is refused).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` and more than one entry in ``gpus`` (A15);
-    ``sorted_dtype="bf16"`` (A13); a ``DeviceResidentLoader`` (A14);
-    ``fused_inference="auto"`` (A10); ``on_device=True`` evaluation (A14).
+    item: ``mesh`` and more than one entry in ``gpus`` (A15); a
+    ``DeviceResidentLoader`` (A14); ``fused_inference="auto"`` (A10);
+    ``on_device=True`` evaluation (A14).
     """
 
     def __init__(
@@ -167,8 +180,6 @@ class CTRTrainer:
         if sorted_dtype not in (None, "float32", "bf16"):
             raise ValueError(f"sorted_dtype must be None, 'float32' or 'bf16', "
                              f"got {sorted_dtype!r}")
-        if sorted_dtype == "bf16":
-            raise NotImplementedError("bf16 storage of the sorted table is ROADMAP A13")
         check_jax_dials(sorted_chunk_ids, sorted_precision, sorted_reorder)
         if int(scan_steps) < 1:
             raise ValueError(f"scan_steps must be a positive int, got {scan_steps!r}")
@@ -184,7 +195,8 @@ class CTRTrainer:
             raise ValueError(
                 "sparse_update_impl='sorted' requires the packed embed_dim to "
                 f"divide 128, got {emb.packed_dim}")
-        self._sorted_block_rows = int(sorted_block_rows or DEFAULT_BLOCK_ROWS)
+        self._sorted_block_rows = int(sorted_block_rows) if sorted_block_rows else None
+        self._sorted_dtype = sorted_dtype or "float32"
         # frozen pretrained tables of the embedding collection (train/freeze.py)
         self._frozen_spans = tuple(emb.frozen_spans) if emb is not None else ()
 
@@ -231,10 +243,30 @@ class CTRTrainer:
     def _sorted_mode(self) -> bool:
         return self._emb_mode == "sorted"
 
+    @property
+    def _bf16_store(self) -> bool:
+        """The sorted mode with its table and moments in a bf16 store."""
+        return self._sorted_mode and self._sorted_dtype == "bf16"
+
+    def _sync_packed(self):
+        """With a bf16 store: copy its table into the model's f32 table."""
+        if self._bf16_store:
+            with torch.no_grad():
+                self.model.embedding.packed.copy_(self.emb_opt_state["table"])
+
+    def _refill_store(self):
+        """With a bf16 store: take the model's table into it (after ``load``
+        or a restore; a table synced from the store comes back exactly)."""
+        if self._bf16_store:
+            with torch.no_grad():
+                self.emb_opt_state["table"].copy_(self.model.embedding.packed)
+
     def _init_emb_state(self):
         if self._emb_mode is None:
             return None
         col = self.model.embedding
+        if self._bf16_store:
+            return sorted_dense_adam_init(col.packed.detach(), dtype=torch.bfloat16)
         if self._emb_mode != "occurrence":
             return sparse_adam_init(col.packed.detach())
         state = sparse_adam_occurrence_init(col.packed.detach())
@@ -281,7 +313,8 @@ class CTRTrainer:
                 rows = r3[:, :col.packed_dim].detach().requires_grad_()
             else:
                 # a gathered copy: the update may change the live table in place
-                rows = col.packed.detach()[ids].requires_grad_()
+                src = st["table"] if self._bf16_store else col.packed.detach()
+                rows = src[ids].float().requires_grad_()
         probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
         loss = bce_loss(probs, y, w)
         if self.optimizer is not None:
@@ -303,8 +336,8 @@ class CTRTrainer:
                   b1=p.get("b1", 0.9), b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
                   frozen_spans=self._frozen_spans)
         if mode == "sorted":
-            sorted_dense_adam_update(col.packed, st, rows.grad, ids,
-                                     block_rows=self._sorted_block_rows, **kw)
+            sorted_dense_adam_update(st["table"] if self._bf16_store else col.packed, st,
+                                     rows.grad, ids, block_rows=self._sorted_block_rows, **kw)
         elif mode == "dense":
             fused_dense_adam_update(col.packed, st, rows.grad, ids,
                                     col.touched_owner_segments(x), **kw)
@@ -366,9 +399,11 @@ class CTRTrainer:
             if val_dataloader:
                 auc, logloss = self.evaluate(self.model, val_dataloader)
                 print(f"epoch:{epoch_i} | val auc: {auc} | val logloss: {logloss}")
+                self._sync_packed()  # the snapshot holds the live table
                 if self.early_stopper.stop_training(auc, self.model.state_dict()):
                     print(f"validation: best auc: {self.early_stopper.best_auc}")
                     self.model.load_state_dict(self.early_stopper.best_weights)
+                    self._refill_store()
                     break
         # like the reference, best weights are restored only on an early
         # stop; a natural end of the epoch loop keeps the last weights
@@ -383,6 +418,7 @@ class CTRTrainer:
         """Run the eval step over a loader; returns (y, p, domain, w) with
         the weight-0 padding rows dropped host-side."""
         ys, ps, ds, ws = [], [], [], []
+        self._sync_packed()
         with torch.inference_mode():
             # fold once per pass: the weights cannot change inside it
             folded = self.model.fold_eval() if self._fused_inference else None
@@ -441,7 +477,9 @@ class CTRTrainer:
         (the live table in every mode), the torch optimizer's moments and
         step per parameter name (zeros before the first step) and the
         embedding update's moments and step (in the occurrence mode the
-        moment columns of the combined store)."""
+        moment columns of the combined store; with a bf16 store its bf16
+        moments, its table as the model's)."""
+        self._sync_packed()
         out = {f"model/{k}": v for k, v in self.model.state_dict().items()}
         for name, p in self._dense_named:
             st = self.optimizer.state.get(p, {})
@@ -471,6 +509,7 @@ class CTRTrainer:
             "model": type(self.model).__name__,
             "sparse_embedding_updates": bool(self._sparse_emb),
             "sparse_update_impl": self._sparse_impl if self._sparse_emb else None,
+            "sorted_dtype": self._sorted_dtype if self._sorted_mode else None,
         })
 
     def load(self, path: str):
@@ -483,8 +522,16 @@ class CTRTrainer:
                     f"{meta['sparse_update_impl']!r} but this trainer uses "
                     f"{mine!r}; construct CTRTrainer with the matching "
                     "sparse_embedding_updates/sparse_update_impl to resume")
+            if self._sorted_mode:
+                # a checkpoint from before the key existed stored float32
+                theirs = meta.get("sorted_dtype") or "float32"
+                if theirs != self._sorted_dtype:
+                    raise ValueError(
+                        f"checkpoint was written with sorted_dtype={theirs!r} but this "
+                        f"trainer uses sorted_dtype={self._sorted_dtype!r}; construct "
+                        "CTRTrainer with the matching sorted_dtype to resume")
         arrays, meta = ckpt_lib.load(path, self._checkpoint_tensors())
-        t = lambda key, like: torch.as_tensor(arrays[key]).to(like.device)
+        t = lambda key, like: arrays[key].to(like.device)
         sd = self.model.state_dict()
         self.model.load_state_dict({k: t(f"model/{k}", v) for k, v in sd.items()})
         for name, p in self._dense_named:
@@ -497,6 +544,7 @@ class CTRTrainer:
                 v.copy_(t(f"opt/emb/{k}", v))
         if self.emb_opt_state is not None:
             self.emb_opt_state["step"] = int(arrays["opt/emb/step"])
+        self._refill_store()
         self.epoch_i = int(meta.get("epoch", 0))
         self.early_stopper.best_auc = float(meta.get("best_auc", 0.0))
         return meta

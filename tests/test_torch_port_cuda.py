@@ -403,6 +403,184 @@ def test_sorted_trainer_two_in_place_steps_on_a_live_parameter(gen):
         assert torch.allclose(v.cpu(), want, rtol=1e-4, atol=atol), k
 
 
+# -- sorted_dense_adam_apply, bf16 storage -----------------------------------
+#
+# The bf16 form does the plain version's f32 chain on widened values and
+# rounds each result to nearest even; the two differ only where the order of
+# an f32 duplicate sum moves a value across a rounding boundary. Their f32
+# values differ by at most _AdamOrderRule's slack (mu's and nu's for every
+# element, the table's for its excused ones), and two f32 values s apart
+# round at most s + one ulp apart. Each step starts both from one state (a
+# flip persists and can compound across steps); every element must be within
+# one ulp, or within its slack plus one ulp (a moment whose update cancels to
+# far below its gradient's scale), and the elements that differ at all may
+# be at most _AdamOrderRule.SHARE of each array.
+
+
+def _bf16_ulps(got, want):
+    """bf16 values between ``got`` and ``want``, elementwise (the bits in
+    sign-magnitude order, so +0 and -0 are one value)."""
+    def key(a):
+        i = a.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(got) - key(want)).abs()
+
+
+def _bf16_ulp(x):
+    """The bf16 ulp at each element of bf16 ``x`` (the gap away from zero)."""
+    mag = x.abs()
+    return (mag.view(torch.int16) + 1).view(torch.bfloat16).float() - mag.float()
+
+
+def _bf16_held(got, want, rule, what):
+    ulps = _bf16_ulps(got, want)
+    slack = rule.slack[what]
+    if what == "table":
+        slack = torch.where(rule.excused, slack, 0.0)
+    gap = (got.float() - want.float()).abs()
+    ok = (ulps <= 1) | (gap <= slack + _bf16_ulp(torch.maximum(got.abs(), want.abs())))
+    n = int((ulps > 0).sum())
+    return bool(ok.all()) and n <= _AdamOrderRule.SHARE * ulps.numel(), n
+
+
+def _bf16_trio(gen, V, D, offset=None):
+    """table, mu, nu in bf16 [V, D]; with ``offset`` each a view starting
+    ``offset`` elements into a larger buffer (contiguous; 16-byte aligned
+    only where 2 * offset is a multiple of 16)."""
+    vals = (torch.randn(V, D, generator=gen, device="cuda"),
+            1e-3 * torch.randn(V, D, generator=gen, device="cuda"),
+            1e-6 * torch.rand(V, D, generator=gen, device="cuda"))
+    out = []
+    for v in vals:
+        if offset is None:
+            out.append(v.to(torch.bfloat16))
+        else:
+            buf = torch.zeros(V * D + offset, dtype=torch.bfloat16, device="cuda")
+            t = buf[offset:].view(V, D)
+            t.copy_(v)
+            out.append(t)
+    return out
+
+
+def _run_bf16_steps(gen, V, D, ids, block_rows=None, steps=3, offset=None):
+    table, mu, nu = _bf16_trio(gen, V, D, offset)
+    table0 = table.clone()
+    ids = ids.to("cuda")
+    counted = 0
+    for t in range(1, steps + 1):
+        ref = [x.clone() for x in (table, mu, nu)]
+        g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        hp = sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+        rule = _AdamOrderRule(ref[0].float())
+        rule.step(ref[0].float(), sid, gs, hp)
+        f32, bf16 = sa.sorted_dense_adam_apply.launches, sa.sorted_dense_adam_apply.launches_bf16
+        sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp, block_rows=block_rows)
+        torch.cuda.synchronize()
+        assert sa.sorted_dense_adam_apply.launches_bf16 == bf16 + 1
+        assert sa.sorted_dense_adam_apply.launches == f32  # the f32 form's count unmoved
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        for got, want, what in zip((table, mu, nu), ref, ("table", "mu", "nu")):
+            assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+            held, n = _bf16_held(got, want, rule, what)
+            assert held, (what, t, n, int(_bf16_ulps(got, want).max()))
+            counted += n
+    return table0, table, counted
+
+
+@pytest.mark.parametrize("V,D", [(5000, 16), (100_003, 16), (100_003, 8), (23 * 5000, 8)])
+def test_sorted_adam_bf16_matches_plain(gen, V, D):
+    ids = torch.randint(0, V // 3, (6000,), generator=gen, device="cuda")  # upper tiles empty
+    ids = torch.cat([ids, torch.tensor([-1, -7, V, V + 3], device="cuda")])
+    _run_bf16_steps(gen, V, D, ids)
+
+
+@pytest.mark.parametrize("block_rows", [64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("D", [8, 16])
+def test_sorted_adam_bf16_every_block_rows(gen, D, block_rows):
+    V = 50_021
+    ids = torch.randint(0, V, (8000,), generator=gen, device="cuda")
+    _run_bf16_steps(gen, V, D, ids, block_rows=block_rows)
+
+
+@pytest.mark.parametrize("D", [8, 16])
+def test_sorted_adam_bf16_hot_row(gen, D):
+    r = np.random.default_rng(0)
+    V, per = 23 * 5000, 4096
+    parts = [np.full(per, 17)] + [f * 5000 + _zipf_ids(r, per, 5000) for f in range(1, 23)]
+    _run_bf16_steps(gen, V, D, torch.as_tensor(np.concatenate(parts)))
+
+
+@pytest.mark.parametrize("fault", [None, "truncated", "missed_decay"])
+def test_sorted_adam_bf16_rule_catches_planted_faults(gen, fault):
+    """One step on the hot row and Zipf ids, from one state: the bf16 form as
+    it is passes the rule; its f32 results truncated to bf16 instead of
+    rounded (the f32 form on widened copies, then truncated), or one
+    untouched row's decay left out, fail it."""
+    r = np.random.default_rng(1)
+    V, D, per = 23 * 5000, 16, 4096
+    parts = [np.full(per, 17)] + [f * 5000 + _zipf_ids(r, per, 5000) for f in range(1, 23)]
+    ids = torch.as_tensor(np.concatenate(parts)).cuda()
+    table, mu, nu = _bf16_trio(gen, V, D)
+    g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, g)
+    hp = sa.adam_hparams(2, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    ref = [t.clone() for t in (table, mu, nu)]
+    rule = _AdamOrderRule(table.float())
+    rule.step(table.float(), sid, gs, hp)
+    sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+    out = [t.clone() for t in (table, mu, nu)]
+    if fault == "truncated":
+        wide = [t.float() for t in out]
+        sa.sorted_dense_adam_apply(*wide, sid, gs, hp)
+        for t, w in zip(out, wide):
+            t.copy_((w.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16))
+    else:
+        sa.sorted_dense_adam_apply(*out, sid, gs, hp)
+    if fault == "missed_decay":
+        hit = torch.zeros(V, dtype=torch.bool, device="cuda")
+        hit[sid.long()] = True
+        row = int((~hit).nonzero()[0])
+        for t, before in zip(out, (table, mu, nu)):
+            t[row] = before[row]
+    torch.cuda.synchronize()
+    held = [_bf16_held(o, w, rule, what)[0]
+            for o, w, what in zip(out, ref, ("table", "mu", "nu"))]
+    assert all(held) if fault is None else not all(held), held
+
+
+def test_sorted_adam_bf16_no_ids_still_decays(gen):
+    table0, table, _ = _run_bf16_steps(gen, 5000, 16, torch.zeros(0, dtype=torch.long))
+    assert bool((table != table0).any())
+
+
+@pytest.mark.parametrize("offset", [16, 8, 1, 3])
+def test_sorted_adam_bf16_sliced_store(gen, offset):
+    """A store that starts ``offset`` elements into its buffer: one row of 16
+    (32 bytes) and 8 (16 bytes) keep the 16-byte path, 1 and 3 (2 and 6
+    bytes) take the scalar one; both agree with the plain version."""
+    ids = torch.randint(0, 20_000, (5000,), generator=gen, device="cuda")
+    _run_bf16_steps(gen, 20_000, 16, ids, offset=offset)
+
+
+def test_sorted_adam_bf16_bad_input_raises(gen):
+    table, mu, nu = _bf16_trio(gen, 3000, 16)
+    ids = torch.randint(0, 3000, (500,), generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, torch.randn(500, 16, generator=gen, device="cuda"))
+    hp = sa.adam_hparams(1, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    f32, bf16 = sa.sorted_dense_adam_apply.launches, sa.sorted_dense_adam_apply.launches_bf16
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(table, mu, nu.float(), sid, gs, hp)
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(table, mu, nu, sid, gs.bfloat16(), hp)
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(table.t(), mu.t(), nu.t(), sid, gs[:, :16], hp)
+    with pytest.raises(ValueError):
+        sa.sorted_dense_adam_apply(table, mu, nu, sid, gs, hp, block_rows=100_000)
+    assert (sa.sorted_dense_adam_apply.launches, sa.sorted_dense_adam_apply.launches_bf16) \
+        == (f32, bf16)
+
+
 # -- trunk_towers_fused_infer, star_fused_infer, ple_fused_infer --------------
 
 from scenario_wise_rec_tpu_torch.ops.kernels import ple_infer as kp  # noqa: E402

@@ -164,9 +164,6 @@ def test_trainer_rejects_what_this_slice_does_not_do():
         PTrainer(model, device="cpu", fused_inference="false")
     with pytest.raises(NotImplementedError):
         PTrainer(model, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        PTrainer(model, device="cpu", sparse_embedding_updates=True,
-                 sparse_update_impl="sorted", sorted_dtype="bf16")
     x, y = _data()
     with pytest.raises(NotImplementedError):
         pt.evaluate(model, pds.BatchIterable(pds.ColumnarDataset(x, y), BATCH),

@@ -390,14 +390,12 @@ def test_trainer_rejects_what_the_port_does_not_run():
     _, pt = _pair(True)
     model = pt.model
     for kw, item in ((dict(mesh=object()), "A15"), (dict(gpus=[0, 1]), "A15"),
-                     (dict(fused_inference="auto"), "A10"),
-                     (dict(sparse_embedding_updates=True, sparse_update_impl="sorted",
-                           sorted_dtype="bf16"), "A13")):
+                     (dict(fused_inference="auto"), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             PTrainer(model, device="cpu", **kw)
     for kw in (dict(sorted_kernel=False), dict(sorted_chunk_ids=100),
                dict(sorted_precision="bf16"), dict(sorted_reorder="scatter"),
-               dict(scan_steps=0)):
+               dict(scan_steps=0), dict(sorted_dtype="fp16")):
         with pytest.raises(ValueError):
             PTrainer(model, device="cpu", **kw)
     wide = PMMOE([pf.SparseFeature("s0", vocab_size=V, embed_dim=12), pf.DenseFeature("d0")],
