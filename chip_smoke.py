@@ -213,7 +213,20 @@ Phases; each asserts, and any failure exits non-zero:
    dense trainer (torch.optim.Adam over the whole table) for 2 steps at
    full width, beside two planted faults that this check must catch, and a
    narrow model trained 3 steps on the card and the CPU. Each gated step
-   starts both sides from one state (``sorted_vs_dense``). Then each other
+   starts both sides from one state (``sorted_vs_dense``). Then MMOE over a
+   ``DeviceResidentLoader`` (``[4] training mmoe resident``): (a) ``fit``
+   for one epoch of 16*4096+123 resident rows in the sorted mode with
+   validation, then ``evaluate_multi_domain_loss(..., on_device=True)``: the
+   sorted kernel once a step, the eval kernel once an eval batch, every
+   metric finite; (b) from one state (``clone_trainer``), a host epoch and a
+   resident epoch over the same rows and seed, within ``GROUP_TOL`` (the
+   differing elements printed), and a resident epoch on a permutation rolled
+   by one row, which must fail; (c) the on-device metrics against the
+   host's over the validation set (AUC within 1e-4, logloss within 1e-5),
+   and a NaN planted in one score, which both paths must refuse; (d) no
+   gate: host and resident epochs of 2^18+123 rows in turns (examples/s,
+   host clock, synchronised), stream syncs and device busy share a step
+   from a profile of 5 steps of each, the loader's bytes on the card. Then each other
    model's ``fit`` (8*4096+123 rows), evaluation, a timed second epoch and a
    narrow card-vs-CPU copy: the sorted kernel launches once per step for
    the models with one ``embedding`` collection, and never for EPNet, PPNet
@@ -243,7 +256,8 @@ Phases; each asserts, and any failure exits non-zero:
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
    ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
-   kernel's bf16 form (an eval kernel's
+   kernel's bf16 form (the sorted kernel's row also with its resident
+   launches and the resident findings of (d); an eval kernel's
    ``ms`` is its Step-0 device time, beside ``back_to_back_ms``), and last
    the line ``{"ok": true, "device": {...}}``.
 """
@@ -3281,6 +3295,176 @@ def phase_train(seed, card):
     return counts
 
 
+def clone_trainer(t):
+    """A trainer on a copy of ``t``'s model holding all of ``t``'s training
+    state: weights, torch.optim's moments and steps, the embedding update's
+    moments and step, the lr and the dropout generator's state."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    c = CTRTrainer(copy.deepcopy(t.model), sparse_embedding_updates=t._sparse_emb,
+                   sparse_update_impl=t._sparse_impl, fused_inference=t._fused_inference)
+    # load_state_dict keeps tensors already on the right device: copy them
+    c.optimizer.load_state_dict(copy.deepcopy(t.optimizer.state_dict()))
+    with torch.no_grad():
+        for k, v in t.emb_opt_state.items():
+            if torch.is_tensor(v):
+                c.emb_opt_state[k].copy_(v)
+    c.emb_opt_state["step"] = t.emb_opt_state["step"]
+    c.generator.set_state(t.generator.get_state())
+    c._lr_now = t._lr_now
+    return c
+
+
+def rolled_by_one(loader):
+    """Plant a fault in a resident loader: each epoch's permutation rolled by
+    one row (every batch but its rows' order shifted one place)."""
+    right = loader.epoch_perm
+
+    def rolled():
+        ids, w = right()
+        return np.roll(ids, 1), w
+
+    loader.epoch_perm = rolled
+    return loader
+
+
+N_FINDINGS = 2 ** 18 + 123  # rows of the resident-against-host findings epoch
+
+
+def phase_train_resident(seed, card):
+    """MMOE's training path over a DeviceResidentLoader at Ali-CCP width:
+    (a) ``fit`` in the sorted mode with validation and on-device
+    evaluation, launches counted; (b) a host epoch against a resident epoch
+    from one state, and a resident epoch on a rolled permutation that must
+    fail; (c) on-device against host metrics, and a planted NaN score that
+    both must refuse; (d) examples/s, stream syncs and device busy share of
+    both paths, no gate."""
+    from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
+                                                  DeviceResidentLoader)
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    model = build_ali_model(seed + 1)
+    x, y = synthetic_eval_set(seed + 2, N_TRAIN)
+    vx, vy = synthetic_eval_set(seed + 3, 2 * BATCH + 7)
+    ds = ColumnarDataset(x, y)
+    val_loader = BatchIterable(ColumnarDataset(vx, vy), BATCH)
+    resident = DeviceResidentLoader(ds, BATCH, seed=seed)
+    n_steps, n_val = len(resident), len(val_loader)
+    trainer = CTRTrainer(model, sparse_embedding_updates=True,
+                         sparse_update_impl="sorted", fused_inference=True,
+                         n_epoch=1, data_set_type="smoke", seed=seed)
+    log(f"  resident loader: {N_TRAIN} rows, int {tuple(resident.int_mat.shape)} "
+        f"{resident.int_mat.dtype}, float {tuple(resident.float_mat.shape)}, "
+        f"{resident.nbytes() / 1e6:.1f} MB on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.model_path = tmp
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(resident, val_loader)
+        t1 = time.perf_counter()
+        ll, auc, tll, tauc = trainer.evaluate_multi_domain_loss(model, val_loader, DOMAINS,
+                                                                on_device=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"  (a) resident training path launches {counts}: {n_steps} train steps, {n_val} "
+        f"eval batches x 2 passes (validation, on-device); fit {t1 - t0:.2f} s")
+    check(all(counts[k] == n for k, n in step_launches("sorted", n_steps).items()),
+          "resident fit: the sorted kernel did not launch once per train step, or another "
+          "update kernel did")
+    check(counts["mmoe_fused_infer"] == 2 * n_val,
+          "resident fit: the eval kernel did not launch once per eval batch")
+    check(trainer.emb_opt_state["step"] == n_steps, "sorted step count")
+    check(all(v is not None and np.isfinite(v) for v in ll + auc + [tll, tauc]),
+          "on-device eval metrics not finite")
+    log(f"  on-device after one resident epoch: per-domain auc "
+        f"{[round(a, 6) for a in auc]}, total auc {tauc:.6f}, total logloss {tll:.6f}")
+
+    # (b) one state, one host epoch and one resident epoch over the same rows
+    host_t, res_t, fault_t = (clone_trainer(trainer) for _ in range(3))
+    host_t.train_one_epoch(BatchIterable(ds, BATCH, shuffle=True, seed=seed + 5))
+    res_t.train_one_epoch(DeviceResidentLoader(ds, BATCH, seed=seed + 5))
+    fault_t.train_one_epoch(rolled_by_one(DeviceResidentLoader(ds, BATCH, seed=seed + 5)))
+    res_t.barrier()
+    fault_t.barrier()
+    want = trainer_groups(host_t)
+    for name, t in (("resident", res_t), ("fault: permutation rolled by one row", fault_t)):
+        got = trainer_groups(t)
+        gaps = group_gaps(got, want)
+        differing = sum(int((v != want[g][k]).sum()) for g in got for k, v in got[g].items())
+        log(f"  (b) {name} vs host epoch from one state, {n_steps} steps: {differing} "
+            f"elements differ; {gaps_line(gaps)}")
+        if name == "resident":
+            check(not outside(gaps), f"resident vs host epoch: {outside(gaps)} outside "
+                  "their tolerance")
+        else:
+            check(outside(gaps), "the host-vs-resident check does not see a rolled "
+                  "permutation")
+    del host_t, fault_t
+    torch.cuda.empty_cache()
+
+    # (c) on-device against host metrics, and a NaN score
+    h, d = (res_t.evaluate_multi_domain_loss(res_t.model, val_loader, DOMAINS, on_device=o)
+            for o in (False, True))
+    h1, d1 = (res_t.evaluate(res_t.model, val_loader, on_device=o) for o in (False, True))
+    auc_gap = max(abs(a - b) for a, b in zip(h[1] + [h[3], h1[0]], d[1] + [d[3], d1[0]]))
+    ll_gap = max(abs(a - b) for a, b in zip(h[0] + [h[2], h1[1]], d[0] + [d[2], d1[1]]))
+    log(f"  (c) on-device vs host metrics over {len(vy)} rows: auc gap {auc_gap:.3e} "
+        f"(gate 1e-4), logloss gap {ll_gap:.3e} (gate 1e-5)")
+    check(auc_gap <= 1e-4 and ll_gap <= 1e-5, "on-device and host metrics disagree")
+    bad = dict(vx, d0=vx["d0"].copy())
+    bad["d0"][5] = np.nan
+    nan_loader = BatchIterable(ColumnarDataset(bad, vy), BATCH)
+    for on_device in (False, True):
+        try:
+            res_t.evaluate_multi_domain_loss(res_t.model, nan_loader, DOMAINS,
+                                             on_device=on_device)
+        except ValueError as e:
+            check("NaN" in str(e), f"a NaN score raised {e!r}")
+        else:
+            check(False, f"a NaN score did not raise (on_device={on_device})")
+    log("  (c) a NaN planted in one score raises on the host and on-device paths")
+    del res_t
+    torch.cuda.empty_cache()
+
+    # (d) findings, no gate: examples/s, syncs and busy share of both paths
+    fx, fy = synthetic_eval_set(seed + 4, N_FINDINGS)
+    big = ColumnarDataset(fx, fy)
+    loaders = {"host": BatchIterable(big, BATCH, shuffle=True, seed=seed),
+               "resident": DeviceResidentLoader(big, BATCH, seed=seed)}
+    log(f"  (d) {N_FINDINGS} rows, {len(loaders['host'])} steps an epoch; resident "
+        f"matrices {loaders['resident'].nbytes() / 1e6:.1f} MB on the card; {card}")
+    rates = {}
+    for name in ("host", "resident", "resident", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_one_epoch(loaders[name], log_interval=10**9)
+        trainer.barrier()
+        dt = time.perf_counter() - t0
+        rates.setdefault(name, []).append(N_FINDINGS / dt)
+        log(f"  (d) {name} epoch: {N_FINDINGS / dt:,.0f} examples/s, "
+            f"{1e3 * dt / len(loaders[name]):.3f} ms a step (host clock, synchronised)")
+    head = ColumnarDataset({k: v[:5 * BATCH] for k, v in fx.items()}, fy[:5 * BATCH])
+    few = {"host": BatchIterable(head, BATCH),
+           "resident": DeviceResidentLoader(head, BATCH, shuffle=False)}
+    prof = {}
+    for name, loader in few.items():
+        prof[name] = profile_device(
+            lambda: (trainer.train_one_epoch(loader, log_interval=10**9), trainer.barrier()),
+            f"5 sorted train steps, {name} epoch")
+        if prof[name]:
+            p = prof[name]
+            log(f"  (d) {name}: {p['stream_syncs'] / 5:.1f} cudaStreamSynchronize a step, "
+                f"device busy {100 * p['busy_ms'] / p['wall_ms']:.1f} % ({card})")
+    del trainer, model, loaders, few
+    torch.cuda.empty_cache()
+    return {"launches": counts["sorted_dense_adam_apply"],
+            "examples_per_s": {k: [round(r) for r in v] for k, v in rates.items()},
+            "stream_syncs_per_step": {k: (None if p is None else p["stream_syncs"] / 5)
+                                      for k, p in prof.items()},
+            "busy_share": {k: (None if p is None else p["busy_ms"] / p["wall_ms"])
+                           for k, p in prof.items()}}
+
+
 def narrow_train_card_vs_cpu(seed, name, impl="sorted"):
     """A narrow ``name``: 3 train steps with ``sparse_embedding_updates=True``
     in update mode ``impl`` (``mode_kw``; or the dense step for a model
@@ -4006,7 +4190,10 @@ def profile_device(fn, what):
     """Device time by kernel over ``fn()`` and the host ops that cost the
     most, under torch.profiler (which adds host overhead, so the busy share
     is a lower bound). Only device-side events count as busy time
-    (:func:`device_events`)."""
+    (:func:`device_events`). Returns ``{"wall_ms", "busy_ms",
+    "stream_syncs"}`` (``cudaStreamSynchronize`` calls; the closing
+    ``torch.cuda.synchronize`` is a device sync, not counted), or None when
+    the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4020,17 +4207,19 @@ def profile_device(fn, what):
     kernels = device_events(averages)
     if not kernels:
         log("  profile: the profiler saw no device time (not measured)")
-        return
+        return None
     busy_ms = sum(device_ms(e) for e in kernels)
+    syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
     log(f"  profile of {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels "
-        f"and copies; top device time:")
+        f"and copies, {syncs} cudaStreamSynchronize calls; top device time:")
     for e in sorted(kernels, key=device_ms, reverse=True)[:8]:
         log(f"    {device_ms(e):8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     log("   top host self time:")
     host = [e for e in averages if e.device_type == DeviceType.CPU]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         log(f"    {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "stream_syncs": syncs}
 
 
 def main(argv=None):
@@ -4100,6 +4289,12 @@ def main(argv=None):
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
     with phase("[4] training mmoe"):
         sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
+    log("[4] training path: MMOE fit over a DeviceResidentLoader at Ali-CCP width, "
+        "on-device evaluation, 467k ids per feature")
+    with phase("[4] training mmoe resident"):
+        resident = phase_train_resident(args.seed, card)
+    sorted_adam["resident_launches"] = resident.pop("launches")
+    sorted_adam["resident_findings"] = resident
     for name in models:
         log(f"[4] training path: {name} fit at Ali-CCP width, 467k ids per feature")
         with phase(f"[4] training {name}"):

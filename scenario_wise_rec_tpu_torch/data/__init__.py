@@ -4,13 +4,16 @@ from .dataset import (
     DataGenerator,
     PredictIterable,
 )
-from .prefetch import Prefetcher, prefetch
+from .device import DeviceResidentLoader
+from .prefetch import Prefetcher, prefetch, stage_batches
 
 __all__ = [
     "BatchIterable",
     "ColumnarDataset",
     "DataGenerator",
+    "DeviceResidentLoader",
     "PredictIterable",
     "Prefetcher",
     "prefetch",
+    "stage_batches",
 ]

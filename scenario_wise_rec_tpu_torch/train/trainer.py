@@ -45,14 +45,24 @@ protocol.
 - **Eval**: ``predict``, ``evaluate`` and ``evaluate_multi_domain_loss``
   (the reference's per-domain slicing protocol, the acceptance metric of
   the benchmark) run the eval forward batch by batch and score on the host
-  with sklearn-parity AUC/logloss. With ``fused_inference=True`` a model
+  with sklearn-parity AUC/logloss; with ``on_device=True`` predictions,
+  labels, domains and weights stay on the device and score there
+  (``auc_score_device``/``log_loss_device``, one host read of the results).
+  With ``fused_inference=True`` a model
   that has ``apply_fused_eval`` (every registered model but ``Base``) runs
   everything after the embedding in one CUDA kernel, its BatchNorm folded
   once per eval pass. The step passes each batch's padding mask ``w``:
   STAR's domain norm reads the batch's own statistics at eval too.
-- **fit**: per-epoch StepLR, ``train_one_epoch``, validation AUC, early
-  stopping that restores the best weights only on a stop, and a final
-  checkpoint (reference ctr_trainer.py:62-97).
+- **Batches**: a host loader's batches are sliced on the prefetch thread
+  and, on a CUDA trainer, staged there in pinned memory, so their copies to
+  the card do not sync the host (``data/prefetch.py:stage_batches``). A
+  ``DeviceResidentLoader`` (``data/device.py``) keeps the epoch's columns on
+  the device, and each step gathers its batch there
+  (:meth:`CTRTrainer.train_one_epoch_resident`).
+- **fit**: per-epoch StepLR, ``train_one_epoch`` (over a host loader or a
+  ``DeviceResidentLoader``), validation AUC, early stopping that restores
+  the best weights only on a stop, and a final checkpoint (reference
+  ctr_trainer.py:62-97).
 """
 
 from __future__ import annotations
@@ -66,12 +76,13 @@ import torch
 
 from . import checkpoint as ckpt_lib
 from ..core.config import make_generator, resolve_device
-from ..data.prefetch import prefetch
+from ..data.device import DeviceResidentLoader
+from ..data.prefetch import prefetch, stage_batches
 from ..ops.kernels.sorted_adam import check_jax_dials
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
-from .metrics import auc_score, log_loss_score
+from .metrics import auc_score, auc_score_device, log_loss_device, log_loss_score
 from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_init,
                     sorted_dense_adam_update, sparse_adam_init,
                     sparse_adam_occurrence_init, sparse_adam_occurrence_update,
@@ -106,8 +117,9 @@ class CTRTrainer:
         fused_inference: ``True`` runs eval through ``apply_fused_eval``.
         scan_steps: the JAX package's optimizer steps per device dispatch;
             accepted (a positive int) for its signature. The port runs one
-            step per batch whatever its value; fusing S steps is the work
-            of CUDA graphs (ROADMAP).
+            step per batch whatever its value, on host and resident epochs
+            alike (the JAX package's S scanned steps equal its S single
+            ones); fusing S steps is the work of CUDA graphs (ROADMAP).
         prefetch_depth: host batches prepared ahead on a thread (0: none).
         sorted_block_rows: the sorted kernel's vocab tile (default: the
             port's own for the storage type, ``DEFAULT_BLOCK_ROWS`` or
@@ -120,14 +132,17 @@ class CTRTrainer:
             checked here and not used: on the card one stable sort orders
             the ids, no operand is rounded to bf16 and there are no id
             chunks (``sorted_dense_adam_apply``'s docstring).
-        donate_buffers / sorted_kernel / resident_gather: accepted for the
-            JAX signature; the port updates in place and picks the kernel by
-            the tensor's device (``sorted_kernel=False`` is refused).
+        resident_gather: ``"step"`` or ``"dispatch"``, the JAX package's
+            gather of a resident batch per step or per dispatch of S steps.
+            The port's dispatch is one step, so both gather one batch a step
+            and give the same result.
+        donate_buffers / sorted_kernel: accepted for the JAX signature; the
+            port updates in place and picks the kernel by the tensor's
+            device (``sorted_kernel=False`` is refused).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` and more than one entry in ``gpus`` (A15); a
-    ``DeviceResidentLoader`` (A14); ``fused_inference="auto"`` (A10);
-    ``on_device=True`` evaluation (A14).
+    item: ``mesh`` and more than one entry in ``gpus`` (A15);
+    ``fused_inference="auto"`` (A10).
     """
 
     def __init__(
@@ -190,6 +205,7 @@ class CTRTrainer:
         if resident_gather not in ("step", "dispatch"):
             raise ValueError(f"unknown resident_gather {resident_gather!r}")
         self._sparse_impl = sparse_update_impl
+        self._deferred_log = None
         if self._sorted_mode and 128 % emb.packed_dim:
             # the JAX package's rule, kept so both accept the same configs
             raise ValueError(
@@ -288,13 +304,25 @@ class CTRTrainer:
 
         return step
 
+    def _batches(self, data_loader):
+        """``((x, y, w), host)`` for each batch of a host loader, prepared
+        ``prefetch_depth`` batches ahead on a thread; on a CUDA trainer
+        ``host`` lies in pinned memory (``stage_batches``)."""
+        return prefetch(stage_batches(data_loader, pin=self.device.type == "cuda"),
+                        self.prefetch_depth)
+
     def _device_batch(self, x, y, w):
-        xb = {k: torch.as_tensor(np.asarray(v), device=self.device)
-              for k, v in x.items()}
-        yb = None if y is None else torch.as_tensor(
-            np.asarray(y, np.float32), device=self.device)
-        wb = torch.as_tensor(np.asarray(w), device=self.device)
-        return xb, yb, wb
+        """A host batch on the trainer's device. Numpy columns are copied as
+        they are; CPU tensors (``stage_batches``' staging) go with
+        ``non_blocking=True``, which for pinned ones neither syncs the
+        stream nor blocks the host."""
+        def to(a, dtype=None):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device, non_blocking=True)
+            return torch.as_tensor(np.asarray(a, dtype), device=self.device)
+
+        return ({k: to(v) for k, v in x.items()},
+                None if y is None else to(y, np.float32), to(w))
 
     # -- training ---------------------------------------------------------
 
@@ -361,30 +389,124 @@ class CTRTrainer:
         st = self.optimizer.state[packed]
         zero_rows([st["exp_avg"], st["exp_avg_sq"]], self._frozen_spans)
 
+    @staticmethod
+    def _log_losses(done, n_total, pending) -> float:
+        """Print the mean of the pending losses (a read, so a sync with the
+        device) and return it."""
+        mean = float(torch.stack([l.mean() for l in pending]).mean())
+        print(f"  step {done}/{n_total} loss {mean:.5f}", flush=True)
+        return mean
+
+    def _flush_epoch_log(self) -> Optional[float]:
+        """Print a resident epoch's deferred last loss line and return its
+        mean (None if nothing is deferred). Reading it waits for the epoch's
+        last step."""
+        d, self._deferred_log = self._deferred_log, None
+        return None if d is None else self._log_losses(*d)
+
+    def barrier(self) -> Optional[float]:
+        """Wait for all queued device work: print the deferred loss line of a
+        resident epoch, then synchronize the trainer's device. Returns that
+        line's mean loss, or None."""
+        last = self._flush_epoch_log()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return last
+
     def train_one_epoch(self, data_loader, log_interval: int = 10):
-        """One pass over ``data_loader``; returns the mean loss of the last
-        logged window (None for an empty loader)."""
-        if type(data_loader).__name__ == "DeviceResidentLoader":
-            raise NotImplementedError("device-resident epochs are ROADMAP A14")
+        """One pass over ``data_loader``. Over a host loader returns the
+        mean loss of the last logged window (None for an empty loader); a
+        ``DeviceResidentLoader`` runs :meth:`train_one_epoch_resident`,
+        which returns None and defers its last loss line."""
+        self._flush_epoch_log()
+        if isinstance(data_loader, DeviceResidentLoader):
+            return self.train_one_epoch_resident(data_loader, log_interval)
         # Losses stay on the device until a log boundary: reading one every
         # step would sync the host with the card each step.
         pending, done, last = [], 0, None
         n_total = len(data_loader)
-
-        def flush():
-            nonlocal pending, last
-            if pending:
-                last = float(torch.stack([l.mean() for l in pending]).mean())
-                print(f"  step {done}/{n_total} loss {last:.5f}", flush=True)
-                pending = []
-
-        for x, y, w in prefetch(data_loader, self.prefetch_depth):
-            pending.append(self._train_step(*self._device_batch(x, y, w)))
+        for _, host in self._batches(data_loader):
+            pending.append(self._train_step(*self._device_batch(*host)))
             done += 1
             if done % log_interval == 0:
-                flush()
-        flush()
+                last, pending = self._log_losses(done, n_total, pending), []
+        if pending:
+            last = self._log_losses(done, n_total, pending)
         return last
+
+    # -- device-resident epochs (data/device.py) --------------------------
+
+    def _check_resident(self, loader):
+        have = loader.int_mat.device
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        if have != want:
+            raise ValueError(
+                f"the DeviceResidentLoader's columns lie on {have}, the trainer on "
+                f"{self.device}: build the loader with device={str(self.device)!r}")
+
+    def _epoch_ids(self, loader) -> torch.Tensor:
+        """The epoch's row ids ``[len(loader) * B]`` on the device, the final
+        partial batch padded with its own first row (``epoch_perm``'s
+        semantics).
+
+        Host stream: ``epoch_perm``'s ids go to the device once an epoch,
+        from pinned memory with ``non_blocking=True`` on a CUDA trainer, so
+        the copy does not block the host (4 bytes a row, small beside the
+        resident matrices; one copy an epoch in place of one a step).
+        ``device_shuffle``: ``torch.randperm`` on the device from a generator
+        seeded by ``loader.epoch_seed()``; its stream differs from numpy's,
+        as the JAX package's ``jax.random`` stream does."""
+        if not loader.device_shuffle:
+            ids = torch.from_numpy(loader.epoch_perm()[0])
+            if self.device.type == "cuda":
+                ids = ids.pin_memory()
+            return ids.to(self.device, non_blocking=True)
+        n, b = loader.n, loader.batch_size
+        if loader.shuffle:
+            gen = torch.Generator(device=self.device).manual_seed(loader.epoch_seed())
+            idx = torch.randperm(n, generator=gen, device=self.device)
+        else:
+            idx = torch.arange(n, device=self.device)
+        rem = n % b
+        if rem:
+            idx = torch.cat([idx, idx[n - rem].expand(b - rem)])
+        return idx
+
+    def train_one_epoch_resident(self, loader: DeviceResidentLoader,
+                                 log_interval: int = 10):
+        """One epoch from device-resident columns, with the host path's
+        batch semantics: the same permutation stream, padding and weights,
+        so the same trained state (``tests/test_torch_port_resident.py``).
+
+        Each step is :meth:`_train_step` on a batch gathered on the device:
+        the loader's matrices indexed by the batch's slice of the epoch's
+        ids, its weights from position math (``pos < n``: zero exactly on
+        the padded tail). Dropout draws from ``self.generator`` in the host
+        loop's order. One step a batch whatever ``scan_steps`` and
+        ``resident_gather`` say.
+
+        Returns None: the last losses stay on the device, and their line
+        prints at the next trainer entry point or :meth:`barrier`, so the
+        epoch boundary does not wait for the card."""
+        self._flush_epoch_log()
+        self._check_resident(loader)
+        b, nb = loader.batch_size, len(loader)
+        ids = self._epoch_ids(loader)
+        weights = (torch.arange(nb * b, device=self.device) < loader.n).float()
+        pending, done = [], 0
+        for i in range(nb):
+            sel = ids[i * b:(i + 1) * b]
+            x, y = loader.gather_batch(loader.int_mat.index_select(0, sel),
+                                       loader.float_mat.index_select(0, sel))
+            pending.append(self._train_step(x, y, weights[i * b:(i + 1) * b]))
+            done += 1
+            if done % log_interval == 0:
+                self._log_losses(done, nb, pending)
+                pending = []
+        if pending:
+            self._deferred_log = (done, nb, pending)
 
     def fit(self, train_dataloader, val_dataloader=None):
         for epoch_i in range(self.epoch_i, self.n_epoch):
@@ -417,13 +539,14 @@ class CTRTrainer:
     def _predict_loader(self, data_loader):
         """Run the eval step over a loader; returns (y, p, domain, w) with
         the weight-0 padding rows dropped host-side."""
+        self._flush_epoch_log()
         ys, ps, ds, ws = [], [], [], []
         self._sync_packed()
         with torch.inference_mode():
             # fold once per pass: the weights cannot change inside it
             folded = self.model.fold_eval() if self._fused_inference else None
-            for x, y, w in prefetch(data_loader, self.prefetch_depth):
-                xb, _, wb = self._device_batch(x, None, w)
+            for (x, y, w), (hx, _, hw) in self._batches(data_loader):
+                xb, _, wb = self._device_batch(hx, None, hw)
                 probs = self._eval_step(xb, wb, folded)
                 keep = np.asarray(w) > 0
                 ps.append(probs.cpu().numpy()[keep])
@@ -435,13 +558,65 @@ class CTRTrainer:
         cat = lambda lst: np.concatenate(lst) if lst else np.array([])
         return cat(ys), cat(ps), cat(ds), cat(ws)
 
+    def _predict_loader_device(self, data_loader):
+        """An eval pass whose probabilities, labels, domain ids and padding
+        weights stay on the device (one concatenated tensor each): no copy
+        to the host per batch."""
+        self._flush_epoch_log()
+        ys, ps, ds, ws = [], [], [], []
+        self._sync_packed()
+        with torch.inference_mode():
+            folded = self.model.fold_eval() if self._fused_inference else None
+            for _, host in self._batches(data_loader):
+                xb, yb, wb = self._device_batch(*host)
+                if yb is None:
+                    raise ValueError(
+                        "on_device evaluation requires labeled batches; use "
+                        "predict() (host path) for unlabeled loaders")
+                ps.append(self._eval_step(xb, wb, folded))
+                ys.append(yb)
+                ws.append(wb)
+                if "domain_indicator" in xb:
+                    ds.append(xb["domain_indicator"])
+        cat = lambda lst: (torch.cat(lst) if lst
+                           else torch.zeros((0,), device=self.device))
+        return cat(ys), cat(ps), cat(ds), cat(ws)
+
     def evaluate(self, model, data_loader, mode: str = "val",
                  on_device: bool = False):
-        """Overall AUC + logloss (reference ctr_trainer.py:99-111)."""
+        """Overall AUC + logloss (reference ctr_trainer.py:99-111).
+
+        ``on_device=True``: score with the device AUC/logloss under the
+        padding-weight mask (float32 ranks and sums, within 5e-5 / 5e-6 of
+        the host's; the log loss clips at 1e-7, ``log_loss_device``)."""
         if on_device:
-            raise NotImplementedError("on-device AUC is ROADMAP A14")
+            y, p, _, w = self._predict_loader_device(data_loader)
+            self._check_eval_scores(p)
+            m = w > 0
+            self._check_two_classes(y, m)
+            return (float(auc_score_device(y, p, m)),
+                    float(log_loss_device(y, p, m)))
         y, p, _, _ = self._predict_loader(data_loader)
         return auc_score(y, p), log_loss_score(y, p)
+
+    @staticmethod
+    def _check_two_classes(y, m):
+        """The host AUC's single-class error on the device path, where a
+        single-class subset would divide by zero silently."""
+        n_pos = float((y * m).sum())
+        n = float(m.sum())
+        if n_pos == 0 or n_pos == n:
+            raise ValueError(
+                "Only one class present in y_true. ROC AUC score is not "
+                "defined."
+            )
+
+    @staticmethod
+    def _check_eval_scores(p):
+        """The host AUC's NaN error on the device path: a diverged model
+        raises instead of returning a bogus AUC."""
+        if bool(torch.isnan(p).any()):
+            raise ValueError("Input contains NaN.")
 
     def evaluate_multi_domain_loss(self, model, data_loader, domain_num: int,
                                    on_device: bool = False):
@@ -449,9 +624,33 @@ class CTRTrainer:
 
         Returns ``(domain_logloss[D], domain_auc[D], total_logloss,
         total_auc)`` with ``None`` for empty domains, exactly as reference.
+        ``on_device=True`` computes every metric from device tensors with
+        static-shape per-domain masks (one host read for the counts).
         """
         if on_device:
-            raise NotImplementedError("on-device AUC is ROADMAP A14")
+            y, p, d, w = self._predict_loader_device(data_loader)
+            self._check_eval_scores(p)
+            keep = w > 0
+            masks = [(d == dom) & keep if d.numel() else torch.zeros_like(keep)
+                     for dom in range(domain_num)]
+            counts = (torch.stack([m.sum() for m in masks]).tolist()
+                      if masks else [])
+            domain_logloss_list, domain_auc_list = [], []
+            for m, count in zip(masks, counts):
+                if count > 0:
+                    # as the host path: a single-class domain raises
+                    self._check_two_classes(y, m)
+                    domain_logloss_list.append(float(log_loss_device(y, p, m)))
+                    domain_auc_list.append(float(auc_score_device(y, p, m)))
+                else:
+                    domain_logloss_list.append(None)
+                    domain_auc_list.append(None)
+            if not bool(keep.any()):
+                return domain_logloss_list, domain_auc_list, None, None
+            self._check_two_classes(y, keep)
+            return (domain_logloss_list, domain_auc_list,
+                    float(log_loss_device(y, p, keep)),
+                    float(auc_score_device(y, p, keep)))
         y, p, d, _ = self._predict_loader(data_loader)
         domain_logloss_list, domain_auc_list = [], []
         for dom in range(domain_num):
@@ -503,6 +702,7 @@ class CTRTrainer:
 
     def save(self, path: str) -> str:
         """Write the checkpoint; returns the ``.npz`` path."""
+        self._flush_epoch_log()
         return ckpt_lib.save(path, self._checkpoint_tensors(), metadata={
             "epoch": self.epoch_i,
             "best_auc": self.early_stopper.best_auc,

@@ -2354,3 +2354,73 @@ def test_frozen_tables_on_the_card(gen, mode):
     torch.cuda.synchronize()
     assert torch.equal(col.packed.detach()[off:off + n], pre)
     assert torch.equal(col.tables["loose"].detach(), loose)
+
+
+# -- host batches, resident epochs and device metrics ------------------------------
+
+def test_pinned_staging_equals_pageable_copy(gen):
+    """50 prefetched batches staged in pinned memory and copied with
+    ``non_blocking=True`` while the stream is held busy (so copies are in
+    flight while the prefetch thread stages the next batches) equal the
+    pageable copies of the same numpy batches."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+
+    tg = _narrow_trainers("sorted")[1]
+    r = np.random.default_rng(3)
+    x, y, _ = _narrow_batch(r, n=50 * 64 - 7)
+    loader = BatchIterable(ColumnarDataset(x, y), 64, shuffle=True, seed=1)
+    staged = []
+    for (bx, by, bw), host in tg._batches(loader):
+        assert all(t.is_pinned() for t in list(host[0].values()) + [host[1], host[2]])
+        torch.cuda._sleep(100_000)  # the copy queues behind this
+        staged.append(((bx, by, bw), tg._device_batch(*host)))
+    torch.cuda.synchronize()
+    assert len(staged) == 50
+    for (bx, by, bw), (xs, ys, ws) in staged:
+        xp, yp, wp = tg._device_batch(bx, by, bw)
+        assert sorted(xs) == sorted(xp)
+        for key, v in xs.items():
+            assert v.dtype == xp[key].dtype and torch.equal(v, xp[key]), key
+        assert torch.equal(ys, yp) and torch.equal(ws, wp)
+
+
+def test_resident_sorted_epoch_equals_host_epoch(gen):
+    """A narrow sorted MMOE on the card: an epoch over a DeviceResidentLoader
+    and one over the BatchIterable of the same rows and seed leave the same
+    state, bit for bit, with one sorted launch a step."""
+    from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
+                                                  DeviceResidentLoader)
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    _, host_t = _narrow_trainers("sorted")
+    res_t = CTRTrainer(copy.deepcopy(host_t.model), sparse_embedding_updates=True,
+                       sparse_update_impl="sorted")
+    x, y, _ = _narrow_batch(np.random.default_rng(4), n=6 * 64 + 9)
+    ds = ColumnarDataset(x, y)
+    host_t.train_one_epoch(BatchIterable(ds, 64, shuffle=True, seed=2))
+    loader = DeviceResidentLoader(ds, 64, seed=2)
+    before = sa.sorted_dense_adam_apply.launches
+    res_t.train_one_epoch(loader)
+    res_t.barrier()
+    assert sa.sorted_dense_adam_apply.launches - before == len(loader) == 7
+    for k, v in host_t.model.state_dict().items():
+        assert torch.equal(v, res_t.model.state_dict()[k]), k
+    for k in ("mu", "nu"):
+        assert torch.equal(host_t.emb_opt_state[k], res_t.emb_opt_state[k]), k
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "masked"])
+def test_device_metrics_on_card_equal_cpu(gen, case):
+    from scenario_wise_rec_tpu_torch.train import metrics
+
+    r = np.random.default_rng(6)
+    n = 100_003
+    y = torch.from_numpy(r.integers(0, 2, n).astype(np.float32))
+    p = torch.from_numpy(r.random(n).astype(np.float32))
+    if case == "ties":
+        p = torch.round(p * 100) / 100
+    m = torch.from_numpy(r.integers(0, 2, n).astype(bool)) if case == "masked" else None
+    for fn in (metrics.auc_score_device, metrics.log_loss_device):
+        cpu = float(fn(y, p, m))
+        card = float(fn(y.cuda(), p.cuda(), None if m is None else m.cuda()))
+        assert abs(card - cpu) <= 1e-6, (fn.__name__, card, cpu)

@@ -164,10 +164,6 @@ def test_trainer_rejects_what_this_slice_does_not_do():
         PTrainer(model, device="cpu", fused_inference="false")
     with pytest.raises(NotImplementedError):
         PTrainer(model, device="cpu", mesh=object())
-    x, y = _data()
-    with pytest.raises(NotImplementedError):
-        pt.evaluate(model, pds.BatchIterable(pds.ColumnarDataset(x, y), BATCH),
-                    on_device=True)
 
 
 def test_default_device_is_the_card_and_raises_without_one():

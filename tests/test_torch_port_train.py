@@ -403,9 +403,3 @@ def test_trainer_rejects_what_the_port_does_not_run():
     with pytest.raises(ValueError, match="divide 128"):
         PTrainer(wide, device="cpu", sparse_embedding_updates=True,
                  sparse_update_impl="sorted")
-
-    class DeviceResidentLoader(list):
-        pass
-
-    with pytest.raises(NotImplementedError, match="A14"):
-        pt.train_one_epoch(DeviceResidentLoader())
