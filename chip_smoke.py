@@ -252,7 +252,18 @@ Phases; each asserts, and any failure exits non-zero:
    but where its row's scale excuses it: ``bf16_store_gaps``); and a narrow
    model with a
    frozen pretrained table in its packed table and a frozen loose one in
-   all five modes (both bit-identical).
+   all five modes (both bit-identical). Last, ``[4] training mmoe
+   graphed``: MMOE sorted at ``scan_steps=64`` (the train step captured as
+   a CUDA graph and replayed) for the f32 and the bf16 store, each (a) a
+   resident epoch of 2^18+123 rows graphed against the eager trainer from
+   one state (differing elements printed, ``GROUP_TOL``), beside replays
+   that keep a dispatch's first hp row, which must fail; the sorted
+   kernel's warm-up launches, its capture and the replays, checked against
+   its runs in a profile; (b) no gate: host and resident examples/s in
+   turns eager, graphed, graphed, eager, host µs a step, syncs and busy
+   share, capture seconds and the graph's pool; with row 13's Step 0 by
+   value and from device memory (measured in ``[2] sorted_dense_adam_apply
+   bf16``, where one step of that form is held against the plain version).
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
    ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
@@ -2849,6 +2860,45 @@ def phase_sorted_adam_bf16(seed, peak):
     # its wrapper copies the segment offsets from pageable host memory, which
     # waits for the card: no Step 0 device reading; back to back beside it
     fused_step0, fused_ms = wrapper_cost("fused_dense_adam_apply", fused), time_ms(fused)
+    # the form that reads hp from device memory (the graphed train step's):
+    # one step of each storage type from one state, bit for bit the by-value
+    # form's and held against the plain version; its Step 0 between two more
+    # of the by-value form's
+    hp_dev = torch.tensor(hp, device="cuda")
+    dev_step0 = {}
+    for form, trio in (("bf16", [table, mu, nu]), ("f32", f32)):
+        ref, byval, dev = ([x.clone() for x in trio] for _ in range(3))
+        rule = AdamOrderRule(ref[0].float())
+        rule.step(ref[0].float(), sid, gs, hp)
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        sa.sorted_dense_adam_apply(*byval, sid, gs, hp)
+        sa.sorted_dense_adam_apply(*dev, sid, gs, hp_dev)
+        torch.cuda.synchronize()
+        for got, bv, want, what in zip(dev, byval, ref, ("table", "mu", "nu")):
+            check(torch.equal(got, bv), f"{form}: the device-hp form differs from the "
+                  f"by-value form in {what}")
+            held = (bf16_held(got, want, rule, what)[0] if form == "bf16"
+                    else rule.close(got, want, what))
+            check(held, f"{form}: the device-hp form disagrees with the plain version in {what}")
+        rule.count(f"sorted_dense_adam_apply {form}, hp in device memory")
+        del ref, byval, dev, rule
+        # each reading from the same state: the Adam pass slows as repeated
+        # calls shrink the moments (its divisions take a longer path)
+        saved = [x.clone() for x in trio]
+        dev_step0[form] = {"by value": [], "hp in device memory": []}
+        for _ in range(3):
+            for label, h in (("by value", hp), ("hp in device memory", hp_dev)):
+                for x, x0 in zip(trio, saved):
+                    x.copy_(x0)
+                dev_step0[form][label].append(wrapper_cost(
+                    f"sorted_dense_adam_apply {form}, {label}",
+                    lambda: sa.sorted_dense_adam_apply(*trio, sid, gs, h))["device_ms"])
+        del saved
+    log("  sorted_dense_adam_apply, hp in device memory: one step of each form from one "
+        "state equals the by-value form bit for bit and holds against the plain version; "
+        "Step 0 device ms, three turns each from one state: "
+        + "; ".join(f"{k} by value {v['by value']}, from device memory "
+                    f"{v['hp in device memory']}" for k, v in dev_step0.items()))
     del f32
     nbytes = 6.0 * V * D * 2 + K * 4 + K * D * 4  # bf16 table, mu, nu in and out; ids; grads
     flops = 16.0 * V * D + K * D                  # the Adam chain per element; the sums
@@ -2878,6 +2928,7 @@ def phase_sorted_adam_bf16(seed, peak):
             "hot_row_zipf_ms": hot_ms, "block_rows_sweep_ms": sweep,
             "differing_per_step": differing,
             "f32_step0_device_ms": f32_step0["device_ms"],
+            "device_hp_step0_in_turns_ms": dev_step0,
             "fused_dense_adam_apply_step0_device_ms": fused_step0["device_ms"],
             "fused_dense_adam_apply_ms": fused_ms}
 
@@ -3463,6 +3514,196 @@ def phase_train_resident(seed, card):
                                       for k, p in prof.items()},
             "busy_share": {k: (None if p is None else p["busy_ms"] / p["wall_ms"])
                            for k, p in prof.items()}}
+
+
+GRAPH_STEPS = 64  # bench.py's scan_steps
+
+
+def state_differing(a, b):
+    """Elements of every weight, buffer, moment, step count and store that
+    differ between trainers a and b."""
+    def tensors(t):
+        out = {f"model/{k}": v for k, v in t.model.state_dict().items()}
+        for name, p in t._dense_named:
+            for k, v in t.optimizer.state[p].items():
+                out[f"opt/{name}/{k}"] = v
+        for k, v in (t.emb_opt_state or {}).items():
+            out[f"emb/{k}"] = v if torch.is_tensor(v) else torch.tensor(v)
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    check(sorted(ta) == sorted(tb), "two trainers hold different state")
+    return sum(int((v.to(tb[k].device) != tb[k]).sum()) for k, v in ta.items())
+
+
+def phase_train_graphed(seed, card, step0):
+    """MMOE's sorted training path at ``scan_steps=64`` (CUDA graphs) at
+    Ali-CCP width, for each store (f32, bf16): (a) from one state, a resident
+    epoch of 2^18+123 rows (one dispatch of 64 steps and a remainder of one)
+    graphed against the eager S = 1 trainer (torch.optim.Adam capturable on
+    both): the differing elements counted, the train-step gate; a graphed
+    epoch whose replays keep the dispatch's first hp row, which must fail
+    it; the sorted kernel's eager launches (the warm-up steps) and captured
+    ones, and its runs in a profile of the next graphed epoch against the
+    replays; (b) no gate: examples/s of host and resident epochs in turns
+    eager, graphed, graphed, eager (the host path for the f32 store), host
+    µs a step and a replay's, stream syncs and device busy share from a
+    profile of 5 eager steps and of a graphed epoch, capture seconds and the
+    graph's pool; and row 13's Step 0 in both forms (``step0``, measured in
+    ``[2] sorted_dense_adam_apply bf16``)."""
+    from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
+                                                  DeviceResidentLoader)
+    from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    fx, fy = synthetic_eval_set(seed + 4, N_FINDINGS)
+    big = ColumnarDataset(fx, fy)
+    n_steps = -(-N_FINDINGS // BATCH)
+    out = {}
+    for store in ("float32", "bf16"):
+        suffix = "_bf16" if store == "bf16" else ""
+        kw = dict(sparse_embedding_updates=True, sparse_update_impl="sorted",
+                  sorted_dtype=store, seed=seed)
+        model = build_ali_model(seed + 1)
+        eager = CTRTrainer(model, **kw)
+        for group in eager.optimizer.param_groups:  # as the graphed trainers' is
+            group["capturable"] = True
+        graphed, fault = (CTRTrainer(copy.deepcopy(model), scan_steps=GRAPH_STEPS, **kw)
+                          for _ in range(2))
+        del model
+        check(graphed.graphed and not eager.graphed, "graphed flags")
+        resident = lambda: DeviceResidentLoader(big, BATCH, seed=seed + 5)
+
+        # (a) one state: graphed, eager and the planted fault over one epoch
+        reset_counts()
+        captured0 = getattr(sa.sorted_dense_adam_apply, "captured" + suffix)
+        graphed.train_one_epoch(resident(), log_interval=10**9)
+        graphed.barrier()
+        launched = read_counts()[f"sorted_dense_adam_apply{suffix}"]
+        captured = getattr(sa.sorted_dense_adam_apply, "captured" + suffix) - captured0
+        replays = graphed.graph_replays
+        check(graphed.graph_captures == 1 and launched == ptrainer.WARMUP_STEPS
+              and captured == 1 and launched + replays == n_steps,
+              f"{store}: {launched} eager launches, {captured} captured, {replays} replays "
+              f"for {n_steps} steps")
+        eager.train_one_epoch(resident(), log_interval=10**9)
+        eager.barrier()
+        right = ptrainer.adam_hparams_rows
+        undo = patched(ptrainer, "adam_hparams_rows", lambda f: lambda step0, n, *a: np.repeat(
+            f(step0, 1, *a), n, axis=0))
+        try:
+            fault.train_one_epoch(resident(), log_interval=10**9)
+            fault.barrier()
+        finally:
+            undo()
+        check(ptrainer.adam_hparams_rows is right, "patch undone")
+        want = trainer_groups(eager)
+        for name, t in (("graphed", graphed), ("fault: replays keep the first hp row", fault)):
+            gaps, n_diff = group_gaps(trainer_groups(t), want), state_differing(t, eager)
+            log(f"  (a) {store} {name} vs eager epoch from one state, {n_steps} steps: "
+                f"{n_diff} elements differ; {gaps_line(gaps)}")
+            if name == "graphed":
+                check(not outside(gaps), f"{store}: graphed vs eager epoch: {outside(gaps)} "
+                      "outside their tolerance")
+                differing = n_diff
+            else:
+                check(outside(gaps), f"{store}: the graphed-vs-eager check does not see "
+                      "replays that keep the first hp row")
+        del fault
+        torch.cuda.empty_cache()
+        log(f"  (a) {store}: the sorted kernel launched {launched} times (warm-up steps), "
+            f"captured {captured} time, {replays} replays: {launched + replays} runs for "
+            f"{n_steps} steps; capture {graphed.graph_capture_s:.3f} s, graph pool "
+            f"{graphed.graph_pool_bytes / 1e6:.1f} MB")
+
+        # (b) findings, no gate (the host path, held by its loader thread, for
+        # the f32 store only)
+        loaders = {"resident": DeviceResidentLoader(big, BATCH, seed=seed)}
+        if store == "float32":
+            loaders["host"] = BatchIterable(big, BATCH, shuffle=True, seed=seed)
+        rates, host_us, turns = {}, {}, (("eager", eager), ("graphed", graphed),
+                                         ("graphed", graphed), ("eager", eager))
+        for lname, loader in loaders.items():
+            for tname, t in turns:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train_one_epoch(loader, log_interval=10**9)
+                t1 = time.perf_counter()
+                t.barrier()
+                dt = time.perf_counter() - t0
+                key = f"{lname} {tname}"
+                rates.setdefault(key, []).append(N_FINDINGS / dt)
+                host_us.setdefault(key, []).append(1e6 * (t1 - t0) / n_steps)
+            log(f"  (b) {store} {lname} epochs, examples/s in turns eager, graphed, graphed, "
+                f"eager: " + ", ".join(f"{r:,.0f}" for r in (
+                    rates[f"{lname} eager"][0], rates[f"{lname} graphed"][0],
+                    rates[f"{lname} graphed"][1], rates[f"{lname} eager"][1]))
+                + f"; host us a step (to the epoch's return): eager "
+                f"{[round(u, 1) for u in host_us[f'{lname} eager']]}, graphed "
+                f"{[round(u, 1) for u in host_us[f'{lname} graphed']]} ({card})")
+        # the eager epoch profiled over 5 steps (its ~680 launches a step
+        # make a long profile), the graphed one over the whole epoch
+        head = ColumnarDataset({k: v[:5 * BATCH] for k, v in fx.items()}, fy[:5 * BATCH])
+        prof = {}
+        for tname, t, loader in (("eager", eager, DeviceResidentLoader(head, BATCH)),
+                                 ("graphed", graphed, loaders["resident"])):
+            steps = len(loader)
+            runs0 = (sa.sorted_dense_adam_apply.launches
+                     + sa.sorted_dense_adam_apply.launches_bf16, t.graph_replays)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+                t0 = time.perf_counter()
+                t.train_one_epoch(loader, log_interval=10**9)
+                t.barrier()
+                wall = (time.perf_counter() - t0) * 1e3
+            averages = pr.key_averages()
+            kernels = device_events(averages)
+            busy = sum(device_ms(e) for e in kernels)
+            syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
+            expected = (sa.sorted_dense_adam_apply.launches
+                        + sa.sorted_dense_adam_apply.launches_bf16 - runs0[0]
+                        + t.graph_replays - runs0[1])
+            seen = sum(e.count for e in kernels if "dense_adam_kernel" in e.key)
+            prof[tname] = {"steps": steps, "wall_ms": wall, "busy_ms": busy,
+                           "stream_syncs": syncs, "sorted_runs_seen": seen,
+                           "sorted_runs_expected": expected}
+            log(f"  (b) {store} profile of a resident epoch ({steps} steps), {tname}: wall "
+                f"{wall:.2f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), "
+                f"{syncs / steps:.2f} cudaStreamSynchronize a step; sorted kernel runs "
+                f"seen {seen}, launches + replays {expected} ({card})")
+            if not kernels:
+                log("  (b) the profiler saw no device time (not measured)")
+            else:
+                check(seen == expected, f"{store} {tname}: the profiler saw {seen} sorted "
+                      f"kernel runs, the counters {expected}")
+        # the host's own cost of a graphed step: one replay (its counter set
+        # to 0 first, as a dispatch does) while the stream is held, so that
+        # the launch queue does not fill and pace the host by the card
+        plan = graphed._plan
+        replay_ms, replay_us = device_and_host(
+            lambda: (plan.counter.zero_(), plan.graph.replay()), inner=8)
+        log(f"  (b) {store} one replay of the captured step: device "
+            f"{'not measurable' if replay_ms is None else f'{replay_ms:.4f} ms'}, host "
+            f"{replay_us:.1f} us ({card})")
+        out[store] = {"replay_device_ms": replay_ms, "replay_host_us": replay_us,
+                      "differing": differing, "eager_launches": launched,
+                      "captured": captured, "replays": replays,
+                      "capture_s": graphed.graph_capture_s,
+                      "graph_pool_mb": graphed.graph_pool_bytes / 1e6,
+                      "examples_per_s": {k: [round(r) for r in v] for k, v in rates.items()},
+                      "host_us_per_step": {k: [round(u, 1) for u in v]
+                                           for k, v in host_us.items()},
+                      "profile": prof}
+        del eager, graphed, loaders
+        torch.cuda.empty_cache()
+    med = lambda v: statistics.median(x for x in v if x is not None)
+    log(f"  (c) row 13's Step 0 device ms ([2] sorted_dense_adam_apply bf16), medians of "
+        "three turns by value / from device memory: " + "; ".join(
+            f"{k} {med(step0[k]['by value']):.4f} / {med(step0[k]['hp in device memory']):.4f}"
+            for k in ("f32", "bf16")) + f"; fused_dense_adam_apply {step0['fused']} ({card})")
+    return out
 
 
 def narrow_train_card_vs_cpu(seed, name, impl="sorted"):
@@ -4312,6 +4553,15 @@ def main(argv=None):
     updates["fused_dense_adam_apply"]["launches"] = mode_counts["dense"]["fused_dense_adam_apply"]
     sorted_bf16["launches"] = mode_counts["sorted_bf16"]["sorted_dense_adam_apply_bf16"]
     sorted_bf16["train_step_ms_f32_bf16_in_turns"] = mode_counts["sorted_step_ms"]
+    log(f"[4] training path: MMOE sorted at scan_steps={GRAPH_STEPS} (CUDA graphs) at "
+        "Ali-CCP width, f32 and bf16 stores, resident and host epochs, 467k ids per feature")
+    with phase("[4] training mmoe graphed"):
+        hp_turns = sorted_bf16["device_hp_step0_in_turns_ms"]
+        graphed = phase_train_graphed(args.seed, card, {
+            "f32": hp_turns["f32"], "bf16": hp_turns["bf16"],
+            "fused": sorted_bf16["fused_dense_adam_apply_step0_device_ms"]})
+    sorted_adam["graphed_path"] = graphed["float32"]
+    sorted_bf16["graphed_path"] = graphed["bf16"]
     total = time.perf_counter() - t_start
     log(f"[5] done in {total:.1f} s; by phase (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())

@@ -15,6 +15,12 @@
 // ops does; the two differ only in the order in which three or more duplicate
 // gradients are summed.
 //
+// The seven Adam numbers (lr, wd, b1, b2, bc1r, bc2r, eps) reach the kernel
+// either by value (`Hp`, set per launch) or from a `const float*` [7] in
+// device memory that each block loads once: the form a CUDA graph replays,
+// whose captured launch must read step t's bias corrections afresh each
+// replay. The host computes them in f32 either way; the math is the same.
+//
 // Table, mu and nu are stored in f32 or, for the sorted kernel's bf16 form,
 // in bf16 (the storage type T of `adam_tile`, `dense_adam_kernel` and
 // `launch`). The tile's accumulator and the gradient rows are f32 in both;
@@ -250,15 +256,17 @@ __device__ __forceinline__ void adam_tile(T* __restrict__ table, T* __restrict__
 // starts[s * (nb + 1) + b + 1]), read into shared memory all at once), then
 // Adam over the whole tile (rows with no id decay too). Ids are sorted within a segment, so a tile's ids in one
 // segment are one contiguous span and no row is shared with another block:
-// no cross-block reduction, no atomics.
+// no cross-block reduction, no atomics. The Adam numbers are `h`, or when
+// `hp_dev` is not null the 7 floats there, loaded once by the block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
                   const int* __restrict__ ids, const int* __restrict__ pos,
                   const float* __restrict__ g, const int* __restrict__ starts, int nseg,
                   int nb, long long v, int d, int block_rows, int stage_rows, int vec,
-                  const Hp h) {
+                  const Hp h, const float* __restrict__ hp_dev) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ float s_hp[7];
   float* acc = smem;                                           // [block_rows * d]
   float* s_g = acc + static_cast<size_t>(block_rows) * d;      // [stage_rows * (d | 1)]
   int* s_row = reinterpret_cast<int*>(s_g + static_cast<size_t>(stage_rows) * (d | 1));
@@ -267,6 +275,7 @@ dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
   const int b = blockIdx.x;
   const long long row0 = static_cast<long long>(b) * block_rows;
   const int rows = static_cast<int>(min(static_cast<long long>(block_rows), v - row0));
+  if (hp_dev && threadIdx.x < 7) s_hp[threadIdx.x] = hp_dev[threadIdx.x];
   for (int s = threadIdx.x; s < nseg; s += kThreads) {
     const int* st = starts + static_cast<size_t>(s) * (nb + 1) + b;
     s_span[2 * s] = st[0];
@@ -278,16 +287,47 @@ dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
     accumulate_span(acc, s_g, s_row, ids, pos, g, s_span[2 * s], s_span[2 * s + 1],
                     row0, d, stage_rows);
   }
-  adam_tile(table, mu, nu, acc, row0, rows, d, vec, h);
+  if (hp_dev) {
+    const Hp hd{s_hp[0], s_hp[1], s_hp[2], s_hp[3], s_hp[4], s_hp[5], s_hp[6]};
+    adam_tile(table, mu, nu, acc, row0, rows, d, vec, hd);
+  } else {
+    adam_tile(table, mu, nu, acc, row0, rows, d, vec, h);
+  }
 }
 
-// Launches tile_starts_kernel, then dense_adam_kernel<T>. Returns
-// cudaGetLastError() after the launches (0 = success).
+// The largest dynamic shared memory dense_adam_kernel<T> has been allowed on
+// each device: `launch` raises the limit only when a call needs more, so a
+// launch that follows one at the same shape (a captured step after its
+// warm-up steps) makes no cudaFuncSetAttribute call. Internal linkage: each
+// library that includes this header keeps its own record for its own
+// kernel (an inline function's static would be one object for every library
+// loaded in the process).
+namespace {
+template <typename T>
+cudaError_t allow_smem(size_t smem) {
+  static size_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= 48 * 1024 || smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(dense_adam_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+}  // namespace
+
+// Launches tile_starts_kernel, then dense_adam_kernel<T> with the Adam
+// numbers `h`, or those at `hp_dev` ([7] f32 on the device) when it is not
+// null. Returns cudaGetLastError() after the launches (0 = success).
 template <typename T>
 inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
                           const int* pos, const float* g, const int* seg_off,
                           int nseg, int* starts, long long v, int d, int k,
-                          int block_rows, const Hp& h, void* stream) {
+                          int block_rows, const Hp& h, void* stream,
+                          const float* hp_dev = nullptr) {
   if (v <= 0 || d <= 0 || k < 0 || nseg <= 0 || block_rows <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -296,12 +336,8 @@ inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
   const int nb = static_cast<int>(nb_ll);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(d, block_rows, nseg);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dense_adam_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem<T>(smem);
+  if (e != cudaSuccess) return e;
   // 16 bytes a thread: 4 floats or 8 bf16 values
   const int vec = (d % (16 / static_cast<int>(sizeof(T))) == 0) &&
                   (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
@@ -310,11 +346,11 @@ inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
   const long long n_starts = static_cast<long long>(nseg) * (nb + 1);
   tile_starts_kernel<<<static_cast<unsigned>((n_starts + 255) / 256), 256, 0, s>>>(
       ids, seg_off, nseg, k, v, block_rows, nb, starts);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   dense_adam_kernel<T><<<nb, kThreads, smem, s>>>(table, mu, nu, ids, pos, g, starts,
                                                   nseg, nb, v, d, block_rows,
-                                                  stage_rows_for(d), vec, h);
+                                                  stage_rows_for(d), vec, h, hp_dev);
   return cudaGetLastError();
 }
 

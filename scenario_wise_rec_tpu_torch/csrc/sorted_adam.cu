@@ -15,7 +15,9 @@
 // Two storage forms, as the TPU kernel takes f32 or bf16 tiles: table, mu and
 // nu all f32 (`sorted_dense_adam_f32`) or all bf16 (`sorted_dense_adam_bf16`;
 // the ids int32 and the gradient rows f32 in both). The bf16 form does the
-// Adam math in f32 and rounds each stored result to nearest even.
+// Adam math in f32 and rounds each stored result to nearest even. Each form
+// takes the 7 Adam numbers by value, or (`..._dev`) from a [7] f32 array in
+// device memory, the form a CUDA graph of the train step replays.
 //
 // Bound: bytes. Every row of table, mu and nu is read and written once
 // (6 * V * D * 4 bytes; 4.12 GB at the Ali-CCP shape, V = 10,741,000, D = 16)
@@ -84,6 +86,27 @@ int sorted_dense_adam_bf16(__nv_bfloat16* table, __nv_bfloat16* mu, __nv_bfloat1
   const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
                           d, k, block_rows, h, stream);
+}
+
+// The two forms again, the Adam numbers read from hp: [7] f32 in device
+// memory, (lr, wd, b1, b2, bc1r, bc2r, eps), each block loading them once. A
+// CUDA graph that captures this launch reads whatever hp holds at each
+// replay, so a captured step can take step t's bias corrections.
+int sorted_dense_adam_f32_dev(float* table, float* mu, float* nu, const int* ids,
+                              const float* g, int* starts, long long v, int d, int k,
+                              int block_rows, const float* hp, void* stream) {
+  const emb_adam::Hp h{};
+  return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
+                          d, k, block_rows, h, stream, hp);
+}
+
+int sorted_dense_adam_bf16_dev(__nv_bfloat16* table, __nv_bfloat16* mu,
+                               __nv_bfloat16* nu, const int* ids, const float* g,
+                               int* starts, long long v, int d, int k, int block_rows,
+                               const float* hp, void* stream) {
+  const emb_adam::Hp h{};
+  return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
+                          d, k, block_rows, h, stream, hp);
 }
 
 }  // extern "C"

@@ -17,13 +17,63 @@ path's (``tests/test_torch_port_resident.py``).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import resolve_device
 from .dataset import ColumnarDataset
+
+
+Layout = Dict[str, Tuple[str, int, int, tuple]]
+
+
+def column_layout(x: Dict[str, np.ndarray]) -> Tuple[Layout, int, int]:
+    """``(layout, n_int, n_float)`` of a batch or dataset's columns packed
+    into an int matrix ``[N, n_int]`` and a float one ``[N, n_float]``
+    (rows are examples), in the columns' order: ``layout[name] = (kind,
+    start, width, tail)``, ``kind`` "int" for integer columns, ``width`` the
+    columns a name takes (a ``[N, L]`` sequence column takes L), ``tail``
+    its shape past the batch axis."""
+    layout: Layout = {}
+    n = {"int": 0, "float": 0}
+    for name, col in x.items():
+        col = np.asarray(col)
+        tail = col.shape[1:]
+        width = int(np.prod(tail)) if tail else 1
+        kind = "int" if np.issubdtype(col.dtype, np.integer) else "float"
+        layout[name] = (kind, n[kind], width, tail)
+        n[kind] += width
+    return layout, n["int"], n["float"]
+
+
+def pack_columns(x: Dict[str, np.ndarray], layout: Layout, ints: np.ndarray,
+                 floats: np.ndarray) -> None:
+    """Write the columns of ``x`` into ``ints [N, n_int]`` (int32) and
+    ``floats [N, >= n_float]`` (float32) at ``layout``'s places."""
+    for name, (kind, start, width, _) in layout.items():
+        col = np.asarray(x[name])
+        dst = ints if kind == "int" else floats
+        dst[:, start:start + width] = col.reshape(col.shape[0], width)
+
+
+def gather_columns(layout: Layout, xi: torch.Tensor, xf: torch.Tensor):
+    """Reassemble the model's ``(x_dict, y)`` from packed rows ``xi [B,
+    n_int]`` and ``xf [B, n_float + 1]``, the label the last float column.
+
+    One copy each makes every column a contiguous row of a ``[C, B]``
+    matrix (the fused kernels' wrappers take contiguous ids) and widens the
+    ids to int64, the dtype of the host path's numpy columns, so a packed
+    batch feeds the step exactly what a host batch does."""
+    b = xi.shape[0]
+    cols = {"int": xi.t().to(torch.int64, memory_format=torch.contiguous_format),
+            "float": xf.t().contiguous()}
+    x = {}
+    for name, (kind, start, width, tail) in layout.items():
+        block = cols[kind][start:start + width]
+        x[name] = block.t().reshape((b,) + tail).contiguous() if tail else block[0]
+    return x, cols["float"][-1]
 
 
 class DeviceResidentLoader:
@@ -59,28 +109,16 @@ class DeviceResidentLoader:
         self._next_perm = None
         self._perm_pool = None
 
-        int_cols: List[np.ndarray] = []
-        float_cols: List[np.ndarray] = []
         # layout: name -> (kind, start, n_cols, tail_shape)
-        self.layout: Dict[str, Tuple[str, int, int, tuple]] = {}
-        for name, col in dataset.x.items():
-            tail = col.shape[1:]
-            width = int(np.prod(tail)) if tail else 1
-            flat = col.reshape(self.n, width)
-            if np.issubdtype(col.dtype, np.integer):
-                self.layout[name] = ("int", len(int_cols), width, tail)
-                int_cols.extend(flat.astype(np.int32).T)
-            else:
-                self.layout[name] = ("float", len(float_cols), width, tail)
-                float_cols.extend(flat.astype(np.float32).T)
+        self.layout, n_int, n_float = column_layout(dataset.x)
         if dataset.y is None:
             raise ValueError("resident training needs labels")
-        float_cols.append(np.asarray(dataset.y, np.float32))
-
-        ints = (np.stack(int_cols, axis=1) if int_cols
-                else np.zeros((self.n, 0), np.int32))
+        ints = np.empty((self.n, n_int), np.int32)
+        floats = np.empty((self.n, n_float + 1), np.float32)
+        pack_columns(dataset.x, self.layout, ints, floats)
+        floats[:, n_float] = np.asarray(dataset.y, np.float32)
         self.int_mat = torch.from_numpy(ints).to(self.device)
-        self.float_mat = torch.from_numpy(np.stack(float_cols, axis=1)).to(self.device)
+        self.float_mat = torch.from_numpy(floats).to(self.device)
 
     def __len__(self) -> int:
         """Batches per epoch (BatchIterable semantics, no drop_last)."""
@@ -142,19 +180,8 @@ class DeviceResidentLoader:
 
     def gather_batch(self, xi: torch.Tensor, xf: torch.Tensor, ids=None):
         """Reassemble the model's ``(x_dict, y)`` from gathered rows
-        ``xi = int_mat[ids]``, ``xf = float_mat[ids]``. ``ids`` is unused
-        (kept for the JAX call signature).
-
-        One copy each makes every column a contiguous row of a ``[C, B]``
-        matrix (the fused kernels' wrappers take contiguous ids) and widens
-        the ids to int64, the dtype of the host path's numpy columns, so a
-        resident batch feeds the step exactly what a host batch does."""
+        ``xi = int_mat[ids]``, ``xf = float_mat[ids]`` (:func:`gather_columns`
+        over the loader's layout). ``ids`` is unused (kept for the JAX call
+        signature)."""
         del ids
-        b = xi.shape[0]
-        cols = {"int": xi.t().to(torch.int64, memory_format=torch.contiguous_format),
-                "float": xf.t().contiguous()}
-        x = {}
-        for name, (kind, start, width, tail) in self.layout.items():
-            block = cols[kind][start:start + width]
-            x[name] = block.t().reshape((b,) + tail).contiguous() if tail else block[0]
-        return x, cols["float"][-1]
+        return gather_columns(self.layout, xi, xf)

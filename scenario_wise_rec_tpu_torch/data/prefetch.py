@@ -13,16 +13,22 @@ serialization.
 trainer each batch's columns are staged in pinned host memory, so that the
 trainer's copies to the card (``non_blocking=True``) neither sync the
 stream nor block the host, as the JAX package's ``jnp.asarray`` does not.
+:func:`stage_dispatches` does the same for a dispatch of S batches
+(``CTRTrainer(scan_steps=S)``), packed as ``DeviceResidentLoader`` packs an
+epoch: one int matrix and one float matrix, the JAX package's
+``_scan_producer`` stacking ``[S, B]`` on the same thread.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, NamedTuple
 
 import numpy as np
 import torch
+
+from .device import column_layout, pack_columns
 
 
 class Prefetcher:
@@ -105,3 +111,60 @@ def stage_batches(batches: Iterable, pin: bool) -> Iterator:
     for x, y, w in batches:
         yield (x, y, w), ({k: host(v) for k, v in x.items()},
                           None if y is None else host(y, np.float32), host(w))
+
+
+class Dispatch(NamedTuple):
+    """``n`` host batches of ``b`` rows packed for one dispatch of the train
+    step: ``ints [n·b, n_int]`` int32, ``floats [n·b, n_float + 1]`` float32
+    with the label last, ``w [n·b]`` the padding weights, in pinned memory
+    when staged with ``pin`` (``layout``: :func:`data.device.column_layout`
+    of the batches' columns)."""
+
+    n: int
+    b: int
+    layout: dict
+    ints: torch.Tensor
+    floats: torch.Tensor
+    w: torch.Tensor
+
+
+def _pack(group, pin: bool) -> Dispatch:
+    x0 = group[0][0]
+    layout, n_int, n_float = column_layout(x0)
+    n, b = len(group), len(group[0][2])
+    ints = torch.empty((n * b, n_int), dtype=torch.int32, pin_memory=pin)
+    floats = torch.empty((n * b, n_float + 1), dtype=torch.float32, pin_memory=pin)
+    w = torch.empty((n * b,), dtype=torch.float32, pin_memory=pin)
+    ints_np, floats_np, w_np = ints.numpy(), floats.numpy(), w.numpy()
+    for i, (x, y, wb) in enumerate(group):
+        rows = slice(i * b, (i + 1) * b)
+        pack_columns(x, layout, ints_np[rows], floats_np[rows])
+        floats_np[rows, n_float] = np.asarray(y, np.float32)
+        w_np[rows] = np.asarray(wb, np.float32)
+    return Dispatch(n, b, layout, ints, floats, w)
+
+
+def stage_dispatches(batches: Iterable, steps: int, pin: bool) -> Iterator[Dispatch]:
+    """Group the ``(x, y, w)`` of ``batches`` into :class:`Dispatch` es of
+    ``steps`` batches each; the last holds the remainder (fewer). A batch of
+    another size or other columns than the group's closes the group. Each
+    dispatch's matrices are fresh blocks: PyTorch's caching host allocator
+    keeps a pinned block until the copy from it has completed."""
+    def key(batch):
+        x, _, w = batch
+        return len(w), tuple((k, np.asarray(v).dtype.kind, np.shape(v)[1:])
+                             for k, v in x.items())
+
+    group = []
+    for batch in batches:
+        if batch[1] is None:
+            raise ValueError("training needs labeled batches")
+        if group and key(batch) != key(group[0]):
+            yield _pack(group, pin)
+            group = []
+        group.append(batch)
+        if len(group) == steps:
+            yield _pack(group, pin)
+            group = []
+    if group:
+        yield _pack(group, pin)

@@ -200,7 +200,7 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
     step = torch.tensor(float(np.asarray(adam_state.count)), dtype=torch.float32)
     as_t = lambda a, p: torch.tensor(np.asarray(a), dtype=p.dtype, device=p.device)
     for name, p in trainer._dense_named:
-        trainer.optimizer.state[p] = {"step": step.clone(),
+        trainer.optimizer.state[p] = {"step": trainer._opt_step_tensor(step, p),
                                       "exp_avg": as_t(mu[name], p),
                                       "exp_avg_sq": as_t(nu[name], p)}
     if emb is None:

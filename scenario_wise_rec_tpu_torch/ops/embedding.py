@@ -79,6 +79,9 @@ class EmbeddingCollection(nn.Module):
     def __init__(self, features: Sequence[Feature], generator: torch.Generator):
         super().__init__()
         self.features = tuple(features)
+        # the plain gather's per-feature row offsets, built once per device: a
+        # copy from host memory per forward would refuse a CUDA graph capture
+        self._offset_rows: Dict[Tuple, torch.Tensor] = {}
         # Owned tables: first occurrence wins, aliases excluded
         owned: Dict[str, Feature] = {}
         for f in self.features:
@@ -188,6 +191,18 @@ class EmbeddingCollection(nn.Module):
         return tuple((self._owner(f), start, size)
                      for f, start, size in self._packed_layout(x))
 
+    def _offset_row(self, offsets: Tuple[int, ...]) -> torch.Tensor:
+        """``offsets`` as a long tensor on the table's device, made once (and
+        outside inference mode, so that a train step may use one an eval pass
+        made)."""
+        key = (offsets, self.packed.device)
+        row = self._offset_rows.get(key)
+        if row is None:
+            with torch.inference_mode(False):
+                row = torch.tensor(offsets, dtype=torch.long, device=self.packed.device)
+            self._offset_rows[key] = row
+        return row
+
     def forward(self, x: Dict[str, torch.Tensor], features: Sequence[Feature],
                 squeeze_dim: bool = False,
                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -211,8 +226,7 @@ class EmbeddingCollection(nn.Module):
                 start, size = layout[f.name]
                 packed_cols[f.name] = rows[start:start + size]
         elif plain:
-            off = torch.tensor([self.offsets[self._owner(f)] for f in plain],
-                               dtype=torch.long, device=self.packed.device)
+            off = self._offset_row(tuple(self.offsets[self._owner(f)] for f in plain))
             ids = torch.stack([_ids(x, f) for f in plain], dim=1) + off
             gathered = self.packed[clamp_rows(ids, self.packed_vocab)]  # [B, F, D]
             for i, f in enumerate(plain):

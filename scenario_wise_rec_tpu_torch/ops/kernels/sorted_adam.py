@@ -25,14 +25,23 @@ package's ``astype`` does.
 :func:`sorted_dense_adam_apply` takes the plain version for a tensor on the
 CPU and launches the kernel for one on a CUDA device, or raises; it never
 falls back. ``sorted_dense_adam_apply.launches`` counts launches of the f32
-form, ``sorted_dense_adam_apply.launches_bf16`` those of the bf16 form.
+form, ``sorted_dense_adam_apply.launches_bf16`` those of the bf16 form; a
+launch recorded into a CUDA graph capture counts in ``.captured`` /
+``.captured_bf16`` instead (it runs once at each replay of the graph).
+
+The 7 Adam numbers ``hp`` come as host floats (passed to the kernel by
+value) or as a ``[7]`` float32 tensor on the table's device, which the
+kernel reads from device memory: the form a CUDA graph of the train step
+captures once and replays with each step's numbers
+(``CTRTrainer(scan_steps=S)``). :func:`adam_hparams_rows` computes them for
+a run of steps, on the host, as :func:`adam_hparams` does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,10 +73,31 @@ def adam_hparams(step: int, lr: float, weight_decay: float, b1: float,
     return tuple(float(f(v)) for v in (lr, weight_decay, b1, b2, bc1r, bc2r, eps))
 
 
-def _hp32(hp: Sequence[float]) -> Tuple[float, ...]:
+def adam_hparams_rows(step0: int, n: int, lr: float, weight_decay: float,
+                      b1: float, b2: float, eps: float) -> np.ndarray:
+    """``[n, 7]`` float32: row ``i`` is :func:`adam_hparams` of step
+    ``step0 + i``, the numbers of ``n`` consecutive steps."""
+    return np.array([adam_hparams(step0 + i, lr, weight_decay, b1, b2, eps)
+                     for i in range(n)], np.float32).reshape(n, 7)
+
+
+def _hp32(hp) -> Tuple[float, ...]:
+    """The 7 Adam numbers as float32-exact host floats. A tensor ``hp`` is
+    read from its device: no sync on the CPU."""
+    if isinstance(hp, torch.Tensor):
+        hp = hp.detach().reshape(-1).tolist()
     if len(hp) != 7:
         raise ValueError(f"hp must hold 7 numbers, got {len(hp)}")
     return tuple(float(np.float32(v)) for v in hp)
+
+
+def _check_hp_tensor(hp: torch.Tensor, table: torch.Tensor) -> None:
+    if hp.dtype != torch.float32 or hp.shape != (7,):
+        raise ValueError(f"a tensor hp must be float32 [7], got {hp.dtype} "
+                         f"{tuple(hp.shape)}")
+    if hp.device != table.device or not hp.is_contiguous():
+        raise ValueError(f"a tensor hp must be contiguous on the table's device "
+                         f"{table.device}, got {hp.device}")
 
 
 def owner_sorted_grads(ids: torch.Tensor, g_rows: torch.Tensor, segments=(),
@@ -139,7 +169,8 @@ def sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp,
     trio is read as float32, takes the same chain and is written back
     rounded to nearest even: the JAX package's XLA path for bf16 storage
     (``train/optim.py:497-508``). In place; returns ``(table, mu, nu)``.
-    ``dials`` are the kernel's and mean nothing here."""
+    ``dials`` are the kernel's and mean nothing here. ``hp``: 7 host numbers
+    or a ``[7]`` float32 tensor (read once; a sync only on the card)."""
     _check(table, mu, nu, sorted_ids, g_sorted)
     if table.dtype == torch.bfloat16:
         wide = [t.float() for t in (table, mu, nu)]
@@ -175,6 +206,9 @@ def _lib():
     lib.sorted_dense_adam_f32.restype = ctypes.c_int
     lib.sorted_dense_adam_bf16.argtypes = lib.sorted_dense_adam_f32.argtypes
     lib.sorted_dense_adam_bf16.restype = ctypes.c_int
+    for entry in (lib.sorted_dense_adam_f32_dev, lib.sorted_dense_adam_bf16_dev):
+        entry.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p]
+        entry.restype = ctypes.c_int
     lib.sorted_dense_adam_smem_bytes.argtypes = [i, i]
     lib.sorted_dense_adam_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -182,7 +216,7 @@ def _lib():
 
 def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
                             nu: torch.Tensor, sorted_ids: torch.Tensor,
-                            g_sorted: torch.Tensor, hp: Sequence[float], *,
+                            g_sorted: torch.Tensor, hp, *,
                             block_rows: Optional[int] = None,
                             chunk_ids: int = 128,
                             precision=None):
@@ -195,7 +229,10 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
             sharded path relies on it). ``K == 0`` still decays every row.
         g_sorted: ``[K, D]`` f32 gradient rows aligned with ``sorted_ids``.
         hp: 7 host numbers ``(lr, wd, b1, b2, 1/(1-b1^t), 1/(1-b2^t), eps)``
-            (:func:`adam_hparams`), passed to the kernel by value.
+            (:func:`adam_hparams`), passed to the kernel by value; or the
+            same as a ``[7]`` float32 tensor on the table's device, which
+            the kernel reads from device memory (each block loads it once),
+            so a captured launch takes the numbers ``hp`` holds at replay.
         block_rows: vocab rows one thread block owns on the card (default:
             :data:`DEFAULT_BLOCK_ROWS`, or :data:`DEFAULT_BLOCK_ROWS_BF16`
             for a bf16 trio).
@@ -213,6 +250,9 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
                       else DEFAULT_BLOCK_ROWS)
     if block_rows <= 0:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
+    on_device = isinstance(hp, torch.Tensor)
+    if on_device:
+        _check_hp_tensor(hp, table)
     if table.device.type == "cpu":
         return sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp)
     if table.device.type != "cuda":
@@ -235,22 +275,30 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
     starts = torch.empty(nb + 1, dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     bf16 = table.dtype == torch.bfloat16
-    entry = lib.sorted_dense_adam_bf16 if bf16 else lib.sorted_dense_adam_f32
-    with torch.cuda.device(table.device):
-        err = entry(
-            table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
+    args = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
             g_sorted.data_ptr(), starts.data_ptr(), V, D, sorted_ids.shape[0],
-            block_rows, *_hp32(hp), stream)
+            block_rows)
+    with torch.cuda.device(table.device):
+        if on_device:
+            entry = lib.sorted_dense_adam_bf16_dev if bf16 else lib.sorted_dense_adam_f32_dev
+            err = entry(*args, hp.data_ptr(), stream)
+        else:
+            entry = lib.sorted_dense_adam_bf16 if bf16 else lib.sorted_dense_adam_f32
+            err = entry(*args, *_hp32(hp), stream)
     if err != 0:
         raise RuntimeError(
             f"sorted_dense_adam_apply ({table.dtype}) launch failed with cudaError {err} "
             f"({smem} bytes of shared memory per block, block_rows={block_rows})")
-    if bf16:
-        sorted_dense_adam_apply.launches_bf16 += 1
-    else:
-        sorted_dense_adam_apply.launches += 1
+    # a launch recorded into a CUDA graph runs at each replay, not here
+    suffix = "_bf16" if bf16 else ""
+    kind = "captured" if torch.cuda.is_current_stream_capturing() else "launches"
+    setattr(sorted_dense_adam_apply, kind + suffix,
+            getattr(sorted_dense_adam_apply, kind + suffix) + 1)
     return table, mu, nu
 
 
 sorted_dense_adam_apply.launches = 0
 sorted_dense_adam_apply.launches_bf16 = 0
+# launches recorded into CUDA graph captures (each runs once a replay)
+sorted_dense_adam_apply.captured = 0
+sorted_dense_adam_apply.captured_bf16 = 0

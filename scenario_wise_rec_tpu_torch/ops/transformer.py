@@ -47,6 +47,18 @@ class MultiheadAttention(nn.Module):
         self.in_b = nn.Parameter(torch.zeros(3 * d_model, device=dev))
         self.out_w = nn.Parameter(xavier(generator, (d_model, d_model)))
         self.out_b = nn.Parameter(torch.zeros(d_model, device=dev))
+        self._scales = {}
+
+    def _scale(self, hd: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        """``sqrt(hd)`` as a 0-dim tensor on ``device``, made once: a copy
+        from host memory per forward would refuse a CUDA graph capture. Made
+        outside inference mode, so that a train step may save it for
+        backward after an eval pass made it."""
+        key = (hd, dtype, device)
+        if key not in self._scales:
+            with torch.inference_mode(False):
+                self._scales[key] = torch.tensor(math.sqrt(hd), dtype=dtype, device=device)
+        return self._scales[key]
 
     def forward(self, q_in, kv_in, nhead: int, p_drop: float, train: bool,
                 generator: Optional[torch.Generator], key_mask=None):
@@ -61,7 +73,7 @@ class MultiheadAttention(nn.Module):
         q = (q_in @ w_q.T + b_q).reshape(L, nhead, hd).transpose(0, 1)
         k = (kv_in @ w_k.T + b_k).reshape(S, nhead, hd).transpose(0, 1)
         v = (kv_in @ w_v.T + b_v).reshape(S, nhead, hd).transpose(0, 1)
-        scale = torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
+        scale = self._scale(hd, q.dtype, q.device)
         attn = torch.einsum("hld,hsd->hls", q, k) / scale
         if key_mask is not None:
             attn = torch.where(key_mask[None, None, :] > 0, attn,

@@ -319,7 +319,8 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
                              lr: float = 1e-3, weight_decay: float = 1e-5,
                              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                              block_rows: Optional[int] = None,
-                             frozen_spans: Spans = ()) -> Dict:
+                             frozen_spans: Spans = (),
+                             hp: Optional[torch.Tensor] = None) -> Dict:
     """One exact dense torch-Adam step of ``table`` (in place) from the
     per-occurrence gradient rows ``g_rows [K, D]`` of the packed rows
     ``ids [K]`` (``EmbeddingCollection.touched_ids``, duplicates allowed).
@@ -334,13 +335,22 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
     and moments. Updates ``opt_state`` in place and returns it. (The JAX
     function also takes the owner segments and offsets, which its per-owner
     sorts need; one global sort here does not.)
+
+    ``hp``: the step's 7 Adam numbers as a ``[7]`` float32 tensor on the
+    table's device (a row of ``adam_hparams_rows`` in
+    ``ops/kernels/sorted_adam.py``), which the kernel reads there; ``lr`` to
+    ``eps`` are then unused and ``opt_state["step"]`` is left to the caller,
+    who advances it by the steps run (the trainer's CUDA graphs replay this
+    call with each step's row).
     """
-    step = int(opt_state["step"]) + 1
-    hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
+    step, advance = int(opt_state["step"]) + 1, hp is None
+    if advance:
+        hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
     sorted_ids, g_sorted = owner_sorted_grads(ids, g_rows)
     tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
     with rows_kept(tensors, frozen_spans):
         sorted_dense_adam_apply(*tensors, sorted_ids, g_sorted.contiguous(), hp,
                                 block_rows=block_rows)
-    opt_state["step"] = step
+    if advance:
+        opt_state["step"] = step
     return opt_state

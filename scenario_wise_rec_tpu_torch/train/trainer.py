@@ -59,6 +59,20 @@ protocol.
   ``DeviceResidentLoader`` (``data/device.py``) keeps the epoch's columns on
   the device, and each step gathers its batch there
   (:meth:`CTRTrainer.train_one_epoch_resident`).
+- **scan_steps = S > 1** (the JAX package's S steps a dispatch, its
+  ``lax.scan``): in the sorted mode (f32 or bf16 store) and the plain step,
+  each dispatch stages S batches as one int and one float matrix (a host
+  loader's packed on the prefetch thread and copied from pinned memory, a
+  resident loader's gathered on the device) and runs S steps of one step
+  body that picks its batch rows, its sorted-update numbers ``hp`` and its
+  loss slot by a device-side step counter. On the card that body is
+  captured once as a CUDA graph, after warm-up steps of the epoch run
+  eagerly, and replayed for every later step (the remainder is fewer
+  replays); on the CPU it runs uncaptured. Replays equal eager steps: the
+  dense ``torch.optim.Adam`` is ``capturable``, the dropout generator is
+  registered with the graph, and the sorted kernel reads each step's Adam
+  numbers from device memory. The other modes run one eager step a batch
+  at any S.
 - **fit**: per-epoch StepLR, ``train_one_epoch`` (over a host loader or a
   ``DeviceResidentLoader``), validation AUC, early stopping that restores
   the best weights only on a stop, and a final checkpoint (reference
@@ -67,6 +81,7 @@ protocol.
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from typing import Optional
@@ -76,9 +91,9 @@ import torch
 
 from . import checkpoint as ckpt_lib
 from ..core.config import make_generator, resolve_device
-from ..data.device import DeviceResidentLoader
-from ..data.prefetch import prefetch, stage_batches
-from ..ops.kernels.sorted_adam import check_jax_dials
+from ..data.device import DeviceResidentLoader, gather_columns
+from ..data.prefetch import prefetch, stage_batches, stage_dispatches
+from ..ops.kernels.sorted_adam import adam_hparams_rows, check_jax_dials
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
@@ -89,6 +104,41 @@ from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_init,
                     sparse_adam_rowgrads_update)
 
 _EMB_MODES = ("dense", "winner", "occurrence", "sorted")
+# the steps a scan_steps > 1 dispatch runs through one step body (graphed on
+# the card): the plain step (None) and the sorted update
+_DISPATCHED_MODES = (None, "sorted")
+# eager steps of a new step plan before its capture: the optimizer's state,
+# cuBLAS's workspace and the kernels' libraries exist before capture
+WARMUP_STEPS = 2
+
+
+class _StepPlan:
+    """The static buffers of ``scan_steps`` steps of ``b`` rows, and on the
+    card the captured step: every tensor the step body reads is one of
+    these, so a replay reads what the dispatch staged.
+
+    ``ints``/``floats``/``w``: the dispatch's packed batches (the
+    ``DeviceResidentLoader`` layout, label last), ``hp``: one row of Adam
+    numbers a step (sorted mode), ``losses``: one slot a step, ``counter``:
+    the step within the dispatch, advanced by the step body."""
+
+    def __init__(self, loader, layout, b, steps, n_int, n_float1, device, sorted_mode):
+        self.loader, self.layout, self.b = loader, layout, b
+        self.ints = torch.empty((steps * b, n_int), dtype=torch.int32, device=device)
+        self.floats = torch.empty((steps * b, n_float1), dtype=torch.float32, device=device)
+        self.w = torch.empty((steps * b,), dtype=torch.float32, device=device)
+        self.hp = (torch.empty((steps, 7), dtype=torch.float32, device=device)
+                   if sorted_mode else None)
+        self.losses = torch.empty((steps,), dtype=torch.float32, device=device)
+        self.counter = torch.zeros((1,), dtype=torch.long, device=device)
+        self.rows = torch.arange(b, device=device)
+        self.graph = None
+        self.state = None  # what the graph writes, as it was at capture
+        self.warm = 0
+
+    def matches(self, loader, layout, b, n_int, n_float1) -> bool:
+        return (self.loader is loader and self.layout == layout and self.b == b
+                and self.ints.shape[1] == n_int and self.floats.shape[1] == n_float1)
 
 
 class CTRTrainer:
@@ -115,11 +165,16 @@ class CTRTrainer:
             docstring); ``"sorted"`` needs a packed width dividing 128, as
             in the JAX package.
         fused_inference: ``True`` runs eval through ``apply_fused_eval``.
-        scan_steps: the JAX package's optimizer steps per device dispatch;
-            accepted (a positive int) for its signature. The port runs one
-            step per batch whatever its value, on host and resident epochs
-            alike (the JAX package's S scanned steps equal its S single
-            ones); fusing S steps is the work of CUDA graphs (ROADMAP).
+        scan_steps: the JAX package's optimizer steps per device dispatch
+            (a positive int). 1: one eager step a batch. S > 1 in the sorted
+            mode or the plain step: S steps a dispatch through one step
+            body, captured once as a CUDA graph and replayed on the card
+            (see the module docstring; :attr:`graphed`,
+            :attr:`graph_replays`), with the same result as S single steps;
+            the dense optimizer must take ``capturable`` (torch's Adam
+            does), which the trainer sets. A failed capture raises; nothing
+            falls back to eager steps. The ``occurrence``, ``dense`` and
+            ``winner`` modes run one eager step a batch at any S.
         prefetch_depth: host batches prepared ahead on a thread (0: none).
         sorted_block_rows: the sorted kernel's vocab tile (default: the
             port's own for the storage type, ``DEFAULT_BLOCK_ROWS`` or
@@ -134,8 +189,8 @@ class CTRTrainer:
             chunks (``sorted_dense_adam_apply``'s docstring).
         resident_gather: ``"step"`` or ``"dispatch"``, the JAX package's
             gather of a resident batch per step or per dispatch of S steps.
-            The port's dispatch is one step, so both gather one batch a step
-            and give the same result.
+            Both give the same result; the port gathers a dispatch's rows
+            at once, outside its graph.
         donate_buffers / sorted_kernel: accepted for the JAX signature; the
             port updates in place and picks the kernel by the tensor's
             device (``sorted_kernel=False`` is refused).
@@ -205,6 +260,7 @@ class CTRTrainer:
         if resident_gather not in ("step", "dispatch"):
             raise ValueError(f"unknown resident_gather {resident_gather!r}")
         self._sparse_impl = sparse_update_impl
+        self.scan_steps = int(scan_steps)
         self._deferred_log = None
         if self._sorted_mode and 128 % emb.packed_dim:
             # the JAX package's rule, kept so both accept the same configs
@@ -238,6 +294,14 @@ class CTRTrainer:
         factory = (optimizer_fn or adam)(**self._opt_params)
         self.optimizer = (factory([p for _, p in self._dense_named])
                           if self._dense_named else None)
+        if self.graphed and self.optimizer is not None:
+            if "capturable" not in self.optimizer.defaults:
+                raise ValueError(
+                    f"scan_steps={self.scan_steps} captures the train step in a CUDA "
+                    f"graph: the optimizer needs torch's capturable option, which "
+                    f"{type(self.optimizer).__name__} lacks")
+            for group in self.optimizer.param_groups:
+                group["capturable"] = True
         self.emb_opt_state = self._init_emb_state()
         self.n_epoch = n_epoch
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -245,7 +309,15 @@ class CTRTrainer:
         self.seed = seed
         self.generator = make_generator(self.device, seed)
         self.epoch_i = 0
-        self.scan_steps = int(scan_steps)
+        # the step plan of scan_steps > 1 and its graph (one at a time, in a
+        # memory pool of the trainer's own); findings counters
+        self._plan = None
+        self._graph_pool = None
+        self._graph_stream = None
+        self.graph_replays = 0
+        self.graph_captures = 0
+        self.graph_capture_s = None
+        self.graph_pool_bytes = None
         self._fused_inference = fused_inference and hasattr(model, "apply_fused_eval")
         self.prefetch_depth = max(0, int(prefetch_depth))
         self._eval_step = self._build_eval_step()
@@ -260,6 +332,30 @@ class CTRTrainer:
         return self._emb_mode == "sorted"
 
     @property
+    def _dispatched(self) -> bool:
+        """``scan_steps > 1`` in a mode whose steps run S a dispatch."""
+        return self.scan_steps > 1 and self._emb_mode in _DISPATCHED_MODES
+
+    @property
+    def graphed(self) -> bool:
+        """True when the train steps run as a CUDA graph: ``scan_steps > 1``
+        on the card in the sorted mode or the plain step. False at
+        ``scan_steps=1``, on the CPU and in the occurrence, dense and winner
+        modes, which step eagerly."""
+        return self._dispatched and self.device.type == "cuda"
+
+    @property
+    def _capturable(self) -> bool:
+        return self.optimizer is not None and any(
+            g.get("capturable", False) for g in self.optimizer.param_groups)
+
+    def _opt_step_tensor(self, value, p) -> torch.Tensor:
+        """torch.optim's step count for ``p``, a tensor of its own: on
+        ``p``'s device when the optimizer is capturable, else on the host."""
+        t = torch.tensor(float(value), dtype=torch.float32)
+        return t.to(p.device) if self._capturable else t
+
+    @property
     def _bf16_store(self) -> bool:
         """The sorted mode with its table and moments in a bf16 store."""
         return self._sorted_mode and self._sorted_dtype == "bf16"
@@ -272,7 +368,9 @@ class CTRTrainer:
 
     def _refill_store(self):
         """With a bf16 store: take the model's table into it (after ``load``
-        or a restore; a table synced from the store comes back exactly)."""
+        or a restore; a table synced from the store comes back exactly).
+        Drops the captured step in every mode: state was rewritten."""
+        self._drop_graph()
         if self._bf16_store:
             with torch.no_grad():
                 self.emb_opt_state["table"].copy_(self.model.embedding.packed)
@@ -326,9 +424,11 @@ class CTRTrainer:
 
     # -- training ---------------------------------------------------------
 
-    def _train_step(self, x, y, w) -> torch.Tensor:
+    def _train_step(self, x, y, w, hp=None) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on the
-        device: reading it is the caller's sync)."""
+        device: reading it is the caller's sync). ``hp``: the sorted update's
+        Adam numbers as a device row (a dispatch's step body); the caller
+        then advances the update's step count."""
         model, mode, st = self.model, self._emb_mode, self.emb_opt_state
         rows = None
         if mode is not None:
@@ -365,7 +465,8 @@ class CTRTrainer:
                   frozen_spans=self._frozen_spans)
         if mode == "sorted":
             sorted_dense_adam_update(st["table"] if self._bf16_store else col.packed, st,
-                                     rows.grad, ids, block_rows=self._sorted_block_rows, **kw)
+                                     rows.grad, ids, block_rows=self._sorted_block_rows,
+                                     hp=hp, **kw)
         elif mode == "dense":
             fused_dense_adam_update(col.packed, st, rows.grad, ids,
                                     col.touched_owner_segments(x), **kw)
@@ -413,14 +514,181 @@ class CTRTrainer:
             torch.cuda.synchronize(self.device)
         return last
 
+    # -- scan_steps > 1: S steps a dispatch, a CUDA graph on the card --------
+
+    def _drop_graph(self):
+        """Forget the step plan and its captured graph (the next dispatch
+        warms up and captures anew)."""
+        self._plan = None
+
+    def _graph_state(self):
+        """What a captured step writes and bakes in: the address, type and
+        shape of every parameter, buffer and optimizer state tensor, the
+        dense optimizer's hyperparameters and the dropout generator. A graph
+        captured under other values would write tensors the trainer no
+        longer holds."""
+        ts = list(self.model.parameters()) + list(self.model.buffers())
+        if self.optimizer is not None:
+            for st in self.optimizer.state.values():
+                ts += [v for v in st.values() if torch.is_tensor(v)]
+        ts += [v for v in (self.emb_opt_state or {}).values() if torch.is_tensor(v)]
+        groups = tuple(tuple((k, v) for k, v in sorted(g.items()) if k != "params"
+                             and isinstance(v, (int, float, bool, tuple)))
+                       for g in getattr(self.optimizer, "param_groups", ()))
+        return (tuple((t.data_ptr(), t.dtype, tuple(t.shape)) for t in ts), groups,
+                self.generator)
+
+    def _plan_for(self, loader, layout, b, n_int, n_float1) -> _StepPlan:
+        """The step plan for ``loader``'s batches (kept by the loader's
+        identity and the batch shape), new if the kept one's graph would
+        write tensors the trainer no longer holds."""
+        p = self._plan
+        if (p is not None and p.matches(loader, layout, b, n_int, n_float1)
+                and (p.graph is None or p.state == self._graph_state())):
+            return p
+        self._plan = None  # release the old graph before a new capture
+        self._plan = _StepPlan(loader, layout, b, self.scan_steps, n_int, n_float1,
+                               self.device, self._sorted_mode)
+        return self._plan
+
+    def _plan_step(self, plan: _StepPlan):
+        """The step body: the batch at the plan's counter, one
+        :meth:`_train_step`, its loss into its slot, the counter advanced.
+        Nothing here reads the host, so it can be captured."""
+        sel = plan.counter * plan.b + plan.rows
+        x, y = gather_columns(plan.layout, plan.ints.index_select(0, sel),
+                              plan.floats.index_select(0, sel))
+        hp = None if plan.hp is None else plan.hp.index_select(0, plan.counter).view(7)
+        loss = self._train_step(x, y, plan.w.index_select(0, sel), hp=hp)
+        plan.losses.index_copy_(0, plan.counter, loss.view(1))
+        plan.counter.add_(1)
+
+    def _warm_step(self, plan: _StepPlan):
+        """One eager step of the plan on the graph's stream."""
+        cur = torch.cuda.current_stream(self.device)
+        self._graph_stream.wait_stream(cur)
+        with torch.cuda.stream(self._graph_stream):
+            self._plan_step(plan)
+        cur.wait_stream(self._graph_stream)
+        plan.warm += 1
+
+    def _capture(self, plan: _StepPlan):
+        """Capture the step body as the plan's CUDA graph, in the trainer's
+        memory pool, with the dropout generator registered so that every
+        replay draws fresh masks. Raises if the capture fails."""
+        g = torch.cuda.CUDAGraph()
+        if self.generator.device.type == "cuda":
+            g.register_generator_state(self.generator)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        # torch.cuda.graph collects garbage before the capture; no collection
+        # may run inside it (freeing another graph's memory there is a call
+        # the capture refuses)
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(g, pool=self._graph_pool, stream=self._graph_stream,
+                                  capture_error_mode="thread_local"):
+                before = torch.cuda.memory_reserved(self.device)
+                self._plan_step(plan)
+        except RuntimeError as e:
+            self._plan = None
+            raise RuntimeError(
+                f"capturing the train step as a CUDA graph failed (scan_steps="
+                f"{self.scan_steps}, update {self._emb_mode or 'plain'}); pass "
+                "scan_steps=1 for eager steps") from e
+        finally:
+            if gc_was_on:
+                gc.enable()
+        self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        self.graph_capture_s = time.perf_counter() - t0
+        self.graph_captures += 1
+        plan.graph, plan.state = g, self._graph_state()
+
+    def _run_dispatch(self, plan: _StepPlan, n: int) -> torch.Tensor:
+        """``n`` steps of the plan over its staged batches; returns their
+        losses ``[n]`` (a copy on the device, so the next dispatch can
+        overwrite the plan's slots). On the card: eager warm-up steps until
+        the plan is captured, then replays; on the CPU: the body, uncaptured."""
+        st = self.emb_opt_state
+        if plan.hp is not None:
+            p = self._opt_params
+            rows = torch.from_numpy(adam_hparams_rows(
+                int(st["step"]) + 1, n, self._lr_now, p.get("weight_decay", 1e-5),
+                p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8)))
+            if self.device.type == "cuda":
+                rows = rows.pin_memory()
+            plan.hp[:n].copy_(rows, non_blocking=True)
+        plan.counter.zero_()
+        i = 0
+        if self.device.type == "cuda":
+            if self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+            while i < n and plan.graph is None:
+                if plan.warm < WARMUP_STEPS:
+                    self._warm_step(plan)
+                    i += 1
+                else:
+                    self._capture(plan)
+            for _ in range(n - i):
+                plan.graph.replay()
+            self.graph_replays += n - i
+        else:
+            for _ in range(n):
+                self._plan_step(plan)
+        if plan.hp is not None:
+            st["step"] = int(st["step"]) + n
+        return plan.losses[:n].clone()
+
+    def _log_dispatch(self, losses, n, done, n_total, log_interval, pending):
+        """Count a dispatch's ``n`` losses into ``pending`` as the JAX
+        trainer does: a full dispatch is one entry and logs when ``done %
+        log_interval < S``; a remainder adds its steps one by one and logs
+        nothing. Returns ``(done, logged mean or None, pending)``."""
+        done += n
+        if n < self.scan_steps:
+            pending.extend(losses.unbind(0))
+            return done, None, pending
+        pending.append(losses)
+        if done % log_interval < self.scan_steps:
+            return done, self._log_losses(done, n_total, pending), []
+        return done, None, pending
+
+    def _train_dispatched(self, data_loader, log_interval):
+        """A host epoch at ``scan_steps > 1``: dispatches staged on the
+        prefetch thread (pinned on the card), copied into the plan's
+        buffers without a host sync, then run."""
+        pending, done, last = [], 0, None
+        n_total = len(data_loader)
+        cuda = self.device.type == "cuda"
+        for d in prefetch(stage_dispatches(data_loader, self.scan_steps, pin=cuda),
+                          self.prefetch_depth):
+            plan = self._plan_for(data_loader, d.layout, d.b, d.ints.shape[1],
+                                  d.floats.shape[1])
+            rows = slice(0, d.n * d.b)
+            for dst, src in ((plan.ints, d.ints), (plan.floats, d.floats), (plan.w, d.w)):
+                dst[rows].copy_(src, non_blocking=True)
+            losses = self._run_dispatch(plan, d.n)
+            done, logged, pending = self._log_dispatch(losses, d.n, done, n_total,
+                                                       log_interval, pending)
+            last = logged if logged is not None else last
+        if pending:
+            last = self._log_losses(done, n_total, pending)
+        return last
+
     def train_one_epoch(self, data_loader, log_interval: int = 10):
         """One pass over ``data_loader``. Over a host loader returns the
         mean loss of the last logged window (None for an empty loader); a
         ``DeviceResidentLoader`` runs :meth:`train_one_epoch_resident`,
-        which returns None and defers its last loss line."""
+        which returns None and defers its last loss line. At ``scan_steps``
+        S > 1 in the sorted mode or the plain step, S steps a dispatch (on
+        the card a CUDA graph's replays), logging as the JAX trainer does."""
         self._flush_epoch_log()
         if isinstance(data_loader, DeviceResidentLoader):
             return self.train_one_epoch_resident(data_loader, log_interval)
+        if self._dispatched:
+            return self._train_dispatched(data_loader, log_interval)
         # Losses stay on the device until a log boundary: reading one every
         # step would sync the host with the card each step.
         pending, done, last = [], 0, None
@@ -484,8 +752,11 @@ class CTRTrainer:
         the loader's matrices indexed by the batch's slice of the epoch's
         ids, its weights from position math (``pos < n``: zero exactly on
         the padded tail). Dropout draws from ``self.generator`` in the host
-        loop's order. One step a batch whatever ``scan_steps`` and
-        ``resident_gather`` say.
+        loop's order. At ``scan_steps`` S > 1 in the sorted mode or the
+        plain step, each dispatch gathers its S batches' rows into the step
+        plan's buffers at once and runs S steps (on the card, replays of
+        the captured step); the remainder is a dispatch of fewer steps.
+        ``resident_gather`` changes nothing.
 
         Returns None: the last losses stay on the device, and their line
         prints at the next trainer entry point or :meth:`barrier`, so the
@@ -496,6 +767,22 @@ class CTRTrainer:
         ids = self._epoch_ids(loader)
         weights = (torch.arange(nb * b, device=self.device) < loader.n).float()
         pending, done = [], 0
+        if self._dispatched:
+            s = self.scan_steps
+            for d0 in range(0, nb, s):
+                n = min(s, nb - d0)
+                plan = self._plan_for(loader, loader.layout, b, loader.int_mat.shape[1],
+                                      loader.float_mat.shape[1])
+                sel, rows = ids[d0 * b:(d0 + n) * b], slice(0, n * b)
+                torch.index_select(loader.int_mat, 0, sel, out=plan.ints[rows])
+                torch.index_select(loader.float_mat, 0, sel, out=plan.floats[rows])
+                plan.w[rows].copy_(weights[d0 * b:(d0 + n) * b])
+                losses = self._run_dispatch(plan, n)
+                done, _, pending = self._log_dispatch(losses, n, done, nb, log_interval,
+                                                      pending)
+            if pending:
+                self._deferred_log = (done, nb, pending)
+            return None
         for i in range(nb):
             sel = ids[i * b:(i + 1) * b]
             x, y = loader.gather_batch(loader.int_mat.index_select(0, sel),
@@ -525,7 +812,7 @@ class CTRTrainer:
                 if self.early_stopper.stop_training(auc, self.model.state_dict()):
                     print(f"validation: best auc: {self.early_stopper.best_auc}")
                     self.model.load_state_dict(self.early_stopper.best_weights)
-                    self._refill_store()
+                    self._refill_store()  # and drops the captured step
                     break
         # like the reference, best weights are restored only on an early
         # stop; a natural end of the epoch loop keeps the last weights
@@ -736,7 +1023,7 @@ class CTRTrainer:
         self.model.load_state_dict({k: t(f"model/{k}", v) for k, v in sd.items()})
         for name, p in self._dense_named:
             self.optimizer.state[p] = {
-                "step": torch.as_tensor(arrays[f"opt/base/{name}/step"]),
+                "step": self._opt_step_tensor(arrays[f"opt/base/{name}/step"], p),
                 "exp_avg": t(f"opt/base/{name}/exp_avg", p),
                 "exp_avg_sq": t(f"opt/base/{name}/exp_avg_sq", p)}
         with torch.no_grad():

@@ -2424,3 +2424,343 @@ def test_device_metrics_on_card_equal_cpu(gen, case):
         cpu = float(fn(y, p, m))
         card = float(fn(y.cuda(), p.cuda(), None if m is None else m.cuda()))
         assert abs(card - cpu) <= 1e-6, (fn.__name__, card, cpu)
+
+
+# -- scan_steps > 1: the train step as a CUDA graph --------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_adam_device_hp_form(gen, dtype):
+    """The form that reads its Adam numbers from device memory: three steps,
+    each from one state, equal the by-value form bit for bit and hold
+    against the plain version under the order rule (f32) or the bf16 rule."""
+    V, D = 100_003, 16
+    ids = torch.randint(0, V // 3, (6000,), generator=gen, device="cuda")
+    ids = torch.cat([ids, torch.tensor([-1, V + 3], device="cuda")])
+    if dtype == torch.float32:
+        trio = list(_sa_case(gen, V, D, ids)[:3])
+    else:
+        trio = _bf16_trio(gen, V, D)
+    for t in range(1, 4):
+        ref, byval = ([x.clone() for x in trio] for _ in range(2))
+        g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        hp = sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+        rule = _AdamOrderRule(ref[0].float())
+        rule.step(ref[0].float(), sid, gs, hp)
+        sa.sorted_dense_adam_apply(*byval, sid, gs, hp)
+        sa.sorted_dense_adam_apply(*trio, sid, gs, torch.tensor(hp, device="cuda"))
+        sa.sorted_dense_adam_apply_ref(*ref, sid, gs, hp)
+        torch.cuda.synchronize()
+        for got, bv, want, what in zip(trio, byval, ref, ("table", "mu", "nu")):
+            assert torch.equal(got, bv), (what, t)
+            if dtype == torch.float32:
+                assert rule.close(got, want, what), (what, t)
+            else:
+                assert _bf16_held(got, want, rule, what)[0], (what, t)
+        rule.count()
+
+
+GRAPH_MODES = {"sorted": dict(sparse_embedding_updates=True, sparse_update_impl="sorted"),
+               "sorted_bf16": dict(sparse_embedding_updates=True, sparse_update_impl="sorted",
+                                   sorted_dtype="bf16"),
+               "plain": {}}
+
+
+def _graph_model(dropout=0.0):
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.models import MMOE
+
+    feats = [DenseFeature("d0")] + [SparseFeature(f"s{i}", 60, embed_dim=8) for i in range(3)]
+    return MMOE(feats, 2, n_expert=2, expert_params={"dims": [16], "dropout": dropout},
+                tower_params={"dims": [4]}, generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def _graph_twins(model, kw, scan_steps=3, **extra):
+    """An eager trainer (S = 1, its torch.optim.Adam made ``capturable`` as
+    the graphed trainer's is) and a graphed one (``scan_steps``), one state."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    eager = CTRTrainer(model, **kw, **extra)
+    for group in eager.optimizer.param_groups:
+        group["capturable"] = True
+    graphed = CTRTrainer(copy.deepcopy(model), scan_steps=scan_steps, **kw, **extra)
+    assert graphed.graphed and not eager.graphed and graphed._capturable
+    return eager, graphed
+
+
+def _graph_data(seed=4, n=6 * 64 + 9):
+    """Seven batches of 64 (the last padded) for the narrow models."""
+    from scenario_wise_rec_tpu_torch.data import ColumnarDataset
+
+    r = np.random.default_rng(seed)
+    x, y, _ = _narrow_batch(r, n)
+    x["uid"] = r.integers(0, 60, n)
+    return ColumnarDataset(x, y)
+
+
+def _graph_loader(ds, kind, seed=2):
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, DeviceResidentLoader
+
+    return (BatchIterable(ds, 64, shuffle=True, seed=seed) if kind == "host"
+            else DeviceResidentLoader(ds, 64, seed=seed))
+
+
+def _trainer_tensors(t):
+    out = {f"model/{k}": v for k, v in t.model.state_dict().items()}
+    for name, p in t._dense_named:
+        for k, v in t.optimizer.state[p].items():
+            out[f"opt/{name}/{k}"] = v
+    for k, v in (t.emb_opt_state or {}).items():
+        out[f"emb/{k}"] = v if torch.is_tensor(v) else torch.tensor(v)
+    return out
+
+
+def _differing(a, b):
+    """Elements that differ between two trainers' states, by tensor."""
+    ta, tb = _trainer_tensors(a), _trainer_tensors(b)
+    assert sorted(ta) == sorted(tb)
+    return {k: int((ta[k].to(tb[k].device) != tb[k]).sum()) for k in ta}
+
+
+def _step_gate(a, b):
+    """The train-step gate of PERF.md §2 on the model's state: 1e-6 +
+    1e-4 |v|, the BN-cancelled biases and running means within 10 x lr."""
+    for k, v in a.model.state_dict().items():
+        want = b.model.state_dict()[k]
+        atol = 1e-2 if k.endswith(("lin.b", "bn.mean")) and ".layers." in f".{k}" else 1e-6
+        assert torch.allclose(v.float(), want.float(), rtol=1e-4, atol=atol), k
+
+
+def _epochs(t, loaders):
+    for loader in loaders:
+        t.train_one_epoch(loader)
+    t.barrier()
+
+
+@pytest.mark.parametrize("kind", ["host", "resident"])
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphed_epochs_equal_eager_epochs(gen, mode, kind):
+    """Two epochs of seven batches at S = 3 (two dispatches and a remainder
+    of one an epoch) as a CUDA graph: 0 elements of any weight, BN
+    statistic, moment or step differ from the eager S = 1 epochs with a
+    capturable torch.optim.Adam; two warm-up steps, one capture and 12
+    replays, the sorted kernel launched twice and captured once."""
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    eager, graphed = _graph_twins(_graph_model(), GRAPH_MODES[mode])
+    ds = _graph_data()
+    f32, bf16 = sa.sorted_dense_adam_apply.launches, sa.sorted_dense_adam_apply.launches_bf16
+    cf32, cbf16 = sa.sorted_dense_adam_apply.captured, sa.sorted_dense_adam_apply.captured_bf16
+    _epochs(graphed, [_graph_loader(ds, kind)] * 2)
+    torch.cuda.synchronize()
+    warm = ptrainer.WARMUP_STEPS
+    assert (graphed.graph_captures, graphed.graph_replays) == (1, 14 - warm)
+    launched = (sa.sorted_dense_adam_apply.launches - f32,
+                sa.sorted_dense_adam_apply.launches_bf16 - bf16,
+                sa.sorted_dense_adam_apply.captured - cf32,
+                sa.sorted_dense_adam_apply.captured_bf16 - cbf16)
+    assert launched == {"sorted": (warm, 0, 1, 0), "sorted_bf16": (0, warm, 0, 1),
+                        "plain": (0, 0, 0, 0)}[mode]
+    _epochs(eager, [_graph_loader(ds, kind)] * 2)
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+    if graphed.emb_opt_state is not None:
+        assert graphed.emb_opt_state["step"] == 14
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphed_against_the_default_adam_holds_the_step_gate(gen, mode):
+    """The eager default, torch.optim.Adam without ``capturable``, computes
+    its bias corrections on the host in float64 and associates them
+    otherwise, so its steps differ from the capturable ones in the last
+    bits: over one dispatch of three steps from one state the graphed
+    trainer's elements that differ are counted and the model's state holds
+    the train-step gate of PERF.md §2."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    model = _graph_model()
+    kw = GRAPH_MODES[mode]
+    default = CTRTrainer(model, **kw)
+    graphed = CTRTrainer(copy.deepcopy(model), scan_steps=3, **kw)
+    assert default.optimizer.defaults["capturable"] is False and graphed._capturable
+    ds = _graph_data(n=3 * 64)
+    for t in (default, graphed):
+        _epochs(t, [_graph_loader(ds, "host")])
+    assert graphed.graph_replays == 1
+    print(f"{mode}: graphed vs the default eager Adam over 3 steps, "
+          f"{sum(_differing(graphed, default).values())} elements differ")
+    _step_gate(graphed, default)
+
+
+def test_graphed_dropout_draws_from_the_registered_generator(gen):
+    """MMOE with dropout 0.2: the masks come from the trainer's generator,
+    registered with the graph, so each replay draws the next masks as an
+    eager step does: 0 elements differ from the eager epochs."""
+    eager, graphed = _graph_twins(_graph_model(dropout=0.2), GRAPH_MODES["sorted"])
+    ds = _graph_data()
+    for t in (eager, graphed):
+        _epochs(t, [_graph_loader(ds, "host")] * 2)
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+    assert graphed.generator.get_offset() == eager.generator.get_offset()
+
+
+def test_graphed_replay_with_a_stale_hp_row_fails(gen, monkeypatch):
+    """A planted fault: every step of a dispatch given its first step's Adam
+    numbers (as if the replays did not advance the hp row) must not equal
+    the eager epochs."""
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    right = ptrainer.adam_hparams_rows
+    monkeypatch.setattr(ptrainer, "adam_hparams_rows",
+                        lambda step0, n, *a: np.repeat(right(step0, 1, *a), n, axis=0))
+    eager, graphed = _graph_twins(_graph_model(), GRAPH_MODES["sorted"])
+    ds = _graph_data()
+    for t in (eager, graphed):
+        _epochs(t, [_graph_loader(ds, "host")])
+    diff = _differing(graphed, eager)
+    assert diff["model/embedding.packed"] > 0 and diff["emb/nu"] > 0, diff
+
+
+def test_graphed_save_load_and_continue(gen, tmp_path):
+    """Train graphed, save, load into a new graphed trainer and a new eager
+    one, and continue both an epoch: 0 elements differ (the loaded step
+    counts lie on the card for the capturable Adam); a load drops the
+    captured step."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    kw = GRAPH_MODES["sorted"]
+    model = _graph_model()
+    _, first = _graph_twins(model, kw)
+    ds = _graph_data()
+    _epochs(first, [_graph_loader(ds, "resident")])
+    path = first.save(str(tmp_path / "ckpt"))
+    eager, graphed = _graph_twins(_graph_model(), kw)
+    for t in (eager, graphed):
+        t.load(path)
+        assert t._plan is None
+        assert all(st["step"].device.type == "cuda" for st in t.optimizer.state.values())
+        _epochs(t, [_graph_loader(ds, "resident", seed=3)])
+    first.load(path)
+    assert first._plan is None
+    _epochs(first, [_graph_loader(ds, "resident", seed=3)])
+    for other in (eager, first):
+        diff = _differing(graphed, other)
+        assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+    assert isinstance(first, CTRTrainer) and first.graph_captures == 2
+
+
+def test_graphed_step_lr_recaptures(gen, tmp_path):
+    """``fit`` over three epochs with an epoch StepLR: each new lr drops the
+    captured step (torch.optim's lr is baked into the graph), so three
+    captures, and 0 elements differ from the eager fit."""
+    from scenario_wise_rec_tpu_torch.train.optim import step_lr
+
+    extra = dict(scheduler_fn=step_lr, scheduler_params={"step_size": 1, "gamma": 0.5},
+                 n_epoch=3, model_path=str(tmp_path))
+    eager, graphed = _graph_twins(_graph_model(), GRAPH_MODES["sorted"], **extra)
+    ds = _graph_data()
+    for t in (eager, graphed):
+        t.fit(_graph_loader(ds, "resident"))
+    assert graphed.graph_captures == 3
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+
+
+@pytest.mark.parametrize("mode", ["occurrence", "dense", "winner"])
+def test_eager_modes_at_scan_steps_3_are_not_graphed(gen, mode):
+    """The occurrence, dense and winner modes run one eager step a batch at
+    S = 3 and say so; their epochs equal S = 1's (the winner scatter's
+    atomics may reorder a sum: the train-step gate)."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    kw = dict(sparse_embedding_updates=True, sparse_update_impl=mode)
+    model = _graph_model()
+    one, three = CTRTrainer(model, **kw), CTRTrainer(copy.deepcopy(model), scan_steps=3, **kw)
+    assert not three.graphed and three.optimizer.defaults["capturable"] is False
+    ds = _graph_data()
+    for t in (one, three):
+        _epochs(t, [_graph_loader(ds, "host")])
+    assert three.graph_replays == 0 and three._plan is None
+    print(f"{mode}: {sum(_differing(one, three).values())} elements differ from S = 1")
+    _step_gate(one, three)
+
+
+GRAPH_NARROW = {
+    "mmoe": dict(n_expert=2, expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+    "sharedbottom": dict(bottom_params={"dims": [16]}, tower_params={"dims": [8, 4]}),
+    "star": dict(fcn_dims=[8, 4], aux_dims=[4]),
+    "ple": dict(n_level=2, n_expert_specific=2, n_expert_shared=1,
+                expert_params={"dims": [16, 8]}, tower_params={"dims": [4]}),
+    "hamur": dict(fcn_dims=[16, 16, 12, 12, 8, 8, 6], hyper_dims=[8], k=4),
+    "hamur_small": dict(fcn_dims=[16, 8], hyper_dims=[8], k=5),
+    "mlpn": dict(fcn_dims=[16, 8]),
+    "m3oe": dict(fcn_dims=[16, 8, 8, 4], expert_num=2, exp_d=1, exp_t=1, bal_d=1, bal_t=1),
+}
+
+
+def _narrow_registry_model(name):
+    """A narrow ``name`` on the card (``chip_smoke.py``'s narrow widths;
+    M2M's transformer and AdaSparse without dropout)."""
+    from scenario_wise_rec_tpu_torch.core import DenseFeature, SparseFeature
+    from scenario_wise_rec_tpu_torch.models import get_model
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dense = [DenseFeature("d0")]
+    sparse = [SparseFeature(f"s{i}", 60, embed_dim=8) for i in range(3)]
+    sce = [SparseFeature("domain_indicator", 2, embed_dim=8)]
+    ids = [SparseFeature("uid", 60, embed_dim=8)]
+    if name in GRAPH_NARROW:
+        return get_model(name)(dense + sparse, 2, generator=g, **GRAPH_NARROW[name])
+    kw = {"sarnet": dict(features=dense + sparse, domain_num=2, domain_shared_expert_num=3,
+                         domain_specific_expert_num=2),
+          "epnet": dict(sce_features=sce, agn_features=sparse + dense, fcn_dims=[8]),
+          "ppnet": dict(id_features=ids, agn_features=sparse + dense + sce, domain_num=2,
+                        fcn_dims=[16, 8]),
+          "adasparse": dict(sce_features=sce, agn_features=sparse,
+                            mlp_params={"dims": [16, 8], "dropout": 0.0}),
+          "adaptdhm": dict(features=sparse + sce, fcn_dims=[16, 8], cluster_num=3, beta=0.9),
+          "m2m": dict(features=sparse + sce, domain_feature=sce, domain_num=2, num_experts=4,
+                      expert_output_size=4,
+                      transformer_dims={"num_encoder_layers": 2, "num_decoder_layers": 2,
+                                        "dim_feedforward": 16, "dropout": 0.0})}[name]
+    return get_model(name)(**kw, generator=g)
+
+
+@pytest.mark.parametrize("name", ["mmoe", "sharedbottom", "star", "ple", "sarnet", "epnet",
+                                  "ppnet", "adasparse", "hamur", "hamur_small", "mlpn",
+                                  "adaptdhm", "m2m", "m3oe"])
+def test_every_model_graphed_equals_eager(gen, name):
+    """Every registry model, narrow, with ``sparse_embedding_updates=True``
+    (the sorted update, or the plain step for a model without an
+    ``embedding`` collection): a host epoch of seven batches at S = 3 as a
+    CUDA graph, 0 elements different from the eager epoch."""
+    eager, graphed = _graph_twins(_narrow_registry_model(name), GRAPH_MODES["sorted"])
+    ds = _graph_data()
+    for t in (eager, graphed):
+        _epochs(t, [_graph_loader(ds, "host")])
+    assert graphed.graph_captures == 1
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+
+
+def test_a_failed_capture_raises(gen, monkeypatch):
+    """A step that reads the host (here a loss read each step) cannot be
+    captured: the graphed trainer raises after its warm-up steps and does
+    not fall back to eager steps. (Last in the file: the failed capture is
+    left behind on the graph's stream.)"""
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    _, graphed = _graph_twins(_graph_model(), GRAPH_MODES["sorted"])
+    step = graphed._train_step
+
+    def reading(*a, **kw):
+        loss = step(*a, **kw)
+        float(loss)
+        return loss
+
+    monkeypatch.setattr(graphed, "_train_step", reading)
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        _epochs(graphed, [_graph_loader(_graph_data(), "host")])
+    assert graphed.graph_replays == 0 and graphed.graph_captures == 0
+    assert ptrainer.WARMUP_STEPS >= 1
