@@ -36,6 +36,10 @@
 //      shared with another block: no atomics, and the order of every sum is
 //      fixed by the data.
 //
+// The 7 Adam numbers come by value (`fused_dense_adam_f32`) or from a [7] f32
+// array in device memory (`fused_dense_adam_f32_dev`), the form a CUDA graph
+// of the train step replays, as csrc/sorted_adam.cu's `_dev` forms.
+//
 // Plain C interface (no PyTorch headers), built with nvcc for sm_90a and
 // loaded with ctypes (ops/kernels/_build.py). The kernels run on the caller's
 // stream and allocate nothing.
@@ -63,6 +67,18 @@ int fused_dense_adam_f32(float* table, float* mu, float* nu, const float* g,
   const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
   return emb_adam::launch(table, mu, nu, ids, pos, g, seg_off, nseg, starts, v, d,
                           k, block_rows, h, stream);
+}
+
+// The same, the Adam numbers read from hp: [7] f32 in device memory, (lr, wd,
+// b1, b2, bc1r, bc2r, eps), each block loading them once. A CUDA graph that
+// captures this launch reads whatever hp holds at each replay.
+int fused_dense_adam_f32_dev(float* table, float* mu, float* nu, const float* g,
+                             const int* ids, const int* pos, const int* seg_off,
+                             int nseg, int* starts, long long v, int d, int k,
+                             int block_rows, const float* hp, void* stream) {
+  const emb_adam::Hp h{};
+  return emb_adam::launch(table, mu, nu, ids, pos, g, seg_off, nseg, starts, v, d,
+                          k, block_rows, h, stream, hp);
 }
 
 }  // extern "C"

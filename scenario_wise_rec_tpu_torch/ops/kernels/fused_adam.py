@@ -19,18 +19,28 @@ updated **in place**, by the plain version too.
 
 :func:`fused_dense_adam_apply` takes the plain version for a tensor on the
 CPU and launches the kernel for one on a CUDA device, or raises; it never
-falls back. ``fused_dense_adam_apply.launches`` counts kernel launches.
+falls back. ``fused_dense_adam_apply.launches`` counts kernel launches; a
+launch recorded into a CUDA graph capture counts in ``.captured`` instead
+(it runs once at each replay of the graph).
+
+The 7 Adam numbers ``hp`` come as host floats (passed to the kernel by
+value) or as a ``[7]`` float32 tensor on the table's device, which the
+kernel reads from device memory: the form a CUDA graph of the train step
+captures once and replays with each step's numbers, as the sorted kernel's
+(``sorted_adam.py``). The segment offsets are a device row made once per
+segment layout, so a call copies nothing from the host.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
-from .sorted_adam import _SMEM_LIMIT, _check, _hp32, sorted_dense_adam_apply_ref
+from .sorted_adam import (_SMEM_LIMIT, _check, _check_hp_tensor, _hp32,
+                          sorted_dense_adam_apply_ref)
 
 # Vocab rows one thread block owns on the card: the fastest of 64..1024 in
 # chip_smoke.py's sweep at the Ali-CCP shape (V = 10,741,000, D = 16, 23
@@ -43,7 +53,8 @@ def fused_dense_adam_ref(table, mu, nu, g_rows, ids, hp):
     """The plain PyTorch version (the math of the JAX package's
     ``fused_dense_adam_ref``): a dense ``index_add_`` of the gradient rows at
     ``ids [K]`` (any order, duplicates sum, ids outside ``[0, V)`` add
-    nothing) and vectorised Adam. In place; returns ``(table, mu, nu)``."""
+    nothing) and vectorised Adam. ``hp``: 7 host numbers or a ``[7]``
+    float32 tensor. In place; returns ``(table, mu, nu)``."""
     return sorted_dense_adam_apply_ref(table, mu, nu, ids.to(torch.int32), g_rows, hp)
 
 
@@ -63,15 +74,31 @@ def _lib():
     lib.fused_dense_adam_f32.argtypes = [
         p, p, p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, f, f, f, f, f, f, f, p]
     lib.fused_dense_adam_f32.restype = ctypes.c_int
+    lib.fused_dense_adam_f32_dev.argtypes = [
+        p, p, p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, p, p]
+    lib.fused_dense_adam_f32_dev.restype = ctypes.c_int
     lib.fused_dense_adam_smem_bytes.argtypes = [i, i, i]
     lib.fused_dense_adam_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _segment_offsets(sizes: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The segments' offsets ``[S + 1]`` int32 on ``device``, made once per
+    layout (and outside inference mode, so that a train step may use one an
+    eval pass made): a call copies nothing from the host, so a CUDA graph
+    can capture it."""
+    offsets = [0]
+    for s in sizes:
+        offsets.append(offsets[-1] + s)
+    with torch.inference_mode(False):
+        return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
 def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                            g_rows: torch.Tensor, sorted_ids: torch.Tensor,
                            sorted_pos: torch.Tensor, segment_sizes: Sequence[int],
-                           hp: Sequence[float], *,
+                           hp, *,
                            block_rows: int = DEFAULT_BLOCK_ROWS):
     """One dense-Adam pass over ``table``, ``mu``, ``nu`` (``[V, D]`` f32),
     in place. Returns ``(table, mu, nu)``.
@@ -86,7 +113,10 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
         sorted_pos: ``[K]`` int32, the row of ``g_rows`` of each sorted id.
         segment_sizes: the segments' lengths, in order; they cover ``K``.
         hp: 7 host numbers ``(lr, wd, b1, b2, 1/(1-b1^t), 1/(1-b2^t), eps)``
-            (``sorted_adam.adam_hparams``), passed to the kernel by value.
+            (``sorted_adam.adam_hparams``), passed to the kernel by value; or
+            the same as a ``[7]`` float32 tensor on the table's device, which
+            the kernel reads from device memory, so a captured launch takes
+            the numbers ``hp`` holds at replay.
         block_rows: vocab rows one thread block owns on the card.
     """
     if block_rows <= 0:
@@ -96,6 +126,9 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
         raise ValueError(f"sorted_ids and sorted_pos must be [K], got "
                          f"{tuple(sorted_ids.shape)} and {tuple(sorted_pos.shape)}")
     sizes = _check_segments(K, segment_sizes)
+    on_device = isinstance(hp, torch.Tensor)
+    if on_device:
+        _check_hp_tensor(hp, table)
     if table.device.type == "cpu":
         return fused_dense_adam_ref(table, mu, nu, g_rows[sorted_pos.long()], sorted_ids, hp)
     if table.device.type != "cuda":
@@ -116,24 +149,30 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
     if smem > _SMEM_LIMIT:
         raise ValueError(f"block_rows={block_rows} at D={D} with {len(sizes)} segments needs "
                          f"{smem} bytes of shared memory per block, more than {_SMEM_LIMIT}")
-    offsets = [0]
-    for s in sizes:
-        offsets.append(offsets[-1] + s)
-    seg_off = torch.tensor(offsets, dtype=torch.int32, device=table.device)
+    seg_off = _segment_offsets(tuple(sizes), table.device)
     nb = -(-V // block_rows)
     starts = torch.empty(len(sizes) * (nb + 1), dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    with torch.cuda.device(table.device):
-        err = lib.fused_dense_adam_f32(
-            table.data_ptr(), mu.data_ptr(), nu.data_ptr(), g_rows.data_ptr(),
+    args = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), g_rows.data_ptr(),
             sorted_ids.data_ptr(), sorted_pos.data_ptr(), seg_off.data_ptr(), len(sizes),
-            starts.data_ptr(), V, D, K, block_rows, *_hp32(hp), stream)
+            starts.data_ptr(), V, D, K, block_rows)
+    with torch.cuda.device(table.device):
+        if on_device:
+            err = lib.fused_dense_adam_f32_dev(*args, hp.data_ptr(), stream)
+        else:
+            err = lib.fused_dense_adam_f32(*args, *_hp32(hp), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_dense_adam_apply launch failed with cudaError {err} "
             f"({smem} bytes of shared memory per block, block_rows={block_rows})")
-    fused_dense_adam_apply.launches += 1
+    # a launch recorded into a CUDA graph runs at each replay, not here
+    if torch.cuda.is_current_stream_capturing():
+        fused_dense_adam_apply.captured += 1
+    else:
+        fused_dense_adam_apply.launches += 1
     return table, mu, nu
 
 
 fused_dense_adam_apply.launches = 0
+# launches recorded into CUDA graph captures (each runs once a replay)
+fused_dense_adam_apply.captured = 0

@@ -21,7 +21,9 @@ here they are checked and unused.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches its
 kernel for one on a CUDA device, or raises; it never falls back.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches; a launch recorded into a CUDA
+graph capture counts in ``<wrapper>.captured`` instead (it runs once at each
+replay of the graph).
 """
 
 from __future__ import annotations
@@ -97,6 +99,16 @@ def _cuda_only(name, *tensors):
             raise ValueError(f"{name}: tensor on {t.device}, expected {dev}")
 
 
+def _count(wrapper):
+    """One more launch of ``wrapper``'s kernel: under a CUDA graph capture
+    in ``.captured`` (the kernel runs at each replay, not here), else in
+    ``.launches``."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def _int_ids(name, ids):
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{name} takes int32 or int64 ids on the card, got {ids.dtype}")
@@ -147,11 +159,12 @@ def occurrence_segsum(ids: torch.Tensor, g: torch.Tensor, *, tile: int = 256) ->
                                                out.data_ptr(), F * N, N, D, stream)
     if err != 0:
         raise RuntimeError(f"occurrence_segsum launch failed with cudaError {err}")
-    occurrence_segsum.launches += 1
+    _count(occurrence_segsum)
     return out
 
 
 occurrence_segsum.launches = 0
+occurrence_segsum.captured = 0
 
 
 def _check_scatter(dst, ids, rows):
@@ -217,8 +230,9 @@ def scatter_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, *,
                                   torch._C._cuda_getCurrentRawStream(dst.device.index))
     if err != 0:
         raise RuntimeError(f"scatter_rows launch failed with cudaError {err}")
-    scatter_rows.launches += 1
+    _count(scatter_rows)
     return dst
 
 
 scatter_rows.launches = 0
+scatter_rows.captured = 0

@@ -25,7 +25,10 @@ and update it from the batch's per-occurrence gradient rows (``g_rows
 
 Every update takes ``frozen_spans``, the packed rows of frozen pretrained
 tables, which keep their weights and moments (``train/freeze.py``). The step
-count is a host int, so no update syncs with the card. (The TPU kept the
+count is a host int, so no update syncs with the card. The sorted, dense and
+occurrence updates also take their step's Adam numbers as a row on the
+device (``hp=``), which a CUDA graph of the train step replays with each
+step's row; the caller then advances the step count. (The TPU kept the
 sorted table padded in a packed ``[V2/r, 128]`` layout; that layout is not
 carried over, so eval reads the live table directly.)
 
@@ -104,6 +107,26 @@ def _bias_corrections(step: int, b1: float, b2: float) -> Tuple[float, float]:
     return float(f(1.0) - f(b1) ** t), float(f(1.0) - f(b2) ** t)
 
 
+def occurrence_hparams_rows(step0: int, n: int, lr: float, b1: float,
+                            b2: float) -> np.ndarray:
+    """``[n, 3]`` float32: row ``i`` is ``(lr, 1 - b1^t, 1 - b2^t)`` of step
+    ``t = step0 + i`` (:func:`_bias_corrections`), the numbers that change
+    from step to step in :func:`sparse_adam_occurrence_update`; the
+    companion of ``adam_hparams_rows`` (``ops/kernels/sorted_adam.py``)."""
+    return np.array([(lr,) + _bias_corrections(step0 + i, b1, b2) for i in range(n)],
+                    np.float32).reshape(n, 3)
+
+
+def _staged_row(row: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host row on ``device``: on a card from pinned memory with
+    ``non_blocking=True``, so the copy neither syncs the stream nor blocks
+    the host."""
+    t = torch.from_numpy(row)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _rows_adam_core(table, opt_state, g, gather_ids, scatter_ids, lr, weight_decay,
                     b1, b2, eps):
     """The shared torch-Adam row math: gather the rows and moments at
@@ -163,7 +186,10 @@ def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
     winner = torch.zeros(vocab, dtype=torch.int32, device=ids.device)
     winner[ids] = occ.to(torch.int32)      # any duplicate wins
     rep = winner[ids].long()               # occurrence -> its winner
-    g_slot = torch.zeros_like(g_rows).index_add_(0, rep, g_rows)
+    # each winner's sum in the order of occurrence: an accumulating index_put_
+    # sums duplicates in that order on the card too (index_add_'s atomics
+    # would sum them in any order, and two runs could differ in the last bit)
+    g_slot = torch.zeros_like(g_rows).index_put_((rep,), g_rows, accumulate=True)
     uid = torch.where(rep == occ, ids, vocab)  # non-winners write nothing
     if frozen_spans:
         uid = torch.where(frozen_ids_mask(uid, frozen_spans), vocab, uid)
@@ -203,8 +229,11 @@ def _owner_rows(segments, device):
     shapes = tuple((len(owners), n) for n, owners in by_len.items())
     if order == list(range(len(order))):
         return None, None, shapes
-    order = torch.tensor(order, device=device)
-    return order, torch.argsort(order), shapes
+    # made once (a train step's warm-up makes it before a CUDA graph capture),
+    # outside inference mode
+    with torch.inference_mode(False):
+        order = torch.tensor(order, device=device)
+        return order, torch.argsort(order), shapes
 
 
 def _grouped_occurrence_segsum(g_rows, ids, segments):
@@ -232,7 +261,8 @@ def _grouped_occurrence_segsum(g_rows, ids, segments):
 def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
                                   lr: float = 1e-3, weight_decay: float = 1e-5,
                                   b1: float = 0.9, b2: float = 0.999,
-                                  eps: float = 1e-8, frozen_spans: Spans = ()):
+                                  eps: float = 1e-8, frozen_spans: Spans = (),
+                                  hp: Optional[torch.Tensor] = None):
     """Lazy Adam on the combined row store (the ``occurrence`` update), the
     semantics of :func:`sparse_adam_rowgrads_update`:
 
@@ -247,10 +277,26 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
     ``segments``: the ``(owner, start, size)`` layout of ``ids``
     (``EmbeddingCollection.touched_owner_segments``). Updates
     ``opt_state["comb"]`` in place and returns ``opt_state``; the weights
-    are ``comb[:, :D]``."""
+    are ``comb[:, :D]``.
+
+    The step's ``lr``, ``1 - b1^t`` and ``1 - b2^t`` are read from a ``[3]``
+    float32 row on the store's device (:func:`occurrence_hparams_rows`),
+    and the update divides by the corrections there. ``hp``: that row, as
+    the trainer's CUDA graphs replay this call with each step's row; ``lr``
+    is then unused and ``opt_state["step"]`` is left to the caller. Without
+    ``hp`` the update stages its step's row itself (on a card from pinned
+    memory, no sync), so an eager step and a replay compute alike: PyTorch's
+    CUDA division by a host number multiplies by its reciprocal, by a device
+    number it divides."""
+    step, advance = int(opt_state["step"]) + 1, hp is None
     if ids.shape[0] == 0:
-        opt_state["step"] = int(opt_state["step"]) + 1
+        if advance:
+            opt_state["step"] = step
         return opt_state
+    if advance:
+        hp = _staged_row(occurrence_hparams_rows(step, 1, lr, b1, b2)[0],
+                         opt_state["comb"].device)
+    lr_t, bc1, bc2 = hp[0], hp[1], hp[2]
     d = g_rows.shape[-1]
     with torch.no_grad():
         g = _grouped_occurrence_segsum(g_rows, ids, segments)
@@ -259,15 +305,23 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
             g = g + weight_decay * p  # torch Adam: decay folded into the gradient
         mu = b1 * r3[:, d:2 * d] + (1 - b1) * g
         nu = b2 * r3[:, 2 * d:] + (1 - b2) * (g * g)
-        t = int(opt_state["step"]) + 1
-        bc1, bc2 = _bias_corrections(t, b1, b2)
-        update = lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        update = lr_t * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
         new3 = torch.cat([p - update, mu, nu], dim=1)
         if frozen_spans:
             new3 = torch.where(frozen_ids_mask(ids, frozen_spans)[:, None], r3, new3)
         scatter_rows(opt_state["comb"], ids, new3)
-    opt_state["step"] = t
+    if advance:
+        opt_state["step"] = step
     return opt_state
+
+
+@functools.lru_cache(maxsize=64)
+def _sizes_row(sizes: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The segments' sizes as a long row on ``device``, made once per layout
+    (and outside inference mode): a step copies nothing from the host, so a
+    CUDA graph can capture it."""
+    with torch.inference_mode(False):
+        return torch.tensor(sizes, dtype=torch.long, device=device)
 
 
 def segment_sorted_ids(ids: torch.Tensor, segments):
@@ -284,8 +338,7 @@ def segment_sorted_ids(ids: torch.Tensor, segments):
     if pos != ids.shape[0]:
         raise ValueError("segments do not cover the ids")
     seg = torch.repeat_interleave(torch.arange(len(sizes), device=ids.device),
-                                  torch.tensor(sizes, dtype=torch.long, device=ids.device),
-                                  output_size=pos)
+                                  _sizes_row(tuple(sizes), ids.device), output_size=pos)
     key = (seg << 32) + (ids.long() + 2 ** 31)  # signed id order within a segment
     _, perm = torch.sort(key, stable=True)
     return ids[perm].to(torch.int32), perm.to(torch.int32), sizes
@@ -295,22 +348,30 @@ def fused_dense_adam_update(table, opt_state, g_rows, ids, segments,
                             lr: float = 1e-3, weight_decay: float = 1e-5,
                             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                             block_rows: int = FUSED_BLOCK_ROWS,
-                            frozen_spans: Spans = ()):
+                            frozen_spans: Spans = (),
+                            hp: Optional[torch.Tensor] = None):
     """Exact dense torch-Adam on ``table`` (the ``dense`` update): every row
     takes weight decay and moment decay every step, as the reference's
     ``torch.optim.Adam`` over ``nn.Embedding.weight``. Each segment's ids
     are sorted separately (:func:`segment_sorted_ids`), which is all the
     kernel of ``ops/kernels/fused_adam.py`` needs; the gradient rows stay in
     their order. Frozen spans keep their rows and moments. In place; returns
-    ``(table, opt_state)``."""
-    step = int(opt_state["step"]) + 1
-    hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
+    ``(table, opt_state)``.
+
+    ``hp``: the step's 7 Adam numbers as a ``[7]`` float32 tensor on the
+    table's device, as :func:`sorted_dense_adam_update` takes them; ``lr``
+    to ``eps`` are then unused and ``opt_state["step"]`` is left to the
+    caller."""
+    step, advance = int(opt_state["step"]) + 1, hp is None
+    if advance:
+        hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
     sorted_ids, sorted_pos, sizes = segment_sorted_ids(ids, segments)
     tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
     with rows_kept(tensors, frozen_spans):
         fused_dense_adam_apply(*tensors, g_rows.contiguous(), sorted_ids, sorted_pos,
                                sizes, hp, block_rows=block_rows)
-    opt_state["step"] = step
+    if advance:
+        opt_state["step"] = step
     return table, opt_state
 
 

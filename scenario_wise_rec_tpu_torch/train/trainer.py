@@ -60,19 +60,22 @@ protocol.
   the device, and each step gathers its batch there
   (:meth:`CTRTrainer.train_one_epoch_resident`).
 - **scan_steps = S > 1** (the JAX package's S steps a dispatch, its
-  ``lax.scan``): in the sorted mode (f32 or bf16 store) and the plain step,
-  each dispatch stages S batches as one int and one float matrix (a host
-  loader's packed on the prefetch thread and copied from pinned memory, a
-  resident loader's gathered on the device) and runs S steps of one step
-  body that picks its batch rows, its sorted-update numbers ``hp`` and its
-  loss slot by a device-side step counter. On the card that body is
-  captured once as a CUDA graph, after warm-up steps of the epoch run
-  eagerly, and replayed for every later step (the remainder is fewer
-  replays); on the CPU it runs uncaptured. Replays equal eager steps: the
-  dense ``torch.optim.Adam`` is ``capturable``, the dropout generator is
-  registered with the graph, and the sorted kernel reads each step's Adam
-  numbers from device memory. The other modes run one eager step a batch
-  at any S.
+  ``lax.scan``), in every mode: each dispatch stages S batches as one int
+  and one float matrix (a host loader's packed on the prefetch thread and
+  copied from pinned memory, a resident loader's gathered on the device)
+  and runs S steps of one step body that picks its batch rows, its
+  embedding update's Adam numbers ``hp`` and its loss slot by a device-side
+  step counter. In the sorted (f32 or bf16 store), dense and occurrence
+  modes and the plain step, that body is captured once on the card as a
+  CUDA graph, after warm-up steps of the epoch run eagerly, and replayed for
+  every later step (the remainder is fewer replays); on the CPU it runs
+  uncaptured. Replays equal eager steps: the dense ``torch.optim.Adam`` is
+  ``capturable``, the dropout generator is registered with the graph, and
+  the update reads each step's Adam numbers from device memory (the sorted
+  and dense kernels a 7-number row, the occurrence update a 3-number one).
+  The ``winner`` mode runs its dispatch's steps through the same body
+  uncaptured, on the card too: its winner scatter indexes with a mask,
+  which reads the host. Losses are logged as the JAX trainer logs them.
 - **fit**: per-epoch StepLR, ``train_one_epoch`` (over a host loader or a
   ``DeviceResidentLoader``), validation AUC, early stopping that restores
   the best weights only on a stop, and a final checkpoint (reference
@@ -98,15 +101,20 @@ from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
 from .metrics import auc_score, auc_score_device, log_loss_device, log_loss_score
-from .optim import (adam, fused_dense_adam_update, sorted_dense_adam_init,
-                    sorted_dense_adam_update, sparse_adam_init,
+from .optim import (adam, fused_dense_adam_update, occurrence_hparams_rows,
+                    sorted_dense_adam_init, sorted_dense_adam_update, sparse_adam_init,
                     sparse_adam_occurrence_init, sparse_adam_occurrence_update,
                     sparse_adam_rowgrads_update)
 
 _EMB_MODES = ("dense", "winner", "occurrence", "sorted")
-# the steps a scan_steps > 1 dispatch runs through one step body (graphed on
-# the card): the plain step (None) and the sorted update
-_DISPATCHED_MODES = (None, "sorted")
+# the steps a scan_steps > 1 dispatch captures as a CUDA graph on the card:
+# the plain step (None) and every update but the winner scatter's, whose mask
+# index reads the host
+_CAPTURED_MODES = (None, "sorted", "dense", "occurrence")
+# the width of the Adam-number row a step of each update reads from the
+# device in a dispatch (sorted_adam.adam_hparams_rows, optim.occurrence_hparams_rows);
+# the winner update computes its own numbers and advances its own step count
+_HP_WIDTH = {"sorted": 7, "dense": 7, "occurrence": 3}
 # eager steps of a new step plan before its capture: the optimizer's state,
 # cuBLAS's workspace and the kernels' libraries exist before capture
 WARMUP_STEPS = 2
@@ -118,17 +126,19 @@ class _StepPlan:
     these, so a replay reads what the dispatch staged.
 
     ``ints``/``floats``/``w``: the dispatch's packed batches (the
-    ``DeviceResidentLoader`` layout, label last), ``hp``: one row of Adam
-    numbers a step (sorted mode), ``losses``: one slot a step, ``counter``:
-    the step within the dispatch, advanced by the step body."""
+    ``DeviceResidentLoader`` layout, label last), ``hp``: one row of the
+    embedding update's Adam numbers a step (``hp_width`` of them: 7 for the
+    sorted and dense kernels, 3 for the occurrence update; None for the
+    plain step and the winner update), ``losses``: one slot a step,
+    ``counter``: the step within the dispatch, advanced by the step body."""
 
-    def __init__(self, loader, layout, b, steps, n_int, n_float1, device, sorted_mode):
+    def __init__(self, loader, layout, b, steps, n_int, n_float1, device, hp_width):
         self.loader, self.layout, self.b = loader, layout, b
         self.ints = torch.empty((steps * b, n_int), dtype=torch.int32, device=device)
         self.floats = torch.empty((steps * b, n_float1), dtype=torch.float32, device=device)
         self.w = torch.empty((steps * b,), dtype=torch.float32, device=device)
-        self.hp = (torch.empty((steps, 7), dtype=torch.float32, device=device)
-                   if sorted_mode else None)
+        self.hp = (torch.empty((steps, hp_width), dtype=torch.float32, device=device)
+                   if hp_width else None)
         self.losses = torch.empty((steps,), dtype=torch.float32, device=device)
         self.counter = torch.zeros((1,), dtype=torch.long, device=device)
         self.rows = torch.arange(b, device=device)
@@ -166,15 +176,15 @@ class CTRTrainer:
             in the JAX package.
         fused_inference: ``True`` runs eval through ``apply_fused_eval``.
         scan_steps: the JAX package's optimizer steps per device dispatch
-            (a positive int). 1: one eager step a batch. S > 1 in the sorted
-            mode or the plain step: S steps a dispatch through one step
-            body, captured once as a CUDA graph and replayed on the card
-            (see the module docstring; :attr:`graphed`,
-            :attr:`graph_replays`), with the same result as S single steps;
-            the dense optimizer must take ``capturable`` (torch's Adam
-            does), which the trainer sets. A failed capture raises; nothing
-            falls back to eager steps. The ``occurrence``, ``dense`` and
-            ``winner`` modes run one eager step a batch at any S.
+            (a positive int). 1: one eager step a batch. S > 1: S steps a
+            dispatch through one step body, with the same result as S
+            single steps; in the sorted, dense and occurrence modes and the
+            plain step captured once as a CUDA graph and replayed on the
+            card (see the module docstring; :attr:`graphed`,
+            :attr:`graph_replays`), in the winner mode run uncaptured. A
+            graphed trainer's dense optimizer must take ``capturable``
+            (torch's Adam does), which the trainer sets. A failed capture
+            raises; nothing falls back to eager steps.
         prefetch_depth: host batches prepared ahead on a thread (0: none).
         sorted_block_rows: the sorted kernel's vocab tile (default: the
             port's own for the storage type, ``DEFAULT_BLOCK_ROWS`` or
@@ -333,16 +343,17 @@ class CTRTrainer:
 
     @property
     def _dispatched(self) -> bool:
-        """``scan_steps > 1`` in a mode whose steps run S a dispatch."""
-        return self.scan_steps > 1 and self._emb_mode in _DISPATCHED_MODES
+        """``scan_steps > 1``: the steps run S a dispatch, in every mode."""
+        return self.scan_steps > 1
 
     @property
     def graphed(self) -> bool:
         """True when the train steps run as a CUDA graph: ``scan_steps > 1``
-        on the card in the sorted mode or the plain step. False at
-        ``scan_steps=1``, on the CPU and in the occurrence, dense and winner
-        modes, which step eagerly."""
-        return self._dispatched and self.device.type == "cuda"
+        on the card in the sorted, dense or occurrence mode or the plain
+        step. False at ``scan_steps=1``, on the CPU and in the winner mode,
+        whose dispatches step uncaptured."""
+        return (self._dispatched and self.device.type == "cuda"
+                and self._emb_mode in _CAPTURED_MODES)
 
     @property
     def _capturable(self) -> bool:
@@ -426,9 +437,9 @@ class CTRTrainer:
 
     def _train_step(self, x, y, w, hp=None) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on the
-        device: reading it is the caller's sync). ``hp``: the sorted update's
-        Adam numbers as a device row (a dispatch's step body); the caller
-        then advances the update's step count."""
+        device: reading it is the caller's sync). ``hp``: the sorted, dense or
+        occurrence update's Adam numbers as a device row (a dispatch's step
+        body); the caller then advances the update's step count."""
         model, mode, st = self.model, self._emb_mode, self.emb_opt_state
         rows = None
         if mode is not None:
@@ -469,12 +480,12 @@ class CTRTrainer:
                                      hp=hp, **kw)
         elif mode == "dense":
             fused_dense_adam_update(col.packed, st, rows.grad, ids,
-                                    col.touched_owner_segments(x), **kw)
+                                    col.touched_owner_segments(x), hp=hp, **kw)
         elif mode == "winner":
             sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, **kw)
         else:
             sparse_adam_occurrence_update(st, rows.grad, ids,
-                                          col.touched_owner_segments(x), r3, **kw)
+                                          col.touched_owner_segments(x), r3, hp=hp, **kw)
         return loss.detach()
 
     def _optimizer_step(self):
@@ -548,7 +559,7 @@ class CTRTrainer:
             return p
         self._plan = None  # release the old graph before a new capture
         self._plan = _StepPlan(loader, layout, b, self.scan_steps, n_int, n_float1,
-                               self.device, self._sorted_mode)
+                               self.device, _HP_WIDTH.get(self._emb_mode))
         return self._plan
 
     def _plan_step(self, plan: _StepPlan):
@@ -558,7 +569,8 @@ class CTRTrainer:
         sel = plan.counter * plan.b + plan.rows
         x, y = gather_columns(plan.layout, plan.ints.index_select(0, sel),
                               plan.floats.index_select(0, sel))
-        hp = None if plan.hp is None else plan.hp.index_select(0, plan.counter).view(7)
+        hp = (None if plan.hp is None
+              else plan.hp.index_select(0, plan.counter).view(plan.hp.shape[1]))
         loss = self._train_step(x, y, plan.w.index_select(0, sel), hp=hp)
         plan.losses.index_copy_(0, plan.counter, loss.view(1))
         plan.counter.add_(1)
@@ -606,23 +618,30 @@ class CTRTrainer:
         self.graph_captures += 1
         plan.graph, plan.state = g, self._graph_state()
 
+    def _hp_rows(self, n: int) -> np.ndarray:
+        """The embedding update's Adam numbers for the next ``n`` steps, one
+        row a step, computed on the host from the int step count."""
+        p, step = self._opt_params, int(self.emb_opt_state["step"]) + 1
+        b1, b2 = p.get("b1", 0.9), p.get("b2", 0.999)
+        if self._emb_mode == "occurrence":
+            return occurrence_hparams_rows(step, n, self._lr_now, b1, b2)
+        return adam_hparams_rows(step, n, self._lr_now, p.get("weight_decay", 1e-5), b1, b2,
+                                 p.get("eps", 1e-8))
+
     def _run_dispatch(self, plan: _StepPlan, n: int) -> torch.Tensor:
         """``n`` steps of the plan over its staged batches; returns their
         losses ``[n]`` (a copy on the device, so the next dispatch can
-        overwrite the plan's slots). On the card: eager warm-up steps until
-        the plan is captured, then replays; on the CPU: the body, uncaptured."""
-        st = self.emb_opt_state
+        overwrite the plan's slots). Graphed: eager warm-up steps until the
+        plan is captured, then replays; otherwise (the CPU, the winner mode)
+        the body, uncaptured."""
         if plan.hp is not None:
-            p = self._opt_params
-            rows = torch.from_numpy(adam_hparams_rows(
-                int(st["step"]) + 1, n, self._lr_now, p.get("weight_decay", 1e-5),
-                p.get("b1", 0.9), p.get("b2", 0.999), p.get("eps", 1e-8)))
+            rows = torch.from_numpy(self._hp_rows(n))
             if self.device.type == "cuda":
                 rows = rows.pin_memory()
             plan.hp[:n].copy_(rows, non_blocking=True)
         plan.counter.zero_()
         i = 0
-        if self.device.type == "cuda":
+        if self.graphed:
             if self._graph_stream is None:
                 self._graph_stream = torch.cuda.Stream(self.device)
             while i < n and plan.graph is None:
@@ -638,7 +657,9 @@ class CTRTrainer:
             for _ in range(n):
                 self._plan_step(plan)
         if plan.hp is not None:
-            st["step"] = int(st["step"]) + n
+            # the body read its rows and left the count to this dispatch (the
+            # winner update advances its own)
+            self.emb_opt_state["step"] = int(self.emb_opt_state["step"]) + n
         return plan.losses[:n].clone()
 
     def _log_dispatch(self, losses, n, done, n_total, log_interval, pending):
@@ -682,8 +703,10 @@ class CTRTrainer:
         mean loss of the last logged window (None for an empty loader); a
         ``DeviceResidentLoader`` runs :meth:`train_one_epoch_resident`,
         which returns None and defers its last loss line. At ``scan_steps``
-        S > 1 in the sorted mode or the plain step, S steps a dispatch (on
-        the card a CUDA graph's replays), logging as the JAX trainer does."""
+        S > 1, S steps a dispatch (graphed: a CUDA graph's replays), logging
+        as the JAX trainer does: after a full dispatch where ``done %
+        log_interval < S``, not inside the remainder. At S = 1 a line every
+        ``log_interval`` steps."""
         self._flush_epoch_log()
         if isinstance(data_loader, DeviceResidentLoader):
             return self.train_one_epoch_resident(data_loader, log_interval)
@@ -752,11 +775,10 @@ class CTRTrainer:
         the loader's matrices indexed by the batch's slice of the epoch's
         ids, its weights from position math (``pos < n``: zero exactly on
         the padded tail). Dropout draws from ``self.generator`` in the host
-        loop's order. At ``scan_steps`` S > 1 in the sorted mode or the
-        plain step, each dispatch gathers its S batches' rows into the step
-        plan's buffers at once and runs S steps (on the card, replays of
-        the captured step); the remainder is a dispatch of fewer steps.
-        ``resident_gather`` changes nothing.
+        loop's order. At ``scan_steps`` S > 1, each dispatch gathers its S
+        batches' rows into the step plan's buffers at once and runs S steps
+        (graphed: replays of the captured step); the remainder is a
+        dispatch of fewer steps. ``resident_gather`` changes nothing.
 
         Returns None: the last losses stay on the device, and their line
         prints at the next trainer entry point or :meth:`barrier`, so the

@@ -2667,23 +2667,183 @@ def test_graphed_step_lr_recaptures(gen, tmp_path):
     assert not any(diff.values()), {k: v for k, v in diff.items() if v}
 
 
-@pytest.mark.parametrize("mode", ["occurrence", "dense", "winner"])
+@pytest.mark.parametrize("mode", ["winner"])
 def test_eager_modes_at_scan_steps_3_are_not_graphed(gen, mode):
-    """The occurrence, dense and winner modes run one eager step a batch at
-    S = 3 and say so; their epochs equal S = 1's (the winner scatter's
-    atomics may reorder a sum: the train-step gate)."""
+    """The winner mode, whose mask index reads the host, runs its dispatches
+    of S = 3 uncaptured and says so: no capture, no replay, torch.optim.Adam
+    not made capturable; two epochs with a remainder differ from S = 1's in
+    0 elements (its duplicate sums run in the order of occurrence)."""
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
     kw = dict(sparse_embedding_updates=True, sparse_update_impl=mode)
-    model = _graph_model()
+    model = _graph_model(dropout=0.2)
     one, three = CTRTrainer(model, **kw), CTRTrainer(copy.deepcopy(model), scan_steps=3, **kw)
-    assert not three.graphed and three.optimizer.defaults["capturable"] is False
+    assert three._dispatched and not three.graphed
+    assert three.optimizer.defaults["capturable"] is False
     ds = _graph_data()
     for t in (one, three):
+        _epochs(t, [_graph_loader(ds, "host"), _graph_loader(ds, "resident")])
+    assert three.graph_replays == 0 and three.graph_captures == 0 and three._plan is not None
+    assert three.emb_opt_state["step"] == 14
+    diff = _differing(one, three)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+
+
+# the updates whose step a dispatch captures, beside the sorted one and the
+# plain step: each update kernel's launches a step
+CAPTURED_MODES = {"occurrence": {"occurrence_segsum": 1, "scatter_rows": 1},
+                  "dense": {"fused_dense_adam_apply": 1}}
+
+
+def _update_wrappers():
+    return {"occurrence_segsum": kru.occurrence_segsum, "scatter_rows": kru.scatter_rows,
+            "fused_dense_adam_apply": kfa.fused_dense_adam_apply}
+
+
+def _mode_kw(mode):
+    return dict(sparse_embedding_updates=True, sparse_update_impl=mode)
+
+
+def test_fused_adam_device_hp_form(gen):
+    """Row 14's form that reads its Adam numbers from device memory: three
+    steps, each from one state, equal the by-value form bit for bit and hold
+    against the plain version under the order rule; a launch counts in
+    ``.launches``, one under capture in ``.captured``."""
+    from scenario_wise_rec_tpu_torch.train.optim import segment_sorted_ids
+
+    V, D, sizes = 100_003, 16, [4096, 4096, 100]
+    ids = torch.randint(0, V // 3, (sum(sizes),), generator=gen, device="cuda")
+    ids[:1000] = 17
+    ids[-2:] = torch.tensor([-1, V + 3], device="cuda")
+    segs = [("f", 0, 4096), ("g", 4096, 4096), ("h", 8192, 100)]
+    sid, pos, _ = segment_sorted_ids(ids, segs)
+    trio = list(_sa_case(gen, V, D, ids)[:3])
+    for t in range(1, 4):
+        ref, byval = ([x.clone() for x in trio] for _ in range(2))
+        g = 1e-3 * torch.randn(ids.shape[0], D, generator=gen, device="cuda")
+        hp = sa.adam_hparams(t, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+        rule = _AdamOrderRule(ref[0])
+        rule.step(ref[0], ids, g, hp)
+        kfa.fused_dense_adam_ref(*ref, g, ids, hp)
+        kfa.fused_dense_adam_apply(*byval, g, sid, pos, sizes, hp)
+        before = kfa.fused_dense_adam_apply.launches
+        kfa.fused_dense_adam_apply(*trio, g, sid, pos, sizes, torch.tensor(hp, device="cuda"))
+        torch.cuda.synchronize()
+        assert kfa.fused_dense_adam_apply.launches == before + 1
+        for got, bv, want, what in zip(trio, byval, ref, ("table", "mu", "nu")):
+            assert torch.equal(got, bv), (what, t)
+            assert rule.close(got, want, what), (what, t)
+        rule.count()
+    hp_t = torch.tensor(hp, device="cuda")
+    launches, captured = kfa.fused_dense_adam_apply.launches, kfa.fused_dense_adam_apply.captured
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        kfa.fused_dense_adam_apply(*trio, g, sid, pos, sizes, hp_t)
+    torch.cuda.synchronize()
+    assert (kfa.fused_dense_adam_apply.launches, kfa.fused_dense_adam_apply.captured) == (
+        launches, captured + 1)
+    want = [x.clone() for x in trio]
+    kfa.fused_dense_adam_apply(*want, g, sid, pos, sizes, hp_t)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, w in zip(trio, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("kind", ["host", "resident"])
+@pytest.mark.parametrize("mode", list(CAPTURED_MODES))
+def test_captured_mode_epochs_equal_eager_epochs(gen, mode, kind):
+    """The occurrence and dense modes at S = 3 as a CUDA graph, MMOE with
+    dropout 0.2: two epochs of seven batches (two dispatches and a remainder
+    of one an epoch) differ from the eager S = 1 epochs (a capturable
+    torch.optim.Adam) in 0 elements; two warm-up steps, one capture and 12
+    replays; each update kernel launched twice eagerly and captured once,
+    and the update's step count at 14."""
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    eager, graphed = _graph_twins(_graph_model(dropout=0.2), _mode_kw(mode))
+    ds = _graph_data()
+    wrappers = _update_wrappers()
+    before = {k: (f.launches, f.captured) for k, f in wrappers.items()}
+    _epochs(graphed, [_graph_loader(ds, kind)] * 2)
+    torch.cuda.synchronize()
+    warm = ptrainer.WARMUP_STEPS
+    assert (graphed.graph_captures, graphed.graph_replays) == (1, 14 - warm)
+    for k, f in wrappers.items():
+        n = CAPTURED_MODES[mode].get(k, 0)
+        assert (f.launches - before[k][0], f.captured - before[k][1]) == (warm * n, n), k
+    _epochs(eager, [_graph_loader(ds, kind)] * 2)
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+    assert graphed.emb_opt_state["step"] == eager.emb_opt_state["step"] == 14
+    assert graphed.generator.get_offset() == eager.generator.get_offset()
+    if mode == "occurrence":  # the model's table stays the store's view
+        assert (graphed.model.embedding.packed.data_ptr()
+                == graphed.emb_opt_state["comb"].data_ptr())
+
+
+@pytest.mark.parametrize("mode", list(CAPTURED_MODES))
+def test_captured_mode_replay_with_a_stale_row_fails(gen, mode, monkeypatch):
+    """A planted fault: every step of a dispatch given its first step's row
+    of Adam numbers (as if the replays did not advance it) must not equal
+    the eager epochs."""
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    name = {"occurrence": "occurrence_hparams_rows", "dense": "adam_hparams_rows"}[mode]
+    right = getattr(ptrainer, name)
+    monkeypatch.setattr(ptrainer, name,
+                        lambda step0, n, *a: np.repeat(right(step0, 1, *a), n, axis=0))
+    eager, graphed = _graph_twins(_graph_model(), _mode_kw(mode))
+    ds = _graph_data()
+    for t in (eager, graphed):
         _epochs(t, [_graph_loader(ds, "host")])
-    assert three.graph_replays == 0 and three._plan is None
-    print(f"{mode}: {sum(_differing(one, three).values())} elements differ from S = 1")
-    _step_gate(one, three)
+    diff = _differing(graphed, eager)
+    moments = "emb/comb" if mode == "occurrence" else "emb/nu"
+    assert diff["model/embedding.packed"] > 0 and diff[moments] > 0, diff
+
+
+@pytest.mark.parametrize("mode", list(CAPTURED_MODES))
+def test_captured_mode_save_load_and_continue(gen, mode, tmp_path):
+    """Train graphed, save, load into a new graphed trainer and a new eager
+    one, and continue both an epoch: 0 elements differ; a load drops the
+    captured step (in the occurrence mode the store the graph writes)."""
+    kw = _mode_kw(mode)
+    _, first = _graph_twins(_graph_model(), kw)
+    ds = _graph_data()
+    _epochs(first, [_graph_loader(ds, "resident")])
+    path = first.save(str(tmp_path / "ckpt"))
+    eager, graphed = _graph_twins(_graph_model(), kw)
+    for t in (eager, graphed):
+        t.load(path)
+        assert t._plan is None
+        _epochs(t, [_graph_loader(ds, "resident", seed=3)])
+    first.load(path)
+    assert first._plan is None
+    _epochs(first, [_graph_loader(ds, "resident", seed=3)])
+    for other in (eager, first):
+        diff = _differing(graphed, other)
+        assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+    assert first.graph_captures == 2
+
+
+@pytest.mark.parametrize("mode", list(CAPTURED_MODES))
+def test_captured_mode_step_lr_recaptures(gen, mode, tmp_path):
+    """``fit`` over three epochs with an epoch StepLR: each new lr drops the
+    captured step, so three captures, and 0 elements differ from the eager
+    fit (the update's lr rides in its row)."""
+    from scenario_wise_rec_tpu_torch.train.optim import step_lr
+
+    extra = dict(scheduler_fn=step_lr, scheduler_params={"step_size": 1, "gamma": 0.5},
+                 n_epoch=3, model_path=str(tmp_path))
+    eager, graphed = _graph_twins(_graph_model(), _mode_kw(mode), **extra)
+    ds = _graph_data()
+    for t in (eager, graphed):
+        t.fit(_graph_loader(ds, "resident"))
+    assert graphed.graph_captures == 3
+    diff = _differing(graphed, eager)
+    assert not any(diff.values()), {k: v for k, v in diff.items() if v}
 
 
 GRAPH_NARROW = {

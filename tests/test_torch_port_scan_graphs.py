@@ -258,18 +258,6 @@ def test_fit_with_a_step_lr_equals_single_steps(tmp_path):
     res_tests._assert_same_trainers(one, three)
 
 
-@pytest.mark.parametrize("mode", ["occurrence", "dense", "winner"])
-def test_eager_modes_step_once_a_batch_at_any_scan_steps(mode):
-    """The occurrence, dense and winner modes run one eager step a batch at
-    S = 3, as at S = 1, and report that they are not graphed."""
-    one, three = _twins(mode)
-    assert not three._dispatched and not three.graphed
-    for t in (one, three):
-        _epoch(t, _port_loader(mode, "resident"))
-    res_tests._assert_same_trainers(one, three)
-    assert three._plan is None
-
-
 def test_cpu_keeps_torch_adam_uncapturable():
     """The CPU runs no graph: torch.optim.Adam stays as at S = 1 (torch's
     capturable Adam runs on a card only)."""
