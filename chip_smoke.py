@@ -65,7 +65,10 @@ Phases; each asserts, and any failure exits non-zero:
      the same ids as int64 and int32, ids -1, -7, -V and the wrapped twins of
      positive ids (a negative id wraps once, as the reference's XLA form
      does), -V-1, V, V+3, 2^31-1, -2^31 (dropped), and K = 0, and rows of 5
-     and 1024 floats (its lanes) with the same kinds of ids: equal; both timed, the scatter
+     and 1024 floats (its lanes) with the same kinds of ids, and the winner
+     update's write-back into ``[10,741,000, 16]`` f32 (K = 94,208 uniform
+     and Zipf ids, every duplicate but one and a frozen span set to V):
+     equal; both timed, the scatter
      beside ``index_copy_``, and each with its device ms apart from the
      host (a ``torch.cuda._sleep`` holds the stream until the host has
      queued the timed calls), host µs and profiler launches per call, as
@@ -202,7 +205,13 @@ Phases; each asserts, and any failure exits non-zero:
    PyTorch, timed alone beside the kernel; a planted fault that drops the
    transformer's key mask, which the check must catch on the ragged last
    batch; a narrow copy with its dropout at 0 on the card against the CPU)
-   and M3oE, each with its own kernel and no other launched.
+   and M3oE, each with its own kernel and no other launched. For every
+   model, ``CTRTrainer(fused_inference="auto")`` resolves to its class's
+   membership in the port's measured set (``FUSED_INFERENCE_WINS``; the
+   narrow HamurSmall's too, MlpN never). One ``"auto"`` predict pass of the
+   first served model in the set launches its kernel as many times a batch
+   as the fused pass and nothing else, its predictions the fused path's;
+   one of the narrow MlpN, outside it, launches no kernel.
 4. Training path: the same model trained by ``CTRTrainer(
    sparse_embedding_updates=True, sparse_update_impl="sorted",
    fused_inference=True).fit`` for one epoch over 16*4096+123 rows with a
@@ -242,12 +251,12 @@ Phases; each asserts, and any failure exits non-zero:
    them, for step times alike), the counters read exactly (bf16: the bf16
    form once a step, the f32 form never; occurrence: the segsum and the
    scatter once a step; dense: ``fused_dense_adam_apply`` once a step;
-   winner: none), for bf16 a ``save``/``load`` round trip bit for bit on
-   the card, a timed second
-   epoch and a profile; the gates occurrence vs winner (both lazy
-   SparseAdam) and dense vs sorted (both exact dense Adam), each from one
-   state with planted faults it must catch (a segsum that drops duplicate
-   sums, the old row written back; duplicate sums dropped); a narrow model
+   winner: the scatter three times a step), for bf16 a ``save``/``load``
+   round trip bit for bit on the card, a timed second epoch and a profile;
+   the gates occurrence vs winner (both lazy SparseAdam) and dense vs
+   sorted (both exact dense Adam), each from one state with planted faults
+   it must catch (a segsum that drops duplicate sums, the old row written
+   back; duplicate sums dropped); a narrow model
    in each mode on the card against the CPU (the bf16 store within one ulp
    but where its row's scale excuses it: ``bf16_store_gaps``); and a narrow
    model with a
@@ -255,8 +264,8 @@ Phases; each asserts, and any failure exits non-zero:
    all five modes (both bit-identical). Last, ``[4] training mmoe
    graphed``: MMOE at ``scan_steps=64`` (the train step captured as a CUDA
    graph and replayed) in the sorted mode with the f32 and the bf16 store
-   and in the occurrence and dense modes, each (a) a resident epoch of
-   2^18+123 rows graphed against the eager trainer from one state (0
+   and in the occurrence, dense and winner modes, each (a) a resident epoch
+   of 2^18+123 rows graphed against the eager trainer from one state (0
    elements may differ, and ``GROUP_TOL``), beside replays that keep a
    dispatch's first row of Adam numbers, which must fail; each update
    kernel's warm-up launches, its capture and the replays, checked against
@@ -264,12 +273,10 @@ Phases; each asserts, and any failure exits non-zero:
    ``settled_profile``; one that lost records by its own bookkeeping and
    disagrees is taken again, ``profile_records``); (b) no gate: resident (and for the f32 store
    host) examples/s in turns eager, graphed, graphed, eager, host µs a
-   step, syncs and busy share, capture seconds and the graph's pool; (c)
-   the winner mode at ``scan_steps=64``, its dispatches uncaptured, against
-   S = 1 from one state (0 elements may differ); with rows 13's and 14's
-   Step 0 by value and from device memory (measured in ``[2]
-   sorted_dense_adam_apply bf16``, where one step of each form is held
-   against the plain version).
+   step, syncs and busy share, capture seconds and the graph's pool; with
+   rows 13's and 14's Step 0 by value and from device memory (measured in
+   ``[2] sorted_dense_adam_apply bf16``, where one step of each form is
+   held against the plain version).
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
    ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
@@ -485,7 +492,8 @@ FORM_COUNTERS = {"sorted_dense_adam_apply_bf16": ("sorted_dense_adam_apply", "la
 STEP_LAUNCHES = {"sorted": {"sorted_dense_adam_apply": 1},
                  "sorted_bf16": {"sorted_dense_adam_apply_bf16": 1},
                  "dense": {"fused_dense_adam_apply": 1},
-                 "occurrence": {"occurrence_segsum": 1, "scatter_rows": 1}, "winner": {}}
+                 "occurrence": {"occurrence_segsum": 1, "scatter_rows": 1},
+                 "winner": {"scatter_rows": 3}}
 # CTRTrainer's keywords of each update mode this script names
 MODE_KW = {"sorted_bf16": dict(sparse_update_impl="sorted", sorted_dtype="bf16")}
 
@@ -3077,7 +3085,8 @@ def phase_row_update(gen, peak):
     ``[10,741,000, 48]`` (its bulk copies) with the same ids as int64 and
     int32, sentinel ids (-1, -V and negative twins wrap once; -V-1, >= V
     drop), and K = 0, and rows of 5 and 1024 floats (its lanes) with the
-    same sentinels: exact. Then each kernel's time beside its bound, its plain
+    same sentinels, and the winner update's write-back into ``[V, 16]``
+    (:func:`winner_write_back_cases`): exact. Then each kernel's time beside its bound, its plain
     version and (the scatter) ``index_copy_``, and step 0's readings: device
     ms with the host kept out, host µs and launches per call, for the
     kernels, their plain versions, ``index_copy_`` and the whole occurrence
@@ -3197,6 +3206,8 @@ def phase_row_update(gen, peak):
             "plain version with int64 and int32 ids")
         del want
     del narrow, wide
+    winner_ms = winner_write_back_cases(rk, {k: ids[k] for k in ("a_alicpp_uniform",
+                                                                 "b_hot_row_zipf")}, gen, V)
     _, inv = torch.unique(ali, return_inverse=True)
     rows = torch.randn(K, W, generator=gen, device="cuda")[inv]
     i32 = ali.to(torch.int32)
@@ -3219,7 +3230,8 @@ def phase_row_update(gen, peak):
                            int32_ids_device_ms=sc_cost32["device_ms"],
                            library_device_ms=[sc_lib["device_ms"], sc_lib2["device_ms"]],
                            library_host_us=sc_lib["host_us"],
-                           plain_device_busy_ms=sc_plain["profiled_busy_ms"])
+                           plain_device_busy_ms=sc_plain["profiled_busy_ms"],
+                           winner_write_back_ms=winner_ms)
     # the whole occurrence update of one train step at Ali-CCP: its launches
     state, r3 = {"comb": dst, "step": 0}, dst[ali]
     log("  the occurrence update of one train step (sparse_adam_occurrence_update):")
@@ -3229,6 +3241,42 @@ def phase_row_update(gen, peak):
     del dst, state, r3, g
     torch.cuda.empty_cache()
     return {"occurrence_segsum": segsum, "scatter_rows": scatter}
+
+
+def winner_write_back_cases(rk, id_cases, gen, V):
+    """``scatter_rows`` at the winner update's shape against its plain
+    version: into ``[V, 16]`` f32, the K ids of each case with every
+    duplicate but the elected occurrence set to V, and feature 1's span
+    frozen (set to V), as ``sparse_adam_rowgrads_update`` builds them.
+    Exact with int64 and int32 ids. Returns each case's time (ms, int64
+    ids)."""
+    from scenario_wise_rec_tpu_torch.train.freeze import frozen_ids_mask
+
+    dst = torch.randn(V, 16, generator=gen, device="cuda")
+    times = {}
+    for name, i1 in id_cases.items():
+        occ = torch.arange(i1.numel(), device="cuda")
+        won = torch.zeros(V, dtype=torch.int32, device="cuda")
+        won[i1] = occ.to(torch.int32)
+        uid = torch.where(won[i1].long() == occ, i1, V)
+        uid = torch.where(frozen_ids_mask(uid, ((VOCAB, VOCAB),)), V, uid)
+        rows = torch.randn(i1.numel(), 16, generator=gen, device="cuda")
+        want = rk.scatter_rows_ref(dst.clone(), uid, rows)
+        for dtype in (torch.int64, torch.int32):
+            got = dst.clone()
+            rk.scatter_rows(got, uid.to(dtype), rows)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"scatter_rows winner {name} ({dtype}) disagrees with plain")
+            del got
+        times[name] = time_ms(lambda: rk.scatter_rows(dst, uid, rows))
+        log(f"  scatter_rows winner {name}: K {uid.numel()} into {tuple(dst.shape)}, "
+            f"{int((uid == V).sum())} ids set to V (duplicates, frozen span), equal to the "
+            f"plain version with int64 and int32 ids; {times[name]:.4f} ms")
+        del want, won
+    del dst
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_fused_adam(gen, peak):
@@ -3614,7 +3662,16 @@ def graphed_cases():
                   {"fused_dense_adam_apply": (fk.fused_dense_adam_apply, "launches",
                                               "captured", ("dense_adam_kernel",))},
                   "adam_hparams_rows", False),
+        "winner": (mode_kw("winner"),
+                   {"scatter_rows": (rk.scatter_rows, "launches", "captured",
+                                     ("scatter_bulk_kernel", "scatter_lanes_kernel"))},
+                   "occurrence_hparams_rows", False),
     }
+
+
+def graph_mode(case):
+    """The STEP_LAUNCHES key of a graphed case."""
+    return {"float32": "sorted", "bf16": "sorted_bf16"}.get(case, case)
 
 
 def kernel_runs(kernels):
@@ -3668,20 +3725,19 @@ def profile_records(prof):
 def phase_train_graphed(seed, card, step0):
     """MMOE's training path at ``scan_steps=64`` (CUDA graphs) at Ali-CCP
     width, for the sorted update with each store (f32, bf16) and for the
-    occurrence and dense updates: (a) from one state, a resident epoch of
-    2^18+123 rows (one dispatch of 64 steps and a remainder of one) graphed
+    occurrence, dense and winner updates: (a) from one state, a resident
+    epoch of 2^18+123 rows (one dispatch of 64 steps and a remainder of one) graphed
     against the eager S = 1 trainer (torch.optim.Adam capturable on both):
     0 elements may differ, and the train-step gate; a graphed epoch whose
     replays keep the dispatch's first row of Adam numbers, which must fail
     it; each update kernel's eager launches (the warm-up steps) and captured
-    ones, and its runs in a profile of the next graphed epoch against the
-    replays; (b) no gate: examples/s of resident epochs in turns eager,
-    graphed, graphed, eager (and of host epochs for the f32 store), host µs
-    a step and a replay's, stream syncs and device busy share from a profile
-    of 5 eager steps and of a graphed epoch, capture seconds and the graph's
-    pool; (c) the winner update at ``scan_steps=64``, its dispatches
-    uncaptured, against S = 1 from one state: 0 elements may differ; and
-    rows 13's and 14's Step 0 in both forms (``step0``, measured in ``[2]
+    ones (STEP_LAUNCHES a step: winner's scatter 3), and its runs in a
+    profile of the next graphed epoch against the replays; (b) no gate:
+    examples/s of resident epochs in turns eager, graphed, graphed, eager
+    (and of host epochs for the f32 store), host µs a step and a replay's,
+    stream syncs and device busy share from a profile of 5 eager steps and
+    of a graphed epoch, capture seconds and the graph's pool; and rows 13's
+    and 14's Step 0 in both forms (``step0``, measured in ``[2]
     sorted_dense_adam_apply bf16``)."""
     from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
                                                   DeviceResidentLoader)
@@ -3709,8 +3765,9 @@ def phase_train_graphed(seed, card, step0):
         graphed.barrier()
         runs = {k: (a - runs0[k][0], c - runs0[k][1]) for k, (a, c) in kernel_runs(kernels).items()}
         replays = graphed.graph_replays
+        per_step = {k: STEP_LAUNCHES[graph_mode(case)][k] for k in kernels}
         check(graphed.graph_captures == 1 and all(
-            r == (ptrainer.WARMUP_STEPS, 1) for r in runs.values())
+            r == (ptrainer.WARMUP_STEPS * per_step[k], per_step[k]) for k, r in runs.items())
             and ptrainer.WARMUP_STEPS + replays == n_steps,
             f"{case}: (eager launches, captured) {runs}, {replays} replays for {n_steps} steps")
         eager.train_one_epoch(resident(), log_interval=10**9)
@@ -3739,8 +3796,8 @@ def phase_train_graphed(seed, card, step0):
         del fault
         torch.cuda.empty_cache()
         log(f"  (a) {case}: the update's kernels (eager launches, captured) {runs} (warm-up "
-            f"steps), {replays} replays: {ptrainer.WARMUP_STEPS + replays} runs for {n_steps} "
-            f"steps; capture {graphed.graph_capture_s:.3f} s, graph pool "
+            f"steps), {replays} replays of {per_step} a step: {ptrainer.WARMUP_STEPS + replays} "
+            f"steps for {n_steps}; capture {graphed.graph_capture_s:.3f} s, graph pool "
             f"{graphed.graph_pool_bytes / 1e6:.1f} MB")
 
         # (b) findings, no gate (the host path, held by its loader thread, for
@@ -3796,7 +3853,7 @@ def phase_train_graphed(seed, card, step0):
                 replays = t.graph_replays - replays0
                 seen, expected = {}, {}
                 for k, (a, c) in kernel_runs(kernels).items():
-                    expected[k] = a - runs0[k][0] + replays
+                    expected[k] = a - runs0[k][0] + replays * per_step[k]
                     seen[k] = sum(1 for e in records
                                   if any(name in e.name() for name in kernels[k][3]))
                 agree = seen == expected and len(graph_launches) == replays
@@ -3843,32 +3900,6 @@ def phase_train_graphed(seed, card, step0):
         del eager, graphed, loaders, plan
         torch.cuda.empty_cache()
 
-    # (c) the winner update dispatched uncaptured against its single steps
-    model = build_ali_model(seed + 1)
-    one = CTRTrainer(model, **mode_kw("winner"), seed=seed)
-    many = CTRTrainer(copy.deepcopy(model), scan_steps=GRAPH_STEPS, **mode_kw("winner"),
-                      seed=seed)
-    del model
-    check(many._dispatched and not many.graphed, "winner: dispatched, not graphed")
-    seconds = {}
-    for name, t in (("S = 1", one), (f"S = {GRAPH_STEPS}", many)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t.train_one_epoch(resident(), log_interval=10**9)
-        t.barrier()
-        seconds[name] = time.perf_counter() - t0
-    n_diff = state_differing(many, one)
-    log(f"  (c) winner at scan_steps={GRAPH_STEPS}, dispatches uncaptured ({many.graph_replays} "
-        f"replays, {many.graph_captures} captures), vs S = 1 from one state, {n_steps} steps: "
-        f"{n_diff} elements differ; examples/s " + ", ".join(
-            f"{k} {N_FINDINGS / v:,.0f}" for k, v in seconds.items()) + f" ({card})")
-    check(n_diff == 0 and many.graph_replays == 0 and many.graph_captures == 0
-          and many.emb_opt_state["step"] == one.emb_opt_state["step"] == n_steps,
-          f"winner at scan_steps={GRAPH_STEPS}: {n_diff} elements differ from S = 1")
-    out["winner"] = {"differing": n_diff, "examples_per_s": {
-        k: round(N_FINDINGS / v) for k, v in seconds.items()}}
-    del one, many
-    torch.cuda.empty_cache()
     med = lambda v: statistics.median(x for x in v if x is not None)
     log(f"  (d) rows 13's and 14's Step 0 device ms ([2] sorted_dense_adam_apply bf16), medians "
         "of three turns by value / from device memory: " + "; ".join(
@@ -4572,6 +4603,12 @@ def phase_main_path(seed, card, name="mmoe"):
         f"total logloss {f_tll:.6f}")
     check(ratio <= 1, f"fused and op-by-op predictions differ beyond {tol}")
     check(auc_gap <= 1e-4, f"AUC differs by {auc_gap}")
+    fuses = auto_resolves(model)
+    log(f"  fused_inference='auto' resolves to {'fused' if fuses else 'op by op'} "
+        "(the measured set)")
+    if fuses and not AUTO_PASSED:
+        auto_pass(model, loader, kernel, per_batch * n_batches, p_fused, tol)
+        AUTO_PASSED.append(name)
     log(f"  {name} eval examples/s on {card}: fused predict {n / (t2 - t1):,.0f}, "
         f"op-by-op predict {n / (t5 - t4):,.0f}; evaluate_multi_domain_loss "
         f"fused {n / (t1 - t0):,.0f}, op-by-op {n / (t4 - t3):,.0f}")
@@ -4596,6 +4633,65 @@ def phase_main_path(seed, card, name="mmoe"):
     del fused, plain, model
     torch.cuda.empty_cache()
     return counts, extra
+
+
+def auto_resolves(model) -> bool:
+    """``CTRTrainer(model, fused_inference="auto")`` resolved as the port's
+    measured set says (checked); returns whether it fuses."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import FUSED_INFERENCE_WINS
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    device = next(model.parameters()).device.type
+    fuses = CTRTrainer(model, fused_inference="auto", device=device)._fused_inference
+    name = type(model).__name__
+    check(fuses == (name in FUSED_INFERENCE_WINS and hasattr(model, "apply_fused_eval")),
+          f"{name}: fused_inference='auto' resolved to {fuses}")
+    return fuses
+
+
+# the served model whose "auto" predict pass ran: the first one in the set
+# (the side outside it is MlpN's, in narrow_auto)
+AUTO_PASSED = []
+
+
+def auto_pass(model, loader, kernel, fused_launches, want, tol):
+    """One ``"auto"`` predict pass of a model in the set: the kernel
+    launched ``fused_launches`` times and nothing else, the predictions
+    within ``tol`` of the fused path's (``want``)."""
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    reset_counts()
+    got = np.asarray(CTRTrainer(model, fused_inference="auto").predict(model, loader))
+    counts = read_counts()
+    gap = float(np.abs(got - want).max())
+    log(f"  {type(model).__name__} fused_inference='auto': fused (the measured set), "
+        f"{counts[kernel]} {kernel} launches, predictions within {gap:.3e} of the fused path's")
+    check(counts[kernel] == fused_launches and sum(counts.values()) == counts[kernel],
+          f"{type(model).__name__}: the 'auto' pass launched {counts}")
+    check(gap <= tol[0] + tol[1] * float(np.abs(want).max()),
+          f"{type(model).__name__}: the 'auto' predictions differ from its path's by {gap}")
+
+
+def narrow_auto(seed):
+    """``fused_inference="auto"`` for the narrow HamurSmall and MlpN: each
+    resolves to its class's membership in the set, MlpN to op by op, and
+    MlpN's ``"auto"`` pass on the card launches no kernel."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    for name in ("hamur_small", "mlpn"):
+        small, sx, _ = narrow_model_and_data(seed, name=name)
+        fuses = auto_resolves(small)
+        log(f"  narrow {name}: fused_inference='auto' resolves to "
+            f"{'fused' if fuses else 'op by op'}")
+    check(not fuses, "MlpN resolved 'auto' to a fused eval")
+    small = small.to("cuda")
+    reset_counts()
+    p = CTRTrainer(small, fused_inference="auto").predict(
+        small, BatchIterable(ColumnarDataset(sx, None), 128))
+    counts = read_counts()
+    check(len(p) == 300 and not any(counts.values()), f"narrow MlpN's 'auto' pass: {counts}")
+    log("  narrow mlpn: one 'auto' predict pass on the card, no kernel launched")
 
 
 def profile_device(fn, what):
@@ -4699,6 +4795,11 @@ def main(argv=None):
               f"narrow HamurSmall: launches {counts}")
         counts = narrow_serve_card_vs_cpu(args.seed, "mlpn")
         check(not any(counts.values()), f"narrow MlpN launched a kernel: {counts}")
+        narrow_auto(args.seed)
+        from scenario_wise_rec_tpu_torch.ops.kernels import FUSED_INFERENCE_WINS
+        check(bool(AUTO_PASSED) == bool(FUSED_INFERENCE_WINS),
+              f"'auto' predict pass in the set: {AUTO_PASSED}")
+        log(f"  'auto' predict passes: {AUTO_PASSED or 'none'} in the set, narrow mlpn outside")
     log("[4] training path: MMOE fit at Ali-CCP width, 467k ids per feature")
     with phase("[4] training mmoe"):
         sorted_adam["launches"] = phase_train(args.seed, card)["sorted_dense_adam_apply"]
@@ -4721,13 +4822,16 @@ def main(argv=None):
     with phase("[4] training mmoe modes"):
         mode_counts = phase_train_modes(args.seed, card)
     updates["occurrence_segsum"]["launches"] = mode_counts["occurrence"]["occurrence_segsum"]
-    updates["scatter_rows"]["launches"] = mode_counts["occurrence"]["scatter_rows"]
+    # the scatter's launches in the two modes that write back through it
+    by_mode = {m: mode_counts[m]["scatter_rows"] for m in ("occurrence", "winner")}
+    updates["scatter_rows"]["launches"] = sum(by_mode.values())
+    updates["scatter_rows"]["launches_by_mode"] = by_mode
     updates["fused_dense_adam_apply"]["launches"] = mode_counts["dense"]["fused_dense_adam_apply"]
     sorted_bf16["launches"] = mode_counts["sorted_bf16"]["sorted_dense_adam_apply_bf16"]
     sorted_bf16["train_step_ms_f32_bf16_in_turns"] = mode_counts["sorted_step_ms"]
     log(f"[4] training path: MMOE at scan_steps={GRAPH_STEPS} (CUDA graphs) at Ali-CCP "
-        "width, sorted with f32 and bf16 stores, occurrence and dense, resident and host "
-        "epochs; winner dispatched uncaptured; 467k ids per feature")
+        "width, sorted with f32 and bf16 stores, occurrence, dense and winner, resident and "
+        "host epochs; 467k ids per feature")
     with phase("[4] training mmoe graphed"):
         graphed = phase_train_graphed(args.seed, card,
                                       sorted_bf16["device_hp_step0_in_turns_ms"])
@@ -4736,6 +4840,7 @@ def main(argv=None):
     updates["fused_dense_adam_apply"]["graphed_path"] = graphed["dense"]
     for name in ("occurrence_segsum", "scatter_rows"):
         updates[name]["graphed_path"] = graphed["occurrence"]
+    updates["scatter_rows"]["winner_graphed_path"] = graphed["winner"]
     updates["fused_dense_adam_apply"]["device_hp_step0_in_turns_ms"] = (
         sorted_bf16["device_hp_step0_in_turns_ms"]["fused"])
     for k in ("step0_device_ms", "step0_host_us"):

@@ -55,7 +55,33 @@
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
+
+``FUSED_INFERENCE_WINS`` and :func:`fused_inference_auto` are the gate of
+``CTRTrainer(fused_inference="auto")``: the model classes whose fused eval
+served more examples a second than their op-by-op eval on the card.
 """
+
+# The model classes whose fused predict pass outran the op-by-op one on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit: the verdict of
+# scripts/fused_auto_pairs.py over every sitting in its record
+# (scripts/fused_auto_pairs_h100.json, 12 sittings from 5 runs), each
+# model at Ali-CCP width with 467k ids per feature, predict over
+# 8 * 4096 + 123 rows in batches of 4096, 6 runs a path a sitting. A class
+# is in iff fused's median examples/s led op by op's in so many sittings
+# that a one-sided sign test gives p < 0.05. EPNet and M2M led in 8 of 12
+# (p 0.19): the card does not tell them apart, so they stay op by op, the
+# reference path. `python3 scripts/fused_auto_pairs.py --sittings 0`
+# reproduces the set from the record.
+FUSED_INFERENCE_WINS = frozenset({
+    "AdaSparse", "AdaptDHM", "HamurLarge", "HamurSmall", "M3oE", "MMOE", "PLE", "PPNet",
+    "Sarnet", "SharedBottom", "Star"})
+
+
+def fused_inference_auto(model) -> bool:
+    """True iff ``model``'s class is in :data:`FUSED_INFERENCE_WINS` and it
+    has a fused eval path (``apply_fused_eval``); the JAX package's rule."""
+    return type(model).__name__ in FUSED_INFERENCE_WINS and hasattr(model, "apply_fused_eval")
+
 
 from .adaptdhm_infer import (adaptdhm_fused_infer, adaptdhm_fused_infer_ref,
                              adaptdhm_route_margin)
@@ -78,12 +104,12 @@ from .tower_infer import trunk_towers_fused_infer, trunk_towers_fused_infer_ref
 from .sorted_adam import (owner_sorted_grads, sorted_dense_adam_apply,
                           sorted_dense_adam_apply_ref)
 
-__all__ = ["LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
+__all__ = ["FUSED_INFERENCE_WINS", "LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
            "adaptdhm_route_margin",
            "adapter_norm_affine", "adasparse_fused_infer", "adasparse_fused_infer_ref",
            "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
            "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
-           "fused_dense_adam_apply", "fused_dense_adam_ref",
+           "fused_dense_adam_apply", "fused_inference_auto", "fused_dense_adam_ref",
            "hamur_fused_infer", "hamur_fused_infer_ref", "hamur_hyper", "hamur_segment",
            "hamur_segment_ref", "m2m_fused_infer", "m2m_fused_infer_ref", "m3oe_fused_infer",
            "m3oe_fused_infer_ref", "mmoe_fused_infer", "mmoe_fused_infer_ref",

@@ -19,16 +19,17 @@ and update it from the batch's per-occurrence gradient rows (``g_rows
   ``{"table", "mu", "nu", "step"}`` of its own: :func:`sorted_dense_adam_init`);
 - lazy row-sparse Adam (``torch.optim.SparseAdam``'s semantics: only the
   touched rows move, untouched rows take no weight decay and their moments
-  no decay): :func:`sparse_adam_rowgrads_update` (winner scatter, plain
-  PyTorch) and :func:`sparse_adam_occurrence_update` (a combined ``[V, 3·D]``
-  row store, the two kernels of ``ops/kernels/row_update.py``).
+  no decay): :func:`sparse_adam_rowgrads_update` (a winner scatter, the
+  rows written back by ``scatter_rows`` of ``ops/kernels/row_update.py``)
+  and :func:`sparse_adam_occurrence_update` (a combined ``[V, 3·D]`` row
+  store, both kernels of ``ops/kernels/row_update.py``).
 
 Every update takes ``frozen_spans``, the packed rows of frozen pretrained
 tables, which keep their weights and moments (``train/freeze.py``). The step
-count is a host int, so no update syncs with the card. The sorted, dense and
-occurrence updates also take their step's Adam numbers as a row on the
-device (``hp=``), which a CUDA graph of the train step replays with each
-step's row; the caller then advances the step count. (The TPU kept the
+count is a host int, so no update syncs with the card. Every update also
+takes its step's Adam numbers as a row on the device (``hp=``), which a CUDA
+graph of the train step replays with each step's row; the caller then
+advances the step count. (The TPU kept the
 sorted table padded in a packed ``[V2/r, 128]`` layout; that layout is not
 carried over, so eval reads the live table directly.)
 
@@ -127,27 +128,32 @@ def _staged_row(row: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _rows_adam_core(table, opt_state, g, gather_ids, scatter_ids, lr, weight_decay,
+def _rows_adam_core(table, opt_state, g, gather_ids, scatter_ids, hp, weight_decay,
                     b1, b2, eps):
     """The shared torch-Adam row math: gather the rows and moments at
-    ``gather_ids``, update, and write them back at ``scatter_ids`` (ids
-    outside ``[0, V)`` dropped). In place; returns ``(table, opt_state)``."""
+    ``gather_ids``, update with the step's ``hp`` row ``(lr, 1 - b1^t, 1 -
+    b2^t)`` on the table's device, and write the table and both moments back
+    at ``scatter_ids`` by ``scatter_rows`` (ids outside ``[0, V)`` dropped,
+    no mask: nothing reads the host). ``scatter_ids`` may repeat only ids
+    outside ``[0, V)``. In place."""
+    lr_t, bc1, bc2 = hp[0], hp[1], hp[2]
     with torch.no_grad():
         p = table[gather_ids]
         if weight_decay:
             g = g + weight_decay * p  # torch Adam: decay folded into the gradient
         mu = b1 * opt_state["mu"][gather_ids] + (1 - b1) * g
         nu = b2 * opt_state["nu"][gather_ids] + (1 - b2) * (g * g)
-        t = int(opt_state["step"]) + 1
-        bc1, bc2 = _bias_corrections(t, b1, b2)
-        update = lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        keep = (scatter_ids >= 0) & (scatter_ids < table.shape[0])
-        rows = scatter_ids[keep]
-        table[rows] = (p - update)[keep]
-        opt_state["mu"][rows] = mu[keep]
-        opt_state["nu"][rows] = nu[keep]
-    opt_state["step"] = t
-    return table, opt_state
+        update = lr_t * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        scatter_rows(table.detach(), scatter_ids, p - update)
+        scatter_rows(opt_state["mu"], scatter_ids, mu)
+        scatter_rows(opt_state["nu"], scatter_ids, nu)
+
+
+def _own_row(opt_state, device, lr, b1, b2) -> Tuple[int, torch.Tensor]:
+    """The next step count and its ``[3]`` row of Adam numbers
+    (:func:`occurrence_hparams_rows`) staged on ``device`` without a sync."""
+    step = int(opt_state["step"]) + 1
+    return step, _staged_row(occurrence_hparams_rows(step, 1, lr, b1, b2)[0], device)
 
 
 def sparse_adam_rows_update(table, opt_state, g_dense, ids, lr: float = 1e-3,
@@ -162,39 +168,59 @@ def sparse_adam_rows_update(table, opt_state, g_dense, ids, lr: float = 1e-3,
     first[1:] = sids[1:] != sids[:-1]
     # duplicates write nothing: their rows compute identical updates
     scatter_ids = torch.where(first, sids, table.shape[0])
-    return _rows_adam_core(table, opt_state, g_dense[sids], sids, scatter_ids, lr,
-                           weight_decay, b1, b2, eps)
+    step, hp = _own_row(opt_state, table.device, lr, b1, b2)
+    _rows_adam_core(table, opt_state, g_dense[sids], sids, scatter_ids, hp, weight_decay,
+                    b1, b2, eps)
+    opt_state["step"] = step
+    return table, opt_state
 
 
 def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
                                 weight_decay: float = 1e-5, b1: float = 0.9,
                                 b2: float = 0.999, eps: float = 1e-8,
-                                frozen_spans: Spans = ()):
+                                frozen_spans: Spans = (),
+                                hp: Optional[torch.Tensor] = None):
     """Lazy Adam from the per-occurrence rows ``g_rows [K, D]`` of ``ids
     [K]`` (the ``winner`` update): one occurrence of each id is elected its
     winner by a scatter into an O(V) scratch, every occurrence's gradient is
-    summed into its winner's slot, and Adam runs at the winner slots only.
-    Frozen ids write nothing. Plain PyTorch on the CPU and the card (the JAX
-    function reaches no Pallas kernel). In place; returns ``(table,
-    opt_state)``."""
+    summed into its winner's slot, and Adam runs at the winner slots only;
+    ``scatter_rows`` writes the table and both moments back at them (3
+    launches on the card). Frozen ids write nothing. In place; returns
+    ``(table, opt_state)``.
+
+    The step's Adam numbers are read from a ``[3]`` float32 row on the
+    table's device, as in :func:`sparse_adam_occurrence_update`. ``hp``:
+    that row, as the trainer's CUDA graphs replay this call with each step's
+    row; ``lr`` is then unused and ``opt_state["step"]`` is left to the
+    caller. Without ``hp`` the update stages its step's row itself, so an
+    eager step and a replay compute alike. Nothing here reads the host, so
+    the step can be captured."""
+    advance = hp is None
     vocab, k = table.shape[0], ids.shape[0]
     if k == 0:
-        opt_state["step"] = int(opt_state["step"]) + 1
+        if advance:
+            opt_state["step"] = int(opt_state["step"]) + 1
         return table, opt_state
+    if advance:
+        step, hp = _own_row(opt_state, table.device, lr, b1, b2)
     ids = ids.long()
     occ = torch.arange(k, device=ids.device)
     winner = torch.zeros(vocab, dtype=torch.int32, device=ids.device)
     winner[ids] = occ.to(torch.int32)      # any duplicate wins
     rep = winner[ids].long()               # occurrence -> its winner
-    # each winner's sum in the order of occurrence: an accumulating index_put_
-    # sums duplicates in that order on the card too (index_add_'s atomics
-    # would sum them in any order, and two runs could differ in the last bit)
+    # each winner's sum in the order of occurrence, whichever duplicate won:
+    # an accumulating index_put_ sums duplicates in that order on the card
+    # too (index_add_'s atomics would sum them in any order, and two runs
+    # could differ in the last bit)
     g_slot = torch.zeros_like(g_rows).index_put_((rep,), g_rows, accumulate=True)
     uid = torch.where(rep == occ, ids, vocab)  # non-winners write nothing
     if frozen_spans:
         uid = torch.where(frozen_ids_mask(uid, frozen_spans), vocab, uid)
-    return _rows_adam_core(table, opt_state, g_slot, uid.clamp(0, vocab - 1), uid, lr,
-                           weight_decay, b1, b2, eps)
+    _rows_adam_core(table, opt_state, g_slot, uid.clamp(0, vocab - 1), uid, hp,
+                    weight_decay, b1, b2, eps)
+    if advance:
+        opt_state["step"] = step
+    return table, opt_state
 
 
 def sparse_adam_occurrence_init(table: torch.Tensor) -> Dict:
@@ -288,14 +314,13 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
     memory, no sync), so an eager step and a replay compute alike: PyTorch's
     CUDA division by a host number multiplies by its reciprocal, by a device
     number it divides."""
-    step, advance = int(opt_state["step"]) + 1, hp is None
+    advance = hp is None
     if ids.shape[0] == 0:
         if advance:
-            opt_state["step"] = step
+            opt_state["step"] = int(opt_state["step"]) + 1
         return opt_state
     if advance:
-        hp = _staged_row(occurrence_hparams_rows(step, 1, lr, b1, b2)[0],
-                         opt_state["comb"].device)
+        step, hp = _own_row(opt_state, opt_state["comb"].device, lr, b1, b2)
     lr_t, bc1, bc2 = hp[0], hp[1], hp[2]
     d = g_rows.shape[-1]
     with torch.no_grad():

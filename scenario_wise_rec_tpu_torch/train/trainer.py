@@ -30,8 +30,10 @@ protocol.
     the strided view ``comb[:, :D]``, so eval, ``predict``, ``save``,
     ``load`` and ``fit``'s early-stop snapshot and restore always see the
     live weights;
-  - ``"winner"``: the same lazy semantics in plain PyTorch (a winner
-    scatter into an O(V) scratch), on the model's table.
+  - ``"winner"``: the same lazy semantics on the model's table: a winner
+    scatter into an O(V) scratch sums the duplicates, and the row write-back
+    kernel of ``ops/kernels/row_update.py`` writes the table and both
+    moments.
 
   The two exact modes compute the reference's ``torch.optim.Adam``
   semantics; the two lazy ones differ from it as ``SparseAdam`` does
@@ -49,9 +51,11 @@ protocol.
   labels, domains and weights stay on the device and score there
   (``auc_score_device``/``log_loss_device``, one host read of the results).
   With ``fused_inference=True`` a model
-  that has ``apply_fused_eval`` (every registered model but ``Base``) runs
-  everything after the embedding in one CUDA kernel, its BatchNorm folded
-  once per eval pass. The step passes each batch's padding mask ``w``:
+  that has ``apply_fused_eval`` (every registered model but ``Base`` and
+  ``MlpNLayer``) runs everything after the embedding in one CUDA kernel, its
+  BatchNorm folded once per eval pass; ``"auto"`` does so for the models
+  that the port's measured set says fuse faster
+  (``ops/kernels.fused_inference_auto``). The step passes each batch's padding mask ``w``:
   STAR's domain norm reads the batch's own statistics at eval too.
 - **Batches**: a host loader's batches are sliced on the prefetch thread
   and, on a CUDA trainer, staged there in pinned memory, so their copies to
@@ -65,17 +69,14 @@ protocol.
   copied from pinned memory, a resident loader's gathered on the device)
   and runs S steps of one step body that picks its batch rows, its
   embedding update's Adam numbers ``hp`` and its loss slot by a device-side
-  step counter. In the sorted (f32 or bf16 store), dense and occurrence
-  modes and the plain step, that body is captured once on the card as a
+  step counter. In every mode, that body is captured once on the card as a
   CUDA graph, after warm-up steps of the epoch run eagerly, and replayed for
   every later step (the remainder is fewer replays); on the CPU it runs
   uncaptured. Replays equal eager steps: the dense ``torch.optim.Adam`` is
   ``capturable``, the dropout generator is registered with the graph, and
   the update reads each step's Adam numbers from device memory (the sorted
-  and dense kernels a 7-number row, the occurrence update a 3-number one).
-  The ``winner`` mode runs its dispatch's steps through the same body
-  uncaptured, on the card too: its winner scatter indexes with a mask,
-  which reads the host. Losses are logged as the JAX trainer logs them.
+  and dense kernels a 7-number row, the occurrence and winner updates a
+  3-number one). Losses are logged as the JAX trainer logs them.
 - **fit**: per-epoch StepLR, ``train_one_epoch`` (over a host loader or a
   ``DeviceResidentLoader``), validation AUC, early stopping that restores
   the best weights only on a stop, and a final checkpoint (reference
@@ -96,6 +97,7 @@ from . import checkpoint as ckpt_lib
 from ..core.config import make_generator, resolve_device
 from ..data.device import DeviceResidentLoader, gather_columns
 from ..data.prefetch import prefetch, stage_batches, stage_dispatches
+from ..ops.kernels import fused_inference_auto
 from ..ops.kernels.sorted_adam import adam_hparams_rows, check_jax_dials
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
@@ -107,14 +109,9 @@ from .optim import (adam, fused_dense_adam_update, occurrence_hparams_rows,
                     sparse_adam_rowgrads_update)
 
 _EMB_MODES = ("dense", "winner", "occurrence", "sorted")
-# the steps a scan_steps > 1 dispatch captures as a CUDA graph on the card:
-# the plain step (None) and every update but the winner scatter's, whose mask
-# index reads the host
-_CAPTURED_MODES = (None, "sorted", "dense", "occurrence")
 # the width of the Adam-number row a step of each update reads from the
-# device in a dispatch (sorted_adam.adam_hparams_rows, optim.occurrence_hparams_rows);
-# the winner update computes its own numbers and advances its own step count
-_HP_WIDTH = {"sorted": 7, "dense": 7, "occurrence": 3}
+# device in a dispatch (sorted_adam.adam_hparams_rows, optim.occurrence_hparams_rows)
+_HP_WIDTH = {"sorted": 7, "dense": 7, "occurrence": 3, "winner": 3}
 # eager steps of a new step plan before its capture: the optimizer's state,
 # cuBLAS's workspace and the kernels' libraries exist before capture
 WARMUP_STEPS = 2
@@ -128,8 +125,8 @@ class _StepPlan:
     ``ints``/``floats``/``w``: the dispatch's packed batches (the
     ``DeviceResidentLoader`` layout, label last), ``hp``: one row of the
     embedding update's Adam numbers a step (``hp_width`` of them: 7 for the
-    sorted and dense kernels, 3 for the occurrence update; None for the
-    plain step and the winner update), ``losses``: one slot a step,
+    sorted and dense kernels, 3 for the occurrence and winner updates; None
+    for the plain step), ``losses``: one slot a step,
     ``counter``: the step within the dispatch, advanced by the step body."""
 
     def __init__(self, loader, layout, b, steps, n_int, n_float1, device, hp_width):
@@ -174,14 +171,15 @@ class CTRTrainer:
             ``"sorted"`` runs that embedding update (see the module
             docstring); ``"sorted"`` needs a packed width dividing 128, as
             in the JAX package.
-        fused_inference: ``True`` runs eval through ``apply_fused_eval``.
+        fused_inference: ``True`` runs eval through ``apply_fused_eval``;
+            ``"auto"`` resolves to ``ops.kernels.fused_inference_auto(model)``
+            (the models whose fused eval measured faster on the card).
         scan_steps: the JAX package's optimizer steps per device dispatch
             (a positive int). 1: one eager step a batch. S > 1: S steps a
             dispatch through one step body, with the same result as S
-            single steps; in the sorted, dense and occurrence modes and the
-            plain step captured once as a CUDA graph and replayed on the
-            card (see the module docstring; :attr:`graphed`,
-            :attr:`graph_replays`), in the winner mode run uncaptured. A
+            single steps; captured once as a CUDA graph and replayed on the
+            card in every mode (see the module docstring; :attr:`graphed`,
+            :attr:`graph_replays`). A
             graphed trainer's dense optimizer must take ``capturable``
             (torch's Adam does), which the trainer sets. A failed capture
             raises; nothing falls back to eager steps.
@@ -206,8 +204,7 @@ class CTRTrainer:
             device (``sorted_kernel=False`` is refused).
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` and more than one entry in ``gpus`` (A15);
-    ``fused_inference="auto"`` (A10).
+    item: ``mesh`` and more than one entry in ``gpus`` (A15).
     """
 
     def __init__(
@@ -244,10 +241,8 @@ class CTRTrainer:
         if gpus is not None and len(gpus) > 1:
             raise NotImplementedError("more than one GPU is ROADMAP A15")
         if fused_inference == "auto":
-            raise NotImplementedError(
-                "fused_inference='auto' needs the port's own measured win "
-                "table (ROADMAP A10); pass True or False")
-        if not isinstance(fused_inference, bool):
+            fused_inference = fused_inference_auto(model)
+        elif not isinstance(fused_inference, bool):
             # a stray string like "false"/"off" would otherwise coerce to True
             raise ValueError(
                 f"fused_inference must be True, False or 'auto', got "
@@ -349,11 +344,9 @@ class CTRTrainer:
     @property
     def graphed(self) -> bool:
         """True when the train steps run as a CUDA graph: ``scan_steps > 1``
-        on the card in the sorted, dense or occurrence mode or the plain
-        step. False at ``scan_steps=1``, on the CPU and in the winner mode,
-        whose dispatches step uncaptured."""
-        return (self._dispatched and self.device.type == "cuda"
-                and self._emb_mode in _CAPTURED_MODES)
+        on the card, in every mode. False at ``scan_steps=1`` and on the
+        CPU."""
+        return self._dispatched and self.device.type == "cuda"
 
     @property
     def _capturable(self) -> bool:
@@ -437,8 +430,8 @@ class CTRTrainer:
 
     def _train_step(self, x, y, w, hp=None) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on the
-        device: reading it is the caller's sync). ``hp``: the sorted, dense or
-        occurrence update's Adam numbers as a device row (a dispatch's step
+        device: reading it is the caller's sync). ``hp``: the embedding
+        update's Adam numbers as a device row (a dispatch's step
         body); the caller then advances the update's step count."""
         model, mode, st = self.model, self._emb_mode, self.emb_opt_state
         rows = None
@@ -482,7 +475,7 @@ class CTRTrainer:
             fused_dense_adam_update(col.packed, st, rows.grad, ids,
                                     col.touched_owner_segments(x), hp=hp, **kw)
         elif mode == "winner":
-            sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, **kw)
+            sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, hp=hp, **kw)
         else:
             sparse_adam_occurrence_update(st, rows.grad, ids,
                                           col.touched_owner_segments(x), r3, hp=hp, **kw)
@@ -623,7 +616,7 @@ class CTRTrainer:
         row a step, computed on the host from the int step count."""
         p, step = self._opt_params, int(self.emb_opt_state["step"]) + 1
         b1, b2 = p.get("b1", 0.9), p.get("b2", 0.999)
-        if self._emb_mode == "occurrence":
+        if self._emb_mode in ("occurrence", "winner"):
             return occurrence_hparams_rows(step, n, self._lr_now, b1, b2)
         return adam_hparams_rows(step, n, self._lr_now, p.get("weight_decay", 1e-5), b1, b2,
                                  p.get("eps", 1e-8))
@@ -632,8 +625,7 @@ class CTRTrainer:
         """``n`` steps of the plan over its staged batches; returns their
         losses ``[n]`` (a copy on the device, so the next dispatch can
         overwrite the plan's slots). Graphed: eager warm-up steps until the
-        plan is captured, then replays; otherwise (the CPU, the winner mode)
-        the body, uncaptured."""
+        plan is captured, then replays; on the CPU the body, uncaptured."""
         if plan.hp is not None:
             rows = torch.from_numpy(self._hp_rows(n))
             if self.device.type == "cuda":
@@ -657,8 +649,7 @@ class CTRTrainer:
             for _ in range(n):
                 self._plan_step(plan)
         if plan.hp is not None:
-            # the body read its rows and left the count to this dispatch (the
-            # winner update advances its own)
+            # the body read its rows and left the count to this dispatch
             self.emb_opt_state["step"] = int(self.emb_opt_state["step"]) + n
         return plan.losses[:n].clone()
 

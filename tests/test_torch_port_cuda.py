@@ -2312,7 +2312,7 @@ def _narrow_batch(r, n=64):
 
 
 LAUNCHES = {"occurrence": {"occurrence_segsum": 1, "scatter_rows": 1},
-            "dense": {"fused_dense_adam_apply": 1}, "winner": {}}
+            "dense": {"fused_dense_adam_apply": 1}, "winner": {"scatter_rows": 3}}
 
 
 @pytest.mark.parametrize("mode", ["occurrence", "dense", "winner"])
@@ -2668,31 +2668,27 @@ def test_graphed_step_lr_recaptures(gen, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["winner"])
-def test_eager_modes_at_scan_steps_3_are_not_graphed(gen, mode):
-    """The winner mode, whose mask index reads the host, runs its dispatches
-    of S = 3 uncaptured and says so: no capture, no replay, torch.optim.Adam
-    not made capturable; two epochs with a remainder differ from S = 1's in
-    0 elements (its duplicate sums run in the order of occurrence)."""
-    from scenario_wise_rec_tpu_torch.train import CTRTrainer
-
-    kw = dict(sparse_embedding_updates=True, sparse_update_impl=mode)
-    model = _graph_model(dropout=0.2)
-    one, three = CTRTrainer(model, **kw), CTRTrainer(copy.deepcopy(model), scan_steps=3, **kw)
-    assert three._dispatched and not three.graphed
-    assert three.optimizer.defaults["capturable"] is False
+def test_winner_at_scan_steps_3_is_graphed(gen, mode):
+    """The winner mode at S = 3 captures its step as the other modes do
+    (torch.optim.Adam made capturable), and a host epoch then a resident one
+    with dropout 0.2 differ from the eager S = 1 epochs (a capturable Adam)
+    in 0 elements: two captures (a plan a loader) and 10 replays, the
+    update's step count at 14, the dropout generator's offset equal."""
+    eager, graphed = _graph_twins(_graph_model(dropout=0.2), _mode_kw(mode))
     ds = _graph_data()
-    for t in (one, three):
+    for t in (eager, graphed):
         _epochs(t, [_graph_loader(ds, "host"), _graph_loader(ds, "resident")])
-    assert three.graph_replays == 0 and three.graph_captures == 0 and three._plan is not None
-    assert three.emb_opt_state["step"] == 14
-    diff = _differing(one, three)
+    assert graphed.graph_captures == 2 and graphed.graph_replays == 14 - 2 * 2
+    assert graphed.emb_opt_state["step"] == eager.emb_opt_state["step"] == 14
+    assert graphed.generator.get_offset() == eager.generator.get_offset()
+    diff = _differing(graphed, eager)
     assert not any(diff.values()), {k: v for k, v in diff.items() if v}
 
 
 # the updates whose step a dispatch captures, beside the sorted one and the
 # plain step: each update kernel's launches a step
 CAPTURED_MODES = {"occurrence": {"occurrence_segsum": 1, "scatter_rows": 1},
-                  "dense": {"fused_dense_adam_apply": 1}}
+                  "dense": {"fused_dense_adam_apply": 1}, "winner": {"scatter_rows": 3}}
 
 
 def _update_wrappers():
@@ -2755,12 +2751,12 @@ def test_fused_adam_device_hp_form(gen):
 @pytest.mark.parametrize("kind", ["host", "resident"])
 @pytest.mark.parametrize("mode", list(CAPTURED_MODES))
 def test_captured_mode_epochs_equal_eager_epochs(gen, mode, kind):
-    """The occurrence and dense modes at S = 3 as a CUDA graph, MMOE with
-    dropout 0.2: two epochs of seven batches (two dispatches and a remainder
-    of one an epoch) differ from the eager S = 1 epochs (a capturable
-    torch.optim.Adam) in 0 elements; two warm-up steps, one capture and 12
-    replays; each update kernel launched twice eagerly and captured once,
-    and the update's step count at 14."""
+    """The occurrence, dense and winner modes at S = 3 as a CUDA graph, MMOE
+    with dropout 0.2: two epochs of seven batches (two dispatches and a
+    remainder of one an epoch) differ from the eager S = 1 epochs (a
+    capturable torch.optim.Adam) in 0 elements; two warm-up steps, one
+    capture and 12 replays; each update kernel launched its launches a step
+    twice eagerly and captured once, and the update's step count at 14."""
     from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
 
     eager, graphed = _graph_twins(_graph_model(dropout=0.2), _mode_kw(mode))
@@ -2791,7 +2787,8 @@ def test_captured_mode_replay_with_a_stale_row_fails(gen, mode, monkeypatch):
     the eager epochs."""
     from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
 
-    name = {"occurrence": "occurrence_hparams_rows", "dense": "adam_hparams_rows"}[mode]
+    name = {"occurrence": "occurrence_hparams_rows", "dense": "adam_hparams_rows",
+            "winner": "occurrence_hparams_rows"}[mode]
     right = getattr(ptrainer, name)
     monkeypatch.setattr(ptrainer, name,
                         lambda step0, n, *a: np.repeat(right(step0, 1, *a), n, axis=0))
@@ -2802,6 +2799,29 @@ def test_captured_mode_replay_with_a_stale_row_fails(gen, mode, monkeypatch):
     diff = _differing(graphed, eager)
     moments = "emb/comb" if mode == "occurrence" else "emb/nu"
     assert diff["model/embedding.packed"] > 0 and diff[moments] > 0, diff
+
+
+@pytest.mark.parametrize("mode", list(CAPTURED_MODES))
+def test_a_dispatch_step_does_not_sync(gen, mode):
+    """One step of a dispatch, run eagerly on the plan's staged batches after
+    an epoch has captured it, raises nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read, no blocking
+    copy, no mask index; and its update kernels launch as the mode says."""
+    _, graphed = _graph_twins(_graph_model(), _mode_kw(mode))
+    _epochs(graphed, [_graph_loader(_graph_data(), "resident")])
+    plan = graphed._plan
+    plan.counter.zero_()
+    wrappers = _update_wrappers()
+    before = {k: f.launches for k, f in wrappers.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphed._plan_step(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for k, f in wrappers.items():
+        assert f.launches - before[k] == CAPTURED_MODES[mode].get(k, 0), k
 
 
 @pytest.mark.parametrize("mode", list(CAPTURED_MODES))

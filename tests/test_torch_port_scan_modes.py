@@ -1,14 +1,15 @@
 """``CTRTrainer(scan_steps=S)`` with S > 1 in the ``occurrence``, ``dense``
 and ``winner`` embedding-update modes: S steps a dispatch through one step
-body (the occurrence and dense steps a CUDA graph on the card, the winner
-step uncaptured everywhere; uncaptured here on the CPU) against the JAX
+body (a CUDA graph on the card; uncaptured here on the CPU) against the JAX
 package's scanned epochs over host and resident loaders, against the port's
 own S = 1 epoch bit for bit, the loss lines against JAX's (S > 1 logs after
 a full dispatch where ``done % log_interval < S``), the step counts, a
-planted stale-row fault per captured mode, and the update functions given
-their Adam numbers as a row. Narrow MMOE, dropout 0, inputs made with numpy
-from a seed, state carried across with ``interop.load_jax_trainer_state``
-(the helpers of ``test_torch_port_scan_graphs.py``)."""
+planted stale-row fault per mode, the update functions given their Adam
+numbers as a row, and the winner update's mask-free write-back against the
+JAX package's and under permuted occurrences. Narrow MMOE, dropout 0,
+inputs made with numpy from a seed, state carried across with
+``interop.load_jax_trainer_state`` (the helpers of
+``test_torch_port_scan_graphs.py``)."""
 
 import numpy as np
 import pytest
@@ -27,8 +28,9 @@ import test_torch_port_train_modes as mode_tests  # noqa: E402
 
 MODES = ["occurrence", "dense", "winner"]
 LOADERS = scan_tests.LOADERS
-# each captured mode's row helper, as the trainer imports it
-ROWS = {"occurrence": "occurrence_hparams_rows", "dense": "adam_hparams_rows"}
+# each mode's row helper, as the trainer imports it
+ROWS = {"occurrence": "occurrence_hparams_rows", "dense": "adam_hparams_rows",
+        "winner": "occurrence_hparams_rows"}
 
 
 # -- against the JAX package's scanned epochs ----------------------------------
@@ -99,8 +101,8 @@ def test_scan_epochs_equal_single_step_epochs(mode, loader):
 @pytest.mark.parametrize("mode", MODES)
 def test_every_step_advances_the_step_counts(mode):
     """The update's host step count and torch.optim's step count advance by
-    every step of every dispatch, the remainder's too: once, whether the
-    dispatch advances it (occurrence, dense) or the update itself (winner)."""
+    every step of every dispatch, the remainder's too: once, by the
+    dispatch (the update given its row leaves the count alone)."""
     _, t = scan_tests._twins(mode)
     loader = scan_tests._port_loader(mode, "host")
     for epoch in (1, 2):
@@ -110,7 +112,7 @@ def test_every_step_advances_the_step_counts(mode):
             assert float(t.optimizer.state[p]["step"]) == 7 * epoch
 
 
-@pytest.mark.parametrize("mode", ["occurrence", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_a_dispatch_whose_row_is_not_advanced_is_seen(mode, monkeypatch):
     """A planted fault: every step of a dispatch given its first step's
     row of Adam numbers (the bias corrections of step t at t + 1, t + 2)
@@ -128,15 +130,16 @@ def test_a_dispatch_whose_row_is_not_advanced_is_seen(mode, monkeypatch):
 @pytest.mark.parametrize("mode", ["plain", "sorted", "occurrence", "dense", "winner"])
 def test_every_mode_is_dispatched(mode):
     """At S > 1 every mode runs S steps a dispatch (on the CPU none is
-    graphed); each plan holds the row of Adam numbers its update reads: 7
-    for the sorted and dense kernels, 3 for the occurrence update, none for
-    the plain step and the winner update."""
+    graphed, on the card every one: winner too); each plan holds the row of
+    Adam numbers its update reads: 7 for the sorted and dense kernels, 3 for
+    the occurrence and winner updates, none for the plain step."""
     _, t = scan_tests._twins(mode)
     assert t._dispatched and not t.graphed
     scan_tests._epoch(t, scan_tests._port_loader(mode, "resident"))
-    width = {"sorted": 7, "dense": 7, "occurrence": 3}.get(mode)
+    width = {"sorted": 7, "dense": 7, "occurrence": 3, "winner": 3}.get(mode)
     assert (t._plan.hp is None) if width is None else (t._plan.hp.shape == (3, width))
-    assert (t._emb_mode in ptrainer._CAPTURED_MODES) == (mode != "winner")
+    t.device = torch.device("cuda")  # what the flag reads: a dispatch on the card
+    assert t.graphed
 
 
 # -- the updates given their Adam numbers as a row ------------------------------
@@ -233,3 +236,106 @@ def test_segment_rows_are_made_once_outside_inference_mode():
     assert not a.is_inference() and not o.is_inference()
     assert a is poptim._sizes_row(sizes, torch.device("cpu"))
     assert o.tolist() == [0, 3, 3, 8] and o.dtype == torch.int32
+
+
+# -- the winner update: its Adam numbers as a row, its write-back without a mask --
+
+def _winner_case(r, k=300, v=40, d=4, exact=False):
+    """Ids with duplicates, both edges of the table (0 and V - 1) and a
+    frozen span's ids among them, rows ``[V - 10, V - 1)`` untouched, and
+    their gradient rows; ``exact``: the rows are multiples of 1/64 below 4,
+    so that every duplicate sum is exact in float32 in any order."""
+    ids = r.integers(0, v - 10, k)
+    ids[:3], ids[-3:] = 0, v - 1
+    ids[10:40] = 7
+    if exact:
+        g = (r.integers(-256, 256, (k, d)) / 64.0).astype(np.float32)
+    else:
+        g = r.normal(size=(k, d)).astype(np.float32)
+    table = r.normal(size=(v, d)).astype(np.float32)
+    return ids, g, table
+
+
+@pytest.mark.parametrize("frozen", [(), ((0, 5),), ((30, 10),)])
+def test_winner_update_given_its_row_equals_its_own(frozen):
+    """``sparse_adam_rowgrads_update(hp=row)`` equals the update that stages
+    its step's row itself, bit for bit, over three steps (frozen spans at
+    either edge of the table or none), and leaves the step count to the
+    caller; with ids of length 0 too."""
+    r = np.random.default_rng(3)
+    ids, g, table = _winner_case(r)
+    ta, tb = torch.from_numpy(table.copy()), torch.from_numpy(table.copy())
+    a, b = poptim.sparse_adam_init(ta), poptim.sparse_adam_init(tb)
+    for step in range(1, 4):
+        gs = torch.from_numpy(g * step)
+        poptim.sparse_adam_rowgrads_update(ta, a, gs, torch.from_numpy(ids),
+                                           frozen_spans=frozen)
+        row = torch.from_numpy(poptim.occurrence_hparams_rows(step, 1, 1e-3, 0.9, 0.999)[0])
+        poptim.sparse_adam_rowgrads_update(tb, b, gs, torch.from_numpy(ids), hp=row,
+                                           frozen_spans=frozen)
+    assert a["step"] == 3 and b["step"] == 0
+    for x, y in ((ta, tb), (a["mu"], b["mu"]), (a["nu"], b["nu"])):
+        assert torch.equal(x, y)
+    assert not torch.equal(ta, torch.from_numpy(table))
+    for lo, n in frozen:
+        assert torch.equal(ta[lo:lo + n], torch.from_numpy(table[lo:lo + n]))
+        assert not a["mu"][lo:lo + n].any()
+    empty = torch.zeros(0, dtype=torch.long)
+    poptim.sparse_adam_rowgrads_update(tb, b, torch.zeros(0, 4), empty, hp=row)
+    poptim.sparse_adam_rowgrads_update(ta, a, torch.zeros(0, 4), empty)
+    assert (a["step"], b["step"]) == (4, 0)
+
+
+@pytest.mark.parametrize("frozen", [(), ((0, 5), (30, 10))], ids=["trainable", "frozen"])
+def test_winner_update_without_a_mask_matches_jax(frozen):
+    """The winner update, its rows written back by ``scatter_rows`` (its
+    plain version here) with no mask index, against the JAX package's
+    ``sparse_adam_rowgrads_update`` over three steps, ids at both edges of
+    the table, duplicates and frozen spans: within the tolerance of
+    test_torch_port_row_update.py's winner parity test; untouched rows
+    bit-identical."""
+    import jax.numpy as jnp
+
+    import test_torch_port_row_update as row_tests
+    from scenario_wise_rec_tpu.train import optim as joptim
+
+    r = np.random.default_rng(4)
+    ids, g, table = _winner_case(r)
+    jt, js = jnp.asarray(table), joptim.sparse_adam_init(jnp.asarray(table))
+    pt = torch.from_numpy(table.copy())
+    ps = poptim.sparse_adam_init(pt)
+    for step in range(3):
+        gs = g * (step + 1)
+        jt, js = joptim.sparse_adam_rowgrads_update(jt, js, jnp.asarray(gs), jnp.asarray(ids),
+                                                    frozen_spans=frozen, **row_tests.KW)
+        poptim.sparse_adam_rowgrads_update(pt, ps, torch.from_numpy(gs), torch.from_numpy(ids),
+                                           frozen_spans=frozen, **row_tests.KW)
+    assert ps["step"] == int(js["step"]) == 3
+    for got, want, what in ((pt, jt, "table"), (ps["mu"], js["mu"], "mu"),
+                            (ps["nu"], js["nu"], "nu")):
+        row_tests._close(got, want, what)
+    untouched = np.setdiff1d(np.arange(table.shape[0]), ids)
+    assert untouched.size
+    np.testing.assert_array_equal(pt.numpy()[untouched], table[untouched])
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+def test_winner_result_does_not_depend_on_the_winning_duplicate(order):
+    """Permuting the occurrences changes which duplicate of an id wins its
+    slot: with gradients whose duplicate sums are exact in any order, the
+    table, ``mu`` and ``nu`` come out the same, bit for bit, over three
+    steps (a frozen span too)."""
+    r = np.random.default_rng(5)
+    ids, g, table = _winner_case(r, exact=True)
+    perm = np.arange(ids.shape[0])[::-1] if order == "reversed" else r.permutation(ids.shape[0])
+    out = []
+    for i, gi in ((ids, g), (ids[perm], g[perm])):
+        t = torch.from_numpy(table.copy())
+        st = poptim.sparse_adam_init(t)
+        for step in range(1, 4):
+            poptim.sparse_adam_rowgrads_update(t, st, torch.from_numpy(gi * step),
+                                               torch.from_numpy(i), frozen_spans=((30, 4),))
+        out.append((t, st["mu"], st["nu"]))
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+    assert not torch.equal(out[0][0], torch.from_numpy(table))

@@ -156,10 +156,15 @@ def test_host_metrics_match_jax():
 
 
 def test_trainer_rejects_what_this_slice_does_not_do():
+    """``fused_inference="auto"`` resolves (to the port's measured set, as
+    JAX's trainer resolves to its own), a stray string raises, a mesh is
+    not run."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import FUSED_INFERENCE_WINS
+
     _, pt = _trainers(False)
     model = pt.model
-    with pytest.raises(NotImplementedError):
-        PTrainer(model, device="cpu", fused_inference="auto")
+    auto = PTrainer(model, device="cpu", fused_inference="auto")
+    assert auto._fused_inference is ("MMOE" in FUSED_INFERENCE_WINS)
     with pytest.raises(ValueError):
         PTrainer(model, device="cpu", fused_inference="false")
     with pytest.raises(NotImplementedError):

@@ -387,12 +387,18 @@ def test_fit_trains_evaluates_and_saves(tmp_path):
 
 
 def test_trainer_rejects_what_the_port_does_not_run():
+    """A mesh and more than one GPU raise with their ROADMAP item;
+    ``fused_inference="auto"`` (A10, ported) resolves to a bool; the JAX
+    dials the port has no use for raise."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import fused_inference_auto
+
     _, pt = _pair(True)
     model = pt.model
-    for kw, item in ((dict(mesh=object()), "A15"), (dict(gpus=[0, 1]), "A15"),
-                     (dict(fused_inference="auto"), "A10")):
+    for kw, item in ((dict(mesh=object()), "A15"), (dict(gpus=[0, 1]), "A15")):
         with pytest.raises(NotImplementedError, match=item):
             PTrainer(model, device="cpu", **kw)
+    auto = PTrainer(model, device="cpu", fused_inference="auto")
+    assert auto._fused_inference is fused_inference_auto(model)
     for kw in (dict(sorted_kernel=False), dict(sorted_chunk_ids=100),
                dict(sorted_precision="bf16"), dict(sorted_reorder="scatter"),
                dict(scan_steps=0), dict(sorted_dtype="fp16")):
