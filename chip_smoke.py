@@ -52,6 +52,15 @@ Phases; each asserts, and any failure exits non-zero:
      version and index_add_ + fused torch.optim.Adam over bf16 tensors; and
      the Step 0 of the f32 form and of ``fused_dense_adam_apply`` beside it
      (the three share ``csrc/embedding_adam.cuh``);
+   - ``sorted_dense_adam_apply_sharded`` (``[2]
+     sorted_dense_adam_apply_sharded``): E = 2 and 4 shards in turn into
+     row slices of one Ali-CCP table, f32 and bf16, hp by value and in
+     device memory, uniform and hot-row Zipf ids with ids on every shard
+     boundary, one step from one state each: 0 elements may differ from the
+     unsharded kernel's step on a copy, and each shard is held against the
+     plain version at row 13's rule; each shard's Step 0 beside the
+     unsharded form's in the same call and the shard's byte bound, the
+     plain version and index_add_ + fused torch.optim.Adam on one shard;
    - ``occurrence_segsum`` against ``occurrence_segsum_ref`` at the Ali-CCP
      ids as the trainer passes them (int64, one ``[23, 4096]`` launch) and
      as int32, a hot row (one feature's 4096 ids one row) with Zipf ids, two
@@ -276,14 +285,30 @@ Phases; each asserts, and any failure exits non-zero:
    step, syncs and busy share, capture seconds and the graph's pool; with
    rows 13's and 14's Step 0 by value and from device memory (measured in
    ``[2] sorted_dense_adam_apply bf16``, where one step of each form is
-   held against the plain version).
+   held against the plain version). Then ``[4] training mmoe mesh``: this
+   script spawns itself four times as the ranks of a (2, 2) ``(data,
+   embed)`` mesh on the one card over gloo (``--mesh-rank``; the kernels
+   built here first), each running MMOE's ``fit`` at Ali-CCP width in the
+   sorted f32 mode (one epoch of 10 steps of 4096, the last padded, with
+   validation) and ``evaluate_multi_domain_loss`` through
+   ``CTRTrainer(mesh=make_mesh(2, 2))``, the counts set to 0 before and
+   read after in every rank: the sharded kernel once a step a rank, nothing
+   else; then the same ``fit`` in this process from the same weights and
+   batches: the first step's loss within 1e-6 and the state one step from
+   the common start within ``GROUP_TOL`` (``phase_train_mesh``), every
+   rank's metrics the same, the later losses and the metrics printed beside
+   one process padded with weight-0 rows; then a (1, 2) mesh, equal to one
+   process bit for bit over the whole fit; with the backend, world size,
+   ranks' memory and seconds.
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
    ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
    kernel's bf16 form (the sorted kernel's row also with its resident
    launches and the resident findings of (d); an eval kernel's
    ``ms`` is its Step-0 device time, beside ``back_to_back_ms``), and last
-   the line ``{"ok": true, "device": {...}}``.
+   the line ``{"ok": true, "device": {...}}``. The kernels line also holds
+   the sharded form (``sorted_dense_adam_apply_sharded``: its Step 0 for
+   each E and type, its bound, and its launches on the mesh path).
 """
 
 from __future__ import annotations
@@ -484,10 +509,16 @@ UPDATE_KERNELS = {
     # the bf16 form of the sorted kernel (the TPU kernel on bf16 tiles)
     "sorted_dense_adam_apply_bf16": (
         "sorted_adam", "scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:281"),
+    # its row-sharded form, one shard of a mesh's table (f32; the bf16 form
+    # is held in its own phase)
+    "sorted_dense_adam_apply_sharded": (
+        "sorted_adam", "scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:436"),
 }
 # a kernel form counted apart from its wrapper's own count: name -> (wrapper,
 # counter attribute)
-FORM_COUNTERS = {"sorted_dense_adam_apply_bf16": ("sorted_dense_adam_apply", "launches_bf16")}
+FORM_COUNTERS = {"sorted_dense_adam_apply_bf16": ("sorted_dense_adam_apply", "launches_bf16"),
+                 "sorted_dense_adam_apply_sharded": ("sorted_dense_adam_apply",
+                                                     "launches_sharded")}
 # each embedding update's kernel launches per train step (the plain step: none)
 STEP_LAUNCHES = {"sorted": {"sorted_dense_adam_apply": 1},
                  "sorted_bf16": {"sorted_dense_adam_apply_bf16": 1},
@@ -2989,6 +3020,481 @@ def phase_sorted_adam_bf16(seed, peak):
             "fused_dense_adam_apply_ms": fused_ms}
 
 
+def shard_boundary_ids(ids, V):
+    """``ids`` with their first positions set to every shard boundary of E
+    = 2 and 4 (``j V/E - 1`` and ``j V/E``), each 8 times."""
+    bounds = sorted({j * V // e + o for e in (2, 4) for j in range(1, e) for o in (-1, 0)})
+    out = ids.clone()
+    out[:8 * len(bounds)] = torch.as_tensor(np.repeat(bounds, 8))
+    return out
+
+
+def phase_sorted_adam_sharded(seed, peak):
+    """``sorted_dense_adam_apply_sharded`` alone at the Ali-CCP shape (V =
+    10,741,000, D = 16, K = 94,208) with uniform ids and with the hot row
+    plus Zipf ids, ids on every shard boundary: E = 2 and 4 shards in turn
+    into row slices of one table, f32 and bf16, hp by value and in device
+    memory, one step from one state each, held against the unsharded kernel
+    on a copy (0 elements may differ: the shard's tiles are the table's) and
+    against the plain version (the sharded one, shard by shard) at row 13's
+    rule (``AdamOrderRule``; bf16 ``bf16_held``). Then each shard's Step 0
+    beside the unsharded form's, in the same call, and each shard's bound
+    (its table, mu and nu read and written once, and the ids and gradient
+    rows that fall in it, over the card's rate). Its data come from a
+    generator of its own."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    V, D, K = N_SPARSE * VOCAB, 16, N_SPARSE * BATCH
+    r = np.random.default_rng(28)
+    zipf = lambda: np.minimum(r.zipf(1.2, BATCH) - 1, VOCAB - 1)
+    cases = {"a_alicpp_uniform": per_feature(lambda f: r.integers(0, VOCAB, BATCH)),
+             "b_hot_row_zipf": per_feature(lambda f: np.full(BATCH, 17) if f == 0 else zipf())}
+    cases = {k: shard_boundary_ids(v, V).cuda() for k, v in cases.items()}
+    hp = sa.adam_hparams(3, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    hp_dev = torch.tensor(hp, device="cuda")
+    start = [torch.randn(V, D, generator=gen, device="cuda"),
+             0.01 * torch.randn(V, D, generator=gen, device="cuda"),
+             1e-4 * torch.rand(V, D, generator=gen, device="cuda")]
+    max_err, out = 0.0, {"step0": {}, "bound_ms": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        state = [t.to(dt) for t in start]
+        for case, ids in cases.items():
+            g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+            sid, gs = sa.owner_sorted_grads(ids, g)
+            whole = [t.clone() for t in state]
+            sa.sorted_dense_adam_apply(*whole, sid, gs, hp)
+            rule = AdamOrderRule(state[0].float())
+            rule.step(state[0].float(), sid, gs, hp)
+            seen = []
+            for e in (2, 4):
+                vl = V // e
+                plain = [t.clone() for t in state]
+                for j in range(e):
+                    sa.sorted_dense_adam_apply_sharded_ref(*(t[j * vl:(j + 1) * vl] for t in plain),
+                                                           sid, gs, hp, row0=j * vl)
+                for form, h in (("by value", hp), ("hp in device memory", hp_dev)):
+                    got = [t.clone() for t in state]
+                    for j in range(e):
+                        sa.sorted_dense_adam_apply_sharded(
+                            *(t[j * vl:(j + 1) * vl] for t in got), sid, gs, h, row0=j * vl)
+                    torch.cuda.synchronize()
+                    differ = sum(int((a != b).sum()) for a, b in zip(got, whole))
+                    largest = max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, whole))
+                    check(differ == 0, f"sharded {name} {case} E={e} {form}: {differ} elements "
+                          f"differ from the unsharded kernel, the largest by {largest:.3e}")
+                    for a, b, what in zip(got, plain, ("table", "mu", "nu")):
+                        held = (bf16_held(a, b, rule, what)[0] if dt == torch.bfloat16
+                                else rule.close(a, b, what))
+                        check(held, f"sharded {name} {case} E={e} {form}: {what} disagrees "
+                              "with the plain version")
+                        max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+                    seen.append(f"E={e} {form}: {differ} of {3 * V * D} elements differ")
+                    del got
+                del plain
+            log(f"  sorted_dense_adam_apply_sharded {name} {case}: V {V}, K {K}, one step from one "
+                f"state; against the unsharded kernel: " + "; ".join(seen)
+                + f"; the plain version held, max_abs_err so far {max_err:.3e}")
+            rule.count(f"sorted_dense_adam_apply_sharded {name} {case}")
+            del whole, rule
+        # Step 0, uniform ids: each shard's and the unsharded form's, each
+        # reading from the same state (the pass slows as the moments shrink)
+        ids = cases["a_alicpp_uniform"]
+        g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+        sid, gs = sa.owner_sorted_grads(ids, g)
+        saved = [t.clone() for t in state]
+
+        def restore():
+            for t, t0 in zip(state, saved):
+                t.copy_(t0)
+
+        restore()
+        unsharded = wrapper_cost(f"sorted_dense_adam_apply {name} (unsharded)",
+                                 lambda: sa.sorted_dense_adam_apply(*state, sid, gs, hp))
+        out["step0"][f"{name} unsharded"] = unsharded
+        for e in (2, 4):
+            vl = V // e
+            bounds = []
+            for j in range(e):
+                # the shard's table, mu and nu read and written once, and the
+                # ids and gradient rows that fall in the shard (the rest it
+                # only passes over in its binary search)
+                n_in = int(((sid >= j * vl) & (sid < (j + 1) * vl)).sum())
+                moved = 6.0 * vl * D * dt.itemsize + n_in * (4 + 4 * D)
+                flops = 16.0 * vl * D + n_in * D  # the Adam chain per element; the sums
+                check(moved / peak[1] >= flops / peak[0], "the sharded update bound by operations")
+                out["bound_ms"][f"{name} E={e} shard {j}"] = moved / peak[1] * 1e3
+                bounds.append((moved / peak[1] * 1e3, moved, n_in))
+                restore()
+                shard = [t[j * vl:(j + 1) * vl] for t in state]
+                cost = wrapper_cost(f"sorted_dense_adam_apply_sharded {name} E={e} shard {j}",
+                                    lambda: sa.sorted_dense_adam_apply_sharded(
+                                        *shard, sid, gs, hp, row0=j * vl))
+                out["step0"][f"{name} E={e} shard {j}"] = cost
+            readings = [out["step0"][f"{name} E={e} shard {j}"]["device_ms"] for j in range(e)]
+            log(f"  sorted_dense_adam_apply_sharded {name} E={e}: Step 0 device ms by shard "
+                f"{[round(x, 4) for x in readings]}, bound by shard "
+                f"{[round(b[0], 4) for b in bounds]} ms ({[round(b[1] / 1e9, 4) for b in bounds]} "
+                f"GB over {peak[1] / 1e12:g} TB/s, the shard's ids {[b[2] for b in bounds]} of "
+                f"{K}; the unsharded form's / E {unsharded['device_ms'] / e:.4f} ms)")
+        del saved, state
+    # the plain version and the nearest PyTorch composition on one shard of
+    # E = 2, f32 (timed here only; the port never calls the composition)
+    ids = cases["a_alicpp_uniform"]
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(ids, g)
+    vl = V // 2
+    shard = [start[0][:vl].clone(), start[1][:vl].clone(), start[2][:vl].clone()]
+    plain_ms = time_ms(lambda: sa.sorted_dense_adam_apply_sharded_ref(*shard, sid, gs, hp, row0=0),
+                       reps=3, inner=5)
+    kernel_ms = time_ms(lambda: sa.sorted_dense_adam_apply_sharded(*shard, sid, gs, hp, row0=0))
+    mine = sid < vl
+    local_ids, local_g = sid[mine].long(), gs[mine]
+    param = torch.nn.Parameter(shard[0].clone())
+    param.grad = torch.zeros_like(param)
+    opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-5,
+                           fused=True)
+
+    def library():
+        param.grad.zero_()
+        param.grad.index_add_(0, local_ids, local_g)
+        opt.step()
+
+    library_ms = time_ms(library, reps=3, inner=10)
+    del param, opt, shard, start
+    torch.cuda.empty_cache()
+    ms = out["step0"]["f32 E=2 shard 0"]["device_ms"]
+    log(f"  sorted_dense_adam_apply_sharded f32 E=2 shard 0: Step 0 {ms:.4f} ms, back to back "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ + torch.optim.Adam(fused=True) "
+        f"{library_ms:.4f} ms, bound {out['bound_ms']['f32 E=2 shard 0']:.4f} ms")
+    return {"name": "sorted_dense_adam_apply_sharded", "route": "cuda",
+            "source": "scenario_wise_rec_tpu_torch/csrc/sorted_adam.cu",
+            "replaces": UPDATE_KERNELS["sorted_dense_adam_apply_sharded"][1],
+            "form": "one shard of E = 2, f32 (the mesh path's); every E and type below",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": out["bound_ms"]["f32 E=2 shard 0"], "bound_by": "bytes",
+            "library_ms": library_ms, "back_to_back_ms": kernel_ms,
+            "step0_device_ms": {k: v["device_ms"] for k, v in out["step0"].items()},
+            "step0_host_us": {k: v["host_us"] for k, v in out["step0"].items()},
+            "bound_ms_by_form": out["bound_ms"]}
+
+
+MESH_SHAPE = (2, 2)  # (data, embed): four ranks on the one card, over gloo
+# Two correct runs of MMOE's fit part step by step: Adam moves an element
+# whose gradient is cancellation noise by up to lr, whichever order summed
+# it, and the next steps carry that on. So the (2, 2) mesh is gated to
+# GROUP_TOL where both sides start from one state (its first step), and its
+# later steps and metrics against one process padded with MESH_PAD weight-0
+# rows a batch (exact zeros in every sum, other shapes for every product),
+# which parts from one process the same way but less: the mesh's gaps may be
+# at most MESH_GAP_RATIO times the padded run's (H100 80GB HBM3, 700 W: 10x
+# on steps 2-9 and on the padded step 10, 6.4x on AUC, 4.8x on logloss), or
+# MESH_GAP_FLOOR where the padded run's gap is near 0. That gate is loose:
+# a fault that shows only on the padded step (every data rank taking rank
+# 0's weights) stayed inside it. So a second fit of MESH_TAIL rows, one
+# padded step from the common start in which data rank 1 holds no real row,
+# is gated to GROUP_TOL as the first step is.
+MESH_PAD = 512
+MESH_GAP_RATIO = 30
+MESH_GAP_FLOOR = {"loss": 1e-4, "auc": 1e-3, "logloss": 1e-3}
+MESH_TAIL = 123
+N_MESH = 9 * BATCH + MESH_TAIL  # 10 train steps, the last padded
+
+
+def mesh_fit(seed, mesh, out_dir, pad_rows=0, first_step=True, n_rows=N_MESH, validate=True):
+    """MMOE's ``fit`` at Ali-CCP width in the sorted f32 mode, one epoch of
+    ``n_rows`` rows with validation (its checkpoint into ``out_dir``), then
+    ``evaluate_multi_domain_loss`` (neither without ``validate``), on
+    ``mesh`` or in one process (None):
+    the losses of every step, the metrics, the update kernels' launches, the
+    paths of a checkpoint saved after the first step (with ``first_step``)
+    and of ``fit``'s, and the seconds. ``pad_rows``: each train batch padded
+    with that many weight-0 copies of its first row (the same math: they add
+    exact zeros to every sum; but every product and reduction has another
+    shape, so the card sums in another order)."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    model = build_ali_model(seed + 1)
+    x, y = synthetic_eval_set(seed + 4, n_rows)
+    vx, vy = synthetic_eval_set(seed + 5, 2 * BATCH + 7)
+    train = BatchIterable(ColumnarDataset(x, y), BATCH, shuffle=True, seed=seed)
+    val = BatchIterable(ColumnarDataset(vx, vy), BATCH)
+    t = CTRTrainer(model, sparse_embedding_updates=True, sparse_update_impl="sorted",
+                   n_epoch=1, seed=seed, mesh=mesh, model_path=out_dir, data_set_type="mesh")
+    del model
+    losses, step, first = [], t._train_step, []
+
+    def recorded(x, y, w, **kw):  # each step's global loss, read after the epoch
+        if pad_rows:
+            pad = lambda v: torch.cat([v, v[:1].expand(pad_rows, *v.shape[1:])])
+            x, y, w = {k: pad(v) for k, v in x.items()}, pad(y), torch.cat(
+                [w, w.new_zeros(pad_rows)])
+        losses.append(step(x, y, w, **kw))
+        if len(losses) == 1 and first_step:  # one step from the common start
+            first.append(t.save(os.path.join(out_dir, "first_step")))
+        return losses[-1]
+
+    t._train_step = recorded
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    path = t.fit(train, val if validate else None)
+    metrics = t.evaluate_multi_domain_loss(t.model, val, DOMAINS) if validate else []
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return {"losses": [float(l) for l in losses], "metrics": list(metrics), "counts": counts,
+            "first_step": first[0] if first else None, "path": path,
+            "seconds": time.perf_counter() - t0,
+            "steps": len(train), "max_memory_mb": torch.cuda.max_memory_allocated() / 1e6}
+
+
+def mesh_rank_main(args):
+    """One rank of ``[4] training mmoe mesh``: join the gloo group, run
+    :func:`mesh_fit` on the mesh (and, with more than one data rank, its
+    one padded step of ``MESH_TAIL`` rows) and write its results as JSON."""
+    from scenario_wise_rec_tpu_torch.parallel import init_distributed, make_mesh
+
+    n, e = (int(v) for v in args.mesh_shape.split(","))
+    init_distributed("gloo", f"file://{os.path.join(args.mesh_dir, 'rendezvous')}",
+                     args.mesh_rank, n * e)
+    mesh = make_mesh(n, e)
+    log(f"  rank {args.mesh_rank}: {mesh}, device {torch.cuda.current_device()}")
+    res = mesh_fit(args.seed, mesh, args.mesh_dir, first_step=n > 1)
+    if n > 1:
+        res["tail"] = mesh_fit(args.seed, mesh, os.path.join(args.mesh_dir, "tail"),
+                               first_step=False, n_rows=MESH_TAIL, validate=False)
+    with open(os.path.join(args.mesh_dir, f"rank{args.mesh_rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def checkpoint_groups(path):
+    """A checkpoint's tensors on the card in ``trainer_groups``' groups (the
+    packed table, the Adam step its moments imply, the dense parameters and
+    BN buffers, the BN-cancelled ones), and the first moments by tensor
+    name, for ``noisy_checkpoint_elements``."""
+    from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import adam_hparams
+
+    with np.load(path, allow_pickle=False) as f:
+        a = {k: torch.from_numpy(f[k]).cuda() for k in f.files if not k.startswith("__")}
+    sd = {k[len("model/"):]: v for k, v in a.items() if k.startswith("model/")}
+    table = sd.pop("embedding.packed")
+    lr, _, _, _, bc1r, bc2r, eps = adam_hparams(int(a["opt/emb/step"]), 1e-3, 0.0, 0.9, 0.999,
+                                                1e-8)
+    implied = lr * (a["opt/emb/mu"] * bc1r) / (torch.sqrt(a["opt/emb/nu"] * bc2r) + eps)
+    moments = {k[len("opt/base/"):-len("/exp_avg")]: v for k, v in a.items()
+               if k.startswith("opt/base/") and k.endswith("/exp_avg")}
+    moments["embedding.packed"] = a["opt/emb/mu"]
+    cancelled = lambda k: BN_BIAS.search(k) is not None
+    return ({"table": {"embedding.packed": table},
+             "table moments": {"embedding.packed": implied}, "bf16 store": {},
+             "dense": {k: v for k, v in sd.items() if not cancelled(k)},
+             "BN-cancelled": {k: v for k, v in sd.items() if cancelled(k)}}, moments)
+
+
+def spawn_mesh(seed, shape, out_dir):
+    """Run :func:`mesh_fit` on a ``shape`` mesh of ranks, each this script
+    (``--mesh-rank``) on the one card; every rank's results and the ranks'
+    wall seconds with start-up. Prints rank 0's output."""
+    n, e = shape
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--mesh-rank", str(r), "--mesh-shape", f"{n},{e}",
+                               "--mesh-dir", out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(n * e)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for line in logs[0].splitlines():
+        log(f"  [{n} x {e} rank 0] {line.strip()}")
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"mesh {shape} rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    res = []
+    for r in range(n * e):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res, seconds
+
+
+def checkpoints_equal(a, b):
+    """The keys of two checkpoints whose tensors differ in any bit."""
+    with np.load(a, allow_pickle=False) as fa, np.load(b, allow_pickle=False) as fb:
+        return [k for k in fa.files if not k.startswith("__")
+                and fa[k].tobytes() != fb[k].tobytes()]
+
+
+def phase_train_mesh(seed, card):
+    """MMOE at Ali-CCP width trained by ``CTRTrainer(mesh=make_mesh(2, 2))``
+    in four processes on the one card over gloo (the kernels built by this
+    process first, so the ranks only load them), one epoch of 10 steps with
+    validation and an evaluation, against the same ``fit`` in one process
+    on the card from the same weights and batches: the first step's loss
+    (one state, the sums in another order) within 1e-6 of it; the table,
+    the Adam step its moments imply, the dense parameters and BN buffers
+    one step from the common start (each side's checkpoint after its first
+    step) within ``GROUP_TOL`` (elements whose first moments part by
+    NOISY_MOMENT, their gradients cancellation noise, held to NOISE_ATOL,
+    counted, at most NOISY_SHARE); the later losses (the largest relative
+    gap over the full steps 2-9, and the padded step 10's) and the AUC and
+    logloss gaps within MESH_GAP_RATIO times those of a third fit in this
+    process with each batch padded by MESH_PAD weight-0 rows, or
+    MESH_GAP_FLOOR; every rank's metrics the same and finite; a second fit
+    of one padded step of MESH_TAIL rows (data rank 1 holds none of them)
+    from the common start, its loss within 1e-6 and its state within
+    ``GROUP_TOL`` as for the first step; the sharded kernel once a step a
+    rank and nothing else launched there.
+    Then a (1, 2) mesh, whose ranks see the whole batch and so run every
+    product and reduction of one process at its shapes: its losses,
+    metrics and checkpoint equal one process's bit for bit (the embed axis
+    alone: the sharded lookup and update are exact)."""
+    n, e = MESH_SHAPE
+    world = n * e
+    with tempfile.TemporaryDirectory() as tmp:
+        res, ranks_s = spawn_mesh(seed, MESH_SHAPE, os.path.join(tmp, "mesh"))
+        one = mesh_fit(seed, None, os.path.join(tmp, "single"))
+        steps = one["steps"]
+        # how far one process parts from itself when only the shapes of its
+        # sums change
+        control = mesh_fit(seed, None, os.path.join(tmp, "control"), pad_rows=MESH_PAD,
+                           first_step=False)
+        os.remove(control["path"])
+        floor = [abs(a - b) / abs(b) for a, b in zip(control["losses"], one["losses"])]
+        failed = []  # every gate's reading is printed before the first failure raises
+
+        def gate(ok, what):
+            if not ok:
+                failed.append(what)
+
+        def within_control(what, gap, control_gap, floor_key):
+            limit = max(MESH_GAP_RATIO * control_gap, MESH_GAP_FLOOR[floor_key])
+            gate(gap <= limit, f"mesh (2, 2) {what}: gap {gap:.3e} vs one process, above "
+                 f"{limit:.3e} ({MESH_GAP_RATIO} x the padded run's {control_gap:.3e}, at least "
+                 f"{MESH_GAP_FLOOR[floor_key]:g})")
+
+        def launched_sharded(m, shape):
+            gate(m["counts"]["sorted_dense_adam_apply_sharded"] == m["steps"]
+                 and not any(v for k, v in m["counts"].items()
+                             if k != "sorted_dense_adam_apply_sharded"),
+                 f"mesh {shape}: launches {m['counts']} (want the sharded kernel "
+                 f"{m['steps']})")
+
+        def one_state_gate(what, mesh_path, one_path):
+            """The state after one step from the common start: the
+            card-vs-CPU gate's rule, its noise-dominated elements as for
+            NOISY_MODELS."""
+            mesh_groups, mesh_mu = checkpoint_groups(mesh_path)
+            one_groups, one_mu = checkpoint_groups(one_path)
+            noisy, n_noisy, n_all = {}, 0, 0
+            for k, mb in one_mu.items():
+                noisy[k] = (mesh_mu[k] - mb).abs() > NOISY_MOMENT * mb.abs()
+                n_noisy, n_all = n_noisy + int(noisy[k].sum()), n_all + mb.numel()
+            gaps_g = group_gaps(mesh_groups, one_groups, noisy)
+            log(f"  mesh (2, 2) vs one process, {what}: {gaps_line(gaps_g)}; {n_noisy} of "
+                f"{n_all} elements noise-dominated (first moments {NOISY_MOMENT:g} apart)")
+            gate(not outside(gaps_g) and n_noisy <= NOISY_SHARE * n_all,
+                 f"mesh vs one process, {what}: "
+                 f"{ {g: gaps_g[g][3] for g in outside(gaps_g)} } outside their tolerance")
+            del mesh_groups, one_groups, mesh_mu, one_mu, noisy
+            torch.cuda.empty_cache()
+
+        for r, m in enumerate(res):
+            launched_sharded(m, MESH_SHAPE)
+            gaps = [abs(a - b) / abs(b) for a, b in zip(m["losses"], one["losses"])]
+            gate(len(gaps) == steps and gaps[0] <= 1e-6,
+                 f"mesh rank {r}: first loss {m['losses'][0]} vs one process "
+                 f"{one['losses'][0]}")
+            if len(gaps) == steps:
+                within_control(f"rank {r} losses of steps 2-{steps - 1}", max(gaps[1:-1]),
+                               max(floor[1:-1]), "loss")
+                within_control(f"rank {r} loss of the padded step {steps}", gaps[-1],
+                               floor[-1], "loss")
+            gate(m["metrics"] == res[0]["metrics"]
+                 and all(np.isfinite(v) for v in m["metrics"][0] + m["metrics"][1]
+                         + m["metrics"][2:]), f"rank {r}'s metrics {m['metrics']} differ from "
+                 f"rank 0's or are not finite")
+        gate(one["counts"]["sorted_dense_adam_apply"] == steps
+             and one["counts"]["sorted_dense_adam_apply_sharded"] == 0,
+             f"one process: launches {one['counts']}")
+        ll1, auc1, tll1, tauc1 = one["metrics"]
+
+        def metric_gaps(m):
+            return (max(abs(a - b) for a, b in zip(m[1] + [m[3]], auc1 + [tauc1])),
+                    max(abs(a - b) / b for a, b in zip(m[0] + [m[2]], ll1 + [tll1])))
+
+        auc_gap, ll_gap = metric_gaps(res[0]["metrics"])
+        auc_floor, ll_floor = metric_gaps(control["metrics"])
+        within_control("AUC", auc_gap, auc_floor, "auc")
+        within_control("logloss", ll_gap, ll_floor, "logloss")
+        one_state_gate("one step from one state", res[0]["first_step"], one["first_step"])
+        for key in ("first_step", "path"):  # every rank names rank 0's file
+            os.remove(res[0][key])
+        # one padded step from the common start, data rank 1 without a real row
+        one_tail = mesh_fit(seed, None, os.path.join(tmp, "single_tail"), first_step=False,
+                            n_rows=MESH_TAIL, validate=False)
+        for r, m in enumerate(res):
+            tail = m["tail"]
+            launched_sharded(tail, MESH_SHAPE)
+            tail_gap = (abs(tail["losses"][0] - one_tail["losses"][0])
+                        / abs(one_tail["losses"][0]) if len(tail["losses"]) == 1 else None)
+            gate(tail_gap is not None and tail_gap <= 1e-6,
+                 f"mesh rank {r}: the padded step's loss {tail['losses']} vs one process "
+                 f"{one_tail['losses']}")
+        one_state_gate(f"one padded step ({MESH_TAIL} rows) from one state",
+                       res[0]["tail"]["path"], one_tail["path"])
+        os.remove(res[0]["tail"]["path"])
+        os.remove(one_tail["path"])
+        # the embed axis alone, bit for bit
+        res12, ranks12_s = spawn_mesh(seed, (1, 2), os.path.join(tmp, "mesh12"))
+        for r, m in enumerate(res12):
+            launched_sharded(m, (1, 2))
+            gate(m["losses"] == one["losses"] and m["metrics"] == one["metrics"],
+                 f"mesh (1, 2) rank {r}: losses {m['losses']}, metrics {m['metrics']} vs one "
+                 f"process {one['losses']}, {one['metrics']}")
+        differ = checkpoints_equal(res12[0]["path"], one["path"])
+        log(f"  mesh (1, 2) vs one process: losses and metrics "
+            f"{'equal' if res12[0]['losses'] == one['losses'] else 'differ'}; checkpoint "
+            f"tensors at the fit's end that differ in any bit: {differ}")
+        gate(not differ, f"mesh (1, 2): checkpoint tensors {differ} differ from one process's")
+    log(f"  against one process (gated at {MESH_GAP_RATIO} x the padded run's), relative "
+        f"per-step loss gaps: the (2, 2) mesh "
+        f"{[f'{g:.1e}' for g in gaps]}, one process with {MESH_PAD} weight-0 rows a batch "
+        f"{[f'{g:.1e}' for g in floor]}; auc gap {auc_gap:.2e} (padded {auc_floor:.2e}), "
+        f"logloss gap {ll_gap:.2e} (padded {ll_floor:.2e}); one padded step from one state "
+        f"{tail_gap}")
+    log(f"  mesh (2, 2): backend gloo, world size {world}, on {card}; losses "
+        f"{[round(l, 6) for l in res[0]['losses']]} (one process "
+        f"{[round(l, 6) for l in one['losses']]}); auc "
+        f"{[round(a, 6) for a in res[0]['metrics'][1]]} total {res[0]['metrics'][3]:.6f} on "
+        f"every rank (one process {tauc1:.6f}); rank memory peak MB "
+        f"{[round(m['max_memory_mb'], 1) for m in res]}; fit + evaluation s by rank "
+        f"{[round(m['seconds'], 2) for m in res]} (one process {one['seconds']:.2f}); the ranks' "
+        f"processes {ranks_s:.1f} s with start-up, the (1, 2) mesh's {ranks12_s:.1f} s")
+    check(not failed, "; ".join(failed))
+    return {"launches": sum(m["counts"]["sorted_dense_adam_apply_sharded"] for m in res),
+            "launches_by_rank": [m["counts"]["sorted_dense_adam_apply_sharded"] for m in res],
+            "mesh": {"data": n, "embed": e, "backend": "gloo", "steps": steps,
+                     "loss_gaps": gaps, "padded_control_loss_gaps": floor,
+                     "rank_seconds": [m["seconds"] for m in res],
+                     "rank_peak_memory_mb": [m["max_memory_mb"] for m in res],
+                     "one_process_seconds": one["seconds"],
+                     "padded_step_loss_gap": tail_gap,
+                     "mesh_1x2_bit_for_bit": not differ}}
+
+
 def update_entry(name, max_err, kernel_ms, plain_ms, flops, moved, peak, library_ms, **extra):
     """The kernels-line entry of an embedding-update kernel, its bound from
     ``flops`` (f32) and ``moved`` bytes."""
@@ -4734,11 +5240,17 @@ def profile_device(fn, what):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of [4] training mmoe mesh, which this script spawns itself
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-shape", default="2,2", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
 
     from scenario_wise_rec_tpu_torch.ops.kernels import _build
 
@@ -4765,6 +5277,8 @@ def main(argv=None):
         sorted_adam = phase_sorted_adam(gen, peak)
     with phase("[2] sorted_dense_adam_apply bf16"):
         sorted_bf16 = phase_sorted_adam_bf16(args.seed, peak)
+    with phase("[2] sorted_dense_adam_apply_sharded"):
+        sorted_sharded = phase_sorted_adam_sharded(args.seed, peak)
     with phase("[2] occurrence_segsum, scatter_rows"):
         updates = phase_row_update(gen, peak)
     with phase("[2] fused_dense_adam_apply"):
@@ -4835,6 +5349,13 @@ def main(argv=None):
     with phase("[4] training mmoe graphed"):
         graphed = phase_train_graphed(args.seed, card,
                                       sorted_bf16["device_hp_step0_in_turns_ms"])
+    log(f"[4] training path: MMOE fit on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} (data, embed) "
+        "mesh of processes on the one card over gloo, sorted f32, against one process; "
+        "Ali-CCP width, 467k ids per feature")
+    with phase("[4] training mmoe mesh"):
+        mesh = phase_train_mesh(args.seed, card)
+    sorted_sharded["launches"] = mesh.pop("launches")
+    sorted_sharded.update(mesh)
     sorted_adam["graphed_path"] = graphed["float32"]
     sorted_bf16["graphed_path"] = graphed["bf16"]
     updates["fused_dense_adam_apply"]["graphed_path"] = graphed["dense"]
@@ -4850,7 +5371,8 @@ def main(argv=None):
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
         + f"; outside the phases {total - sum(PHASE_S.values()):.1f}")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam, sorted_bf16] + [new[n] for n in models]
+    print(json.dumps({"kernels": [infer, sorted_adam, sorted_bf16, sorted_sharded]
+                      + [new[n] for n in models]
                       + [updates[k] for k in ("fused_dense_adam_apply", "occurrence_segsum",
                                               "scatter_rows")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

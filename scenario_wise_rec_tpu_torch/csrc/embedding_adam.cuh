@@ -60,24 +60,38 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
   return lo;
 }
 
+// A row shard: the arrays hold the v rows [row0, row0 + v) of a larger table
+// (row0 = 0 and v = the table's rows when it is not sharded), and the ids are
+// the whole table's. The shard's tiles are the whole table's tiles of
+// block_rows rows that meet it: tile b starts at global row
+// first_tile(row0, block_rows) + b * block_rows, so the first and last tiles
+// may hold rows of the neighbouring shards. Their positions are summed into
+// the accumulator like any other and never written back: a tile's span of
+// positions starts where the unsharded table's tile starts, so every row's
+// duplicates are summed in the same chunks and the same order as there, and
+// a shard's rows come out bit for bit those of the unsharded kernel.
+__host__ __device__ __forceinline__ long long first_tile(long long row0, int block_rows) {
+  return (row0 / block_rows) * block_rows;
+}
+
 // For segment s (sorted positions [seg_off[s], seg_off[s + 1]), or [0, k) when
 // seg_off is null and nseg == 1) and tile b: starts[s * (nb + 1) + b] is the
 // first position of the segment whose id reaches tile b. Tile b of segment s
 // owns positions [starts[s * (nb + 1) + b], starts[s * (nb + 1) + b + 1]);
-// ids below 0 sort before tile 0 and ids >= v after the last tile, so they
-// reach no tile.
+// ids below the first tile sort before it and ids >= row0 + v after the last
+// tile, so they reach no tile.
 __global__ void tile_starts_kernel(const int* __restrict__ ids,
                                    const int* __restrict__ seg_off, int nseg,
-                                   int k, long long v, int block_rows, int nb,
-                                   int* __restrict__ starts) {
+                                   int k, long long v, long long row0, int block_rows,
+                                   int nb, int* __restrict__ starts) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<long long>(nseg) * (nb + 1)) return;
   const int s = static_cast<int>(t / (nb + 1));
   const int b = static_cast<int>(t - static_cast<long long>(s) * (nb + 1));
   const int lo = seg_off ? seg_off[s] : 0;
   const int hi = seg_off ? seg_off[s + 1] : k;
-  long long bound = static_cast<long long>(b) * block_rows;
-  if (bound > v) bound = v;
+  long long bound = first_tile(row0, block_rows) + static_cast<long long>(b) * block_rows;
+  if (bound > row0 + v) bound = row0 + v;
   starts[t] = lo + lower_bound(ids + lo, hi - lo, bound);
 }
 
@@ -254,7 +268,8 @@ __device__ __forceinline__ void adam_tile(T* __restrict__ table, T* __restrict__
 // One block per tile of block_rows rows: zero the accumulator, sum the tile's
 // sorted spans (one per segment: positions [starts[s * (nb + 1) + b],
 // starts[s * (nb + 1) + b + 1]), read into shared memory all at once), then
-// Adam over the whole tile (rows with no id decay too). Ids are sorted within a segment, so a tile's ids in one
+// Adam over the tile's rows of the shard [row0, row0 + v) (rows with no id
+// decay too). Ids are sorted within a segment, so a tile's ids in one
 // segment are one contiguous span and no row is shared with another block:
 // no cross-block reduction, no atomics. The Adam numbers are `h`, or when
 // `hp_dev` is not null the 7 floats there, loaded once by the block.
@@ -263,8 +278,8 @@ __global__ void __launch_bounds__(kThreads)
 dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
                   const int* __restrict__ ids, const int* __restrict__ pos,
                   const float* __restrict__ g, const int* __restrict__ starts, int nseg,
-                  int nb, long long v, int d, int block_rows, int stage_rows, int vec,
-                  const Hp h, const float* __restrict__ hp_dev) {
+                  int nb, long long v, long long row0, int d, int block_rows,
+                  int stage_rows, int vec, const Hp h, const float* __restrict__ hp_dev) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_hp[7];
   float* acc = smem;                                           // [block_rows * d]
@@ -273,25 +288,31 @@ dense_adam_kernel(T* __restrict__ table, T* __restrict__ mu, T* __restrict__ nu,
   int* s_span = s_row + stage_rows;                            // [2 * nseg]
 
   const int b = blockIdx.x;
-  const long long row0 = static_cast<long long>(b) * block_rows;
-  const int rows = static_cast<int>(min(static_cast<long long>(block_rows), v - row0));
+  // the tile's global rows [t0, t0 + block_rows); the shard's of them
+  // [lo, hi); its positions' ids lie in [t0, hi)
+  const long long t0 = first_tile(row0, block_rows) + static_cast<long long>(b) * block_rows;
+  const long long lo = max(t0, row0);
+  const long long hi = min(t0 + block_rows, row0 + v);
+  const int rows = static_cast<int>(hi - lo);
+  const int skip = static_cast<int>(lo - t0);
   if (hp_dev && threadIdx.x < 7) s_hp[threadIdx.x] = hp_dev[threadIdx.x];
   for (int s = threadIdx.x; s < nseg; s += kThreads) {
     const int* st = starts + static_cast<size_t>(s) * (nb + 1) + b;
     s_span[2 * s] = st[0];
     s_span[2 * s + 1] = st[1];
   }
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < (skip + rows) * d; i += kThreads) acc[i] = 0.f;
   __syncthreads();
   for (int s = 0; s < nseg; ++s) {
     accumulate_span(acc, s_g, s_row, ids, pos, g, s_span[2 * s], s_span[2 * s + 1],
-                    row0, d, stage_rows);
+                    t0, d, stage_rows);
   }
+  const float* acc_own = acc + static_cast<size_t>(skip) * d;
   if (hp_dev) {
     const Hp hd{s_hp[0], s_hp[1], s_hp[2], s_hp[3], s_hp[4], s_hp[5], s_hp[6]};
-    adam_tile(table, mu, nu, acc, row0, rows, d, vec, hd);
+    adam_tile(table, mu, nu, acc_own, lo - row0, rows, d, vec, hd);
   } else {
-    adam_tile(table, mu, nu, acc, row0, rows, d, vec, h);
+    adam_tile(table, mu, nu, acc_own, lo - row0, rows, d, vec, h);
   }
 }
 
@@ -321,17 +342,20 @@ cudaError_t allow_smem(size_t smem) {
 
 // Launches tile_starts_kernel, then dense_adam_kernel<T> with the Adam
 // numbers `h`, or those at `hp_dev` ([7] f32 on the device) when it is not
-// null. Returns cudaGetLastError() after the launches (0 = success).
+// null. table, mu and nu hold the v rows [row0, row0 + v) of the table the
+// ids address (row0 = 0: the whole table). Returns cudaGetLastError() after
+// the launches (0 = success).
 template <typename T>
 inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
                           const int* pos, const float* g, const int* seg_off,
                           int nseg, int* starts, long long v, int d, int k,
                           int block_rows, const Hp& h, void* stream,
-                          const float* hp_dev = nullptr) {
-  if (v <= 0 || d <= 0 || k < 0 || nseg <= 0 || block_rows <= 0) {
+                          const float* hp_dev = nullptr, long long row0 = 0) {
+  if (v <= 0 || d <= 0 || k < 0 || nseg <= 0 || block_rows <= 0 || row0 < 0) {
     return cudaErrorInvalidValue;
   }
-  const long long nb_ll = (v + block_rows - 1) / block_rows;
+  const long long nb_ll =
+      (row0 + v + block_rows - 1) / block_rows - first_tile(row0, block_rows) / block_rows;
   if (nb_ll >= 0x7fffffffLL) return cudaErrorInvalidValue;
   const int nb = static_cast<int>(nb_ll);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -345,11 +369,11 @@ inline cudaError_t launch(T* table, T* mu, T* nu, const int* ids,
                   (reinterpret_cast<uintptr_t>(nu) % 16 == 0);
   const long long n_starts = static_cast<long long>(nseg) * (nb + 1);
   tile_starts_kernel<<<static_cast<unsigned>((n_starts + 255) / 256), 256, 0, s>>>(
-      ids, seg_off, nseg, k, v, block_rows, nb, starts);
+      ids, seg_off, nseg, k, v, row0, block_rows, nb, starts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   dense_adam_kernel<T><<<nb, kThreads, smem, s>>>(table, mu, nu, ids, pos, g, starts,
-                                                  nseg, nb, v, d, block_rows,
+                                                  nseg, nb, v, row0, d, block_rows,
                                                   stage_rows_for(d), vec, h, hp_dev);
   return cudaGetLastError();
 }

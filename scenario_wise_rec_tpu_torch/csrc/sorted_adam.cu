@@ -12,6 +12,19 @@
 // with bc1r = 1 / (1 - b1^t), bc2r = 1 / (1 - b2^t). Ids outside [0, V),
 // negative ones included, contribute nothing.
 //
+// The row-sharded form replaces
+//   scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:436 sorted_dense_adam_apply_sharded
+// (a shard_map of the same pallas_call over a table row-sharded on a mesh's
+// embed axis). Every entry takes `row0`: table, mu and nu hold the rows
+// [row0, row0 + v) of the table the sorted ids address (row0 = 0 and v = V:
+// the whole table). No ids are re-based and no [K] temporary is made; ids
+// before or past the shard reach none of its tiles. The shard's tiles are the
+// whole table's tiles that meet it (embedding_adam.cuh, `first_tile`), so each
+// of its rows is summed and stepped exactly as the unsharded call steps it:
+// the shards of a table together equal one unsharded call bit for bit. Its
+// bound is the shard's bytes, 1/E of the table's, plus the ids and gradient
+// rows that reach its tiles.
+//
 // Two storage forms, as the TPU kernel takes f32 or bf16 tiles: table, mu and
 // nu all f32 (`sorted_dense_adam_f32`) or all bf16 (`sorted_dense_adam_bf16`;
 // the ids int32 and the gradient rows f32 in both). The bf16 form does the
@@ -66,26 +79,29 @@ size_t sorted_dense_adam_smem_bytes(int d, int block_rows) {
   return emb_adam::smem_bytes(d, block_rows, 1);
 }
 
-// table, mu, nu: [v, d] f32, updated in place. ids: [k] int32 sorted
-// ascending; g: [k, d] f32 aligned with ids. starts: [ceil(v / block_rows) + 1]
-// int32 scratch. Returns cudaGetLastError() after the launches (0 = success).
+// table, mu, nu: [v, d] f32, the rows [row0, row0 + v) of the table the ids
+// address, updated in place. ids: [k] int32 sorted ascending; g: [k, d] f32
+// aligned with ids. starts: [nb + 1] int32 scratch, nb = ceil((row0 + v) /
+// block_rows) - floor(row0 / block_rows), the table's tiles that meet the
+// rows. Returns cudaGetLastError() after the launches (0 = success).
 int sorted_dense_adam_f32(float* table, float* mu, float* nu, const int* ids,
-                          const float* g, int* starts, long long v, int d, int k,
-                          int block_rows, float lr, float wd, float b1, float b2,
-                          float bc1r, float bc2r, float eps, void* stream) {
+                          const float* g, int* starts, long long v, long long row0,
+                          int d, int k, int block_rows, float lr, float wd, float b1,
+                          float b2, float bc1r, float bc2r, float eps, void* stream) {
   const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
-                          d, k, block_rows, h, stream);
+                          d, k, block_rows, h, stream, nullptr, row0);
 }
 
 // The same with table, mu and nu bf16 [v, d]; ids and g as above.
 int sorted_dense_adam_bf16(__nv_bfloat16* table, __nv_bfloat16* mu, __nv_bfloat16* nu,
                            const int* ids, const float* g, int* starts, long long v,
-                           int d, int k, int block_rows, float lr, float wd, float b1,
-                           float b2, float bc1r, float bc2r, float eps, void* stream) {
+                           long long row0, int d, int k, int block_rows, float lr,
+                           float wd, float b1, float b2, float bc1r, float bc2r,
+                           float eps, void* stream) {
   const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
-                          d, k, block_rows, h, stream);
+                          d, k, block_rows, h, stream, nullptr, row0);
 }
 
 // The two forms again, the Adam numbers read from hp: [7] f32 in device
@@ -93,20 +109,21 @@ int sorted_dense_adam_bf16(__nv_bfloat16* table, __nv_bfloat16* mu, __nv_bfloat1
 // CUDA graph that captures this launch reads whatever hp holds at each
 // replay, so a captured step can take step t's bias corrections.
 int sorted_dense_adam_f32_dev(float* table, float* mu, float* nu, const int* ids,
-                              const float* g, int* starts, long long v, int d, int k,
-                              int block_rows, const float* hp, void* stream) {
+                              const float* g, int* starts, long long v, long long row0,
+                              int d, int k, int block_rows, const float* hp,
+                              void* stream) {
   const emb_adam::Hp h{};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
-                          d, k, block_rows, h, stream, hp);
+                          d, k, block_rows, h, stream, hp, row0);
 }
 
 int sorted_dense_adam_bf16_dev(__nv_bfloat16* table, __nv_bfloat16* mu,
                                __nv_bfloat16* nu, const int* ids, const float* g,
-                               int* starts, long long v, int d, int k, int block_rows,
-                               const float* hp, void* stream) {
+                               int* starts, long long v, long long row0, int d, int k,
+                               int block_rows, const float* hp, void* stream) {
   const emb_adam::Hp h{};
   return emb_adam::launch(table, mu, nu, ids, nullptr, g, nullptr, 1, starts, v,
-                          d, k, block_rows, h, stream, hp);
+                          d, k, block_rows, h, stream, hp, row0);
 }
 
 }  // extern "C"

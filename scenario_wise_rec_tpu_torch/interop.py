@@ -64,6 +64,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .parallel import shard_range
+
 _BN_STAT = re.compile(r"(^|\.)(layers\.\d+)\.(mean|var)$")
 
 
@@ -132,6 +134,20 @@ def _bf16_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(torch.bfloat16)
 
 
+def _own_rows(trainer, a):
+    """``a`` (``[V, ...]``, numpy) as the trainer holds it: whole, or on a
+    mesh this rank's row range, padded with zero rows past V."""
+    mesh = getattr(trainer, "mesh", None)
+    a = np.asarray(a)
+    if mesh is None:
+        return a
+    row0, rows = shard_range(a.shape[0], mesh)
+    out = np.zeros((rows,) + a.shape[1:], a.dtype)
+    part = a[row0:row0 + rows]
+    out[:part.shape[0]] = part
+    return out
+
+
 def _find_adam_state(tree):
     """optax's ``ScaleByAdamState`` inside an optimizer state (found by its
     ``count``/``mu``/``nu`` fields, so optax need not be imported)."""
@@ -162,7 +178,11 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
       ``sorted_dtype="bf16"``, in bfloat16 bit for bit into the port's bf16
       store (the model's table its float32 copy); in the occurrence mode the
       combined ``comb [V, 3·D]`` (its first D columns the weights); in the
-      dense and winner modes ``mu``/``nu``; and ``step``.
+      dense and winner modes ``mu``/``nu``; and ``step``;
+    - into a trainer on a mesh (``trainer.mesh``), each rank takes its row
+      range of the table and its moments (``parallel.shard_range``, zero
+      rows past V), from a JAX single-device trainer's arrays or a JAX mesh
+      trainer's (``np.asarray`` gathers those).
     """
     model = trainer.model
     base, emb = opt_state, None
@@ -183,6 +203,7 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
             packed = np.asarray(emb["comb"])[:, :d]
         else:
             packed = params["embedding"]["packed"]
+        packed = _own_rows(trainer, packed)
         params = {**params, "embedding": {**params["embedding"], "packed": packed}}
     load_jax_params(model, params, state)
     adam_state = _find_adam_state(base)
@@ -211,8 +232,9 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
             st["comb"][:, d:].copy_(as_t(np.asarray(emb["comb"])[:, d:], st["comb"]))
         elif trainer._bf16_store:
             for k in ("table", "mu", "nu"):
-                st[k].copy_(_bf16_tensor(unpack(emb[k])))
+                st[k].copy_(_bf16_tensor(_own_rows(trainer, unpack(emb[k]))))
         else:
             for k in ("mu", "nu"):
-                st[k].copy_(as_t(unpack(emb[k]) if "table" in emb else emb[k], st[k]))
+                a = unpack(emb[k]) if "table" in emb else emb[k]
+                st[k].copy_(as_t(_own_rows(trainer, a), st[k]))
     st["step"] = int(np.asarray(emb["step"]))

@@ -42,6 +42,9 @@
   with its plain version and the id sort; the ``sorted`` embedding update.
   The table and its moments are float32, or all bfloat16 (its bf16 form,
   ``sorted_dtype="bf16"``: the Adam math in f32, each result rounded).
+  ``sorted_dense_adam_apply_sharded`` steps one row shard of a mesh's
+  table from the whole batch's ids (the same kernel with the shard's
+  first row).
 - ``fused_adam``: the same from ids sorted within each feature's segment,
   the gradient rows read through their sorted positions
   (``csrc/fused_adam.cu``, ``fused_dense_adam_apply``); the ``dense``
@@ -102,7 +105,8 @@ from .sarnet_infer import sarnet_fused_infer, sarnet_fused_infer_ref
 from .star_infer import star_fused_infer, star_fused_infer_ref
 from .tower_infer import trunk_towers_fused_infer, trunk_towers_fused_infer_ref
 from .sorted_adam import (owner_sorted_grads, sorted_dense_adam_apply,
-                          sorted_dense_adam_apply_ref)
+                          sorted_dense_adam_apply_ref, sorted_dense_adam_apply_sharded,
+                          sorted_dense_adam_apply_sharded_ref)
 
 __all__ = ["FUSED_INFERENCE_WINS", "LevelSpec", "adaptdhm_fused_infer", "adaptdhm_fused_infer_ref",
            "adaptdhm_route_margin",
@@ -117,6 +121,7 @@ __all__ = ["FUSED_INFERENCE_WINS", "LevelSpec", "adaptdhm_fused_infer", "adaptdh
            "ple_fused_infer", "ple_fused_infer_ref", "ppnet_fused_infer",
            "ppnet_fused_infer_ref", "sarnet_fused_infer", "sarnet_fused_infer_ref",
            "scatter_rows", "scatter_rows_ref",
-           "sorted_dense_adam_apply", "sorted_dense_adam_apply_ref", "star_fused_infer",
+           "sorted_dense_adam_apply", "sorted_dense_adam_apply_ref",
+           "sorted_dense_adam_apply_sharded", "sorted_dense_adam_apply_sharded_ref", "star_fused_infer",
            "star_fused_infer_ref", "trunk_towers_fused_infer",
            "trunk_towers_fused_infer_ref"]

@@ -12,12 +12,16 @@ C interface and include no PyTorch header, which keeps a build to seconds.
 No network, no ``ninja``: only the CUDA toolkit's ``nvcc``.
 
 This module imports nothing CUDA-specific; nothing is built until a kernel
-is launched on a CUDA tensor (or :func:`build` is called).
+is launched on a CUDA tensor (or :func:`build` is called). Processes that
+share the build directory (the ranks of a mesh) take turns through a file
+lock, so no two compile a source at once: the later one finds it built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,13 +68,24 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _process_lock():
+    """The build directory's lock, held against other processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
     one nvcc per source, all started together. Returns the seconds each
     build took (0.0 when it was already built). Raises on a failed build."""
     names = list(sources() if names is None else names)
-    with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, _process_lock():
         jobs = {}
         seconds = {}
         for name in names:

@@ -22,12 +22,21 @@ int32 and the gradient rows float32 either way. The bf16 form does the Adam
 math in float32 and rounds each stored value to nearest even, as the JAX
 package's ``astype`` does.
 
-:func:`sorted_dense_adam_apply` takes the plain version for a tensor on the
-CPU and launches the kernel for one on a CUDA device, or raises; it never
-falls back. ``sorted_dense_adam_apply.launches`` counts launches of the f32
-form, ``sorted_dense_adam_apply.launches_bf16`` those of the bf16 form; a
-launch recorded into a CUDA graph capture counts in ``.captured`` /
-``.captured_bf16`` instead (it runs once at each replay of the graph).
+:func:`sorted_dense_adam_apply_sharded` is the same update on one row shard
+of a table that a mesh row-shards over its ``embed`` axis (the TPU kernel
+``sorted_dense_adam_apply_sharded``): the shard's ``[V/E, D]`` rows, the
+whole table's sorted ids, and ``row0``, the shard's first row. Its kernel is
+the same code, whose tiles are the whole table's tiles that meet the shard,
+so the shards of a table together equal one unsharded call bit for bit.
+
+:func:`sorted_dense_adam_apply` (and the sharded form) takes the plain
+version for a tensor on the CPU and launches the kernel for one on a CUDA
+device, or raises; it never falls back. ``sorted_dense_adam_apply.launches``
+counts launches of the f32 form, ``.launches_bf16`` those of the bf16 form,
+``.launches_sharded`` and ``.launches_sharded_bf16`` those of the sharded
+form; a launch recorded into a CUDA graph capture counts in ``.captured``,
+``.captured_bf16``, ``.captured_sharded`` or ``.captured_sharded_bf16``
+instead (it runs once at each replay of the graph).
 
 The 7 Adam numbers ``hp`` come as host floats (passed to the kernel by
 value) or as a ``[7]`` float32 tensor on the table's device, which the
@@ -195,19 +204,37 @@ def sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp,
     return table, mu, nu
 
 
+def sorted_dense_adam_apply_sharded_ref(table, mu, nu, sorted_ids, g_sorted, hp, *,
+                                        row0: int, **dials):
+    """The plain version of :func:`sorted_dense_adam_apply_sharded`: the ids
+    re-based to the shard (``id - row0``; those outside it then fall outside
+    ``[0, V/E)`` and add nothing) and :func:`sorted_dense_adam_apply_ref`.
+    In place; returns ``(table, mu, nu)``."""
+    _check_row0(row0, table)
+    local = (sorted_ids.long() - int(row0)).clamp(-1, table.shape[0]).to(torch.int32)
+    return sorted_dense_adam_apply_ref(table, mu, nu, local, g_sorted, hp)
+
+
+def _check_row0(row0, table):
+    if int(row0) < 0 or int(row0) + table.shape[0] >= 2 ** 31 - 1:
+        raise ValueError(f"row0 must place the shard's {table.shape[0]} rows inside "
+                         f"[0, 2^31 - 1), got {row0}")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from . import _build
 
     lib = _build.load("sorted_adam")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sorted_dense_adam_f32.argtypes = [
-        p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, f, f, f, f, f, f, p]
-    lib.sorted_dense_adam_f32.restype = ctypes.c_int
-    lib.sorted_dense_adam_bf16.argtypes = lib.sorted_dense_adam_f32.argtypes
-    lib.sorted_dense_adam_bf16.restype = ctypes.c_int
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    # every entry takes (table, mu, nu, ids, g, starts, v, row0, d, k,
+    # block_rows), then the 7 Adam numbers by value or a device pointer, then
+    # the stream
+    for entry in (lib.sorted_dense_adam_f32, lib.sorted_dense_adam_bf16):
+        entry.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, f, f, f, f, f, f, f, p]
+        entry.restype = ctypes.c_int
     for entry in (lib.sorted_dense_adam_f32_dev, lib.sorted_dense_adam_bf16_dev):
-        entry.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p]
+        entry.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, p, p]
         entry.restype = ctypes.c_int
     lib.sorted_dense_adam_smem_bytes.argtypes = [i, i]
     lib.sorted_dense_adam_smem_bytes.restype = ctypes.c_size_t
@@ -244,6 +271,31 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
             operand to bf16; on the card no operand is rounded and all four
             sum in f32, in either storage type.
     """
+    return _apply(table, mu, nu, sorted_ids, g_sorted, hp, None, block_rows, chunk_ids,
+                  precision)
+
+
+def sorted_dense_adam_apply_sharded(table: torch.Tensor, mu: torch.Tensor,
+                                    nu: torch.Tensor, sorted_ids: torch.Tensor,
+                                    g_sorted: torch.Tensor, hp, *, row0: int,
+                                    block_rows: Optional[int] = None,
+                                    chunk_ids: int = 128, precision=None):
+    """:func:`sorted_dense_adam_apply` on one row shard: ``table``, ``mu``
+    and ``nu`` (``[V/E, D]``, all float32 or all bfloat16) hold the rows
+    ``[row0, row0 + V/E)`` of the table that ``sorted_ids`` address (int32
+    ``[K]``, ascending, the whole batch's: ``owner_sorted_grads`` of the
+    ids and gradient rows gathered over the mesh's ``data`` axis). Ids
+    outside the shard contribute nothing; every row of the shard decays. In
+    place; returns ``(table, mu, nu)``. The other arguments are
+    :func:`sorted_dense_adam_apply`'s. Two launches a call, as there."""
+    _check_row0(row0, table)
+    return _apply(table, mu, nu, sorted_ids, g_sorted, hp, int(row0), block_rows,
+                  chunk_ids, precision)
+
+
+def _apply(table, mu, nu, sorted_ids, g_sorted, hp, row0, block_rows, chunk_ids,
+           precision):
+    """The two wrappers' launch: ``row0`` None is the unsharded form."""
     check_jax_dials(chunk_ids, precision)
     if block_rows is None:
         block_rows = (DEFAULT_BLOCK_ROWS_BF16 if table.dtype == torch.bfloat16
@@ -253,7 +305,11 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
     on_device = isinstance(hp, torch.Tensor)
     if on_device:
         _check_hp_tensor(hp, table)
+    sharded = row0 is not None
     if table.device.type == "cpu":
+        if sharded:
+            return sorted_dense_adam_apply_sharded_ref(table, mu, nu, sorted_ids, g_sorted,
+                                                       hp, row0=row0)
         return sorted_dense_adam_apply_ref(table, mu, nu, sorted_ids, g_sorted, hp)
     if table.device.type != "cuda":
         raise ValueError(f"sorted_dense_adam_apply runs on cuda or cpu, not {table.device}")
@@ -271,34 +327,33 @@ def sorted_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"block_rows={block_rows} at D={D} needs {smem} bytes of "
                          f"shared memory per block, more than {_SMEM_LIMIT}")
-    nb = -(-V // block_rows)
+    # the whole table's tiles that meet the shard (csrc/embedding_adam.cuh)
+    first = row0 or 0
+    nb = (first + V + block_rows - 1) // block_rows - first // block_rows
     starts = torch.empty(nb + 1, dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     bf16 = table.dtype == torch.bfloat16
-    args = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
-            g_sorted.data_ptr(), starts.data_ptr(), V, D, sorted_ids.shape[0],
-            block_rows)
+    ptrs = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), sorted_ids.data_ptr(),
+            g_sorted.data_ptr(), starts.data_ptr())
+    name = "sorted_dense_adam_" + ("bf16" if bf16 else "f32") + ("_dev" if on_device else "")
     with torch.cuda.device(table.device):
-        if on_device:
-            entry = lib.sorted_dense_adam_bf16_dev if bf16 else lib.sorted_dense_adam_f32_dev
-            err = entry(*args, hp.data_ptr(), stream)
-        else:
-            entry = lib.sorted_dense_adam_bf16 if bf16 else lib.sorted_dense_adam_f32
-            err = entry(*args, *_hp32(hp), stream)
+        hp_args = (hp.data_ptr(),) if on_device else _hp32(hp)
+        err = getattr(lib, name)(*ptrs, V, first, D, sorted_ids.shape[0], block_rows,
+                                 *hp_args, stream)
     if err != 0:
         raise RuntimeError(
-            f"sorted_dense_adam_apply ({table.dtype}) launch failed with cudaError {err} "
-            f"({smem} bytes of shared memory per block, block_rows={block_rows})")
+            f"{name} launch failed with cudaError {err} ({smem} bytes of shared memory "
+            f"per block, block_rows={block_rows})")
     # a launch recorded into a CUDA graph runs at each replay, not here
-    suffix = "_bf16" if bf16 else ""
+    suffix = ("_sharded" if sharded else "") + ("_bf16" if bf16 else "")
     kind = "captured" if torch.cuda.is_current_stream_capturing() else "launches"
     setattr(sorted_dense_adam_apply, kind + suffix,
             getattr(sorted_dense_adam_apply, kind + suffix) + 1)
     return table, mu, nu
 
 
-sorted_dense_adam_apply.launches = 0
-sorted_dense_adam_apply.launches_bf16 = 0
-# launches recorded into CUDA graph captures (each runs once a replay)
-sorted_dense_adam_apply.captured = 0
-sorted_dense_adam_apply.captured_bf16 = 0
+# launches of each form: f32, bf16, and the sharded form in f32 and bf16; and
+# those recorded into CUDA graph captures (each runs once a replay)
+for _kind in ("launches", "captured"):
+    for _form in ("", "_bf16", "_sharded", "_sharded_bf16"):
+        setattr(sorted_dense_adam_apply, _kind + _form, 0)

@@ -35,6 +35,7 @@ from torch import nn
 from ..core import config as compute_config
 from ..core import init as initializers
 from ..core.activations import activation as activation_factory
+from ..parallel.mesh import all_reduce_sum, current_step
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -58,7 +59,25 @@ def batch_stats(x: torch.Tensor, w: Optional[torch.Tensor] = None):
     Static-shape batches are padded with weight-0 rows (data/dataset.py);
     the reference never sees those rows, so every batch-statistics op must
     exclude them or train/eval semantics diverge on ragged batches.
+
+    Inside a mesh step (``parallel.mesh_step``) ``x`` holds this rank's rows
+    of the global batch, and the statistics are the global batch's, as in
+    the JAX package's SPMD step: ``sum(w x)`` with ``sum(w)``, then ``sum(w
+    (x - mean)^2)``, are summed over the ``data`` group, whose gradient is
+    again that sum.
     """
+    step = current_step()
+    if step is not None:
+        wc = (torch.ones(x.shape[-2], 1, dtype=x.dtype, device=x.device) if w is None
+              else w.reshape(-1, 1).to(x.dtype))
+        s1 = torch.sum(x * wc, dim=-2)
+        both = all_reduce_sum(torch.cat([s1.reshape(-1), torch.sum(wc).reshape(1)]),
+                              step.group)
+        n = torch.clamp(both[-1], min=1.0)
+        mean = both[:-1].reshape(s1.shape) / n
+        var = all_reduce_sum(torch.sum(((x - _row(mean)) ** 2) * wc, dim=-2),
+                             step.group) / n
+        return mean, var, n
     if w is None:
         mean = torch.mean(x, dim=-2)
         var = torch.mean((x - _row(mean)) ** 2, dim=-2)
@@ -114,11 +133,20 @@ def domain_norm(x, gamma, beta, eps: float, unbiased: bool = False, w=None):
 
 
 def dropout(x, p: float, train: bool, generator: Optional[torch.Generator]):
-    """torch semantics: inverted scaling at train time."""
+    """torch semantics: inverted scaling at train time. Inside a mesh step
+    (``parallel.mesh_step``) every rank draws the global batch's mask from
+    its copy of the shared generator and keeps its own rows (axis -2), so
+    the masks are the single-process run's."""
     if not train or p <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
+    step = current_step()
+    if step is not None:
+        shape = x.shape[:-2] + (step.global_b,) + x.shape[-1:]
+        keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+        keep = keep[..., step.row0:step.row0 + x.shape[-2], :]
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 
-def _npz_path(path: str) -> str:
+def npz_path(path: str) -> str:
+    """``path`` with ``.npz`` appended unless it ends so."""
     return path if path.endswith(".npz") else path + ".npz"
 
 
@@ -46,7 +47,7 @@ def save(path: str, tensors: Dict[str, torch.Tensor],
     flat["__bf16__"] = np.frombuffer(json.dumps(bf16).encode(), dtype=np.uint8)
     flat["__metadata__"] = np.frombuffer(json.dumps(metadata or {}).encode(),
                                          dtype=np.uint8)
-    out = _npz_path(path)
+    out = npz_path(path)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez(out, **flat)
     return out
@@ -55,7 +56,7 @@ def save(path: str, tensors: Dict[str, torch.Tensor],
 def read_metadata(path: str) -> Dict[str, Any]:
     """Only the JSON metadata (npz members load lazily), so a caller can
     check compatibility before it reads the tensors."""
-    with np.load(_npz_path(path), allow_pickle=False) as data:
+    with np.load(npz_path(path), allow_pickle=False) as data:
         if "__metadata__" not in data:
             return {}
         return json.loads(bytes(data["__metadata__"]).decode())
@@ -66,7 +67,7 @@ def load(path: str, expected: Dict[str, torch.Tensor]
     """``(tensors, metadata)``: CPU tensors for exactly the keys of
     ``expected``, each checked against the expected tensor's shape and
     against whether it is bfloat16; a missing key or a mismatch raises."""
-    with np.load(_npz_path(path), allow_pickle=False) as data:
+    with np.load(npz_path(path), allow_pickle=False) as data:
         meta = (json.loads(bytes(data["__metadata__"]).decode())
                 if "__metadata__" in data else {})
         bf16 = (set(json.loads(bytes(data["__bf16__"]).decode()))

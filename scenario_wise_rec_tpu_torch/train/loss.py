@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import all_reduce_, current_step
+
 
 def _clamped_log(q: torch.Tensor) -> torch.Tensor:
     """``max(log(q), -100)`` for q > 0 and -100 elsewhere, with a zero
@@ -33,14 +35,25 @@ def bce_loss(y_pred_prob: torch.Tensor, y_true: torch.Tensor,
 
     ``weights``: optional per-example 0/1 mask for padded batches; the mean
     is then over real examples only.
+
+    Inside a mesh step (``parallel.mesh_step``) the batch is this rank's
+    rows, and the loss is this rank's share of the global weighted mean:
+    its ``sum(per_example w)`` over the ``data`` group's summed ``sum(w)``.
+    The shares sum to the global loss, and the dense gradients are summed
+    over ``data``; a padded last batch leaves each rank its own count of
+    real rows.
     """
     y = y_true.to(torch.float32)
     p = y_pred_prob
     per_example = -(y * _clamped_log(p) + (1.0 - y) * _clamped_log(1.0 - p))
-    if weights is None:
+    step = current_step()
+    if weights is None and step is None:
         return torch.mean(per_example)
-    w = weights.to(torch.float32)
-    return torch.sum(per_example * w) / torch.clamp_min(torch.sum(w), 1.0)
+    w = torch.ones_like(per_example) if weights is None else weights.to(torch.float32)
+    n = torch.sum(w)
+    if step is not None:
+        n = all_reduce_(n.detach().clone(), step.group)
+    return torch.sum(per_example * w) / torch.clamp_min(n, 1.0)
 
 
 def hinge_loss(pos_score: torch.Tensor, neg_score: torch.Tensor,

@@ -12,7 +12,8 @@ and update it from the batch's per-occurrence gradient rows (``g_rows
 
 - exact dense Adam on every row (the reference's semantics):
   :func:`sorted_dense_adam_update` (one global id sort, the kernel of
-  ``ops/kernels/sorted_adam.py``) and :func:`fused_dense_adam_update`
+  ``ops/kernels/sorted_adam.py``; on a mesh its row-sharded form on this
+  rank's shard) and :func:`fused_dense_adam_update`
   (per-segment sorts, the kernel of ``ops/kernels/fused_adam.py``), with
   ``{"mu", "nu", "step"}`` state beside the model's own ``[V, D]`` table
   (or, for the sorted update with bf16 storage, a bf16 store
@@ -50,7 +51,9 @@ from ..ops.kernels.fused_adam import DEFAULT_BLOCK_ROWS as FUSED_BLOCK_ROWS
 from ..ops.kernels.fused_adam import fused_dense_adam_apply
 from ..ops.kernels.row_update import occurrence_segsum, scatter_rows
 from ..ops.kernels.sorted_adam import (adam_hparams, owner_sorted_grads,
-                                       sorted_dense_adam_apply)
+                                       sorted_dense_adam_apply,
+                                       sorted_dense_adam_apply_sharded)
+from ..parallel.mesh import all_gather_rows
 from .freeze import frozen_ids_mask, rows_kept
 
 Spans = Sequence[Tuple[int, int]]
@@ -406,7 +409,8 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
                              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                              block_rows: Optional[int] = None,
                              frozen_spans: Spans = (),
-                             hp: Optional[torch.Tensor] = None) -> Dict:
+                             hp: Optional[torch.Tensor] = None,
+                             mesh=None, segments=()) -> Dict:
     """One exact dense torch-Adam step of ``table`` (in place) from the
     per-occurrence gradient rows ``g_rows [K, D]`` of the packed rows
     ``ids [K]`` (``EmbeddingCollection.touched_ids``, duplicates allowed).
@@ -428,15 +432,56 @@ def sorted_dense_adam_update(table: torch.Tensor, opt_state: Dict,
     ``eps`` are then unused and ``opt_state["step"]`` is left to the caller,
     who advances it by the steps run (the trainer's CUDA graphs replay this
     call with each step's row).
+
+    ``mesh`` (a ``parallel.Mesh``; the JAX function's ``mesh=``): ``table``,
+    ``mu`` and ``nu`` are this rank's row shard (``parallel.shard_range``)
+    and ``ids``/``g_rows`` this rank's batch rows, laid out as
+    ``segments`` (``touched_owner_segments``) says. The ids and gradient
+    rows are gathered over the ``data`` group and put in the global batch's
+    layout (each segment's rows of every rank in turn: what the JAX
+    package's replicated ids are), sorted, and the shard is stepped by
+    ``sorted_dense_adam_apply_sharded``. ``frozen_spans`` are global rows.
     """
     step, advance = int(opt_state["step"]) + 1, hp is None
     if advance:
         hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
-    sorted_ids, g_sorted = owner_sorted_grads(ids, g_rows)
     tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
+    apply = sorted_dense_adam_apply
+    if mesh is not None:
+        ids, g_rows = global_rows(mesh, ids, g_rows, segments)
+        row0 = mesh.embed_index * table.shape[0]
+        frozen_spans = shard_spans(frozen_spans, row0, table.shape[0])
+        apply = functools.partial(sorted_dense_adam_apply_sharded, row0=row0)
+    sorted_ids, g_sorted = owner_sorted_grads(ids, g_rows)
     with rows_kept(tensors, frozen_spans):
-        sorted_dense_adam_apply(*tensors, sorted_ids, g_sorted.contiguous(), hp,
-                                block_rows=block_rows)
+        apply(*tensors, sorted_ids, g_sorted.contiguous(), hp, block_rows=block_rows)
     if advance:
         opt_state["step"] = step
     return opt_state
+
+
+def global_rows(mesh, ids: torch.Tensor, g_rows: torch.Tensor, segments):
+    """This rank's ``ids [K_l]`` and ``g_rows [K_l, D]`` (laid out as
+    ``segments``, ``(owner, start, size)``) gathered over the mesh's ``data``
+    group into the global batch's layout: each segment's rows of rank 0,
+    rank 1, ... in turn, as ``touched_ids`` lays out the global batch."""
+    n = mesh.shape["data"]
+    if n == 1:
+        return ids, g_rows
+    k = ids.shape[0]
+    order = torch.cat([(torch.arange(n, device=ids.device)[:, None] * k
+                        + torch.arange(start, start + size, device=ids.device)).reshape(-1)
+                       for _, start, size in segments])
+    return (all_gather_rows(ids, mesh.data_group)[order],
+            all_gather_rows(g_rows.contiguous(), mesh.data_group)[order])
+
+
+def shard_spans(spans: Spans, row0: int, rows: int) -> Tuple[Tuple[int, int], ...]:
+    """Global ``(offset, n)`` row spans intersected with the shard ``[row0,
+    row0 + rows)``, in the shard's rows."""
+    out = []
+    for off, n in spans:
+        lo, hi = max(off, row0), min(off + n, row0 + rows)
+        if lo < hi:
+            out.append((lo - row0, hi - lo))
+    return tuple(out)

@@ -81,10 +81,31 @@ protocol.
   ``DeviceResidentLoader``), validation AUC, early stopping that restores
   the best weights only on a stop, and a final checkpoint (reference
   ctr_trainer.py:62-97).
+- **Mesh** (``mesh=parallel.make_mesh(n_data, n_embed)``, the JAX trainer's
+  ``mesh``; one process a rank of a ``torch.distributed`` group, every rank
+  running the same calls): the sorted update only. The batch is sharded over
+  ``data``; the packed table, and the sorted update's moments (and bf16
+  store), are row-sharded over ``embed`` (``parallel/sharding_rules.py``).
+  Every rank draws the same full init, keeps its row shard and frees the
+  rest; rank 0's dense parameters and BN buffers are broadcast. A step takes
+  this rank's rows of the global batch: ``touched_ids``, rows from
+  ``sharded_lookup``, the forward and loss inside ``parallel.mesh_step``
+  (batch statistics, dropout masks and the loss's mean are the global
+  batch's), backward, the dense gradients summed over ``data``,
+  ``torch.optim.Adam``, and the shard's sorted update
+  (``sorted_dense_adam_apply_sharded`` on the ids and rows gathered over
+  ``data``). The logged loss is the global one. ``scan_steps`` S > 1 runs a
+  dispatch's steps one by one, uncaptured (``graphed`` is False under a
+  mesh). Eval scores each rank's rows op by op through ``sharded_lookup``
+  and gathers the scores over ``data``, so every rank returns the
+  single-process metrics. ``save`` gathers the shards over ``embed`` and
+  rank 0 writes the single-process format; ``load`` takes each rank's rows,
+  so a checkpoint moves between mesh shapes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import time
@@ -99,6 +120,9 @@ from ..data.device import DeviceResidentLoader, gather_columns
 from ..data.prefetch import prefetch, stage_batches, stage_dispatches
 from ..ops.kernels import fused_inference_auto
 from ..ops.kernels.sorted_adam import adam_hparams_rows, check_jax_dials
+from ..parallel import (Mesh, gather_rows, mesh_step, param_specs, replicate,
+                        shard_batch_fn, shard_rows, shard_stacked_batch_fn, sharded_lookup)
+from ..parallel.mesh import all_gather_rows, all_reduce_, barrier, broadcast_object
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
@@ -202,9 +226,16 @@ class CTRTrainer:
         donate_buffers / sorted_kernel: accepted for the JAX signature; the
             port updates in place and picks the kernel by the tensor's
             device (``sorted_kernel=False`` is refused).
+        mesh: a ``parallel.Mesh`` (``make_mesh``) for multi-GPU training
+            with the sorted update (see the module docstring); any other
+            object raises ``TypeError``. The global batch must divide by
+            the mesh's ``data`` size. More than one entry in ``gpus`` raises:
+            one process drives one card, and ranks join through ``mesh``.
 
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``mesh`` and more than one entry in ``gpus`` (A15).
+    Not ported yet under a mesh, each raising ``NotImplementedError`` with
+    its ROADMAP item: the occurrence, dense and winner updates and the plain
+    step (A15.2); a ``DeviceResidentLoader`` and ``fused_inference`` other
+    than False (A15.3).
     """
 
     def __init__(
@@ -236,10 +267,16 @@ class CTRTrainer:
         sorted_kernel: Optional[bool] = None,
         resident_gather: str = "step",
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU training (mesh) is ROADMAP A15")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a scenario_wise_rec_tpu_torch.parallel.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
         if gpus is not None and len(gpus) > 1:
-            raise NotImplementedError("more than one GPU is ROADMAP A15")
+            raise NotImplementedError(
+                "one process drives one card: run one process a rank and pass "
+                "mesh=parallel.make_mesh(n_data, n_embed) (ROADMAP A15)")
+        if mesh is not None and fused_inference is not False:
+            raise NotImplementedError(
+                "fused_inference under a mesh is ROADMAP A15.3; pass fused_inference=False")
         if fused_inference == "auto":
             fused_inference = fused_inference_auto(model)
         elif not isinstance(fused_inference, bool):
@@ -264,6 +301,12 @@ class CTRTrainer:
                              "the kernel; sorted_kernel=False has no meaning")
         if resident_gather not in ("step", "dispatch"):
             raise ValueError(f"unknown resident_gather {resident_gather!r}")
+        if mesh is not None and not (self._sparse_emb and sparse_update_impl == "sorted"):
+            raise NotImplementedError(
+                "under a mesh only sparse_embedding_updates=True with "
+                "sparse_update_impl='sorted' is ported; the "
+                f"{sparse_update_impl if self._sparse_emb else 'plain'} step is ROADMAP A15.2")
+        self.mesh = mesh
         self._sparse_impl = sparse_update_impl
         self.scan_steps = int(scan_steps)
         self._deferred_log = None
@@ -279,6 +322,8 @@ class CTRTrainer:
 
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            self._place_on_mesh()
         self.data_set_type = data_set_type
         if optimizer_params is None:
             optimizer_params = {"lr": 1e-3, "weight_decay": 1e-5}
@@ -344,9 +389,9 @@ class CTRTrainer:
     @property
     def graphed(self) -> bool:
         """True when the train steps run as a CUDA graph: ``scan_steps > 1``
-        on the card, in every mode. False at ``scan_steps=1`` and on the
-        CPU."""
-        return self._dispatched and self.device.type == "cuda"
+        on the card, in every mode. False at ``scan_steps=1``, on the CPU
+        and under a mesh (capture with collectives is ROADMAP A15.4)."""
+        return self._dispatched and self.device.type == "cuda" and self.mesh is None
 
     @property
     def _capturable(self) -> bool:
@@ -378,6 +423,38 @@ class CTRTrainer:
         if self._bf16_store:
             with torch.no_grad():
                 self.emb_opt_state["table"].copy_(self.model.embedding.packed)
+
+    # -- mesh (parallel/) ----------------------------------------------------
+
+    def _place_on_mesh(self):
+        """Keep this rank's row shard of the packed table (freeing the full
+        one) and take rank 0's dense parameters and buffers."""
+        col, mesh = self.model.embedding, self.mesh
+        self._vocab = col.packed_vocab
+        local, self._row0 = shard_rows(col.packed.detach(), mesh)
+        col.packed = torch.nn.Parameter(local)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        specs = param_specs(self.model)
+        replicate(mesh, [v for k, v in self.model.state_dict().items() if specs[k] is None])
+        self._shard = shard_batch_fn(mesh)
+        self._shard_stacked = shard_stacked_batch_fn(mesh)
+
+    def _lookup(self, table, ids) -> torch.Tensor:
+        """The packed rows of global ``ids`` from this rank's shard
+        ``table`` (``sharded_lookup`` over ``embed``)."""
+        return sharded_lookup(table, ids, self._row0, self.mesh.embed_group)
+
+    def _sum_dense_grads(self):
+        """Sum the dense gradients over ``data``: each rank's loss is its
+        share of the global mean, so the sum is the global gradient."""
+        group = self.mesh.data_group
+        if group is None or not self._dense_named:
+            return
+        grads = [p.grad for _, p in self._dense_named]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def _init_emb_state(self):
         if self._emb_mode is None:
@@ -446,9 +523,12 @@ class CTRTrainer:
             else:
                 # a gathered copy: the update may change the live table in place
                 src = st["table"] if self._bf16_store else col.packed.detach()
-                rows = src[ids].float().requires_grad_()
-        probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
-        loss = bce_loss(probs, y, w)
+                rows = src[ids] if self.mesh is None else self._lookup(src, ids)
+                rows = rows.float().requires_grad_()
+        with (mesh_step(self.mesh, w.shape[0]) if self.mesh is not None
+              else contextlib.nullcontext()):
+            probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
+            loss = bce_loss(probs, y, w)
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -460,6 +540,8 @@ class CTRTrainer:
             for _, p in self._dense_named:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if self.mesh is not None:
+                self._sum_dense_grads()
             self._optimizer_step()
         if mode is None:
             return loss.detach()
@@ -470,7 +552,11 @@ class CTRTrainer:
         if mode == "sorted":
             sorted_dense_adam_update(st["table"] if self._bf16_store else col.packed, st,
                                      rows.grad, ids, block_rows=self._sorted_block_rows,
-                                     hp=hp, **kw)
+                                     hp=hp, mesh=self.mesh,
+                                     segments=col.touched_owner_segments(x), **kw)
+            if self.mesh is not None:
+                # the global batch's loss: the ranks' shares summed
+                return all_reduce_(loss.detach().clone(), self.mesh.data_group)
         elif mode == "dense":
             fused_dense_adam_update(col.packed, st, rows.grad, ids,
                                     col.touched_owner_segments(x), hp=hp, **kw)
@@ -676,6 +762,8 @@ class CTRTrainer:
         cuda = self.device.type == "cuda"
         for d in prefetch(stage_dispatches(data_loader, self.scan_steps, pin=cuda),
                           self.prefetch_depth):
+            if self.mesh is not None:
+                d = self._local_dispatch(d)
             plan = self._plan_for(data_loader, d.layout, d.b, d.ints.shape[1],
                                   d.floats.shape[1])
             rows = slice(0, d.n * d.b)
@@ -688,6 +776,16 @@ class CTRTrainer:
         if pending:
             last = self._log_losses(done, n_total, pending)
         return last
+
+    def _local_dispatch(self, d):
+        """A staged dispatch of ``n`` global batches cut to this rank's rows
+        of each (``shard_stacked_batch_fn`` over ``[n, b, ...]``)."""
+        x, _, w = self._shard_stacked({"ints": d.ints.view(d.n, d.b, -1),
+                                       "floats": d.floats.view(d.n, d.b, -1)}, None,
+                                      d.w.view(d.n, d.b))
+        b = w.shape[1]
+        return d._replace(b=b, ints=x["ints"].reshape(d.n * b, -1),
+                          floats=x["floats"].reshape(d.n * b, -1), w=w.reshape(-1))
 
     def train_one_epoch(self, data_loader, log_interval: int = 10):
         """One pass over ``data_loader``. Over a host loader returns the
@@ -708,6 +806,8 @@ class CTRTrainer:
         pending, done, last = [], 0, None
         n_total = len(data_loader)
         for _, host in self._batches(data_loader):
+            if self.mesh is not None:
+                host = self._shard(*host)
             pending.append(self._train_step(*self._device_batch(*host)))
             done += 1
             if done % log_interval == 0:
@@ -775,6 +875,8 @@ class CTRTrainer:
         prints at the next trainer entry point or :meth:`barrier`, so the
         epoch boundary does not wait for the card."""
         self._flush_epoch_log()
+        if self.mesh is not None:
+            raise NotImplementedError("a DeviceResidentLoader under a mesh is ROADMAP A15.3")
         self._check_resident(loader)
         b, nb = loader.batch_size, len(loader)
         ids = self._epoch_ids(loader)
@@ -831,6 +933,8 @@ class CTRTrainer:
         # stop; a natural end of the epoch loop keeps the last weights
         # (ctr_trainer.py:88-93)
         time_now = time.strftime("%m_%d_%H_%M", time.localtime())
+        if self.mesh is not None:
+            time_now = broadcast_object(self.mesh, time_now)  # one name for all ranks
         name = type(self.model).__name__ + "_" + self.data_set_type + "_" + time_now
         return self.save(os.path.join(self.model_path, name))
 
@@ -847,7 +951,7 @@ class CTRTrainer:
             folded = self.model.fold_eval() if self._fused_inference else None
             for (x, y, w), (hx, _, hw) in self._batches(data_loader):
                 xb, _, wb = self._device_batch(hx, None, hw)
-                probs = self._eval_step(xb, wb, folded)
+                probs = self._score(xb, wb, folded)
                 keep = np.asarray(w) > 0
                 ps.append(probs.cpu().numpy()[keep])
                 if y is not None:
@@ -873,7 +977,7 @@ class CTRTrainer:
                     raise ValueError(
                         "on_device evaluation requires labeled batches; use "
                         "predict() (host path) for unlabeled loaders")
-                ps.append(self._eval_step(xb, wb, folded))
+                ps.append(self._score(xb, wb, folded))
                 ys.append(yb)
                 ws.append(wb)
                 if "domain_indicator" in xb:
@@ -881,6 +985,20 @@ class CTRTrainer:
         cat = lambda lst: (torch.cat(lst) if lst
                            else torch.zeros((0,), device=self.device))
         return cat(ys), cat(ps), cat(ds), cat(ws)
+
+    def _score(self, xb, wb, folded):
+        """The eval step's probabilities of a device batch. Under a mesh each
+        rank scores its rows op by op, its packed rows from
+        ``sharded_lookup``, and the scores are gathered over ``data``: every
+        rank returns the whole batch's."""
+        if self.mesh is None:
+            return self._eval_step(xb, wb, folded)
+        lx, _, lw = self._shard(xb, None, wb)
+        with mesh_step(self.mesh, lw.shape[0]):
+            col = self.model.embedding
+            rows = self._lookup(col.packed.detach(), col.touched_ids(lx))
+            probs = self.model.apply(lx, train=False, w=lw, rows=rows)
+        return all_gather_rows(probs, self.mesh.data_group)
 
     def evaluate(self, model, data_loader, mode: str = "val",
                  on_device: bool = False):
@@ -990,7 +1108,15 @@ class CTRTrainer:
             out[f"opt/emb/{k}"] = v
         if self.emb_opt_state is not None:
             out["opt/emb/step"] = torch.tensor(self.emb_opt_state["step"])
+        if self.mesh is not None:
+            for k in self._sharded_keys():
+                out[k] = gather_rows(out[k], self.mesh, self._vocab)
         return out
+
+    def _sharded_keys(self):
+        """The checkpoint entries a mesh row-shards: the packed table and
+        the sorted update's moments."""
+        return ("model/embedding.packed", "opt/emb/mu", "opt/emb/nu")
 
     def _emb_moments(self):
         """The embedding update's moments by checkpoint name, as views of
@@ -1001,16 +1127,26 @@ class CTRTrainer:
         return {} if mode is None else {"mu": st["mu"], "nu": st["nu"]}
 
     def save(self, path: str) -> str:
-        """Write the checkpoint; returns the ``.npz`` path."""
+        """Write the checkpoint; returns the ``.npz`` path. Under a mesh
+        every rank calls it: the shards are gathered over ``embed`` and rank
+        0 writes the single-process format (the mesh's shape in the
+        metadata, for information); the others wait for the file."""
         self._flush_epoch_log()
-        return ckpt_lib.save(path, self._checkpoint_tensors(), metadata={
+        tensors = self._checkpoint_tensors()
+        meta = {
             "epoch": self.epoch_i,
             "best_auc": self.early_stopper.best_auc,
             "model": type(self.model).__name__,
             "sparse_embedding_updates": bool(self._sparse_emb),
             "sparse_update_impl": self._sparse_impl if self._sparse_emb else None,
             "sorted_dtype": self._sorted_dtype if self._sorted_mode else None,
-        })
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
+        }
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt_lib.save(path, tensors, metadata=meta)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        return ckpt_lib.npz_path(path)
 
     def load(self, path: str):
         meta = ckpt_lib.read_metadata(path)
@@ -1031,6 +1167,10 @@ class CTRTrainer:
                         f"trainer uses sorted_dtype={self._sorted_dtype!r}; construct "
                         "CTRTrainer with the matching sorted_dtype to resume")
         arrays, meta = ckpt_lib.load(path, self._checkpoint_tensors())
+        if self.mesh is not None:
+            # this rank's rows of whatever mesh wrote the file
+            for k in self._sharded_keys():
+                arrays[k] = shard_rows(arrays[k], self.mesh)[0]
         t = lambda key, like: arrays[key].to(like.device)
         sd = self.model.state_dict()
         self.model.load_state_dict({k: t(f"model/{k}", v) for k, v in sd.items()})

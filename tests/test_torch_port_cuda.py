@@ -8,6 +8,7 @@ a card:
 """
 
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -2922,6 +2923,122 @@ def test_every_model_graphed_equals_eager(gen, name):
     assert graphed.graph_captures == 1
     diff = _differing(graphed, eager)
     assert not any(diff.values()), {k: v for k, v in diff.items() if v}
+
+
+# -- the row-sharded sorted update and the mesh (parallel/) on the card --------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("e", [2, 3, 4])
+def test_sorted_adam_sharded_matches_unsharded_and_plain(gen, dtype, e):
+    """E shards of one table (V = 100,003, not a multiple of E: padded)
+    stepped by ``sorted_dense_adam_apply_sharded``, hp by value and in
+    device memory: bit for bit the unsharded kernel's step of the padded
+    table (the shard's tiles are the table's), and held against the plain
+    version shard by shard (the order rule; bf16 within one ulp). Ids on
+    every boundary, duplicated, and a hot row; 2 launches a shard, counted
+    in the sharded form's counter."""
+    V, D, K = 100_003, 16, 23 * 512
+    rows = -(-V // e)
+    r = np.random.default_rng(e)
+    ids = r.integers(0, V, K)
+    bounds = [j * rows + o for j in range(1, e) for o in (-1, 0)]
+    ids[:3 * len(bounds)] = np.repeat(bounds, 3)
+    ids[-600:] = 77  # a hot row
+    trio = list(_sa_case(gen, rows * e, D, torch.as_tensor(ids))[:3])
+    if dtype == "bf16":
+        trio = [t.to(torch.bfloat16) for t in trio]
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, gs = sa.owner_sorted_grads(torch.as_tensor(ids, device="cuda"), g)
+    hp = sa.adam_hparams(4, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    whole = [t.clone() for t in trio]
+    sa.sorted_dense_adam_apply(*whole, sid, gs, hp)
+    plain = [t.clone() for t in trio]
+    for j in range(e):
+        sa.sorted_dense_adam_apply_sharded_ref(*(t[j * rows:(j + 1) * rows] for t in plain),
+                                               sid, gs, hp, row0=j * rows)
+    rule = _AdamOrderRule(trio[0].float())
+    rule.step(trio[0].float(), sid, gs, hp)
+    counter = "launches_sharded" + ("_bf16" if dtype == "bf16" else "")
+    for h in (hp, torch.tensor(hp, device="cuda")):
+        got = [t.clone() for t in trio]
+        before = getattr(sa.sorted_dense_adam_apply, counter)
+        for j in range(e):
+            sa.sorted_dense_adam_apply_sharded(*(t[j * rows:(j + 1) * rows] for t in got),
+                                               sid, gs, h, row0=j * rows)
+        torch.cuda.synchronize()
+        assert getattr(sa.sorted_dense_adam_apply, counter) == before + e
+        for a, b, c, what in zip(got, whole, plain, ("table", "mu", "nu")):
+            assert torch.equal(a, b), what
+            held = (_bf16_held(a, c, rule, what)[0] if dtype == "bf16"
+                    else rule.close(a, c, what))
+            assert held, what
+    rule.count()
+
+
+def test_sorted_adam_sharded_rejects_a_bad_row0(gen):
+    table, mu, nu, _ = _sa_case(gen, 100, 16, torch.zeros(1))
+    sid, gs = sa.owner_sorted_grads(torch.zeros(4, dtype=torch.long, device="cuda"),
+                                    torch.zeros(4, 16, device="cuda"))
+    hp = sa.adam_hparams(1, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    for row0 in (-1, 2 ** 31 - 100):
+        with pytest.raises(ValueError, match="row0"):
+            sa.sorted_dense_adam_apply_sharded(table, mu, nu, sid, gs, hp, row0=row0)
+
+
+def _mesh_fit_on_card(tmp_path, backend, shape):
+    """``fit`` on a mesh of two ranks on the card over ``backend`` against
+    the same ``fit`` in this process on the card (the rank worker of
+    tests/test_torch_port_parallel.py; the kernels built here first), both
+    at ``scan_steps=1``: a graphed one process would draw its dropout masks
+    from the graph's generator state, not the eager steps' (the CPU test
+    runs the mesh's uncaptured dispatches at ``scan_steps=2``)."""
+    import _torch_port_parallel_worker as W
+    from scenario_wise_rec_tpu_torch.ops.kernels import _build
+
+    _build.build(["sorted_adam"])
+    job = dict(kind="fit", seed=11, dropout=0.2, scan_steps=1, n_epoch=1, n=7 * W.B + 5,
+               device="cuda")
+    res = W.spawn(shape, {"fit": dict(job, dir=str(tmp_path / "mesh"))}, str(tmp_path),
+                  backend=backend, timeout=300)
+    one = W.run_fit(None, dict(job, dir=str(tmp_path / "one")))
+    steps = one["step"]
+    assert one["launches"] == (steps, 0)
+    for r, out in enumerate(res):
+        fit = out["fit"]
+        assert fit["launches"] == (0, steps), (r, fit["launches"])
+        assert fit["metrics"] == res[0]["fit"]["metrics"]
+        if shape[0] == 1:
+            # every rank sees the whole batch: one process's products and
+            # reductions at its shapes, and the sharded lookup and update
+            # are exact, so the two agree bit for bit
+            assert fit["log"] == one["log"] and fit["metrics"] == one["metrics"]
+            for k, v in one["state"].items():
+                assert torch.equal(fit["state"][k], v), (r, k)
+            continue
+        for a, b in zip(fit["log"], one["log"]):
+            assert a.split("loss")[0] == b.split("loss")[0]
+            assert abs(float(a.split()[-1]) - float(b.split()[-1])) <= 1e-4 * abs(
+                float(b.split()[-1])), (a, b)
+        for k, v in one["state"].items():
+            # the fit's 8 steps part by Adam's steps on noise-dominated
+            # gradients: the port's CPU mesh gate's tolerances (weights
+            # 2e-5, moments 1e-5, 1e-4 relative; BN-cancelled 2 lr a step)
+            cancelled = re.search(r"layers\.\d+\.(lin\.b|bn\.mean)$", k)
+            atol = 2e-3 * steps if cancelled else (2e-5 if k.startswith("model/") else 1e-5)
+            np.testing.assert_allclose(fit["state"][k].float().numpy(), v.float().numpy(),
+                                       rtol=1e-4, atol=atol, err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_mesh_of_two_gloo_ranks_on_one_card(gen, tmp_path, shape):
+    _mesh_fit_on_card(tmp_path, "gloo", shape)
+
+
+def test_mesh_of_two_nccl_ranks(gen, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("nccl needs a card a rank: this machine has one card (the gloo "
+                    "mesh of two ranks on it runs instead)")
+    _mesh_fit_on_card(tmp_path, "nccl", (2, 1))
 
 
 def test_a_failed_capture_raises(gen, monkeypatch):

@@ -338,5 +338,10 @@ def test_loader_on_another_device_raises():
     loader = PLoader(pds_, B, seed=5, device="meta")
     with pytest.raises(ValueError, match=r"meta.*cpu"):
         t.train_one_epoch(loader)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="Mesh"):
         PTrainer(t.model, **CPU, mesh=object())
+    from scenario_wise_rec_tpu_torch.parallel import make_mesh
+    meshed = PTrainer(t.model, **CPU, mesh=make_mesh(1, 1), sparse_embedding_updates=True,
+                      sparse_update_impl="sorted")
+    with pytest.raises(NotImplementedError, match="A15.3"):
+        meshed.train_one_epoch(PLoader(pds_, B, seed=5, device="cpu"))

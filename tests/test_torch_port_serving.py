@@ -167,8 +167,12 @@ def test_trainer_rejects_what_this_slice_does_not_do():
     assert auto._fused_inference is ("MMOE" in FUSED_INFERENCE_WINS)
     with pytest.raises(ValueError):
         PTrainer(model, device="cpu", fused_inference="false")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         PTrainer(model, device="cpu", mesh=object())
+    from scenario_wise_rec_tpu_torch.parallel import make_mesh
+    with pytest.raises(NotImplementedError, match="A15.3"):
+        PTrainer(model, device="cpu", mesh=make_mesh(1, 1), sparse_embedding_updates=True,
+                 sparse_update_impl="sorted", fused_inference="auto")
 
 
 def test_default_device_is_the_card_and_raises_without_one():

@@ -387,14 +387,18 @@ def test_fit_trains_evaluates_and_saves(tmp_path):
 
 
 def test_trainer_rejects_what_the_port_does_not_run():
-    """A mesh and more than one GPU raise with their ROADMAP item;
-    ``fused_inference="auto"`` (A10, ported) resolves to a bool; the JAX
-    dials the port has no use for raise."""
+    """A mesh that is not a ``parallel.Mesh`` raises ``TypeError``; an
+    unported step under a real mesh and more than one GPU raise with their
+    ROADMAP item; ``fused_inference="auto"`` (A10, ported) resolves to a
+    bool; the JAX dials the port has no use for raise."""
     from scenario_wise_rec_tpu_torch.ops.kernels import fused_inference_auto
+    from scenario_wise_rec_tpu_torch.parallel import make_mesh
 
     _, pt = _pair(True)
     model = pt.model
-    for kw, item in ((dict(mesh=object()), "A15"), (dict(gpus=[0, 1]), "A15")):
+    with pytest.raises(TypeError, match="Mesh"):
+        PTrainer(model, device="cpu", mesh=object())
+    for kw, item in ((dict(mesh=make_mesh(1, 1)), "A15.2"), (dict(gpus=[0, 1]), "A15")):
         with pytest.raises(NotImplementedError, match=item):
             PTrainer(model, device="cpu", **kw)
     auto = PTrainer(model, device="cpu", fused_inference="auto")
