@@ -299,7 +299,15 @@ Phases; each asserts, and any failure exits non-zero:
    rank's metrics the same, the later losses and the metrics printed beside
    one process padded with weight-0 rows; then a (1, 2) mesh, equal to one
    process bit for bit over the whole fit; with the backend, world size,
-   ranks' memory and seconds.
+   ranks' memory and seconds. The same ranks then run MMOE at the same
+   width in the dense, occurrence and winner modes, and (2, 2) EPNet's
+   plain step with both of its collections row-sharded
+   (``mesh_modes_gates``): on (2, 2) one step from the common start and one
+   padded step of 123 rows, each held against one process by the
+   one-state gate (the loss within 1e-6, the state within ``GROUP_TOL``);
+   on (1, 2) two steps equal to one process bit for bit; every rank's
+   launches as the mode says a step: the sharded dense kernel once, the
+   segment sum and the scatter once each, the scatter three times.
 6. ``[6] cli``: the command line as users start it, ``run.main(["ali_ccp",
    "--model_name", "mmoe", ...])`` (what ``python -m
    scenario_wise_rec_tpu_torch.run`` runs) in this process at the
@@ -323,8 +331,13 @@ Phases; each asserts, and any failure exits non-zero:
    launches and the resident findings of (d); an eval kernel's
    ``ms`` is its Step-0 device time, beside ``back_to_back_ms``), and last
    the line ``{"ok": true, "device": {...}}``. The kernels line also holds
-   the sharded form (``sorted_dense_adam_apply_sharded``: its Step 0 for
-   each E and type, its bound, and its launches on the mesh path).
+   the sharded forms (``sorted_dense_adam_apply_sharded``: its Step 0 for
+   each E and type, its bound, and its launches on the mesh path;
+   ``fused_dense_adam_apply_sharded``, held in ``[2]
+   fused_dense_adam_apply_sharded`` against the unsharded kernel bit for
+   bit and against its plain version at E = 2 and 4, hp by value and in
+   device memory: its Step 0 for each shard, its bound, plain and library
+   times, and its launches on the mesh's dense jobs).
 """
 
 from __future__ import annotations
@@ -333,6 +346,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import gc
 import json
 import os
 import re
@@ -530,12 +544,19 @@ UPDATE_KERNELS = {
     # is held in its own phase)
     "sorted_dense_adam_apply_sharded": (
         "sorted_adam", "scenario_wise_rec_tpu/ops/pallas/sorted_adam.py:436"),
+    # the dense update's row-sharded form, one shard of a mesh's table (the
+    # function the TPU runs under a mesh as XLA; the kernel it ports is
+    # fused_dense_adam_apply's)
+    "fused_dense_adam_apply_sharded": (
+        "fused_adam", "scenario_wise_rec_tpu/ops/pallas/fused_adam.py:96"),
 }
 # a kernel form counted apart from its wrapper's own count: name -> (wrapper,
 # counter attribute)
 FORM_COUNTERS = {"sorted_dense_adam_apply_bf16": ("sorted_dense_adam_apply", "launches_bf16"),
                  "sorted_dense_adam_apply_sharded": ("sorted_dense_adam_apply",
-                                                     "launches_sharded")}
+                                                     "launches_sharded"),
+                 "fused_dense_adam_apply_sharded": ("fused_dense_adam_apply",
+                                                    "launches_sharded")}
 # each embedding update's kernel launches per train step (the plain step: none)
 STEP_LAUNCHES = {"sorted": {"sorted_dense_adam_apply": 1},
                  "sorted_bf16": {"sorted_dense_adam_apply_bf16": 1},
@@ -3198,6 +3219,156 @@ def phase_sorted_adam_sharded(seed, peak):
             "bound_ms_by_form": out["bound_ms"]}
 
 
+def phase_fused_adam_sharded(seed, peak):
+    """``fused_dense_adam_apply_sharded`` alone at the Ali-CCP shape (V =
+    10,741,000, D = 16, 23 segments of 4096 ids) with uniform ids and with
+    the hot row plus Zipf ids, ids on every shard boundary: E = 2 and 4
+    shards in turn into row slices of one table, hp by value and in device
+    memory, one step from one state each, held against the unsharded kernel
+    on a copy (0 elements may differ: the shard's tiles are the table's) and
+    against the plain version (the sharded one, shard by shard) at row 14's
+    rule (``AdamOrderRule``). Then each shard's Step 0 beside the unsharded
+    form's, in the same call, each shard's bound (its table, mu and nu read
+    and written once, and the ids, positions and gradient rows that fall in
+    it, over the card's rate), the plain version's time and the library's
+    (``index_add_`` of the shard's ids and ``torch.optim.Adam(fused=True)``
+    on one shard of E = 2). Its data come from a generator of its own."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import fused_adam as fk
+    from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
+    from scenario_wise_rec_tpu_torch.train.optim import segment_sorted_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    V, D, K = N_SPARSE * VOCAB, 16, N_SPARSE * BATCH
+    segs = tuple((f"s{f}", f * BATCH, BATCH) for f in range(N_SPARSE))
+    r = np.random.default_rng(30)
+    zipf = lambda: np.minimum(r.zipf(1.2, BATCH) - 1, VOCAB - 1)
+    cases = {"a_alicpp_uniform": per_feature(lambda f: r.integers(0, VOCAB, BATCH)),
+             "b_hot_row_zipf": per_feature(lambda f: np.full(BATCH, 17) if f == 0 else zipf())}
+    cases = {k: shard_boundary_ids(v, V).cuda() for k, v in cases.items()}
+    hp = sa.adam_hparams(3, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    hp_dev = torch.tensor(hp, device="cuda")
+    state = [torch.randn(V, D, generator=gen, device="cuda"),
+             0.01 * torch.randn(V, D, generator=gen, device="cuda"),
+             1e-4 * torch.rand(V, D, generator=gen, device="cuda")]
+    max_err, out = 0.0, {"step0": {}, "bound_ms": {}}
+    for case, ids in cases.items():
+        g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+        sid, pos, sizes = segment_sorted_ids(ids, segs)
+        whole = [t.clone() for t in state]
+        fk.fused_dense_adam_apply(*whole, g, sid, pos, sizes, hp)
+        rule = AdamOrderRule(state[0])
+        rule.step(state[0], ids, g, hp)
+        seen = []
+        for e in (2, 4):
+            vl = V // e
+            plain = [t.clone() for t in state]
+            for j in range(e):
+                fk.fused_dense_adam_apply_sharded_ref(*(t[j * vl:(j + 1) * vl] for t in plain),
+                                                      g, ids, hp, row0=j * vl)
+            for form, h in (("by value", hp), ("hp in device memory", hp_dev)):
+                got = [t.clone() for t in state]
+                for j in range(e):
+                    fk.fused_dense_adam_apply_sharded(*(t[j * vl:(j + 1) * vl] for t in got), g,
+                                                      sid, pos, sizes, h, row0=j * vl)
+                torch.cuda.synchronize()
+                differ = sum(int((a != b).sum()) for a, b in zip(got, whole))
+                largest = max((a - b).abs().max().item() for a, b in zip(got, whole))
+                check(differ == 0, f"fused sharded {case} E={e} {form}: {differ} elements "
+                      f"differ from the unsharded kernel, the largest by {largest:.3e}")
+                for a, b, what in zip(got, plain, ("table", "mu", "nu")):
+                    check(rule.close(a, b, what), f"fused sharded {case} E={e} {form}: {what} "
+                          "disagrees with the plain version")
+                    max_err = max(max_err, (a - b).abs().max().item())
+                seen.append(f"E={e} {form}: {differ} of {3 * V * D} elements differ")
+                del got
+            del plain
+        log(f"  fused_dense_adam_apply_sharded {case}: V {V}, K {K} in {len(sizes)} segments, "
+            f"one step from one state; against the unsharded kernel: " + "; ".join(seen)
+            + f"; the plain version held, max_abs_err so far {max_err:.3e}")
+        rule.count(f"fused_dense_adam_apply_sharded {case}")
+        del whole, rule
+    # Step 0, uniform ids: each shard's and the unsharded form's, each
+    # reading from the same state (the pass slows as the moments shrink)
+    ids = cases["a_alicpp_uniform"]
+    g = 1e-3 * torch.randn(K, D, generator=gen, device="cuda")
+    sid, pos, sizes = segment_sorted_ids(ids, segs)
+    saved = [t.clone() for t in state]
+
+    def restore():
+        for t, t0 in zip(state, saved):
+            t.copy_(t0)
+
+    restore()
+    unsharded = wrapper_cost("fused_dense_adam_apply (unsharded)",
+                             lambda: fk.fused_dense_adam_apply(*state, g, sid, pos, sizes, hp))
+    out["step0"]["unsharded"] = unsharded
+    for e in (2, 4):
+        vl = V // e
+        bounds = []
+        for j in range(e):
+            # the shard's table, mu and nu read and written once, and the ids,
+            # positions and gradient rows that fall in the shard (the rest it
+            # only passes over in its binary searches)
+            n_in = int(((sid >= j * vl) & (sid < (j + 1) * vl)).sum())
+            moved = 6.0 * vl * D * 4 + n_in * (4 + 4 + 4 * D)
+            flops = 16.0 * vl * D + n_in * D  # the Adam chain per element; the sums
+            check(moved / peak[1] >= flops / peak[0], "the sharded update bound by operations")
+            out["bound_ms"][f"E={e} shard {j}"] = moved / peak[1] * 1e3
+            bounds.append((moved / peak[1] * 1e3, moved, n_in))
+            restore()
+            shard = [t[j * vl:(j + 1) * vl] for t in state]
+            cost = wrapper_cost(f"fused_dense_adam_apply_sharded E={e} shard {j}",
+                                lambda: fk.fused_dense_adam_apply_sharded(
+                                    *shard, g, sid, pos, sizes, hp, row0=j * vl))
+            out["step0"][f"E={e} shard {j}"] = cost
+        readings = [out["step0"][f"E={e} shard {j}"]["device_ms"] for j in range(e)]
+        log(f"  fused_dense_adam_apply_sharded E={e}: Step 0 device ms by shard "
+            f"{[round(x, 4) for x in readings]}, bound by shard "
+            f"{[round(b[0], 4) for b in bounds]} ms ({[round(b[1] / 1e9, 4) for b in bounds]} "
+            f"GB over {peak[1] / 1e12:g} TB/s, the shard's ids {[b[2] for b in bounds]} of "
+            f"{K}; the unsharded form's / E {unsharded['device_ms'] / e:.4f} ms)")
+    del saved
+    # the plain version and the nearest PyTorch composition on one shard of
+    # E = 2 (timed here only; the port never calls the composition)
+    vl = V // 2
+    shard = [t[:vl].clone() for t in state]
+    del state
+    i32 = ids.to(torch.int32)
+    plain_ms = time_ms(lambda: fk.fused_dense_adam_apply_sharded_ref(*shard, g, i32, hp, row0=0),
+                       reps=3, inner=5)
+    kernel_ms = time_ms(lambda: fk.fused_dense_adam_apply_sharded(*shard, g, sid, pos, sizes, hp,
+                                                                  row0=0))
+    mine = ids < vl
+    local_ids, local_g = ids[mine].long(), g[mine]
+    param = torch.nn.Parameter(shard[0].clone())
+    param.grad = torch.zeros_like(param)
+    opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-5,
+                           fused=True)
+
+    def library():
+        param.grad.zero_()
+        param.grad.index_add_(0, local_ids, local_g)
+        opt.step()
+
+    library_ms = time_ms(library, reps=3, inner=10)
+    del param, opt, shard
+    torch.cuda.empty_cache()
+    ms = out["step0"]["E=2 shard 0"]["device_ms"]
+    log(f"  fused_dense_adam_apply_sharded E=2 shard 0: Step 0 {ms:.4f} ms, back to back "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ + torch.optim.Adam(fused=True) "
+        f"{library_ms:.4f} ms, bound {out['bound_ms']['E=2 shard 0']:.4f} ms")
+    return {"name": "fused_dense_adam_apply_sharded", "route": "cuda",
+            "source": "scenario_wise_rec_tpu_torch/csrc/fused_adam.cu",
+            "replaces": UPDATE_KERNELS["fused_dense_adam_apply_sharded"][1],
+            "form": "one shard of E = 2 (the mesh path's); every E below",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": out["bound_ms"]["E=2 shard 0"], "bound_by": "bytes",
+            "library_ms": library_ms, "back_to_back_ms": kernel_ms,
+            "step0_device_ms": {k: v["device_ms"] for k, v in out["step0"].items()},
+            "step0_host_us": {k: v["host_us"] for k, v in out["step0"].items()},
+            "bound_ms_by_form": out["bound_ms"]}
+
+
 MESH_SHAPE = (2, 2)  # (data, embed): four ranks on the one card, over gloo
 # Two correct runs of MMOE's fit part step by step: Adam moves an element
 # whose gradient is cancellation noise by up to lr, whichever order summed
@@ -3268,6 +3439,79 @@ def mesh_fit(seed, mesh, out_dir, pad_rows=0, first_step=True, n_rows=N_MESH, va
             "steps": len(train), "max_memory_mb": torch.cuda.max_memory_allocated() / 1e6}
 
 
+# the mesh's other update modes, each held one step from the common start
+# (and a padded step) on the (2, 2) mesh and bit for bit on the (1, 2) one
+MESH_MODES = ("dense", "occurrence", "winner")
+# each mode's update-kernel launches a step on a mesh rank (the dense update
+# runs its sharded form)
+MESH_STEP_LAUNCHES = {"dense": {"fused_dense_adam_apply_sharded": 1},
+                      "occurrence": STEP_LAUNCHES["occurrence"],
+                      "winner": STEP_LAUNCHES["winner"], "plain": {}}
+
+
+def mesh_steps(seed, mesh, mode, n_rows, name="mmoe"):
+    """``name``'s train steps over ``n_rows`` rows in batches of BATCH (the
+    last padded), in ``mode`` (an embedding update, or ``"plain"``, the plain
+    step), from the common start ``build_ali_model(seed + 1, name=name)``, on
+    ``mesh`` or in one process (None): the losses, the update kernels'
+    launches, the seconds, and the state after them (``_checkpoint_tensors``:
+    on a mesh every rank calls it and holds the shards gathered)."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    model = build_ali_model(seed + 1, name=name)
+    x, y = synthetic_eval_set(seed + 6, n_rows)
+    train = BatchIterable(ColumnarDataset(x, y), BATCH)
+    kw = {} if mode == "plain" else mode_kw(mode)
+    t = CTRTrainer(model, n_epoch=1, seed=seed, mesh=mesh, **kw)
+    del model
+    losses, step = [], t._train_step
+
+    def recorded(x, y, w, **kw):
+        losses.append(step(x, y, w, **kw))
+        return losses[-1]
+
+    t._train_step = recorded
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    t.train_one_epoch(train)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    state = t._checkpoint_tensors()
+    del t, step, recorded  # they hold the trainer: collect it before the next job
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": [float(l) for l in losses], "counts": counts, "state": state,
+            "steps": len(train), "seconds": seconds}
+
+
+def mesh_job(seed, mesh, mode, n_rows, name="mmoe"):
+    """One job of ``[4] training mmoe mesh``'s other modes on this rank:
+    :func:`mesh_steps` on the mesh; then rank 0 runs the same steps in one
+    process (the others go on to the next job and wait in its first
+    collective) and compares the two states in memory: with more than one
+    data rank by :func:`one_state_gaps`, else bit for bit. JSON-able."""
+    run = mesh_steps(seed, mesh, mode, n_rows, name)
+    out = {k: run[k] for k in ("losses", "counts", "steps", "seconds")}
+    if mesh.rank == 0:
+        one = mesh_steps(seed, None, mode, n_rows, name)
+        out.update(one_losses=one["losses"], one_counts=one["counts"],
+                   one_seconds=one["seconds"])
+        if mesh.shape["data"] > 1:
+            gaps, n_noisy, n_all = one_state_gaps(state_groups(run["state"]),
+                                                  state_groups(one["state"]))
+            out.update(gaps=gaps, noisy=[n_noisy, n_all])
+        else:
+            out["differ"] = bits_differ(run["state"], one["state"])
+        del one
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank_main(args):
     """One rank of ``[4] training mmoe mesh``: join the gloo group, run
     :func:`mesh_fit` on the mesh (and, with more than one data rank, its
@@ -3283,6 +3527,16 @@ def mesh_rank_main(args):
     if n > 1:
         res["tail"] = mesh_fit(args.seed, mesh, os.path.join(args.mesh_dir, "tail"),
                                first_step=False, n_rows=MESH_TAIL, validate=False)
+    # the other modes: one step and one padded step on (2, 2), two steps on (1, 2)
+    res["modes"] = {}
+    for mode in MESH_MODES:
+        res["modes"][mode] = {"step": mesh_job(args.seed, mesh, mode,
+                                               BATCH if n > 1 else 2 * BATCH)}
+        if n > 1:
+            res["modes"][mode]["tail"] = mesh_job(args.seed, mesh, mode, MESH_TAIL)
+    if n > 1:  # EPNet's plain step, both collections row-sharded
+        res["modes"]["plain epnet"] = {"step": mesh_job(args.seed, mesh, "plain", BATCH,
+                                                        name="epnet")}
     with open(os.path.join(args.mesh_dir, f"rank{args.mesh_rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -3290,27 +3544,67 @@ def mesh_rank_main(args):
 
 
 def checkpoint_groups(path):
-    """A checkpoint's tensors on the card in ``trainer_groups``' groups (the
-    packed table, the Adam step its moments imply, the dense parameters and
-    BN buffers, the BN-cancelled ones), and the first moments by tensor
-    name, for ``noisy_checkpoint_elements``."""
+    """:func:`state_groups` of a checkpoint's tensors, on the card."""
+    with np.load(path, allow_pickle=False) as f:
+        return state_groups({k: torch.from_numpy(f[k]).cuda() for k in f.files
+                             if not k.startswith("__")})
+
+
+def state_groups(a):
+    """A trainer's checkpoint tensors ``a`` (``_checkpoint_tensors``, on the
+    card) in ``trainer_groups``' groups (the packed tables, the Adam step
+    their moments imply, the dense parameters and BN buffers, the
+    BN-cancelled ones), and the first moments by tensor name, for the
+    noise-dominated elements of :func:`one_state_gaps`. A table's moments
+    are the embedding update's (``opt/emb/mu``/``nu``, or the occurrence
+    store's moment columns) or, for a table the plain step trains,
+    torch.optim's."""
     from scenario_wise_rec_tpu_torch.ops.kernels.sorted_adam import adam_hparams
 
-    with np.load(path, allow_pickle=False) as f:
-        a = {k: torch.from_numpy(f[k]).cuda() for k in f.files if not k.startswith("__")}
     sd = {k[len("model/"):]: v for k, v in a.items() if k.startswith("model/")}
-    table = sd.pop("embedding.packed")
-    lr, _, _, _, bc1r, bc2r, eps = adam_hparams(int(a["opt/emb/step"]), 1e-3, 0.0, 0.9, 0.999,
-                                                1e-8)
-    implied = lr * (a["opt/emb/mu"] * bc1r) / (torch.sqrt(a["opt/emb/nu"] * bc2r) + eps)
+    tables = {k: sd.pop(k) for k in list(sd) if k.endswith(".packed")}
     moments = {k[len("opt/base/"):-len("/exp_avg")]: v for k, v in a.items()
                if k.startswith("opt/base/") and k.endswith("/exp_avg")}
-    moments["embedding.packed"] = a["opt/emb/mu"]
+    implied = {}
+    for key, table in tables.items():
+        if key == "embedding.packed" and "opt/emb/step" in a:
+            step = int(a["opt/emb/step"])
+            if "opt/emb/comb_moments" in a:
+                d = table.shape[1]
+                mu, nu = a["opt/emb/comb_moments"][:, :d], a["opt/emb/comb_moments"][:, d:]
+            else:
+                mu, nu = a["opt/emb/mu"], a["opt/emb/nu"]
+            moments[key] = mu
+        else:
+            step = int(a[f"opt/base/{key}/step"])
+            mu, nu = a[f"opt/base/{key}/exp_avg"], a[f"opt/base/{key}/exp_avg_sq"]
+        lr, _, _, _, bc1r, bc2r, eps = adam_hparams(step, 1e-3, 0.0, 0.9, 0.999, 1e-8)
+        implied[key] = lr * (mu * bc1r) / (torch.sqrt(nu * bc2r) + eps)
     cancelled = lambda k: BN_BIAS.search(k) is not None
-    return ({"table": {"embedding.packed": table},
-             "table moments": {"embedding.packed": implied}, "bf16 store": {},
+    return ({"table": tables, "table moments": implied, "bf16 store": {},
              "dense": {k: v for k, v in sd.items() if not cancelled(k)},
              "BN-cancelled": {k: v for k, v in sd.items() if cancelled(k)}}, moments)
+
+
+def one_state_gaps(mesh_state, one_state):
+    """``(group_gaps, noise-dominated elements, elements)`` of one
+    :func:`state_groups` against another, both after one step from one
+    state: the card-vs-CPU gate's rule, an element whose first moments part
+    by more than NOISY_MOMENT held to NOISE_ATOL (as for NOISY_MODELS)."""
+    (mesh_groups, mesh_mu), (one_groups, one_mu) = mesh_state, one_state
+    noisy, n_noisy, n_all = {}, 0, 0
+    for k, mb in one_mu.items():
+        noisy[k] = (mesh_mu[k] - mb).abs() > NOISY_MOMENT * mb.abs()
+        n_noisy, n_all = n_noisy + int(noisy[k].sum()), n_all + mb.numel()
+    return group_gaps(mesh_groups, one_groups, noisy), n_noisy, n_all
+
+
+def bits_differ(a, b):
+    """The keys of two checkpoint-tensor dicts whose tensors differ in any
+    bit (or in shape or type)."""
+    raw = lambda t: t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return [k for k in b if k not in a or a[k].shape != b[k].shape or a[k].dtype != b[k].dtype
+            or not torch.equal(raw(a[k]), raw(b[k]))]
 
 
 def spawn_mesh(seed, shape, out_dir):
@@ -3413,20 +3707,16 @@ def phase_train_mesh(seed, card):
             """The state after one step from the common start: the
             card-vs-CPU gate's rule, its noise-dominated elements as for
             NOISY_MODELS."""
-            mesh_groups, mesh_mu = checkpoint_groups(mesh_path)
-            one_groups, one_mu = checkpoint_groups(one_path)
-            noisy, n_noisy, n_all = {}, 0, 0
-            for k, mb in one_mu.items():
-                noisy[k] = (mesh_mu[k] - mb).abs() > NOISY_MOMENT * mb.abs()
-                n_noisy, n_all = n_noisy + int(noisy[k].sum()), n_all + mb.numel()
-            gaps_g = group_gaps(mesh_groups, one_groups, noisy)
+            gaps_gate(what, *one_state_gaps(checkpoint_groups(mesh_path),
+                                            checkpoint_groups(one_path)))
+            torch.cuda.empty_cache()
+
+        def gaps_gate(what, gaps_g, n_noisy, n_all):
             log(f"  mesh (2, 2) vs one process, {what}: {gaps_line(gaps_g)}; {n_noisy} of "
                 f"{n_all} elements noise-dominated (first moments {NOISY_MOMENT:g} apart)")
             gate(not outside(gaps_g) and n_noisy <= NOISY_SHARE * n_all,
                  f"mesh vs one process, {what}: "
                  f"{ {g: gaps_g[g][3] for g in outside(gaps_g)} } outside their tolerance")
-            del mesh_groups, one_groups, mesh_mu, one_mu, noisy
-            torch.cuda.empty_cache()
 
         for r, m in enumerate(res):
             launched_sharded(m, MESH_SHAPE)
@@ -3486,6 +3776,7 @@ def phase_train_mesh(seed, card):
             f"{'equal' if res12[0]['losses'] == one['losses'] else 'differ'}; checkpoint "
             f"tensors at the fit's end that differ in any bit: {differ}")
         gate(not differ, f"mesh (1, 2): checkpoint tensors {differ} differ from one process's")
+        modes = mesh_modes_gates(res, res12, gate, gaps_gate)
     log(f"  against one process (gated at {MESH_GAP_RATIO} x the padded run's), relative "
         f"per-step loss gaps: the (2, 2) mesh "
         f"{[f'{g:.1e}' for g in gaps]}, one process with {MESH_PAD} weight-0 rows a batch "
@@ -3501,7 +3792,8 @@ def phase_train_mesh(seed, card):
         f"{[round(m['seconds'], 2) for m in res]} (one process {one['seconds']:.2f}); the ranks' "
         f"processes {ranks_s:.1f} s with start-up, the (1, 2) mesh's {ranks12_s:.1f} s")
     check(not failed, "; ".join(failed))
-    return {"launches": sum(m["counts"]["sorted_dense_adam_apply_sharded"] for m in res),
+    return {"modes": modes,
+            "launches": sum(m["counts"]["sorted_dense_adam_apply_sharded"] for m in res),
             "launches_by_rank": [m["counts"]["sorted_dense_adam_apply_sharded"] for m in res],
             "mesh": {"data": n, "embed": e, "backend": "gloo", "steps": steps,
                      "loss_gaps": gaps, "padded_control_loss_gaps": floor,
@@ -3510,6 +3802,71 @@ def phase_train_mesh(seed, card):
                      "one_process_seconds": one["seconds"],
                      "padded_step_loss_gap": tail_gap,
                      "mesh_1x2_bit_for_bit": not differ}}
+
+
+def mesh_modes_gates(res, res12, gate, gaps_gate):
+    """The dense, occurrence and winner jobs of the mesh ranks (MMOE) and
+    EPNet's plain step, each against one process on the card from the
+    common start (rank 0's, :func:`mesh_job`): on the (2, 2) mesh the first
+    step and a padded step of MESH_TAIL rows (data rank 1 without a real
+    row), every rank's loss within 1e-6 and the state held by the one-state
+    gate (``gaps_gate``); on the (1, 2) mesh two steps whose losses and
+    state equal one process's bit for bit; every rank's update kernels
+    launched as MESH_STEP_LAUNCHES says a step (the dense update's sharded
+    kernel, never the unsharded one), one process's as STEP_LAUNCHES says.
+    Returns each job's readings."""
+    out = {}
+    for job in list(MESH_MODES) + ["plain epnet"]:
+        mode = job.split()[0]
+
+        def launched(m, counts, per_step, what):
+            want = {k: m["steps"] * per_step.get(k, 0) for k in counts}
+            gate(counts == want, f"{what} {job}: launches {counts} (want "
+                 f"{ {k: v for k, v in want.items() if v} })")
+
+        readings = {}
+        for part, shape, ranks in (("step", MESH_SHAPE, res), ("tail", MESH_SHAPE, res),
+                                   ("step", (1, 2), res12 if job != "plain epnet" else [])):
+            if not ranks or part not in ranks[0]["modes"][job]:
+                continue
+            ref = ranks[0]["modes"][job][part]
+            launched(ref, ref["one_counts"], STEP_LAUNCHES.get(mode, {}), "one process")
+            gaps = []
+            for r, m in enumerate(ranks):
+                got = m["modes"][job][part]
+                launched(got, got["counts"], MESH_STEP_LAUNCHES[mode], f"mesh {shape} rank {r}")
+                if shape == (1, 2):
+                    gate(got["losses"] == ref["one_losses"], f"mesh (1, 2) rank {r} {job}: "
+                         f"losses {got['losses']} vs one process {ref['one_losses']}")
+                    continue
+                gaps.append(abs(got["losses"][0] - ref["one_losses"][0])
+                            / abs(ref["one_losses"][0]))
+                gate(len(got["losses"]) == 1 and gaps[-1] <= 1e-6, f"mesh rank {r} {job} "
+                     f"{part}: loss {got['losses']} vs one process {ref['one_losses']}")
+            what = (f"{job}, one step from one state" if part == "step" else
+                    f"{job}, one padded step ({MESH_TAIL} rows) from one state")
+            if shape == (1, 2):
+                log(f"  mesh (1, 2) vs one process, {job}, two steps: losses "
+                    f"{'equal' if ref['losses'] == ref['one_losses'] else 'differ'}; state "
+                    f"tensors that differ in any bit: {ref['differ']}")
+                gate(not ref["differ"], f"mesh (1, 2) {job}: tensors {ref['differ']} differ")
+                readings["mesh_1x2_bit_for_bit"] = not ref["differ"]
+                readings["launches_by_rank_1x2"] = [m["modes"][job][part]["counts"]
+                                                    for m in ranks]
+                continue
+            gaps_gate(what, ref["gaps"], *ref["noisy"])
+            readings[f"{part}_loss_gap"] = max(gaps)
+            if part == "step":
+                readings.update(
+                    launches_by_rank=[m["modes"][job][part]["counts"] for m in ranks],
+                    rank_seconds=[m["modes"][job][part]["seconds"] for m in ranks],
+                    one_process_seconds=ref["one_seconds"])
+        log(f"  mesh {job}: (2, 2) rank step seconds "
+            f"{[round(x, 2) for x in readings['rank_seconds']]} (one process "
+            f"{readings['one_process_seconds']:.2f}); launches by rank "
+            f"{[{k: v for k, v in c.items() if v} for c in readings['launches_by_rank']]}")
+        out[job] = readings
+    return out
 
 
 def update_entry(name, max_err, kernel_ms, plain_ms, flops, moved, peak, library_ms, **extra):
@@ -5454,6 +5811,8 @@ def main(argv=None):
         updates = phase_row_update(gen, peak)
     with phase("[2] fused_dense_adam_apply"):
         updates["fused_dense_adam_apply"] = phase_fused_adam(gen, peak)
+    with phase("[2] fused_dense_adam_apply_sharded"):
+        fused_sharded = phase_fused_adam_sharded(args.seed, peak)
     with phase("[2] tower, star, ple kernels"):
         new = phase_new_kernels(gen, peak)
     with phase("[2] sarnet, epnet, ppnet, adasparse kernels"):
@@ -5521,12 +5880,26 @@ def main(argv=None):
         graphed = phase_train_graphed(args.seed, card,
                                       sorted_bf16["device_hp_step0_in_turns_ms"])
     log(f"[4] training path: MMOE fit on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} (data, embed) "
-        "mesh of processes on the one card over gloo, sorted f32, against one process; "
+        "mesh of processes on the one card over gloo, sorted f32, against one process; then "
+        "the dense, occurrence and winner modes and EPNet's plain step on the mesh; "
         "Ali-CCP width, 467k ids per feature")
     with phase("[4] training mmoe mesh"):
         mesh = phase_train_mesh(args.seed, card)
+    modes = mesh.pop("modes")
     sorted_sharded["launches"] = mesh.pop("launches")
     sorted_sharded.update(mesh)
+    # the mesh's dense jobs (one step and one padded step a rank of (2, 2))
+    dense = modes["dense"]
+    fused_sharded["launches"] = sum(c["fused_dense_adam_apply_sharded"]
+                                    for c in dense["launches_by_rank"])
+    fused_sharded["mesh"] = dense
+    for name in ("occurrence_segsum", "scatter_rows"):
+        updates[name]["mesh_launches_by_rank"] = {
+            job: [c[name] for c in modes[job]["launches_by_rank"]]
+            for job in ("occurrence", "winner") if any(c[name] for c in
+                                                     modes[job]["launches_by_rank"])}
+    fused_sharded["mesh_jobs"] = {job: {k: v for k, v in r.items() if k != "launches_by_rank"}
+                                  for job, r in modes.items()}
     log("[6] cli: python -m scenario_wise_rec_tpu_torch.run ali_ccp --model_name mmoe at the "
         "production flags over Ali-CCP-schema CSVs, 467k ids per feature; the JAX-written "
         "checkpoint fixture")
@@ -5549,7 +5922,7 @@ def main(argv=None):
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
         + f"; outside the phases {total - sum(PHASE_S.values()):.1f}")
     print(card)
-    print(json.dumps({"kernels": [infer, sorted_adam, sorted_bf16, sorted_sharded]
+    print(json.dumps({"kernels": [infer, sorted_adam, sorted_bf16, sorted_sharded, fused_sharded]
                       + [new[n] for n in models]
                       + [updates[k] for k in ("fused_dense_adam_apply", "occurrence_segsum",
                                               "scatter_rows")]}))

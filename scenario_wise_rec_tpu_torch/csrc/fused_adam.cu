@@ -40,6 +40,19 @@
 // array in device memory (`fused_dense_adam_f32_dev`), the form a CUDA graph
 // of the train step replays, as csrc/sorted_adam.cu's `_dev` forms.
 //
+// The row-sharded form (`fused_dense_adam_sharded_f32` and its `_dev`) steps
+// one row shard of a table that a mesh row-shards over its embed axis: table,
+// mu and nu hold the rows [row0, row0 + v) of the table the sorted ids
+// address, and the ids and positions are the whole batch's. It is the same
+// code with the shard's first row: the shard's tiles are the whole table's
+// tiles that meet it (embedding_adam.cuh, `first_tile`), so every row of the
+// shard sums its duplicates in the same chunks and order as the unsharded
+// call, and the shards of a table together equal one unsharded call bit for
+// bit. The TPU runs this function under a mesh as XLA
+// (scenario_wise_rec_tpu/train/optim.py:287-349, use_pallas=False); this is
+// the card's kernel for it. Its bound is the shard's bytes, 1/E of the
+// table's, plus the ids, positions and gradient rows that fall in it.
+//
 // Plain C interface (no PyTorch headers), built with nvcc for sm_90a and
 // loaded with ctypes (ops/kernels/_build.py). The kernels run on the caller's
 // stream and allocate nothing.
@@ -79,6 +92,31 @@ int fused_dense_adam_f32_dev(float* table, float* mu, float* nu, const float* g,
   const emb_adam::Hp h{};
   return emb_adam::launch(table, mu, nu, ids, pos, g, seg_off, nseg, starts, v, d,
                           k, block_rows, h, stream, hp);
+}
+
+// The row-sharded forms: table, mu and nu are the rows [row0, row0 + v) of
+// the table the ids address; starts: [nseg * (nb + 1)] int32 scratch, nb =
+// ceil((row0 + v) / block_rows) - floor(row0 / block_rows), the table's tiles
+// that meet the rows. The rest as above.
+int fused_dense_adam_sharded_f32(float* table, float* mu, float* nu, const float* g,
+                                 const int* ids, const int* pos, const int* seg_off,
+                                 int nseg, int* starts, long long v, long long row0,
+                                 int d, int k, int block_rows, float lr, float wd,
+                                 float b1, float b2, float bc1r, float bc2r, float eps,
+                                 void* stream) {
+  const emb_adam::Hp h{lr, wd, b1, b2, bc1r, bc2r, eps};
+  return emb_adam::launch(table, mu, nu, ids, pos, g, seg_off, nseg, starts, v, d,
+                          k, block_rows, h, stream, nullptr, row0);
+}
+
+int fused_dense_adam_sharded_f32_dev(float* table, float* mu, float* nu,
+                                     const float* g, const int* ids, const int* pos,
+                                     const int* seg_off, int nseg, int* starts,
+                                     long long v, long long row0, int d, int k,
+                                     int block_rows, const float* hp, void* stream) {
+  const emb_adam::Hp h{};
+  return emb_adam::launch(table, mu, nu, ids, pos, g, seg_off, nseg, starts, v, d,
+                          k, block_rows, h, stream, hp, row0);
 }
 
 }  // extern "C"

@@ -109,9 +109,13 @@ def jax_state_dict(params, state=None, state_map=()) -> Dict[str, np.ndarray]:
     return src
 
 
-def load_jax_params(module: nn.Module, params, state=None) -> None:
-    """Copy the JAX ``(params, state)`` trees into ``module`` in place."""
+def load_jax_params(module: nn.Module, params, state=None, rows=None) -> None:
+    """Copy the JAX ``(params, state)`` trees into ``module`` in place.
+    ``rows``: ``(key, array) -> array``, what of each entry the module
+    holds (a mesh trainer's row shards), or None for all of it."""
     src = jax_state_dict(params, state, getattr(module, "jax_state_map", ()))
+    if rows is not None:
+        src = {k: rows(k, a) for k, a in src.items()}
     dst = module.state_dict()
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
@@ -151,9 +155,9 @@ def _array(a):
 
 
 def _own_rows(trainer, a):
-    """``a`` (``[V, ...]``, numpy or a tensor) as the trainer holds it:
-    whole, or on a mesh this rank's row range, padded with zero rows past
-    V."""
+    """``a`` (``[V, ...]``, numpy or a tensor, a table the trainer row-shards
+    or an array made from one) as the trainer holds it: whole, or on a mesh
+    this rank's row range, padded with zero rows past V."""
     mesh = getattr(trainer, "mesh", None)
     a = _array(a)
     if mesh is None:
@@ -198,11 +202,16 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
       combined ``comb [V, 3·D]`` (its first D columns the weights); in the
       dense and winner modes ``mu``/``nu``; and ``step``;
     - into a trainer on a mesh (``trainer.mesh``), each rank takes its row
-      range of the table and its moments (``parallel.shard_range``, zero
-      rows past V), from a JAX single-device trainer's arrays or a JAX mesh
-      trainer's (``np.asarray`` gathers those).
+      range (``parallel.shard_range``, zero rows past V) of every table the
+      mesh row-shards (each collection's packed table and each loose table)
+      and of what is made from one: the embedding update's moments or
+      ``comb`` rows, and the optax moments of each sharded table; from a
+      JAX single-device trainer's arrays or a JAX mesh trainer's
+      (``np.asarray`` gathers those).
     """
     model = trainer.model
+    shards = getattr(trainer, "_shards", {}) if getattr(trainer, "mesh", None) else {}
+    own = lambda key, a: _own_rows(trainer, a) if key in shards else a
     base, emb = opt_state, None
     if trainer._emb_mode is not None:
         emb, base = opt_state["emb"], opt_state["base"]
@@ -221,9 +230,8 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
             packed = np.asarray(emb["comb"])[:, :d]
         else:
             packed = params["embedding"]["packed"]
-        packed = _own_rows(trainer, packed)
         params = {**params, "embedding": {**params["embedding"], "packed": packed}}
-    load_jax_params(model, params, state)
+    load_jax_params(model, params, state, rows=own)
     adam_state = _find_adam_state(base)
     if adam_state is None:
         raise ValueError("no scale_by_adam state (count, mu, nu) in opt_state")
@@ -240,14 +248,15 @@ def load_jax_trainer_state(trainer, params, state, opt_state) -> None:
     as_t = lambda a, p: torch.tensor(np.asarray(a), dtype=p.dtype, device=p.device)
     for name, p in trainer._dense_named:
         trainer.optimizer.state[p] = {"step": trainer._opt_step_tensor(step, p),
-                                      "exp_avg": as_t(mu[name], p),
-                                      "exp_avg_sq": as_t(nu[name], p)}
+                                      "exp_avg": as_t(own(name, mu[name]), p),
+                                      "exp_avg_sq": as_t(own(name, nu[name]), p)}
     if emb is None:
         return
     st = trainer.emb_opt_state
     with torch.no_grad():
         if "comb" in emb:
-            st["comb"][:, d:].copy_(as_t(np.asarray(emb["comb"])[:, d:], st["comb"]))
+            moments = _own_rows(trainer, np.asarray(emb["comb"])[:, d:])
+            st["comb"][:, d:].copy_(as_t(moments, st["comb"]))
         elif trainer._bf16_store:
             for k in ("table", "mu", "nu"):
                 st[k].copy_(_bf16_tensor(_own_rows(trainer, unpack(emb[k]))))

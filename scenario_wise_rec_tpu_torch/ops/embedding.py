@@ -17,6 +17,12 @@ The forward of the JAX package's ``ops/embedding.py:EmbeddingCollection``:
 Out-of-range ids follow JAX indexing on the table they address, after the
 owner's offset is added (:func:`clamp_rows`). ``F.embedding`` would raise on
 them instead.
+
+On a mesh (:meth:`EmbeddingCollection.place_shards`, which the trainer
+calls) each table is this rank's row shard, and every lookup goes through
+``parallel.sharded_gather`` with the table's first row: the ids are clamped
+to the whole table's vocab first, so a lookup returns the single-process
+rows, and its gradient reaches this shard's rows only.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from ..core.features import DenseFeature, Feature, SequenceFeature, SparseFeature
+from ..parallel.sharded_embedding import sharded_gather
 
 
 def clamp_rows(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -125,6 +132,24 @@ class EmbeddingCollection(nn.Module):
                     tables[name] = nn.Parameter(t.to(device))
         self.packed = nn.Parameter(packed) if packed is not None else None
         self.tables = nn.ParameterDict(tables) if tables else None
+        # on a mesh: the embed group and each table's first row ("packed" or
+        # a loose table's name), set by place_shards
+        self._shard_group = None
+        self._shard_row0: Dict[str, int] = {}
+
+    def place_shards(self, group, row0: Dict[str, int]) -> None:
+        """Look every table up through its row shard from now on: the
+        tables (``packed``, ``tables[name]``) already hold this rank's rows,
+        ``row0`` gives each one's first row (key ``"packed"`` or the loose
+        table's name) and ``group`` is the mesh's ``embed`` group."""
+        self._shard_group, self._shard_row0 = group, dict(row0)
+
+    def _gather(self, key: str, table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """``table[rows]`` of whole-table ``rows``, through this rank's
+        shard once the collection is placed on a mesh."""
+        if key not in self._shard_row0:
+            return table[rows]
+        return sharded_gather(table, rows, self._shard_row0[key], self._shard_group)
 
     def _owner(self, f) -> str:
         return f.shared_with if getattr(f, "shared_with", None) else f.name
@@ -132,9 +157,9 @@ class EmbeddingCollection(nn.Module):
     def _rows(self, owner: str, ids: torch.Tensor) -> torch.Tensor:
         if owner in self.offsets:
             rows = clamp_rows(ids + self.offsets[owner], self.packed_vocab)
-            return self.packed[rows]
-        table = self.tables[owner]
-        return table[clamp_rows(ids, table.shape[0])]
+            return self._gather("packed", self.packed, rows)
+        rows = clamp_rows(ids, self.owned[owner].vocab_size)
+        return self._gather(owner, self.tables[owner], rows)
 
     def touched_ids(self, x: Dict[str, torch.Tensor],
                     features: Sequence[Feature] | None = None) -> torch.Tensor:
@@ -228,7 +253,8 @@ class EmbeddingCollection(nn.Module):
         elif plain:
             off = self._offset_row(tuple(self.offsets[self._owner(f)] for f in plain))
             ids = torch.stack([_ids(x, f) for f in plain], dim=1) + off
-            gathered = self.packed[clamp_rows(ids, self.packed_vocab)]  # [B, F, D]
+            gathered = self._gather("packed", self.packed,
+                                    clamp_rows(ids, self.packed_vocab))  # [B, F, D]
             for i, f in enumerate(plain):
                 packed_cols[f.name] = gathered[:, i, :]
 

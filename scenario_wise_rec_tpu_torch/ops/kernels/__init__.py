@@ -48,7 +48,9 @@
 - ``fused_adam``: the same from ids sorted within each feature's segment,
   the gradient rows read through their sorted positions
   (``csrc/fused_adam.cu``, ``fused_dense_adam_apply``); the ``dense``
-  embedding update. Both Adam kernels are built over the shared
+  embedding update. ``fused_dense_adam_apply_sharded`` steps one row shard
+  of a mesh's table likewise (the same kernel with the shard's first row).
+  Both Adam kernels are built over the shared
   ``csrc/embedding_adam.cuh``.
 - ``row_update``: the ``occurrence`` embedding update's two row primitives
   (``csrc/row_update.cu``): ``occurrence_segsum``, every occurrence's
@@ -89,7 +91,8 @@ def fused_inference_auto(model) -> bool:
 from .adaptdhm_infer import (adaptdhm_fused_infer, adaptdhm_fused_infer_ref,
                              adaptdhm_route_margin)
 from .folding import fold_bn_linear_eval, fold_layers_eval, fold_stacked_mlp_eval
-from .fused_adam import fused_dense_adam_apply, fused_dense_adam_ref
+from .fused_adam import (fused_dense_adam_apply, fused_dense_adam_apply_sharded,
+                         fused_dense_adam_apply_sharded_ref, fused_dense_adam_ref)
 from .gated_infer import (adasparse_fused_infer, adasparse_fused_infer_ref,
                           adasparse_threshold_margin, epnet_fused_infer,
                           epnet_fused_infer_ref, ppnet_fused_infer, ppnet_fused_infer_ref)
@@ -113,7 +116,8 @@ __all__ = ["FUSED_INFERENCE_WINS", "LevelSpec", "adaptdhm_fused_infer", "adaptdh
            "adapter_norm_affine", "adasparse_fused_infer", "adasparse_fused_infer_ref",
            "adasparse_threshold_margin", "epnet_fused_infer", "epnet_fused_infer_ref",
            "fold_bn_linear_eval", "fold_layers_eval", "fold_stacked_mlp_eval",
-           "fused_dense_adam_apply", "fused_inference_auto", "fused_dense_adam_ref",
+           "fused_dense_adam_apply", "fused_dense_adam_apply_sharded",
+           "fused_dense_adam_apply_sharded_ref", "fused_inference_auto", "fused_dense_adam_ref",
            "hamur_fused_infer", "hamur_fused_infer_ref", "hamur_hyper", "hamur_segment",
            "hamur_segment_ref", "m2m_fused_infer", "m2m_fused_infer_ref", "m3oe_fused_infer",
            "m3oe_fused_infer_ref", "mmoe_fused_infer", "mmoe_fused_infer_ref",

@@ -17,11 +17,21 @@ here ``block_rows`` is the port's own tile and the kernel computes
 ``starts`` for it from the segments' sizes. ``table``, ``mu`` and ``nu`` are
 updated **in place**, by the plain version too.
 
-:func:`fused_dense_adam_apply` takes the plain version for a tensor on the
-CPU and launches the kernel for one on a CUDA device, or raises; it never
-falls back. ``fused_dense_adam_apply.launches`` counts kernel launches; a
-launch recorded into a CUDA graph capture counts in ``.captured`` instead
-(it runs once at each replay of the graph).
+:func:`fused_dense_adam_apply_sharded` is the same update on one row shard
+of a table that a mesh row-shards over its ``embed`` axis (the port's
+kernel for what the JAX package runs under a mesh as XLA): the shard's
+``[V/E, D]`` rows, the whole batch's sorted ids, positions and gradient
+rows, and ``row0``, the shard's first row. Its kernel is the same code,
+whose tiles are the whole table's tiles that meet the shard, so the shards
+of a table together equal one unsharded call bit for bit.
+
+:func:`fused_dense_adam_apply` (and the sharded form) takes the plain
+version for a tensor on the CPU and launches the kernel for one on a CUDA
+device, or raises; it never falls back. ``fused_dense_adam_apply.launches``
+counts launches of the unsharded form, ``.launches_sharded`` those of the
+sharded form; a launch recorded into a CUDA graph capture counts in
+``.captured`` or ``.captured_sharded`` instead (it runs once at each replay
+of the graph).
 
 The 7 Adam numbers ``hp`` come as host floats (passed to the kernel by
 value) or as a ``[7]`` float32 tensor on the table's device, which the
@@ -39,7 +49,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .sorted_adam import (_SMEM_LIMIT, _check, _check_hp_tensor, _hp32,
+from .sorted_adam import (_SMEM_LIMIT, _check, _check_hp_tensor, _check_row0, _hp32,
                           sorted_dense_adam_apply_ref)
 
 # Vocab rows one thread block owns on the card: the fastest of 64..1024 in
@@ -77,6 +87,13 @@ def _lib():
     lib.fused_dense_adam_f32_dev.argtypes = [
         p, p, p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, p, p]
     lib.fused_dense_adam_f32_dev.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.fused_dense_adam_sharded_f32.argtypes = [
+        p, p, p, p, p, p, p, i, p, ll, ll, i, i, i, f, f, f, f, f, f, f, p]
+    lib.fused_dense_adam_sharded_f32.restype = ctypes.c_int
+    lib.fused_dense_adam_sharded_f32_dev.argtypes = [
+        p, p, p, p, p, p, p, i, p, ll, ll, i, i, i, p, p]
+    lib.fused_dense_adam_sharded_f32_dev.restype = ctypes.c_int
     lib.fused_dense_adam_smem_bytes.argtypes = [i, i, i]
     lib.fused_dense_adam_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -119,6 +136,42 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
             the numbers ``hp`` holds at replay.
         block_rows: vocab rows one thread block owns on the card.
     """
+    return _apply(table, mu, nu, g_rows, sorted_ids, sorted_pos, segment_sizes, hp, None,
+                  block_rows)
+
+
+def fused_dense_adam_apply_sharded_ref(table, mu, nu, g_rows, ids, hp, *, row0: int):
+    """The plain version of :func:`fused_dense_adam_apply_sharded`: the ids
+    re-based to the shard (``id - row0``; those outside it then fall outside
+    ``[0, V/E)`` and add nothing) and :func:`fused_dense_adam_ref`. In place;
+    returns ``(table, mu, nu)``."""
+    _check_row0(row0, table)
+    local = (ids.long() - int(row0)).clamp(-1, table.shape[0])
+    return fused_dense_adam_ref(table, mu, nu, g_rows, local, hp)
+
+
+def fused_dense_adam_apply_sharded(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                                   g_rows: torch.Tensor, sorted_ids: torch.Tensor,
+                                   sorted_pos: torch.Tensor, segment_sizes: Sequence[int],
+                                   hp, *, row0: int,
+                                   block_rows: int = DEFAULT_BLOCK_ROWS):
+    """:func:`fused_dense_adam_apply` on one row shard: ``table``, ``mu`` and
+    ``nu`` (``[V/E, D]`` f32) hold the rows ``[row0, row0 + V/E)`` of the
+    table that ``sorted_ids`` address; ``g_rows``, ``sorted_ids``,
+    ``sorted_pos`` and ``segment_sizes`` are the whole batch's (the ids and
+    rows gathered over the mesh's ``data`` axis, sorted within each global
+    segment). Ids outside the shard contribute nothing; every row of the
+    shard decays. In place; returns ``(table, mu, nu)``. Two launches a
+    call, as the unsharded form; each row comes out bit for bit as that
+    form steps it."""
+    _check_row0(row0, table)
+    return _apply(table, mu, nu, g_rows, sorted_ids, sorted_pos, segment_sizes, hp,
+                  int(row0), block_rows)
+
+
+def _apply(table, mu, nu, g_rows, sorted_ids, sorted_pos, segment_sizes, hp, row0,
+           block_rows):
+    """The two wrappers' launch: ``row0`` None is the unsharded form."""
     if block_rows <= 0:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     K = sorted_ids.shape[0] if sorted_ids.ndim == 1 else -1
@@ -129,8 +182,13 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
     on_device = isinstance(hp, torch.Tensor)
     if on_device:
         _check_hp_tensor(hp, table)
+    sharded = row0 is not None
     if table.device.type == "cpu":
-        return fused_dense_adam_ref(table, mu, nu, g_rows[sorted_pos.long()], sorted_ids, hp)
+        rows = g_rows[sorted_pos.long()]
+        if sharded:
+            return fused_dense_adam_apply_sharded_ref(table, mu, nu, rows, sorted_ids, hp,
+                                                      row0=row0)
+        return fused_dense_adam_ref(table, mu, nu, rows, sorted_ids, hp)
     if table.device.type != "cuda":
         raise ValueError(f"fused_dense_adam_apply runs on cuda or cpu, not {table.device}")
     if sorted_pos.dtype != torch.int32:
@@ -150,29 +208,33 @@ def fused_dense_adam_apply(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
         raise ValueError(f"block_rows={block_rows} at D={D} with {len(sizes)} segments needs "
                          f"{smem} bytes of shared memory per block, more than {_SMEM_LIMIT}")
     seg_off = _segment_offsets(tuple(sizes), table.device)
-    nb = -(-V // block_rows)
+    # the whole table's tiles that meet the shard (csrc/embedding_adam.cuh)
+    first = row0 or 0
+    nb = (first + V + block_rows - 1) // block_rows - first // block_rows
     starts = torch.empty(len(sizes) * (nb + 1), dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    args = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), g_rows.data_ptr(),
+    ptrs = (table.data_ptr(), mu.data_ptr(), nu.data_ptr(), g_rows.data_ptr(),
             sorted_ids.data_ptr(), sorted_pos.data_ptr(), seg_off.data_ptr(), len(sizes),
-            starts.data_ptr(), V, D, K, block_rows)
+            starts.data_ptr(), V) + ((first,) if sharded else ())
+    name = "fused_dense_adam_" + ("sharded_" if sharded else "") + "f32" + (
+        "_dev" if on_device else "")
     with torch.cuda.device(table.device):
-        if on_device:
-            err = lib.fused_dense_adam_f32_dev(*args, hp.data_ptr(), stream)
-        else:
-            err = lib.fused_dense_adam_f32(*args, *_hp32(hp), stream)
+        hp_args = (hp.data_ptr(),) if on_device else _hp32(hp)
+        err = getattr(lib, name)(*ptrs, D, K, block_rows, *hp_args, stream)
     if err != 0:
         raise RuntimeError(
-            f"fused_dense_adam_apply launch failed with cudaError {err} "
+            f"{name} launch failed with cudaError {err} "
             f"({smem} bytes of shared memory per block, block_rows={block_rows})")
     # a launch recorded into a CUDA graph runs at each replay, not here
-    if torch.cuda.is_current_stream_capturing():
-        fused_dense_adam_apply.captured += 1
-    else:
-        fused_dense_adam_apply.launches += 1
+    suffix = "_sharded" if sharded else ""
+    kind = "captured" if torch.cuda.is_current_stream_capturing() else "launches"
+    setattr(fused_dense_adam_apply, kind + suffix,
+            getattr(fused_dense_adam_apply, kind + suffix) + 1)
     return table, mu, nu
 
 
-fused_dense_adam_apply.launches = 0
-# launches recorded into CUDA graph captures (each runs once a replay)
-fused_dense_adam_apply.captured = 0
+# launches of each form, the unsharded and the sharded one, and those recorded
+# into CUDA graph captures (each runs once a replay)
+for _kind in ("launches", "captured"):
+    for _form in ("", "_sharded"):
+        setattr(fused_dense_adam_apply, _kind + _form, 0)

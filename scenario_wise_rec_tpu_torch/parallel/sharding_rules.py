@@ -2,10 +2,15 @@
 ``parallel/sharding_rules.py``).
 
 The dense stacks are small and stay replicated on every rank; the batch is
-sharded over ``data``; the packed embedding table is the one tensor that
-scales with the vocabulary (Ali-CCP: 23 x 467k rows), so it is row-sharded
-over ``embed``; the sorted update's Adam moments and, with bf16 storage, its
-bf16 table are made from that shard and so are row-sharded alike.
+sharded over ``data``; the embedding tables are the tensors that scale with
+the vocabulary (Ali-CCP: 23 x 467k rows), so every 2-D parameter whose path
+holds ``packed`` or ``tables`` is row-sharded over ``embed``, the JAX rule:
+each collection's packed table (EPNet's ``sce_embedding`` and
+``agn_embedding``, PPNet's ``id_embedding`` and ``agn_embedding`` too) and
+each loose table, every one with its own first row and vocab. What is made
+from a shard is row-sharded alike: the embedding updates' Adam moments, the
+occurrence update's combined store, the sorted update's bf16 store, and the
+plain step's ``torch.optim.Adam`` moments of each sharded table.
 
 The port keeps its plain ``[V, D]`` layout: ``V`` is padded with zero rows
 to a multiple of the ``embed`` size (``pad_vocab``) and rank ``e`` holds
@@ -22,15 +27,16 @@ import torch.nn.functional as F
 
 from .mesh import Mesh, all_gather_rows
 
-# the model's row-sharded parameter
-ROW_SHARDED_PARAM = "embedding.packed"
-
-
 def param_specs(model) -> Dict[str, str | None]:
-    """``{state_dict key: "embed" | None}``: the packed table of the model's
-    ``embedding`` collection is row-sharded over ``embed``, everything else
-    replicated (None)."""
-    return {k: ("embed" if k == ROW_SHARDED_PARAM else None) for k in model.state_dict()}
+    """``{state_dict key: "embed" | None}``: a 2-D entry whose dotted path
+    holds ``packed`` or ``tables`` (an embedding collection's packed or
+    loose table) is row-sharded over ``embed``, everything else replicated
+    (None): the JAX package's ``param_specs``."""
+    def spec(key, t):
+        parts = key.split(".")
+        return "embed" if t.ndim == 2 and ("packed" in parts or "tables" in parts) else None
+
+    return {k: spec(k, t) for k, t in model.state_dict().items()}
 
 
 def pad_vocab(vocab: int, n_shards: int) -> int:

@@ -26,7 +26,13 @@ and update it from the batch's per-occurrence gradient rows (``g_rows
   store, both kernels of ``ops/kernels/row_update.py``).
 
 Every update takes ``frozen_spans``, the packed rows of frozen pretrained
-tables, which keep their weights and moments (``train/freeze.py``). The step
+tables, which keep their weights and moments (``train/freeze.py``). Every
+update takes ``mesh=`` too: the table and its state are then this rank's
+row shard, and the update gathers the ids and gradient rows over the mesh's
+``data`` axis into the global batch's layout (:func:`global_rows`,
+:func:`global_segments`), sums and elects in that layout, and steps or
+writes back the rows that fall in its shard only (:func:`shard_spans`,
+:func:`shard_local_ids`), so a (1, E) mesh equals one process bit for bit. The step
 count is a host int, so no update syncs with the card. Every update also
 takes its step's Adam numbers as a row on the device (``hp=``), which a CUDA
 graph of the train step replays with each step's row; the caller then
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.fused_adam import DEFAULT_BLOCK_ROWS as FUSED_BLOCK_ROWS
-from ..ops.kernels.fused_adam import fused_dense_adam_apply
+from ..ops.kernels.fused_adam import fused_dense_adam_apply, fused_dense_adam_apply_sharded
 from ..ops.kernels.row_update import occurrence_segsum, scatter_rows
 from ..ops.kernels.sorted_adam import (adam_hparams, owner_sorted_grads,
                                        sorted_dense_adam_apply,
@@ -182,7 +188,8 @@ def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
                                 weight_decay: float = 1e-5, b1: float = 0.9,
                                 b2: float = 0.999, eps: float = 1e-8,
                                 frozen_spans: Spans = (),
-                                hp: Optional[torch.Tensor] = None):
+                                hp: Optional[torch.Tensor] = None,
+                                mesh=None, segments=()):
     """Lazy Adam from the per-occurrence rows ``g_rows [K, D]`` of ``ids
     [K]`` (the ``winner`` update): one occurrence of each id is elected its
     winner by a scatter into an O(V) scratch, every occurrence's gradient is
@@ -197,8 +204,19 @@ def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
     row; ``lr`` is then unused and ``opt_state["step"]`` is left to the
     caller. Without ``hp`` the update stages its step's row itself, so an
     eager step and a replay compute alike. Nothing here reads the host, so
-    the step can be captured."""
+    the step can be captured.
+
+    ``mesh`` (a ``parallel.Mesh``): ``table`` and both moments are this
+    rank's row shard, ``ids``/``g_rows`` this rank's batch rows laid out as
+    ``segments``. The winners are elected and the gradients summed over the
+    global batch's occurrences (:func:`global_rows`), the ids made the
+    shard's rows with every other id the sentinel ``V/E``
+    (:func:`shard_local_ids`, a shard-local scratch of ``V/E + 1``), and
+    only the shard's winners written back. ``frozen_spans`` are global
+    rows."""
     advance = hp is None
+    if mesh is not None:
+        ids, g_rows = global_rows(mesh, ids, g_rows, segments)
     vocab, k = table.shape[0], ids.shape[0]
     if k == 0:
         if advance:
@@ -206,9 +224,11 @@ def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
         return table, opt_state
     if advance:
         step, hp = _own_row(opt_state, table.device, lr, b1, b2)
-    ids = ids.long()
+    gids = ids = ids.long()
+    if mesh is not None:
+        ids = shard_local_ids(ids, mesh.embed_index * vocab, vocab)
     occ = torch.arange(k, device=ids.device)
-    winner = torch.zeros(vocab, dtype=torch.int32, device=ids.device)
+    winner = torch.zeros(vocab + (mesh is not None), dtype=torch.int32, device=ids.device)
     winner[ids] = occ.to(torch.int32)      # any duplicate wins
     rep = winner[ids].long()               # occurrence -> its winner
     # each winner's sum in the order of occurrence, whichever duplicate won:
@@ -218,7 +238,7 @@ def sparse_adam_rowgrads_update(table, opt_state, g_rows, ids, lr: float = 1e-3,
     g_slot = torch.zeros_like(g_rows).index_put_((rep,), g_rows, accumulate=True)
     uid = torch.where(rep == occ, ids, vocab)  # non-winners write nothing
     if frozen_spans:
-        uid = torch.where(frozen_ids_mask(uid, frozen_spans), vocab, uid)
+        uid = torch.where(frozen_ids_mask(gids, frozen_spans), vocab, uid)
     _rows_adam_core(table, opt_state, g_slot, uid.clamp(0, vocab - 1), uid, hp,
                     weight_decay, b1, b2, eps)
     if advance:
@@ -291,7 +311,7 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
                                   lr: float = 1e-3, weight_decay: float = 1e-5,
                                   b1: float = 0.9, b2: float = 0.999,
                                   eps: float = 1e-8, frozen_spans: Spans = (),
-                                  hp: Optional[torch.Tensor] = None):
+                                  hp: Optional[torch.Tensor] = None, mesh=None):
     """Lazy Adam on the combined row store (the ``occurrence`` update), the
     semantics of :func:`sparse_adam_rowgrads_update`:
 
@@ -316,17 +336,36 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
     ``hp`` the update stages its step's row itself (on a card from pinned
     memory, no sync), so an eager step and a replay compute alike: PyTorch's
     CUDA division by a host number multiplies by its reciprocal, by a device
-    number it divides."""
+    number it divides.
+
+    ``mesh`` (a ``parallel.Mesh``): ``comb`` is this rank's row shard and
+    ``ids``/``g_rows`` this rank's batch rows, laid out as ``segments``;
+    ``r3`` is unused (None). The duplicate sums run over the global
+    batch's layout (:func:`global_rows`, :func:`global_segments`: at
+    Ali-CCP still one ``[23, 4096]`` launch), Adam on every occurrence
+    with the rows of ``comb`` at its shard-local id, and one
+    ``scatter_rows`` writes back the occurrences that fall in the shard:
+    every other id is the sentinel ``V/E`` (:func:`shard_local_ids`),
+    which it drops. ``frozen_spans`` are global rows."""
     advance = hp is None
+    comb = opt_state["comb"]
+    if mesh is not None:
+        ids, g_rows = global_rows(mesh, ids, g_rows, segments)
+        segments = global_segments(mesh, segments)
     if ids.shape[0] == 0:
         if advance:
             opt_state["step"] = int(opt_state["step"]) + 1
         return opt_state
     if advance:
-        step, hp = _own_row(opt_state, opt_state["comb"].device, lr, b1, b2)
+        step, hp = _own_row(opt_state, comb.device, lr, b1, b2)
     lr_t, bc1, bc2 = hp[0], hp[1], hp[2]
     d = g_rows.shape[-1]
     with torch.no_grad():
+        dst = ids
+        if mesh is not None:
+            vl = comb.shape[0]
+            dst = shard_local_ids(ids, mesh.embed_index * vl, vl)
+            r3 = comb[dst.clamp(max=vl - 1)]
         g = _grouped_occurrence_segsum(g_rows, ids, segments)
         p = r3[:, :d]
         if weight_decay:
@@ -337,7 +376,7 @@ def sparse_adam_occurrence_update(opt_state, g_rows, ids, segments, r3,
         new3 = torch.cat([p - update, mu, nu], dim=1)
         if frozen_spans:
             new3 = torch.where(frozen_ids_mask(ids, frozen_spans)[:, None], r3, new3)
-        scatter_rows(opt_state["comb"], ids, new3)
+        scatter_rows(comb, dst, new3)
     if advance:
         opt_state["step"] = step
     return opt_state
@@ -377,7 +416,7 @@ def fused_dense_adam_update(table, opt_state, g_rows, ids, segments,
                             b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                             block_rows: int = FUSED_BLOCK_ROWS,
                             frozen_spans: Spans = (),
-                            hp: Optional[torch.Tensor] = None):
+                            hp: Optional[torch.Tensor] = None, mesh=None):
     """Exact dense torch-Adam on ``table`` (the ``dense`` update): every row
     takes weight decay and moment decay every step, as the reference's
     ``torch.optim.Adam`` over ``nn.Embedding.weight``. Each segment's ids
@@ -389,15 +428,29 @@ def fused_dense_adam_update(table, opt_state, g_rows, ids, segments,
     ``hp``: the step's 7 Adam numbers as a ``[7]`` float32 tensor on the
     table's device, as :func:`sorted_dense_adam_update` takes them; ``lr``
     to ``eps`` are then unused and ``opt_state["step"]`` is left to the
-    caller."""
+    caller.
+
+    ``mesh`` (a ``parallel.Mesh``): ``table``, ``mu`` and ``nu`` are this
+    rank's row shard and ``ids``/``g_rows`` this rank's batch rows, laid out
+    as ``segments``. They are gathered over ``data`` into the global batch's
+    layout (:func:`global_rows`), each global segment sorted, and the shard
+    stepped by ``fused_dense_adam_apply_sharded``; ``frozen_spans`` are
+    global rows, kept where they meet the shard (:func:`shard_spans`)."""
     step, advance = int(opt_state["step"]) + 1, hp is None
     if advance:
         hp = adam_hparams(step, lr, weight_decay, b1, b2, eps)
+    apply = fused_dense_adam_apply
+    if mesh is not None:
+        ids, g_rows = global_rows(mesh, ids, g_rows, segments)
+        segments = global_segments(mesh, segments)
+        row0 = mesh.embed_index * table.shape[0]
+        frozen_spans = shard_spans(frozen_spans, row0, table.shape[0])
+        apply = functools.partial(fused_dense_adam_apply_sharded, row0=row0)
     sorted_ids, sorted_pos, sizes = segment_sorted_ids(ids, segments)
     tensors = (table.detach(), opt_state["mu"], opt_state["nu"])
     with rows_kept(tensors, frozen_spans):
-        fused_dense_adam_apply(*tensors, g_rows.contiguous(), sorted_ids, sorted_pos,
-                               sizes, hp, block_rows=block_rows)
+        apply(*tensors, g_rows.contiguous(), sorted_ids, sorted_pos, sizes, hp,
+              block_rows=block_rows)
     if advance:
         opt_state["step"] = step
     return table, opt_state
@@ -474,6 +527,24 @@ def global_rows(mesh, ids: torch.Tensor, g_rows: torch.Tensor, segments):
                        for _, start, size in segments])
     return (all_gather_rows(ids, mesh.data_group)[order],
             all_gather_rows(g_rows.contiguous(), mesh.data_group)[order])
+
+
+def global_segments(mesh, segments):
+    """The ``(owner, start, size)`` layout of :func:`global_rows`' output:
+    segment ``s`` of every data rank in turn, ``n_data`` times its local
+    size, in order (the global batch's ``touched_owner_segments``)."""
+    n = mesh.shape["data"]
+    return tuple((owner, n * start, n * size) for owner, start, size in segments)
+
+
+def shard_local_ids(ids: torch.Tensor, row0: int, rows: int) -> torch.Tensor:
+    """Whole-table ``ids`` as rows of the shard ``[row0, row0 + rows)``:
+    ``id - row0`` inside it, the sentinel ``rows`` outside, which a gather
+    clamps and ``scatter_rows`` drops. Never ``id - row0`` outside:
+    ``scatter_rows`` wraps a negative id once (the reference's XLA
+    semantics), so it would overwrite rows at the shard's tail."""
+    local = ids.long() - int(row0)
+    return torch.where((local >= 0) & (local < rows), local, rows)
 
 
 def shard_spans(spans: Spans, row0: int, rows: int) -> Tuple[Tuple[int, int], ...]:

@@ -83,24 +83,33 @@ protocol.
   ctr_trainer.py:62-97).
 - **Mesh** (``mesh=parallel.make_mesh(n_data, n_embed)``, the JAX trainer's
   ``mesh``; one process a rank of a ``torch.distributed`` group, every rank
-  running the same calls): the sorted update only. The batch is sharded over
-  ``data``; the packed table, and the sorted update's moments (and bf16
-  store), are row-sharded over ``embed`` (``parallel/sharding_rules.py``).
-  Every rank draws the same full init, keeps its row shard and frees the
-  rest; rank 0's dense parameters and BN buffers are broadcast. A step takes
-  this rank's rows of the global batch: ``touched_ids``, rows from
-  ``sharded_lookup``, the forward and loss inside ``parallel.mesh_step``
-  (batch statistics, dropout masks and the loss's mean are the global
-  batch's), backward, the dense gradients summed over ``data``,
-  ``torch.optim.Adam``, and the shard's sorted update
-  (``sorted_dense_adam_apply_sharded`` on the ids and rows gathered over
-  ``data``). The logged loss is the global one. ``scan_steps`` S > 1 runs a
-  dispatch's steps one by one, uncaptured (``graphed`` is False under a
-  mesh). Eval scores each rank's rows op by op through ``sharded_lookup``
-  and gathers the scores over ``data``, so every rank returns the
-  single-process metrics. ``save`` gathers the shards over ``embed`` and
-  rank 0 writes the single-process format; ``load`` takes each rank's rows,
-  so a checkpoint moves between mesh shapes.
+  running the same calls): every update mode and the plain step. The batch
+  is sharded over ``data``; every embedding table that
+  ``parallel.param_specs`` names (each collection's packed table and each
+  loose table) is row-sharded over ``embed``, and so is what is made from
+  it: the updates' moments, the occurrence store, the bf16 store and, in
+  the plain step, ``torch.optim.Adam``'s moments of each table. Every rank
+  draws the same full init, keeps its row shards and frees the rest; rank
+  0's dense parameters and BN buffers are broadcast. The collections then
+  look every row up through the shard (``EmbeddingCollection.place_shards``,
+  ``parallel.sharded_gather``). A step takes this rank's rows of the global
+  batch and runs the forward and loss inside ``parallel.mesh_step`` (batch
+  statistics, dropout masks and the loss's mean are the global batch's).
+  In the update modes the packed rows come from ``sharded_lookup`` (the
+  occurrence mode's from the weight columns of its store), and after the
+  backward the update gathers the ids and gradient rows over ``data`` and
+  steps its shard (sorted: ``sorted_dense_adam_apply_sharded``; dense:
+  ``fused_dense_adam_apply_sharded``; occurrence and winner: the global
+  batch's sums and winners, the shard's rows written back). In the plain
+  step each table's gradient is its shard's, and it is summed over
+  ``data`` with the dense gradients before ``torch.optim.Adam``. The
+  logged loss is the global one. ``scan_steps`` S > 1 runs a dispatch's
+  steps one by one, uncaptured (``graphed`` is False under a mesh). Eval
+  scores each rank's rows op by op and gathers the scores over ``data``,
+  so every rank returns the single-process metrics. ``save`` gathers the
+  shards over ``embed`` and rank 0 writes the single-process format;
+  ``load`` takes each rank's rows, so a checkpoint moves between mesh
+  shapes.
 - **Checkpoints**: ``save`` writes the port's ``.npz`` (``train/checkpoint.py``);
   ``load`` reads it, or a ``.npz`` that a JAX ``CTRTrainer`` saved
   (``interop.load_jax_checkpoint``), in every update mode and on a mesh.
@@ -121,6 +130,7 @@ from . import checkpoint as ckpt_lib
 from ..core.config import make_generator, resolve_device
 from ..data.device import DeviceResidentLoader, gather_columns
 from ..data.prefetch import prefetch, stage_batches, stage_dispatches
+from ..ops.embedding import EmbeddingCollection
 from ..ops.kernels import fused_inference_auto
 from ..ops.kernels.sorted_adam import adam_hparams_rows, check_jax_dials
 from ..parallel import (Mesh, gather_rows, mesh_step, param_specs, replicate,
@@ -132,7 +142,7 @@ from .loss import bce_loss
 from .metrics import auc_score, auc_score_device, log_loss_device, log_loss_score
 from .optim import (adam, fused_dense_adam_update, occurrence_hparams_rows,
                     sorted_dense_adam_init, sorted_dense_adam_update, sparse_adam_init,
-                    sparse_adam_occurrence_init, sparse_adam_occurrence_update,
+                    shard_spans, sparse_adam_occurrence_init, sparse_adam_occurrence_update,
                     sparse_adam_rowgrads_update)
 
 _EMB_MODES = ("dense", "winner", "occurrence", "sorted")
@@ -230,15 +240,15 @@ class CTRTrainer:
             port updates in place and picks the kernel by the tensor's
             device (``sorted_kernel=False`` is refused).
         mesh: a ``parallel.Mesh`` (``make_mesh``) for multi-GPU training
-            with the sorted update (see the module docstring); any other
-            object raises ``TypeError``. The global batch must divide by
-            the mesh's ``data`` size. More than one entry in ``gpus`` raises:
-            one process drives one card, and ranks join through ``mesh``.
+            in any update mode or the plain step (see the module
+            docstring); any other object raises ``TypeError``. The global
+            batch must divide by the mesh's ``data`` size. More than one
+            entry in ``gpus`` raises: one process drives one card, and ranks
+            join through ``mesh``.
 
     Not ported yet under a mesh, each raising ``NotImplementedError`` with
-    its ROADMAP item: the occurrence, dense and winner updates and the plain
-    step (A15.2); a ``DeviceResidentLoader`` and ``fused_inference`` other
-    than False (A15.3).
+    its ROADMAP item: a ``DeviceResidentLoader`` and ``fused_inference``
+    other than False (A15.3).
     """
 
     def __init__(
@@ -304,11 +314,6 @@ class CTRTrainer:
                              "the kernel; sorted_kernel=False has no meaning")
         if resident_gather not in ("step", "dispatch"):
             raise ValueError(f"unknown resident_gather {resident_gather!r}")
-        if mesh is not None and not (self._sparse_emb and sparse_update_impl == "sorted"):
-            raise NotImplementedError(
-                "under a mesh only sparse_embedding_updates=True with "
-                "sparse_update_impl='sorted' is ported; the "
-                f"{sparse_update_impl if self._sparse_emb else 'plain'} step is ROADMAP A15.2")
         self.mesh = mesh
         self._sparse_impl = sparse_update_impl
         self.scan_steps = int(scan_steps)
@@ -320,8 +325,10 @@ class CTRTrainer:
                 f"divide 128, got {emb.packed_dim}")
         self._sorted_block_rows = int(sorted_block_rows) if sorted_block_rows else None
         self._sorted_dtype = sorted_dtype or "float32"
-        # frozen pretrained tables of the embedding collection (train/freeze.py)
+        # frozen pretrained tables of the embedding collection (train/freeze.py),
+        # global rows; the plain step's own are in the packed shard's rows
         self._frozen_spans = tuple(emb.frozen_spans) if emb is not None else ()
+        self._packed_frozen_spans = self._frozen_spans
 
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -430,15 +437,38 @@ class CTRTrainer:
     # -- mesh (parallel/) ----------------------------------------------------
 
     def _place_on_mesh(self):
-        """Keep this rank's row shard of the packed table (freeing the full
-        one) and take rank 0's dense parameters and buffers."""
-        col, mesh = self.model.embedding, self.mesh
-        self._vocab = col.packed_vocab
-        local, self._row0 = shard_rows(col.packed.detach(), mesh)
-        col.packed = torch.nn.Parameter(local)
+        """Keep this rank's row shard of every table ``param_specs`` names
+        (freeing the whole ones), have each collection look its rows up
+        through its shards, and take rank 0's dense parameters and buffers.
+        ``self._shards``: ``{state_dict key: (row0, whole table's rows)}``."""
+        mesh, modules = self.mesh, dict(self.model.named_modules())
+        specs = param_specs(self.model)
+        self._shards, placed = {}, {}
+        for key in (k for k, spec in specs.items() if spec == "embed"):
+            path, name = key.rsplit(".", 1)
+            holder = modules[path]
+            col = modules[path.rsplit(".", 1)[0]] if path.endswith(".tables") else holder
+            if not isinstance(col, EmbeddingCollection):
+                raise ValueError(f"{key} is row-sharded by param_specs but is not a table of "
+                                 "an EmbeddingCollection, which alone looks rows up by shard")
+            full = getattr(holder, name) if holder is col else holder[name]
+            local, row0 = shard_rows(full.detach(), mesh)
+            param = torch.nn.Parameter(local, requires_grad=full.requires_grad)
+            if holder is col:
+                setattr(col, name, param)
+            else:
+                holder[name] = param
+            self._shards[key] = (row0, full.shape[0])
+            placed.setdefault(id(col), (col, {}))[1]["packed" if holder is col else name] = row0
+            del full
+        for col, row0 in placed.values():
+            col.place_shards(mesh.embed_group, row0)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        specs = param_specs(self.model)
+        if "embedding.packed" in self._shards:
+            self._row0, _ = self._shards["embedding.packed"]
+            self._packed_frozen_spans = shard_spans(
+                self._frozen_spans, self._row0, modules["embedding"].packed.shape[0])
         replicate(mesh, [v for k, v in self.model.state_dict().items() if specs[k] is None])
         self._shard = shard_batch_fn(mesh)
         self._shard_stacked = shard_stacked_batch_fn(mesh)
@@ -512,23 +542,26 @@ class CTRTrainer:
         """One optimizer step on a device batch; returns the loss (on the
         device: reading it is the caller's sync). ``hp``: the embedding
         update's Adam numbers as a device row (a dispatch's step
-        body); the caller then advances the update's step count."""
-        model, mode, st = self.model, self._emb_mode, self.emb_opt_state
-        rows = None
+        body); the caller then advances the update's step count. Under a
+        mesh the batch is this rank's rows and the loss the global batch's."""
+        model, mode, st, mesh = self.model, self._emb_mode, self.emb_opt_state, self.mesh
+        rows = r3 = None
         if mode is not None:
             col = model.embedding
             ids = col.touched_ids(x)
-            if mode == "occurrence":
+            if mode == "occurrence" and mesh is None:
                 # one gather: the weights feed the forward, the moments ride
                 # along to the update
                 r3 = st["comb"][ids]
                 rows = r3[:, :col.packed_dim].detach().requires_grad_()
             else:
                 # a gathered copy: the update may change the live table in place
-                src = st["table"] if self._bf16_store else col.packed.detach()
-                rows = src[ids] if self.mesh is None else self._lookup(src, ids)
+                src = (st["table"] if self._bf16_store
+                       else st["comb"][:, :col.packed_dim] if mode == "occurrence"
+                       else col.packed.detach())
+                rows = src[ids] if mesh is None else self._lookup(src, ids)
                 rows = rows.float().requires_grad_()
-        with (mesh_step(self.mesh, w.shape[0]) if self.mesh is not None
+        with (mesh_step(mesh, w.shape[0]) if mesh is not None
               else contextlib.nullcontext()):
             probs = model.apply(x, train=True, w=w, generator=self.generator, rows=rows)
             loss = bce_loss(probs, y, w)
@@ -543,45 +576,45 @@ class CTRTrainer:
             for _, p in self._dense_named:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            if self.mesh is not None:
+            if mesh is not None:
                 self._sum_dense_grads()
             self._optimizer_step()
-        if mode is None:
-            return loss.detach()
-        p = self._opt_params
-        kw = dict(lr=self._lr_now, weight_decay=p.get("weight_decay", 1e-5),
-                  b1=p.get("b1", 0.9), b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
-                  frozen_spans=self._frozen_spans)
-        if mode == "sorted":
-            sorted_dense_adam_update(st["table"] if self._bf16_store else col.packed, st,
-                                     rows.grad, ids, block_rows=self._sorted_block_rows,
-                                     hp=hp, mesh=self.mesh,
-                                     segments=col.touched_owner_segments(x), **kw)
-            if self.mesh is not None:
-                # the global batch's loss: the ranks' shares summed
-                return all_reduce_(loss.detach().clone(), self.mesh.data_group)
-        elif mode == "dense":
-            fused_dense_adam_update(col.packed, st, rows.grad, ids,
-                                    col.touched_owner_segments(x), hp=hp, **kw)
-        elif mode == "winner":
-            sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, hp=hp, **kw)
-        else:
-            sparse_adam_occurrence_update(st, rows.grad, ids,
-                                          col.touched_owner_segments(x), r3, hp=hp, **kw)
+        if mode is not None:
+            p = self._opt_params
+            kw = dict(lr=self._lr_now, weight_decay=p.get("weight_decay", 1e-5),
+                      b1=p.get("b1", 0.9), b2=p.get("b2", 0.999), eps=p.get("eps", 1e-8),
+                      frozen_spans=self._frozen_spans, hp=hp, mesh=mesh)
+            segments = col.touched_owner_segments(x)
+            if mode == "sorted":
+                sorted_dense_adam_update(st["table"] if self._bf16_store else col.packed, st,
+                                         rows.grad, ids, block_rows=self._sorted_block_rows,
+                                         segments=segments, **kw)
+            elif mode == "dense":
+                fused_dense_adam_update(col.packed, st, rows.grad, ids, segments, **kw)
+            elif mode == "winner":
+                sparse_adam_rowgrads_update(col.packed, st, rows.grad, ids, segments=segments,
+                                            **kw)
+            else:
+                sparse_adam_occurrence_update(st, rows.grad, ids, segments, r3, **kw)
+        if mesh is not None:
+            # the global batch's loss: the ranks' shares summed
+            return all_reduce_(loss.detach().clone(), mesh.data_group)
         return loss.detach()
 
     def _optimizer_step(self):
         """``torch.optim`` over the dense parameters. In the plain step the
         packed table is one of them: its frozen rows then keep their weights
-        and their moments stay zero (``train/freeze.py``)."""
-        if self._emb_mode is not None or not self._frozen_spans:
+        and their moments stay zero (``train/freeze.py``; under a mesh the
+        rows of this rank's shard)."""
+        spans = self._packed_frozen_spans
+        if self._emb_mode is not None or not spans:
             self.optimizer.step()
             return
         packed = self.model.embedding.packed
-        with rows_kept([packed], self._frozen_spans):
+        with rows_kept([packed], spans):
             self.optimizer.step()
         st = self.optimizer.state[packed]
-        zero_rows([st["exp_avg"], st["exp_avg_sq"]], self._frozen_spans)
+        zero_rows([st["exp_avg"], st["exp_avg_sq"]], spans)
 
     @staticmethod
     def _log_losses(done, n_total, pending) -> float:
@@ -991,16 +1024,14 @@ class CTRTrainer:
 
     def _score(self, xb, wb, folded):
         """The eval step's probabilities of a device batch. Under a mesh each
-        rank scores its rows op by op, its packed rows from
-        ``sharded_lookup``, and the scores are gathered over ``data``: every
-        rank returns the whole batch's."""
+        rank scores its rows op by op, every table looked up through its
+        shard, and the scores are gathered over ``data``: every rank returns
+        the whole batch's."""
         if self.mesh is None:
             return self._eval_step(xb, wb, folded)
         lx, _, lw = self._shard(xb, None, wb)
         with mesh_step(self.mesh, lw.shape[0]):
-            col = self.model.embedding
-            rows = self._lookup(col.packed.detach(), col.touched_ids(lx))
-            probs = self.model.apply(lx, train=False, w=lw, rows=rows)
+            probs = self.model.apply(lx, train=False, w=lw)
         return all_gather_rows(probs, self.mesh.data_group)
 
     def evaluate(self, model, data_loader, mode: str = "val",
@@ -1112,14 +1143,27 @@ class CTRTrainer:
         if self.emb_opt_state is not None:
             out["opt/emb/step"] = torch.tensor(self.emb_opt_state["step"])
         if self.mesh is not None:
-            for k in self._sharded_keys():
-                out[k] = gather_rows(out[k], self.mesh, self._vocab)
+            for k, v in self._sharded_keys().items():
+                out[k] = gather_rows(out[k], self.mesh, v)
         return out
 
     def _sharded_keys(self):
-        """The checkpoint entries a mesh row-shards: the packed table and
-        the sorted update's moments."""
-        return ("model/embedding.packed", "opt/emb/mu", "opt/emb/nu")
+        """``{checkpoint entry: the whole table's rows}`` of the entries a
+        mesh row-shards: every sharded table; in the plain step (and for a
+        loose table in every mode) its ``torch.optim.Adam`` moments; the
+        embedding update's moments (the occurrence store's moment
+        columns)."""
+        dense = {name for name, _ in self._dense_named}
+        out = {}
+        for key, (_, v) in self._shards.items():
+            out[f"model/{key}"] = v
+            if key in dense:
+                out[f"opt/base/{key}/exp_avg"] = out[f"opt/base/{key}/exp_avg_sq"] = v
+        if self._emb_mode is not None:
+            v = self._shards["embedding.packed"][1]
+            for k in self._emb_moments():
+                out[f"opt/emb/{k}"] = v
+        return out
 
     def _emb_moments(self):
         """The embedding update's moments by checkpoint name, as views of

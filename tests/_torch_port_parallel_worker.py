@@ -26,15 +26,61 @@ V, D, DOMAINS, B = 31, 8, 2, 16
 KW = dict(n_expert=2, expert_params={"dims": [16]}, tower_params={"dims": [8]})
 
 
-def feats(m):
+def feats(m, v=V, loose=False, frozen=None):
     """Three owned tables, an alias of one and a pooled sequence feature
     sharing another (so a row id recurs across segments), and a dense one;
-    packed V = 93, odd, so an even embed axis pads it."""
-    return ([m.SparseFeature(f"s{i}", vocab_size=V, embed_dim=D) for i in range(3)]
-            + [m.SparseFeature("alias", vocab_size=V, embed_dim=D, shared_with="s0")]
-            + [m.SequenceFeature("seq", vocab_size=V, embed_dim=D, pooling="mean",
+    packed V = 93, odd, so an even embed axis pads it. ``v``: the tables'
+    vocab instead. ``loose``: a fourth table of width 4, kept loose. ``frozen``:
+    ``s1``'s init (``init.pretrained(..., freeze=True)``), whose rows
+    ``[v, 2 v)`` straddle the second shard's first row at E = 2."""
+    s1 = {} if frozen is None else {"initializer": frozen}
+    return ([m.SparseFeature(f"s{i}", vocab_size=v, embed_dim=D, **(s1 if i == 1 else {}))
+             for i in range(3)]
+            + [m.SparseFeature("alias", vocab_size=v, embed_dim=D, shared_with="s0")]
+            + [m.SequenceFeature("seq", vocab_size=v, embed_dim=D, pooling="mean",
                                  shared_with="s1")]
+            + ([m.SparseFeature("narrow", vocab_size=v, embed_dim=4)] if loose else [])
             + [m.DenseFeature("d0")])
+
+
+def frozen_weights(v=V):
+    """The frozen table's pretrained rows."""
+    return np.random.default_rng(99).normal(size=(v, D)).astype(np.float32)
+
+
+MODELS = {"mmoe": "MMOE", "epnet": "EPNet", "ppnet": "PPNet"}
+
+
+def model_kwargs(m, i, spec):
+    """The constructor arguments of ``spec`` (``{"model": a key of MODELS,
+    "v", "loose", "frozen", "dropout"}``) for the JAX package's or the
+    port's ``features`` module ``m`` and ``init`` module ``i``. EPNet and
+    PPNet keep two collections: the domain indicator (PPNet: the ``narrow``
+    ids at width D) in one, the rest in the other."""
+    v = spec.get("v", V)
+    frozen = i.pretrained(frozen_weights(v), freeze=True) if spec.get("frozen") else None
+    f = feats(m, v, spec.get("loose", False), frozen)
+    sce = [m.SparseFeature("domain_indicator", vocab_size=DOMAINS, embed_dim=D)]
+    model = spec.get("model", "mmoe")
+    if model == "epnet":
+        return dict(sce_features=sce, agn_features=f, fcn_dims=[8])
+    if model == "ppnet":
+        ids = [m.SparseFeature("narrow", vocab_size=v, embed_dim=D)]
+        return dict(id_features=ids, agn_features=f + sce, domain_num=DOMAINS, fcn_dims=[16, 8])
+    tower = {"dims": [8], "dropout": spec.get("dropout", 0.0)}
+    return dict(features=f, domain_num=DOMAINS, **dict(KW, tower_params=tower))
+
+
+def spec_model(spec, seed=1):
+    """The port's model of ``spec`` (see :func:`model_kwargs`) on the CPU."""
+    from scenario_wise_rec_tpu_torch import models
+    from scenario_wise_rec_tpu_torch.core import features as pf
+    from scenario_wise_rec_tpu_torch.core import init as pinit
+    from scenario_wise_rec_tpu_torch.core.config import make_generator
+
+    cls = getattr(models, MODELS[spec.get("model", "mmoe")])
+    return cls(**model_kwargs(pf, pinit, spec), device="cpu",
+               generator=make_generator(torch.device("cpu"), seed))
 
 
 def batch(seed, b=B, ragged=0):
@@ -47,17 +93,12 @@ def batch(seed, b=B, ragged=0):
     y = r.integers(0, 2, b).astype(np.float32)
     w = np.ones(b, np.float32)
     w[b - ragged:] = 0.0
+    x["narrow"] = r.integers(0, V, b).astype(np.int32)  # the loose table's ids
     return x, y, w
 
 
 def port_model(seed=1, dropout=0.0):
-    from scenario_wise_rec_tpu_torch.core import features as pf
-    from scenario_wise_rec_tpu_torch.core.config import make_generator
-    from scenario_wise_rec_tpu_torch.models import MMOE
-
-    kw = dict(KW, tower_params={"dims": [8], "dropout": dropout})
-    return MMOE(feats(pf), DOMAINS, device="cpu",
-                generator=make_generator(torch.device("cpu"), seed), **kw)
+    return spec_model({"dropout": dropout}, seed)
 
 
 def loader(n, seed, shuffle):
@@ -68,10 +109,29 @@ def loader(n, seed, shuffle):
 
 
 def trainer(model, mesh=None, device="cpu", **kw):
+    return mode_trainer(model, "sorted", mesh, device, **kw)
+
+
+def mode_trainer(model, mode, mesh=None, device="cpu", **kw):
+    """A trainer of ``mode``: an embedding update (``"dense"``,
+    ``"occurrence"``, ``"winner"``, ``"sorted"``) or ``"plain"``, the plain
+    step."""
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
-    return CTRTrainer(model, device=device, mesh=mesh, sparse_embedding_updates=True,
-                      sparse_update_impl="sorted", seed=3, **kw)
+    sparse = {} if mode == "plain" else dict(sparse_embedding_updates=True,
+                                              sparse_update_impl=mode)
+    return CTRTrainer(model, device=device, mesh=mesh, seed=3, **sparse, **kw)
+
+
+def mode_launches():
+    """The launch counters of the update kernels the modes run."""
+    from scenario_wise_rec_tpu_torch.ops.kernels import fused_adam as fa
+    from scenario_wise_rec_tpu_torch.ops.kernels import row_update as ru
+
+    return {"fused_dense_adam_apply": fa.fused_dense_adam_apply.launches,
+            "fused_dense_adam_apply_sharded": fa.fused_dense_adam_apply.launches_sharded,
+            "occurrence_segsum": ru.occurrence_segsum.launches,
+            "scatter_rows": ru.scatter_rows.launches}
 
 
 def _device(job):
@@ -138,6 +198,72 @@ def run_load_save(mesh, job):
     return {"path": t.save(job["out"]), "state": state(t)}
 
 
+def run_mode_jax_step(mesh, job):
+    """One step of ``job["mode"]`` from a JAX trainer's carried state; with
+    ``fault``, the occurrence and winner updates' out-of-shard ids left as
+    ``id - row0`` in place of the sentinel (a planted fault)."""
+    from scenario_wise_rec_tpu_torch.interop import load_jax_trainer_state
+    from scenario_wise_rec_tpu_torch.parallel import shard_batch_fn
+    from scenario_wise_rec_tpu_torch.train import optim
+
+    t = mode_trainer(spec_model(job["spec"]), job["mode"], mesh)
+    load_jax_trainer_state(t, *job["jax_state"])
+    b = shard_batch_fn(mesh)(*job["batch"])
+    kept = optim.shard_local_ids
+    if job.get("fault"):
+        optim.shard_local_ids = lambda ids, row0, rows: ids.long() - int(row0)
+    try:
+        loss = float(t._train_step(*t._device_batch(*b)))
+    finally:
+        optim.shard_local_ids = kept
+    return {"loss": loss, "state": state(t)}
+
+
+def run_mode_steps(mesh, job):
+    """Steps of ``job["mode"]`` on ``job["batches"]`` from the port's own
+    init (a mesh's rows of each; ``mesh`` None: one process): each step's
+    loss and the state after it."""
+    from scenario_wise_rec_tpu_torch.parallel import shard_batch_fn
+
+    t = mode_trainer(spec_model(job["spec"]), job["mode"], mesh)
+    losses, states = [], []
+    for b in job["batches"]:
+        if mesh is not None:
+            b = shard_batch_fn(mesh)(*b)
+        losses.append(float(t._train_step(*t._device_batch(*b))))
+        states.append(state(t))
+    return {"losses": losses, "states": states}
+
+
+def run_mode_fit(mesh, job):
+    """``fit`` of ``job["mode"]`` (two epochs at ``scan_steps=2``, or the
+    job's, over a shuffled loader with a padded last batch, validation, a
+    checkpoint into ``job["dir"]``; on the job's device), then the
+    per-domain metrics: the loss lines, the state, the checkpoint's path,
+    the update's step count and launches."""
+    t = mode_trainer(spec_model(job["spec"], job["seed"]), job["mode"], mesh, _device(job),
+                     scan_steps=job.get("scan_steps", 2), n_epoch=2, model_path=job["dir"])
+    before = mode_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        path = t.fit(loader(job["n"], job["seed"], True), loader(3 * B, job["seed"] + 1, False))
+    metrics = t.evaluate_multi_domain_loss(t.model, loader(3 * B, job["seed"] + 2, False),
+                                           DOMAINS)
+    lines = [ln for ln in out.getvalue().splitlines() if "loss" in ln]
+    after = mode_launches()
+    return {"log": lines, "path": path, "state": state(t), "metrics": metrics,
+            "step": None if t.emb_opt_state is None else t.emb_opt_state["step"],
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def run_mode_load_save(mesh, job):
+    """Load a checkpoint (the port's or a JAX one) into a trainer of
+    ``job["mode"]``, then save it again."""
+    t = mode_trainer(spec_model(job["spec"], seed=5), job["mode"], mesh)
+    t.load(job["path"])
+    return {"path": t.save(job["out"]), "state": state(t)}
+
+
 def spawn(shape, jobs, tmp, backend="gloo", timeout=90):
     """Run ``jobs`` on a process group of ``shape`` ranks, this file as each
     rank, the whole group within ``timeout`` seconds (each finishes in well
@@ -176,7 +302,8 @@ def spawn(shape, jobs, tmp, backend="gloo", timeout=90):
 
 
 JOBS = {"fit": run_fit, "jax_step": run_jax_step, "load_save": run_load_save,
-        "lookup": run_lookup}
+        "lookup": run_lookup, "mode_jax_step": run_mode_jax_step, "mode_steps": run_mode_steps,
+        "mode_fit": run_mode_fit, "mode_load_save": run_mode_load_save}
 
 
 def main(argv):

@@ -2986,6 +2986,57 @@ def test_sorted_adam_sharded_rejects_a_bad_row0(gen):
             sa.sorted_dense_adam_apply_sharded(table, mu, nu, sid, gs, hp, row0=row0)
 
 
+@pytest.mark.parametrize("e", [2, 3, 4])
+def test_fused_adam_sharded_matches_unsharded_and_plain(gen, e):
+    """E shards of one table (V = 100,003, not a multiple of E: padded)
+    stepped by ``fused_dense_adam_apply_sharded`` from ids sorted within 23
+    segments, hp by value and in device memory: bit for bit the unsharded
+    kernel's step of the padded table (the shard's tiles are the table's),
+    and held against the plain version shard by shard (the order rule). Ids
+    on every boundary, duplicated, and a hot row; 2 launches a shard,
+    counted in ``launches_sharded``."""
+    from scenario_wise_rec_tpu_torch.train.optim import segment_sorted_ids
+
+    V, D, n = 100_003, 16, 512
+    sizes = [n] * 23
+    rows = -(-V // e)
+    r = np.random.default_rng(30 + e)
+    ids = r.integers(0, V, 23 * n)
+    bounds = [j * rows + o for j in range(1, e) for o in (-1, 0)]
+    ids[:3 * len(bounds)] = np.repeat(bounds, 3)
+    ids[-300:] = 77  # a hot row
+    ids = torch.as_tensor(ids, device="cuda")
+    segs = [("f", i * n, n) for i in range(23)]
+    sid, pos, _ = segment_sorted_ids(ids, segs)
+    trio = list(_sa_case(gen, rows * e, D, ids)[:3])
+    g = 1e-3 * torch.randn(23 * n, D, generator=gen, device="cuda")
+    hp = sa.adam_hparams(4, 1e-3, 1e-5, 0.9, 0.999, 1e-8)
+    whole = [t.clone() for t in trio]
+    kfa.fused_dense_adam_apply(*whole, g, sid, pos, sizes, hp)
+    plain = [t.clone() for t in trio]
+    for j in range(e):
+        kfa.fused_dense_adam_apply_sharded_ref(*(t[j * rows:(j + 1) * rows] for t in plain),
+                                               g, ids, hp, row0=j * rows)
+    rule = _AdamOrderRule(trio[0])
+    rule.step(trio[0], ids, g, hp)
+    for h in (hp, torch.tensor(hp, device="cuda")):
+        got = [t.clone() for t in trio]
+        before = (kfa.fused_dense_adam_apply.launches, kfa.fused_dense_adam_apply.launches_sharded)
+        for j in range(e):
+            kfa.fused_dense_adam_apply_sharded(*(t[j * rows:(j + 1) * rows] for t in got), g,
+                                               sid, pos, sizes, h, row0=j * rows)
+        torch.cuda.synchronize()
+        assert (kfa.fused_dense_adam_apply.launches,
+                kfa.fused_dense_adam_apply.launches_sharded) == (before[0], before[1] + e)
+        for a, b, c, what in zip(got, whole, plain, ("table", "mu", "nu")):
+            assert torch.equal(a, b), what
+            assert rule.close(a, c, what), what
+    rule.count()
+    for row0 in (-1, 2 ** 31 - 100):
+        with pytest.raises(ValueError, match="row0"):
+            kfa.fused_dense_adam_apply_sharded(*trio, g, sid, pos, sizes, hp, row0=row0)
+
+
 def _mesh_fit_on_card(tmp_path, backend, shape):
     """``fit`` on a mesh of two ranks on the card over ``backend`` against
     the same ``fit`` in this process on the card (the rank worker of
@@ -3033,6 +3084,42 @@ def _mesh_fit_on_card(tmp_path, backend, shape):
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
 def test_mesh_of_two_gloo_ranks_on_one_card(gen, tmp_path, shape):
     _mesh_fit_on_card(tmp_path, "gloo", shape)
+
+
+# each update kernel's launches a step of each mode, one process and a rank;
+# the worker's tables s0 (with its alias), s1 (with the sequence feature) and
+# s2 hold 2, 5 and 1 batches of ids: three owner lengths, a segment sum each
+MODE_LAUNCHES = {"dense": ({"fused_dense_adam_apply": 1}, {"fused_dense_adam_apply_sharded": 1}),
+                 "occurrence": ({"occurrence_segsum": 3, "scatter_rows": 1},) * 2,
+                 "winner": ({"scatter_rows": 3},) * 2, "plain": ({}, {})}
+
+
+@pytest.mark.parametrize("mode", list(MODE_LAUNCHES))
+def test_mesh_modes_of_two_gloo_ranks_on_one_card(gen, tmp_path, mode):
+    """The dense, occurrence and winner updates and the plain step on a
+    (1, 2) mesh of gloo ranks on the card (the worker of
+    tests/test_torch_port_parallel.py, MMOE with a loose table and a frozen
+    table across the second shard's first row, dropout 0.2): ``fit``
+    equal to one process on the card bit for bit, and each update kernel
+    launched as the mode says, the sharded dense kernel on the mesh."""
+    import _torch_port_parallel_worker as W
+    from scenario_wise_rec_tpu_torch.ops.kernels import _build
+
+    _build.build(["fused_adam", "row_update"])
+    job = dict(kind="mode_fit", mode=mode, seed=11, n=7 * W.B + 5, scan_steps=1,
+               device="cuda", spec={"v": W.V, "loose": True, "frozen": True, "dropout": 0.2})
+    res = W.spawn((1, 2), {"fit": dict(job, dir=str(tmp_path / "mesh"))}, str(tmp_path),
+                  timeout=300)
+    one = W.run_mode_fit(None, dict(job, dir=str(tmp_path / "one")))
+    steps = 2 * 8
+    mine, theirs = MODE_LAUNCHES[mode]
+    assert one["launches"] == {k: steps * mine.get(k, 0) for k in one["launches"]}
+    for r, out in enumerate(res):
+        fit = out["fit"]
+        assert fit["launches"] == {k: steps * theirs.get(k, 0) for k in fit["launches"]}, r
+        assert fit["log"] == one["log"] and fit["metrics"] == one["metrics"], r
+        for k, v in one["state"].items():
+            assert torch.equal(fit["state"][k], v), (r, k)
 
 
 def test_mesh_of_two_nccl_ranks(gen, tmp_path):

@@ -391,12 +391,6 @@ def test_mesh_refusals_name_their_roadmap_items():
         CTRTrainer(model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="mesh="):
         CTRTrainer(model, device="cpu", gpus=[0, 1])
-    for kw in (dict(sparse_update_impl="occurrence"), dict(sparse_update_impl="dense"),
-               dict(sparse_update_impl="winner")):
-        with pytest.raises(NotImplementedError, match="A15.2"):
-            CTRTrainer(model, device="cpu", mesh=mesh, sparse_embedding_updates=True, **kw)
-    with pytest.raises(NotImplementedError, match="A15.2"):
-        CTRTrainer(model, device="cpu", mesh=mesh)  # the plain dense step
     for fused in (True, "auto"):
         with pytest.raises(NotImplementedError, match="A15.3"):
             W.trainer(model, mesh, fused_inference=fused)

@@ -398,7 +398,8 @@ def test_trainer_rejects_what_the_port_does_not_run():
     model = pt.model
     with pytest.raises(TypeError, match="Mesh"):
         PTrainer(model, device="cpu", mesh=object())
-    for kw, item in ((dict(mesh=make_mesh(1, 1)), "A15.2"), (dict(gpus=[0, 1]), "A15")):
+    for kw, item in ((dict(mesh=make_mesh(1, 1), fused_inference=True), "A15.3"),
+                     (dict(gpus=[0, 1]), "A15")):
         with pytest.raises(NotImplementedError, match=item):
             PTrainer(model, device="cpu", **kw)
     auto = PTrainer(model, device="cpu", fused_inference="auto")
