@@ -307,7 +307,18 @@ Phases; each asserts, and any failure exits non-zero:
    one-state gate (the loss within 1e-6, the state within ``GROUP_TOL``);
    on (1, 2) two steps equal to one process bit for bit; every rank's
    launches as the mode says a step: the sharded dense kernel once, the
-   segment sum and the scatter once each, the scatter three times.
+   segment sum and the scatter once each, the scatter three times. On
+   (2, 2) M2M's and AdaptDHM's plain steps likewise (M2M's attention over
+   the global batch, AdaptDHM's centers moved by its sums; their tables
+   spread). On both meshes a resident epoch of the sorted mode (3 steps,
+   the last padded) over a ``DeviceResidentLoader`` against the host
+   loader's epoch from the same state: 0 elements differ, the sharded
+   kernel once a step a rank (``mesh_resident_gates``). On (2, 2) fused
+   mesh eval of MMOE, STAR and M2M (``predict`` and
+   ``evaluate_multi_domain_loss`` over 3 batches, the last of 123 rows)
+   against op-by-op mesh eval: within the serving gate, AUC within 1e-4,
+   every rank's metrics the same, the model's kernel launched once a batch
+   a rank and nothing else (``mesh_eval_gates``).
 6. ``[6] cli``: the command line as users start it, ``run.main(["ali_ccp",
    "--model_name", "mmoe", ...])`` (what ``python -m
    scenario_wise_rec_tpu_torch.run`` runs) in this process at the
@@ -337,7 +348,10 @@ Phases; each asserts, and any failure exits non-zero:
    fused_dense_adam_apply_sharded`` against the unsharded kernel bit for
    bit and against its plain version at E = 2 and 4, hp by value and in
    device memory: its Step 0 for each shard, its bound, plain and library
-   times, and its launches on the mesh's dense jobs).
+   times, and its launches on the mesh's dense jobs); MMOE's, STAR's and
+   M2M's rows hold their fused mesh eval's readings (``mesh_eval``), and
+   the sorted kernel's sharded row its resident mesh epochs'
+   (``resident_mesh``).
 """
 
 from __future__ import annotations
@@ -3449,17 +3463,18 @@ MESH_STEP_LAUNCHES = {"dense": {"fused_dense_adam_apply_sharded": 1},
                       "winner": STEP_LAUNCHES["winner"], "plain": {}}
 
 
-def mesh_steps(seed, mesh, mode, n_rows, name="mmoe"):
+def mesh_steps(seed, mesh, mode, n_rows, name="mmoe", perturb=False):
     """``name``'s train steps over ``n_rows`` rows in batches of BATCH (the
     last padded), in ``mode`` (an embedding update, or ``"plain"``, the plain
-    step), from the common start ``build_ali_model(seed + 1, name=name)``, on
-    ``mesh`` or in one process (None): the losses, the update kernels'
-    launches, the seconds, and the state after them (``_checkpoint_tensors``:
-    on a mesh every rank calls it and holds the shards gathered)."""
+    step), from the common start ``build_ali_model(seed + 1, perturb,
+    name=name)``, on ``mesh`` or in one process (None): the losses, the
+    update kernels' launches, the seconds, and the state after them
+    (``_checkpoint_tensors``: on a mesh every rank calls it and holds the
+    shards gathered)."""
     from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
     from scenario_wise_rec_tpu_torch.train import CTRTrainer
 
-    model = build_ali_model(seed + 1, name=name)
+    model = build_ali_model(seed + 1, perturb, name=name)
     x, y = synthetic_eval_set(seed + 6, n_rows)
     train = BatchIterable(ColumnarDataset(x, y), BATCH)
     kw = {} if mode == "plain" else mode_kw(mode)
@@ -3487,16 +3502,16 @@ def mesh_steps(seed, mesh, mode, n_rows, name="mmoe"):
             "steps": len(train), "seconds": seconds}
 
 
-def mesh_job(seed, mesh, mode, n_rows, name="mmoe"):
+def mesh_job(seed, mesh, mode, n_rows, name="mmoe", perturb=False):
     """One job of ``[4] training mmoe mesh``'s other modes on this rank:
     :func:`mesh_steps` on the mesh; then rank 0 runs the same steps in one
     process (the others go on to the next job and wait in its first
     collective) and compares the two states in memory: with more than one
     data rank by :func:`one_state_gaps`, else bit for bit. JSON-able."""
-    run = mesh_steps(seed, mesh, mode, n_rows, name)
+    run = mesh_steps(seed, mesh, mode, n_rows, name, perturb)
     out = {k: run[k] for k in ("losses", "counts", "steps", "seconds")}
     if mesh.rank == 0:
-        one = mesh_steps(seed, None, mode, n_rows, name)
+        one = mesh_steps(seed, None, mode, n_rows, name, perturb)
         out.update(one_losses=one["losses"], one_counts=one["counts"],
                    one_seconds=one["seconds"])
         if mesh.shape["data"] > 1:
@@ -3512,10 +3527,113 @@ def mesh_job(seed, mesh, mode, n_rows, name="mmoe"):
     return out
 
 
+# fused eval on the (2, 2) mesh: MMOE's, STAR's and M2M's kernels (rows 1,
+# 4 and 11; STAR's domain norm from the global batch's statistics, M2M's
+# kernel after its global-batch transformer) against op-by-op mesh eval
+MESH_EVAL = ("mmoe", "star", "m2m")
+MESH_EVAL_ROWS = 2 * BATCH + MESH_TAIL  # 3 batches, the last of 123 real rows
+# a resident mesh epoch of the sorted update against the host loader's
+MESH_RESIDENT_ROWS = 2 * BATCH + MESH_TAIL
+# the plain steps of the two models with a batch-wide op besides BatchNorm
+# (M2M's attention over the batch, AdaptDHM's EMA centers), one step from
+# the common start on the (2, 2) mesh against one process, their tables
+# spread as the serving path's (at the N(0, 1e-4) init a train-mode
+# BatchNorm after the lookup divides row differences by sqrt(eps))
+MESH_BATCHWIDE = ("plain m2m", "plain adaptdhm")
+
+
+def mesh_eval(seed, mesh, name):
+    """``name`` at Ali-CCP width (``build_ali_model(perturb=True)``, built
+    twice from one seed: a mesh trainer shards its model's tables) scored on
+    this rank of ``mesh`` over MESH_EVAL_ROWS rows, by fused and by
+    op-by-op eval: ``predict`` and ``evaluate_multi_domain_loss`` each; the
+    fused predictions' gap to the op-by-op ones under the serving gate, both
+    paths' metrics, the kernels' launches and the seconds. JSON-able."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    x, y = synthetic_eval_set(seed + 8, MESH_EVAL_ROWS)
+    loader = BatchIterable(ColumnarDataset(x, y), batch_size=BATCH)
+    out = {"batches": len(loader)}
+    probs = {}
+    for path in ("fused", "op"):
+        model = build_ali_model(seed + 2, perturb=True, name=name)
+        t = CTRTrainer(model, fused_inference=path == "fused", mesh=mesh)
+        near = serving_near_threshold(model, x) if path == "op" else None
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        probs[path] = np.asarray(t.predict(model, loader))
+        metrics = t.evaluate_multi_domain_loss(model, loader, DOMAINS)
+        torch.cuda.synchronize()
+        out[path] = {"metrics": list(metrics), "counts": read_counts(),
+                     "seconds": time.perf_counter() - t0}
+        del t, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    tol = SERVE_TOL.get(name, (TOL, 0.0))
+    keep = np.ones(len(x["domain_indicator"]), bool) if near is None else ~near
+    gap = np.abs(probs["fused"] - probs["op"])[keep]
+    f_ll, f_auc, f_tll, f_tauc = out["fused"]["metrics"]
+    o_ll, o_auc, o_tll, o_tauc = out["op"]["metrics"]
+    out.update(max_abs_err=float(gap.max()),
+               ratio=float((gap / (tol[0] + tol[1] * np.abs(probs["op"][keep]))).max()),
+               excused=int((~keep).sum()), rows=int(keep.size),
+               finite=bool(np.isfinite(probs["fused"]).all()),
+               auc_gap=max(abs(a - b) for a, b in zip(f_auc + [f_tauc], o_auc + [o_tauc])),
+               logloss_gap=max(abs(a - b) for a, b in zip(f_ll + [f_tll], o_ll + [o_tll])))
+    return out
+
+
+def mesh_resident(seed, mesh):
+    """One epoch of MMOE's sorted f32 mode over MESH_RESIDENT_ROWS rows on
+    ``mesh`` from the common start, over a ``DeviceResidentLoader`` (the
+    columns on this rank's card) and over the host ``BatchIterable`` of the
+    same rows and seed: the state tensors that differ in any bit, each
+    epoch's launches and seconds. JSON-able."""
+    from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
+                                                  DeviceResidentLoader)
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    x, y = synthetic_eval_set(seed + 9, MESH_RESIDENT_ROWS)
+    loaders = {"resident": lambda: DeviceResidentLoader(ColumnarDataset(x, y), BATCH,
+                                                        seed=seed),
+               "host": lambda: BatchIterable(ColumnarDataset(x, y), BATCH, shuffle=True,
+                                             seed=seed)}
+    out, states = {}, {}
+    for kind, make in loaders.items():
+        t = CTRTrainer(build_ali_model(seed + 1), sparse_embedding_updates=True,
+                       sparse_update_impl="sorted", n_epoch=1, seed=seed, mesh=mesh)
+        loader = make()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        t.train_one_epoch(loader, log_interval=10**9)
+        t.barrier()
+        out[kind] = {"counts": read_counts(), "seconds": time.perf_counter() - t0,
+                     "steps": len(loader)}
+        states[kind] = t._checkpoint_tensors()
+        del t, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = states["resident"], states["host"]
+    out["differ"] = bits_differ(a, b)
+    out["elements_differ"] = sum(int((a[k] != b[k]).sum()) for k in out["differ"])
+    out["elements"] = sum(v.numel() for v in b.values())
+    del a, b
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank_main(args):
     """One rank of ``[4] training mmoe mesh``: join the gloo group, run
     :func:`mesh_fit` on the mesh (and, with more than one data rank, its
-    one padded step of ``MESH_TAIL`` rows) and write its results as JSON."""
+    one padded step of ``MESH_TAIL`` rows), the other modes' jobs, a
+    resident epoch against a host one (:func:`mesh_resident`) and, with
+    more than one data rank, M2M's and AdaptDHM's plain steps and fused
+    eval of MESH_EVAL (:func:`mesh_eval`); write the results as JSON."""
     from scenario_wise_rec_tpu_torch.parallel import init_distributed, make_mesh
 
     n, e = (int(v) for v in args.mesh_shape.split(","))
@@ -3537,6 +3655,11 @@ def mesh_rank_main(args):
     if n > 1:  # EPNet's plain step, both collections row-sharded
         res["modes"]["plain epnet"] = {"step": mesh_job(args.seed, mesh, "plain", BATCH,
                                                         name="epnet")}
+        for job in MESH_BATCHWIDE:  # M2M's and AdaptDHM's batch-wide ops
+            res["modes"][job] = {"step": mesh_job(args.seed, mesh, "plain", BATCH,
+                                                  name=job.split()[1], perturb=True)}
+        res["eval"] = {name: mesh_eval(args.seed, mesh, name) for name in MESH_EVAL}
+    res["resident"] = mesh_resident(args.seed, mesh)
     with open(os.path.join(args.mesh_dir, f"rank{args.mesh_rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -3777,6 +3900,8 @@ def phase_train_mesh(seed, card):
             f"tensors at the fit's end that differ in any bit: {differ}")
         gate(not differ, f"mesh (1, 2): checkpoint tensors {differ} differ from one process's")
         modes = mesh_modes_gates(res, res12, gate, gaps_gate)
+        evals = mesh_eval_gates(res, gate)
+        resident = mesh_resident_gates(res, res12, gate)
     log(f"  against one process (gated at {MESH_GAP_RATIO} x the padded run's), relative "
         f"per-step loss gaps: the (2, 2) mesh "
         f"{[f'{g:.1e}' for g in gaps]}, one process with {MESH_PAD} weight-0 rows a batch "
@@ -3792,7 +3917,7 @@ def phase_train_mesh(seed, card):
         f"{[round(m['seconds'], 2) for m in res]} (one process {one['seconds']:.2f}); the ranks' "
         f"processes {ranks_s:.1f} s with start-up, the (1, 2) mesh's {ranks12_s:.1f} s")
     check(not failed, "; ".join(failed))
-    return {"modes": modes,
+    return {"modes": modes, "eval": evals, "resident": resident,
             "launches": sum(m["counts"]["sorted_dense_adam_apply_sharded"] for m in res),
             "launches_by_rank": [m["counts"]["sorted_dense_adam_apply_sharded"] for m in res],
             "mesh": {"data": n, "embed": e, "backend": "gloo", "steps": steps,
@@ -3806,7 +3931,8 @@ def phase_train_mesh(seed, card):
 
 def mesh_modes_gates(res, res12, gate, gaps_gate):
     """The dense, occurrence and winner jobs of the mesh ranks (MMOE) and
-    EPNet's plain step, each against one process on the card from the
+    EPNet's, M2M's and AdaptDHM's plain steps, each against one process on
+    the card from the
     common start (rank 0's, :func:`mesh_job`): on the (2, 2) mesh the first
     step and a padded step of MESH_TAIL rows (data rank 1 without a real
     row), every rank's loss within 1e-6 and the state held by the one-state
@@ -3816,7 +3942,7 @@ def mesh_modes_gates(res, res12, gate, gaps_gate):
     kernel, never the unsharded one), one process's as STEP_LAUNCHES says.
     Returns each job's readings."""
     out = {}
-    for job in list(MESH_MODES) + ["plain epnet"]:
+    for job in list(MESH_MODES) + ["plain epnet"] + list(MESH_BATCHWIDE):
         mode = job.split()[0]
 
         def launched(m, counts, per_step, what):
@@ -3826,7 +3952,7 @@ def mesh_modes_gates(res, res12, gate, gaps_gate):
 
         readings = {}
         for part, shape, ranks in (("step", MESH_SHAPE, res), ("tail", MESH_SHAPE, res),
-                                   ("step", (1, 2), res12 if job != "plain epnet" else [])):
+                                   ("step", (1, 2), res12 if job in MESH_MODES else [])):
             if not ranks or part not in ranks[0]["modes"][job]:
                 continue
             ref = ranks[0]["modes"][job][part]
@@ -3866,6 +3992,96 @@ def mesh_modes_gates(res, res12, gate, gaps_gate):
             f"{readings['one_process_seconds']:.2f}); launches by rank "
             f"{[{k: v for k, v in c.items() if v} for c in readings['launches_by_rank']]}")
         out[job] = readings
+    return out
+
+
+def mesh_eval_gates(res, gate):
+    """Fused mesh eval (:func:`mesh_eval`) on every rank of the (2, 2) mesh:
+    the fused predictions within the serving gate of the op-by-op ones
+    (excused rows counted, at most THRESHOLD_ROWS), AUC within 1e-4, each
+    path's metrics the same on every rank and finite, the model's kernel
+    launched once a batch a rank by each fused pass (``predict`` and
+    ``evaluate_multi_domain_loss``) and by nothing else, the op-by-op
+    passes launching nothing. Returns each model's readings."""
+    out = {}
+    for name in MESH_EVAL:
+        kernel = EVAL_KERNELS[name][0]
+        ref = res[0]["eval"][name]
+        for r, m in enumerate(res):
+            got = m["eval"][name]
+            want = {k: 2 * got["batches"] if k == kernel else 0 for k in got["fused"]["counts"]}
+            gate(got["fused"]["counts"] == want, f"mesh fused eval {name} rank {r}: launches "
+                 f"{ {k: v for k, v in got['fused']['counts'].items() if v} } (want {kernel} "
+                 f"{2 * got['batches']})")
+            gate(not any(got["op"]["counts"].values()),
+                 f"mesh op-by-op eval {name} rank {r} launched {got['op']['counts']}")
+            gate(got["finite"] and got["ratio"] <= 1, f"mesh fused eval {name} rank {r}: "
+                 f"predictions {got['max_abs_err']:.3e} from op by op ({got['ratio']:.3f} of "
+                 "the limit), or not finite")
+            gate(got["auc_gap"] <= 1e-4, f"mesh fused eval {name} rank {r}: AUC gap "
+                 f"{got['auc_gap']:.3e}")
+            gate(got["excused"] <= THRESHOLD_ROWS * got["rows"],
+                 f"mesh fused eval {name} rank {r}: {got['excused']} rows excused")
+            for path in ("fused", "op"):
+                metrics = got[path]["metrics"]
+                gate(metrics == ref[path]["metrics"]
+                     and all(np.isfinite(v) for v in metrics[0] + metrics[1] + metrics[2:]),
+                     f"mesh {path} eval {name} rank {r}: metrics {metrics} differ from rank "
+                     "0's or are not finite")
+        readings = {"max_abs_err_by_rank": [m["eval"][name]["max_abs_err"] for m in res],
+                    "auc_gap": max(m["eval"][name]["auc_gap"] for m in res),
+                    "logloss_gap": max(m["eval"][name]["logloss_gap"] for m in res),
+                    "launches_by_rank": [m["eval"][name]["fused"]["counts"][kernel]
+                                         for m in res],
+                    "batches": ref["batches"], "excused_rows": ref["excused"],
+                    "fused_seconds_by_rank": [m["eval"][name]["fused"]["seconds"] for m in res],
+                    "op_seconds_by_rank": [m["eval"][name]["op"]["seconds"] for m in res]}
+        log(f"  mesh (2, 2) fused vs op-by-op eval, {name} ({kernel}, {ref['rows']} rows, "
+            f"{ref['batches']} batches): max_abs_err by rank "
+            f"{[f'{e:.3e}' for e in readings['max_abs_err_by_rank']]} (limit "
+            f"{SERVE_TOL.get(name, (TOL, 0.0))[0]:g}, {ref['excused']} rows excused), auc gap "
+            f"{readings['auc_gap']:.3e}, logloss gap {readings['logloss_gap']:.3e}; launches by "
+            f"rank {readings['launches_by_rank']} (2 passes of {ref['batches']} batches); "
+            f"predict + evaluate s by rank fused "
+            f"{[round(x, 2) for x in readings['fused_seconds_by_rank']]}, op by op "
+            f"{[round(x, 2) for x in readings['op_seconds_by_rank']]}")
+        out[name] = readings
+    return out
+
+
+def mesh_resident_gates(res, res12, gate):
+    """The resident mesh epoch (:func:`mesh_resident`) against the host
+    loader's on every rank of the (2, 2) and (1, 2) meshes: 0 elements
+    differ, the sharded kernel launched once a step a rank by each epoch and
+    nothing else launched. Returns each shape's readings."""
+    out = {}
+    for shape, ranks in ((MESH_SHAPE, res), ((1, 2), res12)):
+        for r, m in enumerate(ranks):
+            got = m["resident"]
+            gate(not got["differ"], f"mesh {shape} rank {r}: the resident epoch's tensors "
+                 f"{got['differ']} differ from the host epoch's ({got['elements_differ']} "
+                 "elements)")
+            for kind in ("resident", "host"):
+                counts = got[kind]["counts"]
+                want = {k: got[kind]["steps"] if k == "sorted_dense_adam_apply_sharded" else 0
+                        for k in counts}
+                gate(counts == want, f"mesh {shape} rank {r} {kind} epoch: launches "
+                     f"{ {k: v for k, v in counts.items() if v} }")
+        ref = ranks[0]["resident"]
+        readings = {"elements_differ_by_rank": [m["resident"]["elements_differ"] for m in ranks],
+                    "elements": ref["elements"], "steps": ref["resident"]["steps"],
+                    "launches_by_rank": [m["resident"]["resident"]["counts"][
+                        "sorted_dense_adam_apply_sharded"] for m in ranks],
+                    "resident_seconds_by_rank": [m["resident"]["resident"]["seconds"]
+                                                 for m in ranks],
+                    "host_seconds_by_rank": [m["resident"]["host"]["seconds"] for m in ranks]}
+        log(f"  mesh {shape} resident vs host-loader epoch, sorted, {readings['steps']} steps "
+            f"from one state: {readings['elements_differ_by_rank']} of {ref['elements']:,} "
+            f"elements differ by rank; sharded kernel launches by rank "
+            f"{readings['launches_by_rank']}; epoch s by rank resident "
+            f"{[round(x, 2) for x in readings['resident_seconds_by_rank']]}, host "
+            f"{[round(x, 2) for x in readings['host_seconds_by_rank']]}")
+        out[f"{shape[0]}x{shape[1]}"] = readings
     return out
 
 
@@ -5881,11 +6097,17 @@ def main(argv=None):
                                       sorted_bf16["device_hp_step0_in_turns_ms"])
     log(f"[4] training path: MMOE fit on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} (data, embed) "
         "mesh of processes on the one card over gloo, sorted f32, against one process; then "
-        "the dense, occurrence and winner modes and EPNet's plain step on the mesh; "
-        "Ali-CCP width, 467k ids per feature")
+        "the dense, occurrence and winner modes, EPNet's, M2M's and AdaptDHM's plain steps, "
+        "resident epochs and fused MMOE, STAR and M2M eval on the mesh; Ali-CCP width, 467k "
+        "ids per feature")
     with phase("[4] training mmoe mesh"):
         mesh = phase_train_mesh(args.seed, card)
     modes = mesh.pop("modes")
+    evals = mesh.pop("eval")
+    infer["mesh_eval"] = evals["mmoe"]
+    for name in MESH_EVAL[1:]:
+        new[name]["mesh_eval"] = evals[name]
+    sorted_sharded["resident_mesh"] = mesh.pop("resident")
     sorted_sharded["launches"] = mesh.pop("launches")
     sorted_sharded.update(mesh)
     # the mesh's dense jobs (one step and one padded step a rank of (2, 2))

@@ -104,6 +104,7 @@ class DeviceResidentLoader:
         # uniform); keep the default for bit-parity with the host pipeline.
         self.device_shuffle = bool(device_shuffle)
         self.device = resolve_device(device)
+        self.seed = seed
         self._rng = np.random.default_rng(seed)
         self.n = len(dataset)
         self._next_perm = None

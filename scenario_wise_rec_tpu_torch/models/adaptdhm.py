@@ -7,8 +7,11 @@ The JAX package's ``models/adaptdhm.py``:
   A train-mode forward refines them 3 times (``beta * center + (1 - beta)
   * softmax-weighted sum of the rows``, renormalised by ``max(|v|,
   1e-12)``), the padded (``w == 0``) rows masked out, routes by the refined
-  centers and stores them; under ``no_grad`` on the detached embedding. An
-  eval forward routes by the stored centers and moves nothing;
+  centers and stores them; under ``no_grad`` on the detached embedding.
+  Inside a mesh step (``parallel.mesh_step``) the weighted sum is the
+  global batch's, summed over the ``data`` group, so every rank holds one
+  process's centers. An eval forward routes by the stored centers and
+  moves nothing;
 - each row's cluster is the argmax of its soft assignment;
 - the FCN's stage for cluster ``c`` is ``W_0 ⊙ W_{c+1}``, ``[C, in, out]``
   stacked, relu after every stage but the last, sigmoid after it. The
@@ -37,6 +40,7 @@ from ..core import init as initializers
 from ..core.features import sum_embed_dims
 from ..ops.embedding import EmbeddingCollection
 from ..ops.kernels.adaptdhm_infer import adaptdhm_fused_infer
+from ..parallel.mesh import all_reduce_, current_step
 from .base import Model, model_generator
 
 
@@ -71,16 +75,20 @@ class AdaptDHM(Model):
     @torch.no_grad()
     def _route(self, emb, train: bool, w=None):
         """Each row's cluster; a train-mode call refines and stores the
-        centers first."""
+        centers first (over the global batch inside a mesh step)."""
         x = emb.detach()
         center = self.center
         if train:
             wc = None if w is None else w.reshape(-1, 1).to(x.dtype)
+            step = current_step()
             for _ in range(3):
                 rij = torch.softmax(x @ center.T, dim=1)
                 if wc is not None:
                     rij = rij * wc
-                center = l2norm(self.beta * center + (1 - self.beta) * (rij.T @ x))
+                cij = rij.T @ x
+                if step is not None:
+                    cij = all_reduce_(cij, step.group)  # the global batch's sum
+                center = l2norm(self.beta * center + (1 - self.beta) * cij)
             self.center.copy_(center)
         return torch.argmax(torch.softmax(x @ center.T, dim=1), dim=1)
 

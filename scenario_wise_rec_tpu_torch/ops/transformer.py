@@ -16,6 +16,16 @@ biases. The parameters keep the JAX tree's names and layouts, so that
 ``dec_norm``; an attention's ``in_w [3d, d]`` and ``out_w [d, d]`` are stored
 (out, in) and used transposed, ``ff``'s ``w`` (in, out).
 
+Inside a mesh step or eval batch (``parallel.mesh_step``) the sequence is
+the global batch while each rank holds its rows: every self- and
+cross-attention takes its keys, values and key mask over the ``data`` group
+(``parallel.mesh.all_gather_rows_autograd``, whose backward sums the keys'
+and values' gradients over the group), and the queries stay this rank's
+rows, so a rank's scores are ``[nh, L_local, L_global]`` and its outputs
+are one process's rows. The attention dropout then draws the global
+``[nh, L_global, L_global]`` mask and keeps its own query rows
+(``ops/nn.py:dropout``).
+
 Every product is a plain f32 ``@``, in the bf16 compute mode too, as in the
 JAX package. The scores are plain products, a mask fill with
 ``finfo(float32).min`` and a softmax, so that dropout can draw from the
@@ -31,6 +41,7 @@ import torch
 from torch import nn
 
 from ..core import init as initializers
+from ..parallel.mesh import all_gather_rows, all_gather_rows_autograd, current_step
 from .nn import LayerNorm
 from .nn import dropout as dropout_fn
 
@@ -149,24 +160,36 @@ class Transformer(nn.Module):
     def _res(self, x, sub, train, generator):
         return x + dropout_fn(sub, self.p, train, generator)
 
+    @staticmethod
+    def _global(t):
+        """The global batch's rows of ``t`` inside a mesh step (gathered
+        over ``data``, differentiable), else ``t``."""
+        step = current_step()
+        return t if step is None else all_gather_rows_autograd(t, step.group)
+
     def forward(self, src, tgt, train: bool = False,
                 generator: Optional[torch.Generator] = None, w=None):
         """``w``: optional ``[L]`` 0/1 padding mask over the positions (the
         batch's rows): padded rows are masked out as attention keys in every
         self- and cross-attention, as in the reference, where they do not
         exist. Their own outputs are garbage and must be discarded. Dropout
-        (train mode, ``p > 0``) draws from ``generator``."""
+        (train mode, ``p > 0``) draws from ``generator``. Inside a mesh step
+        ``src``, ``tgt`` and ``w`` are this rank's rows (module docstring)."""
         p, nh = self.p, self.nhead
+        step = current_step()
+        if step is not None and w is not None:
+            w = all_gather_rows(w, step.group)  # the global batch's key mask
+        kv = self._global
         h = src
         for layer in self.enc:
-            a = layer.attn(h, h, nh, p, train, generator, key_mask=w)
+            a = layer.attn(h, kv(h), nh, p, train, generator, key_mask=w)
             h = layer.norm1(self._res(h, a, train, generator))
             f = layer.ff(h, p, train, generator)
             h = layer.norm2(self._res(h, f, train, generator))
-        memory = self.enc_norm(h)
+        memory = kv(self.enc_norm(h))
         t = tgt
         for layer in self.dec:
-            a = layer.self_attn(t, t, nh, p, train, generator, key_mask=w)
+            a = layer.self_attn(t, kv(t), nh, p, train, generator, key_mask=w)
             t = layer.norm1(self._res(t, a, train, generator))
             c = layer.cross_attn(t, memory, nh, p, train, generator, key_mask=w)
             t = layer.norm2(self._res(t, c, train, generator))

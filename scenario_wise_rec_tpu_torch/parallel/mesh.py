@@ -20,11 +20,13 @@ process per mesh position, joined by ``torch.distributed``:
 - :func:`replicate` broadcasts tensors from rank 0; :func:`shard_batch_fn`
   and :func:`shard_stacked_batch_fn` take this rank's rows of a global
   ``[B]`` or ``[S, B]`` batch;
-- :func:`mesh_step` is the context a trainer sets around a mesh step: the
-  batch statistics and dropout of ``ops/nn.py`` and the loss of
-  ``train/loss.py`` read it (:func:`current_step`) and reduce over the
-  ``data`` group, so that a step sees the global batch as JAX's SPMD step
-  does.
+- :func:`mesh_step` is the context a trainer sets around a mesh step or
+  an eval batch: the batch statistics and dropout of ``ops/nn.py``, the
+  loss of ``train/loss.py``, the attention of ``ops/transformer.py`` (its
+  keys and values gathered by :func:`all_gather_rows_autograd`) and
+  AdaptDHM's center update read it (:func:`current_step`) and reduce over
+  the ``data`` group, so that a step sees the global batch as JAX's SPMD
+  step does.
 
 The collectives here take a group that may be None (a group of one rank:
 nothing to exchange).
@@ -153,6 +155,41 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """:func:`all_gather_rows` with a gradient: every rank's loss reads the
+    gathered rows, so the gradient of this rank's rows is the sum of the
+    gathered tensor's gradients over the group, at this rank's rows (the
+    sum is :func:`all_reduce_`'s, as :class:`_AllReduceSum`'s backward)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.rows = group, t.shape[0]
+        ctx.row0 = dist.get_rank(group) * t.shape[0]
+        return all_gather_rows(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = all_reduce_(grad.contiguous().clone(), ctx.group)
+        return g[ctx.row0:ctx.row0 + ctx.rows], None
+
+
+def all_gather_rows_autograd(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_gather_rows`, differentiable in ``t`` (every rank's rows
+    of one size); ``t`` itself for a group of one."""
+    return t if group is None else _AllGatherRows.apply(t, group)
+
+
+def same_on_every_rank(mesh: Mesh, value, what: str) -> None:
+    """Raise ``ValueError`` on every rank unless every rank of the mesh
+    passes an equal ``value`` (any picklable value; one collective)."""
+    if mesh.group is None:
+        return
+    seen = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(seen, value, group=mesh.group)
+    if any(v != seen[0] for v in seen):
+        raise ValueError(f"the mesh's ranks disagree on {what}: {seen}")
 
 
 def broadcast_(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:

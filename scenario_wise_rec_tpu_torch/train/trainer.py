@@ -104,9 +104,14 @@ protocol.
   step each table's gradient is its shard's, and it is summed over
   ``data`` with the dense gradients before ``torch.optim.Adam``. The
   logged loss is the global one. ``scan_steps`` S > 1 runs a dispatch's
-  steps one by one, uncaptured (``graphed`` is False under a mesh). Eval
-  scores each rank's rows op by op and gathers the scores over ``data``,
-  so every rank returns the single-process metrics. ``save`` gathers the
+  steps one by one, uncaptured (``graphed`` is False under a mesh). A
+  ``DeviceResidentLoader`` runs on a mesh too: every rank holds the
+  loader's columns on its device, draws the same epoch ids and gathers its
+  rows of each global batch. Eval runs the eval step (op by op, or the
+  fused kernel with ``fused_inference``) on each rank's rows inside
+  ``mesh_step``, so batch statistics and M2M's attention are the global
+  batch's, and gathers the scores over ``data``: every rank returns the
+  single-process metrics. ``save`` gathers the
   shards over ``embed`` and rank 0 writes the single-process format;
   ``load`` takes each rank's rows, so a checkpoint moves between mesh
   shapes.
@@ -135,7 +140,8 @@ from ..ops.kernels import fused_inference_auto
 from ..ops.kernels.sorted_adam import adam_hparams_rows, check_jax_dials
 from ..parallel import (Mesh, gather_rows, mesh_step, param_specs, replicate,
                         shard_batch_fn, shard_rows, shard_stacked_batch_fn, sharded_lookup)
-from ..parallel.mesh import all_gather_rows, all_reduce_, barrier, broadcast_object
+from ..parallel.mesh import (all_gather_rows, all_reduce_, barrier, broadcast_object,
+                             local_rows, same_on_every_rank)
 from .callback import EarlyStopper
 from .freeze import rows_kept, zero_rows
 from .loss import bce_loss
@@ -246,9 +252,8 @@ class CTRTrainer:
             entry in ``gpus`` raises: one process drives one card, and ranks
             join through ``mesh``.
 
-    Not ported yet under a mesh, each raising ``NotImplementedError`` with
-    its ROADMAP item: a ``DeviceResidentLoader`` and ``fused_inference``
-    other than False (A15.3).
+    Under a mesh ``scan_steps`` S > 1 runs uncaptured: capturing a step
+    with collectives is ROADMAP A15.4.
     """
 
     def __init__(
@@ -287,9 +292,6 @@ class CTRTrainer:
             raise NotImplementedError(
                 "one process drives one card: run one process a rank and pass "
                 "mesh=parallel.make_mesh(n_data, n_embed) (ROADMAP A15)")
-        if mesh is not None and fused_inference is not False:
-            raise NotImplementedError(
-                "fused_inference under a mesh is ROADMAP A15.3; pass fused_inference=False")
         if fused_inference == "auto":
             fused_inference = fused_inference_auto(model)
         elif not isinstance(fused_inference, bool):
@@ -864,6 +866,14 @@ class CTRTrainer:
                 f"the DeviceResidentLoader's columns lie on {have}, the trainer on "
                 f"{self.device}: build the loader with device={str(self.device)!r}")
 
+    def _check_mesh_loader(self, loader):
+        """Every rank's loader must give the same epochs: the same rows,
+        batch size, seed and shuffle (one collective an epoch)."""
+        same_on_every_rank(self.mesh, (loader.n, loader.batch_size, loader.seed,
+                                       loader.shuffle, loader.device_shuffle),
+                           "the DeviceResidentLoader's (n, batch_size, seed, shuffle, "
+                           "device_shuffle)")
+
     def _epoch_ids(self, loader) -> torch.Tensor:
         """The epoch's row ids ``[len(loader) * B]`` on the device, the final
         partial batch padded with its own first row (``epoch_perm``'s
@@ -876,6 +886,8 @@ class CTRTrainer:
         ``device_shuffle``: ``torch.randperm`` on the device from a generator
         seeded by ``loader.epoch_seed()``; its stream differs from numpy's,
         as the JAX package's ``jax.random`` stream does."""
+        if self.mesh is not None:
+            self._check_mesh_loader(loader)
         if not loader.device_shuffle:
             ids = torch.from_numpy(loader.epoch_perm()[0])
             if self.device.type == "cuda":
@@ -907,16 +919,27 @@ class CTRTrainer:
         (graphed: replays of the captured step); the remainder is a
         dispatch of fewer steps. ``resident_gather`` changes nothing.
 
+        Under a mesh every rank holds the loader's columns on its own
+        device and draws the same epoch ids (``epoch_perm`` from the
+        loader's seed, or ``device_shuffle``'s generator seeded by
+        ``epoch_seed()``; the ranks' loaders are checked to agree once an
+        epoch), then takes its rows of each global batch
+        (``parallel.mesh.local_rows``): ids and position weights alike, so
+        its steps are a host-loader mesh epoch's.
+
         Returns None: the last losses stay on the device, and their line
         prints at the next trainer entry point or :meth:`barrier`, so the
         epoch boundary does not wait for the card."""
         self._flush_epoch_log()
-        if self.mesh is not None:
-            raise NotImplementedError("a DeviceResidentLoader under a mesh is ROADMAP A15.3")
         self._check_resident(loader)
         b, nb = loader.batch_size, len(loader)
         ids = self._epoch_ids(loader)
         weights = (torch.arange(nb * b, device=self.device) < loader.n).float()
+        if self.mesh is not None:
+            # this rank's rows of every global batch: [nb * b_local]
+            rows = local_rows(self.mesh, b)
+            ids, weights = (t.view(nb, b)[:, rows].reshape(-1) for t in (ids, weights))
+            b = rows.stop - rows.start
         pending, done = [], 0
         if self._dispatched:
             s = self.scan_steps
@@ -1024,14 +1047,15 @@ class CTRTrainer:
 
     def _score(self, xb, wb, folded):
         """The eval step's probabilities of a device batch. Under a mesh each
-        rank scores its rows op by op, every table looked up through its
-        shard, and the scores are gathered over ``data``: every rank returns
-        the whole batch's."""
+        rank runs the eval step (op by op or fused) on its rows inside
+        ``mesh_step``, every table looked up through its shard, and the
+        scores are gathered over ``data``: every rank returns the whole
+        batch's."""
         if self.mesh is None:
             return self._eval_step(xb, wb, folded)
         lx, _, lw = self._shard(xb, None, wb)
         with mesh_step(self.mesh, lw.shape[0]):
-            probs = self.model.apply(lx, train=False, w=lw)
+            probs = self._eval_step(lx, lw, folded)
         return all_gather_rows(probs, self.mesh.data_group)
 
     def evaluate(self, model, data_loader, mode: str = "val",

@@ -13,7 +13,7 @@ are written beside it:
 
 Everything is drawn from a fixed seed on the CPU. The committed copy lives
 in ``tests/data/`` (under 100 KB); ``tests/test_torch_port_jax_checkpoint.py``
-regenerates it and holds the committed probabilities to 1e-6, and loads it
+regenerates it and holds the committed probabilities to 1e-5, and loads it
 into the port (the card tests and ``chip_smoke.py`` on the card).
 
     JAX_PLATFORMS=cpu python scripts/make_jax_checkpoint_fixture.py [OUT_DIR]

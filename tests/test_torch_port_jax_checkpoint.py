@@ -185,7 +185,6 @@ def test_mismatched_model_class_raises(tmp_path):
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 FIXTURE = "jax_mmoe_sorted"
-FIXTURE_REGEN_ATOL = 1e-6
 
 
 def fixture_probabilities(device, fused_inference=False, data_dir=DATA):
@@ -217,8 +216,19 @@ def test_fixture_regenerates_to_the_committed_probabilities(tmp_path):
         for k in old.files:
             if k != "__prob__":
                 np.testing.assert_array_equal(new[k], old[k], err_msg=k)
-        np.testing.assert_allclose(new["__prob__"], old["__prob__"], rtol=0,
-                                   atol=FIXTURE_REGEN_ATOL)
+        # the JAX trainer's two steps and forward sum in f32 in an order
+        # XLA:CPU picks for the host's CPU (1.1e-6 apart on some): held to
+        # the gate the fixture's readers use
+        np.testing.assert_allclose(new["__prob__"], old["__prob__"], rtol=0, atol=PRED_ATOL)
+    # the checkpoint: the same entries, shapes and types; every entry that
+    # is not a float (step counts, metadata) exactly
+    with np.load(tmp_path / (FIXTURE + ".npz"), allow_pickle=False) as new, \
+            np.load(os.path.join(DATA, FIXTURE + ".npz"), allow_pickle=False) as old:
+        assert sorted(new.files) == sorted(old.files)
+        for k in old.files:
+            assert (new[k].shape, new[k].dtype) == (old[k].shape, old[k].dtype), k
+            if new[k].dtype.kind != "f":
+                np.testing.assert_array_equal(new[k], old[k], err_msg=k)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["op_by_op", "fused_plain"])

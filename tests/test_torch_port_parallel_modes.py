@@ -52,9 +52,9 @@ from scenario_wise_rec_tpu_torch.ops.kernels import fused_adam as pfa  # noqa: E
 from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as psa  # noqa: E402
 
 # (mode, model): the three lazy/exact updates and the plain step on MMOE,
-# and the plain step of EPNet and PPNet (two collections each)
+# and the plain step of EPNet, PPNet and AdaSparse (two collections each)
 CASES = [("dense", "mmoe"), ("occurrence", "mmoe"), ("winner", "mmoe"), ("plain", "mmoe"),
-         ("plain", "epnet"), ("plain", "ppnet")]
+         ("plain", "epnet"), ("plain", "ppnet"), ("plain", "adasparse")]
 IDS = [f"{mode}-{model}" for mode, model in CASES]
 # the port-only runs: the worker's odd vocab, a loose table; the MMOE fits
 # with a frozen table straddling row0
@@ -100,7 +100,7 @@ def runs(tmp_path_factory):
         jobs22[f"jax {name}"] = dict(kind="mode_jax_step", mode=mode, spec=spec, batch=b,
                                      jax_state=carried)
         if mode == "occurrence":
-            jobs22["fault"] = dict(jobs22[f"jax {name}"], fault=True)
+            jobs22["fault"] = dict(jobs22[f"jax {name}"], fault="sentinel")
         jax_ref[name] = _jax_after_step(jt, spec, mode, b)
         jobs22[f"steps {name}"] = dict(kind="mode_steps", mode=mode, spec=_spec(model),
                                        batches=STEP_BATCHES)
@@ -126,11 +126,12 @@ def runs(tmp_path_factory):
                                       out=os.path.join(tmp, f"again12-{name}"))
     res12 = W.spawn((1, 2), jobs12, os.path.join(tmp, "g12"), timeout=240)
     one = {}
-    for mode, model in CASES:
-        name = f"{mode}-{model}"
-        one[f"steps {name}"] = W.run_mode_steps(None, jobs22[f"steps {name}"])
-        one[f"fit {name}"] = W.run_mode_fit(None, dict(jobs22[f"fit {name}"],
-                                                       dir=os.path.join(tmp, f"fit1-{name}")))
+    with W.one_thread():
+        for mode, model in CASES:
+            name = f"{mode}-{model}"
+            one[f"steps {name}"] = W.run_mode_steps(None, jobs22[f"steps {name}"])
+            one[f"fit {name}"] = W.run_mode_fit(None, dict(jobs22[f"fit {name}"],
+                                                           dir=os.path.join(tmp, f"fit1-{name}")))
     return SimpleNamespace(res22=res22, res12=res12, one=one, jax=jax_ref, jobs22=jobs22,
                            tmp=tmp)
 
@@ -271,6 +272,27 @@ def test_mesh_steps_match_one_process(runs, case):
             assert abs(a - b) <= P.LOSS_ATOL, (rank, i, a, b)
             P._assert_close_state(got["states"][i], one["states"][i], i + 1,
                                   f"{name} rank {rank} step {i + 1}")
+
+
+def test_adasparse_steps_under_the_one_state_gate(runs):
+    """AdaSparse's plain step on (2, 2), whose pruners read every batch
+    row's scenario embedding: the first and the padded step against one
+    process, and the first step against the JAX mesh trainer, under the
+    one-state gate of ``test_torch_port_parallel.py`` (the gates above hold
+    the tables and moments to absolute tolerances only)."""
+    name = "plain-adasparse"
+    one = runs.one[f"steps {name}"]
+    want_loss, want = runs.jax[name]
+    for rank, res in enumerate(runs.res22):
+        got, noisy = res[f"steps {name}"], {}
+        for i, (a, b) in enumerate(zip(got["losses"], one["losses"])):
+            assert abs(a - b) <= P.ONE_STATE_LOSS_ATOL, (rank, i, a, b)
+            bad = P.one_state_gate(got["states"][i], one["states"][i], noisy)
+            assert not bad, f"rank {rank} step {i + 1}: {bad[:6]}"
+        got = res[f"jax {name}"]
+        assert abs(got["loss"] - want_loss) <= P.ONE_STATE_LOSS_ATOL, rank
+        bad = P.one_state_gate(got["state"], want, {})
+        assert not bad, f"rank {rank} against JAX: {bad[:6]}"
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

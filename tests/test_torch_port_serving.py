@@ -157,8 +157,8 @@ def test_host_metrics_match_jax():
 
 def test_trainer_rejects_what_this_slice_does_not_do():
     """``fused_inference="auto"`` resolves (to the port's measured set, as
-    JAX's trainer resolves to its own), a stray string raises, a mesh is
-    not run."""
+    JAX's trainer resolves to its own), a stray string raises, and so on
+    a mesh."""
     from scenario_wise_rec_tpu_torch.ops.kernels import FUSED_INFERENCE_WINS
 
     _, pt = _trainers(False)
@@ -170,9 +170,9 @@ def test_trainer_rejects_what_this_slice_does_not_do():
     with pytest.raises(TypeError):
         PTrainer(model, device="cpu", mesh=object())
     from scenario_wise_rec_tpu_torch.parallel import make_mesh
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        PTrainer(model, device="cpu", mesh=make_mesh(1, 1), sparse_embedding_updates=True,
-                 sparse_update_impl="sorted", fused_inference="auto")
+    meshed = PTrainer(model, device="cpu", mesh=make_mesh(1, 1), sparse_embedding_updates=True,
+                      sparse_update_impl="sorted", fused_inference="auto")
+    assert meshed._fused_inference is ("MMOE" in FUSED_INFERENCE_WINS)  # A15.3: it runs
 
 
 def test_default_device_is_the_card_and_raises_without_one():

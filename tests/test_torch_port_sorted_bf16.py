@@ -47,6 +47,14 @@ from test_torch_port_train import (  # noqa: E402
     B, D, DOMAINS, KW, LOSS_RTOL, STEP_ATOL, STEP_RTOL, _atol, _np, _port_step)
 
 SHARE = 1e-3  # at most 0.1 % of the elements may differ, each by one ulp
+# An element whose gradient is a sum that cancels to a small remainder
+# carries each side's f32 rounding of that sum as a large relative error,
+# which the bf16 rounding of its moments can show as several ulp (JAX's XLA
+# on some CPUs; the port's value within one ulp of the float64 step's there).
+# Such elements are excused where the port's value is within one ulp of the
+# float64 step's (``_assert_held``), counted and printed, as the dense-Adam
+# gates' order rule (C3): at most 0.01 % of the elements.
+F64_SHARE = 1e-4
 BF16 = dict(sparse_embedding_updates=True, sparse_update_impl="sorted", sorted_dtype="bf16")
 # The trainers' vocab per feature: a store of 24,000 elements, so that 0.1 %
 # is a count (24) that one step's rounding flips stay below; one flip in
@@ -79,7 +87,22 @@ def _held(got, want, what, share=SHARE):
     return bool(ulps.max() <= 1) and n <= share * total, n
 
 
-def _assert_held(got, want, what):
+def _assert_held(got, want, what, ref64=None):
+    """``_held``; with ``ref64`` (the same step in float64, rounded once to
+    bf16) the counted float64 rule: an element more than one ulp from
+    JAX's is excused where the port's value is within one ulp of ``ref64``
+    (JAX's f32 sums rounded off, the port's not), at most F64_SHARE of the
+    elements, counted and printed."""
+    if ref64 is not None:
+        far = _ulps(got, want) > 1
+        right = _ulps(got, ref64) <= 1
+        excused = far & right
+        n, total = int(excused.sum()), excused.numel()
+        print(f"{what}: {n} of {total} elements excused by the float64 rule "
+              f"({100 * n / total:.4f} %, at most {100 * F64_SHARE:g} %)")
+        assert n <= F64_SHARE * total, f"{what}: {n} elements excused"
+        got, want = got.clone(), _bits(want).view(torch.bfloat16)
+        got[excused] = want[excused] = 0
     ok, n = _held(got, want, what)
     assert ok, f"{what}: {n} elements differ, or one by more than one ulp"
 
@@ -263,14 +286,15 @@ def _jax_step(jt, batch):
     return float(loss)
 
 
-def _assert_same_state(jt, pt):
-    """The bf16 store under the one-ulp rule; every other parameter and BN
-    running stat, and the torch.optim moments, as the f32 sorted trainer's
-    test (test_torch_port_train.py)."""
+def _assert_same_state(jt, pt, ref64=None):
+    """The bf16 store under the one-ulp rule (with ``ref64``, the store's
+    float64 step from :func:`_f64_store`, and the float64 rule); every other
+    parameter and BN running stat, and the torch.optim moments, as the f32
+    sorted trainer's test (test_torch_port_train.py)."""
     st = pt.emb_opt_state
     assert st["step"] == int(jt.opt_state["emb"]["step"])
     for name, want in _jax_store(jt, pt).items():
-        _assert_held(st[name], want, f"store {name}")
+        _assert_held(st[name], want, f"store {name}", None if ref64 is None else ref64[name])
     want = jax_state_dict(_np(jt._params_for_eval()), _np(jt.state))
     for k, v in pt.model.state_dict().items():
         if k != "embedding.packed":
@@ -383,11 +407,39 @@ def _frozen_batch(seed, b=B):
     return x, r.integers(0, 2, b).astype(np.float32), np.ones(b, np.float32)
 
 
+def _f64_store(pt, batch):
+    """The bf16 store after ``pt``'s next step on ``batch``, computed in
+    float64 from the store's current values (the forward and backward of a
+    float64 copy of the model, the duplicate sums, torch-Adam with weight
+    decay on every row, the frozen span kept with zero moments), each value
+    rounded once to bf16."""
+    from scenario_wise_rec_tpu_torch.train.loss import bce_loss
+
+    st, p = pt.emb_opt_state, pt._opt_params
+    model = copy.deepcopy(pt.model).double()
+    x, y, w = pt._device_batch(*batch)
+    x = {k: v.double() if v.is_floating_point() else v for k, v in x.items()}
+    ids = model.embedding.touched_ids(x)
+    table, mu, nu = (st[k].double() for k in ("table", "mu", "nu"))
+    rows = table[ids].clone().requires_grad_()
+    bce_loss(model.apply(x, train=True, w=w.double(), generator=copy.deepcopy(pt.generator),
+                         rows=rows), y.double(), w.double()).backward()
+    g = torch.zeros_like(table).index_add_(0, ids, rows.grad) + p["weight_decay"] * table
+    t, b1, b2, eps = st["step"] + 1, 0.9, 0.999, 1e-8
+    mu, nu = b1 * mu + (1 - b1) * g, b2 * nu + (1 - b2) * g * g
+    table = table - p["lr"] * (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t)) + eps)
+    out = {"table": table, "mu": mu, "nu": nu}
+    for off, n in pt.model.embedding.frozen_spans:
+        out["table"][off:off + n] = st["table"][off:off + n].double()
+        out["mu"][off:off + n] = out["nu"][off:off + n] = 0.0
+    return {k: v.to(torch.bfloat16) for k, v in out.items()}
+
+
 def test_frozen_table_keeps_its_rows_and_moments():
     """Three steps beside the JAX trainer (its state handed over before
     each): the frozen span of the bf16 store keeps its rows bit for bit
     (W_FROZEN rounded to bf16) and zero moments; the trainable rows move as
-    JAX's do."""
+    JAX's do, under the one-ulp rule and the counted float64 rule."""
     jt, pt = _pair(frozen=True)
     st = pt.emb_opt_state
     assert pt.model.embedding.frozen_spans == ((0, 20),)
@@ -395,9 +447,10 @@ def test_frozen_table_keeps_its_rows_and_moments():
     for step in range(3):
         _carry(jt, pt)
         batch = _frozen_batch(80 + step)
+        ref64 = _f64_store(pt, batch)
         lj, lp = _jax_step(jt, batch), _port_step(pt, batch)
         np.testing.assert_allclose(lp, lj, rtol=LOSS_RTOL * (1 + 10 * step))
-        _assert_same_state(jt, pt)
+        _assert_same_state(jt, pt, ref64)
     frozen = torch.as_tensor(W_FROZEN).to(torch.bfloat16)
     assert torch.equal(_bits(st["table"][:20]), _bits(frozen))
     assert not st["mu"][:20].float().any() and not st["nu"][:20].float().any()

@@ -387,9 +387,9 @@ def test_fit_trains_evaluates_and_saves(tmp_path):
 
 
 def test_trainer_rejects_what_the_port_does_not_run():
-    """A mesh that is not a ``parallel.Mesh`` raises ``TypeError``; an
-    unported step under a real mesh and more than one GPU raise with their
-    ROADMAP item; ``fused_inference="auto"`` (A10, ported) resolves to a
+    """A mesh that is not a ``parallel.Mesh`` raises ``TypeError``; more
+    than one GPU raises with its ROADMAP item (fused eval under a mesh runs
+    since A15.3); ``fused_inference="auto"`` (A10, ported) resolves to a
     bool; the JAX dials the port has no use for raise."""
     from scenario_wise_rec_tpu_torch.ops.kernels import fused_inference_auto
     from scenario_wise_rec_tpu_torch.parallel import make_mesh
@@ -398,10 +398,11 @@ def test_trainer_rejects_what_the_port_does_not_run():
     model = pt.model
     with pytest.raises(TypeError, match="Mesh"):
         PTrainer(model, device="cpu", mesh=object())
-    for kw, item in ((dict(mesh=make_mesh(1, 1), fused_inference=True), "A15.3"),
-                     (dict(gpus=[0, 1]), "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            PTrainer(model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A15"):
+        PTrainer(model, device="cpu", gpus=[0, 1])
+    # fused eval runs on a mesh since A15.3
+    assert PTrainer(model, device="cpu", mesh=make_mesh(1, 1),
+                    fused_inference=True)._fused_inference
     auto = PTrainer(model, device="cpu", fused_inference="auto")
     assert auto._fused_inference is fused_inference_auto(model)
     for kw in (dict(sorted_kernel=False), dict(sorted_chunk_ids=100),
