@@ -279,8 +279,8 @@ Phases; each asserts, and any failure exits non-zero:
    dispatch's first row of Adam numbers, which must fail; each update
    kernel's warm-up launches, its capture and the replays, checked against
    its runs in a profile (every profile here has margins at both ends,
-   ``settled_profile``; one that lost records by its own bookkeeping and
-   disagrees is taken again, ``profile_records``); (b) no gate: resident (and for the f32 store
+   ``profiling.trace``; one that lost records by its own bookkeeping and
+   disagrees is taken again, ``profiling.profile_records``); (b) no gate: resident (and for the f32 store
    host) examples/s in turns eager, graphed, graphed, eager, host µs a
    step, syncs and busy share, capture seconds and the graph's pool; with
    rows 13's and 14's Step 0 by value and from device memory (measured in
@@ -318,7 +318,12 @@ Phases; each asserts, and any failure exits non-zero:
    ``evaluate_multi_domain_loss`` over 3 batches, the last of 123 rows)
    against op-by-op mesh eval: within the serving gate, AUC within 1e-4,
    every rank's metrics the same, the model's kernel launched once a batch
-   a rank and nothing else (``mesh_eval_gates``).
+   a rank and nothing else (``mesh_eval_gates``). Last, on (2, 2), each
+   rank's time in its collectives apart from its step (``mesh_collectives``:
+   a sorted epoch of 4 steps profiled on the host, each step timed with a
+   sync; the collectives' ``profiling.annotate`` ranges of
+   ``parallel/mesh.py`` and the profiler's own ``c10d`` records), no gate:
+   gloo ranks on one card, which say nothing of NVLink.
 6. ``[6] cli``: the command line as users start it, ``run.main(["ali_ccp",
    "--model_name", "mmoe", ...])`` (what ``python -m
    scenario_wise_rec_tpu_torch.run`` runs) in this process at the
@@ -335,6 +340,21 @@ Phases; each asserts, and any failure exits non-zero:
    committed JAX-written checkpoint fixture (``tests/data/``) met within
    TOL on the card (``phase_cli``). It prints the run's and the epoch's
    seconds and the epoch's examples/s by the host clock beside the card.
+7. ``[7] profiling`` (``phase_profiling``, the port's
+   ``train/profiling.py``): MMOE sorted at ``scan_steps=64``, with the f32
+   and the bf16 store, over a resident epoch of 2^18 + 123 rows at Ali-CCP
+   width: 3 eager steps profiled (each kernel's scope from the op tree:
+   forward, backward, the dense Adam), then the graphed epoch that captures
+   (the update kernel's warm-up launches, capture and replays from its
+   counters), an epoch timed by ``StepTimer`` (synced in its block) beside
+   the host clock to the epoch's return, and an epoch under
+   ``profiling.trace`` split by ``profiling.attribute`` into groups a step,
+   the groups within 1 % of the profile's busy time by ``key_averages``,
+   the busy share and the records lost; the f32 trace written and loaded
+   as JSON, its size printed. Then ``auc_score_device`` and
+   ``log_loss_device`` over the epoch's rows scored on the card (all rows
+   and each domain), timed by ``profiling.device_and_host``, beside the
+   host metrics' time and within 1e-4 / 1e-5 of them.
 5. ``[5] done in ... s`` with each phase's wall seconds (each phase also
    prints its own on a line when it ends), the card line, one
    ``{"kernels": [...]}`` line with all sixteen kernels and the sorted
@@ -373,6 +393,12 @@ from functools import partial
 
 import numpy as np
 import torch
+
+from scenario_wise_rec_tpu_torch.train.profiling import (PAD, StepTimer, attribute,
+                                                         device_and_host, device_events,
+                                                         device_ms, group_of, profile_records,
+                                                         record_scopes, timed_records, trace,
+                                                         trace_files)
 
 # Published peaks (dense, no sparsity) by card: f32 outside the tensor cores
 # and memory bandwidth, from NVIDIA's data sheets, at full power.
@@ -643,110 +669,13 @@ def time_ms(fn, reps=5, inner=20, warmup=3):
     return statistics.median(runs)
 
 
-def device_and_host(fn, inner=50, reps=5, warmup=3):
-    """``(device ms, host µs)`` per call of ``fn``, the host's issue cost
-    kept out of the first. ``torch.cuda._sleep`` holds the stream before the
-    start event long enough that the host has queued all ``inner`` calls
-    before the card reaches them, so the events bracket device work only;
-    the host's ``perf_counter`` over the same calls (the queue never drains
-    while it runs) gives the issue cost. A run in which the card caught up
-    with the host is repeated with a longer sleep; a ``fn`` that waits for
-    the card itself (a sync inside) can never be held so, and gives
-    ``(None, host µs)``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(inner):
-        fn()
-    torch.cuda.synchronize()
-    # ~2 GHz: 4x the whole run's wall time, host and device together
-    cycles = max(1_000_000, int(4 * (time.perf_counter() - t0) * 2e9))
-    dev, host, misses = [], [], 0
-    while misses < 3:
-        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s.record()
-        tq = time.perf_counter()
-        torch.cuda._sleep(cycles)
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(inner):
-            fn()
-        t1 = time.perf_counter()
-        b.record()
-        b.synchronize()
-        if (t1 - tq) * 1e3 >= s.elapsed_time(a):  # the card reached the calls first
-            cycles, misses = 2 * cycles, misses + 1
-            continue
-        dev.append(a.elapsed_time(b) / inner)
-        host.append((t1 - t0) * 1e6 / inner)
-        if len(dev) == reps:
-            return statistics.median(dev), statistics.median(host)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(inner):
-        fn()
-    return None, (time.perf_counter() - t0) * 1e6 / inner
-
-
-def device_ms(event):
-    """A profiler event's own device time, ms."""
-    return getattr(event, "self_device_time_total",
-                   getattr(event, "self_cuda_time_total", 0)) / 1e3
-
-
-def device_events(averages):
-    """The device-side events (kernels, copies, memsets) of a profile's
-    ``key_averages()``: an op's row, and a user annotation's such as
-    ``Optimizer.step``, repeats the time of the kernels inside it; the
-    pad of :func:`settled_profile` is left out."""
-    from torch.autograd import DeviceType
-
-    return [e for e in averages if e.device_type != DeviceType.CPU and device_ms(e) > 0
-            and not getattr(e, "is_user_annotation", False) and PAD_KERNEL not in e.key]
-
-
-PAD = "chip_smoke: profile pad"  # settled_profile's closing range
-PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel, the pad's
-
-
-@contextlib.contextmanager
-def settled_profile():
-    """torch.profiler over the host and the card, with margins at both
-    ends: a few launches and a sync in the profiler's warm-up step, whose
-    records are dropped, before the recorded step opens; and after the
-    caller's work, inside the recorded step, a range ``PAD`` of 16
-    ``torch.cuda._sleep`` kernels (500,000 cycles each), a sync and a 5 ms pause,
-    which every device count here leaves out (``device_events``,
-    ``profile_records``; the host rows of ``profile_device`` still hold its
-    16 launches and its sync). Without margins a profile on the H100 missed
-    the records of its first few launches, more of them the more profiles
-    the process had taken, and now and then those of its last work (the
-    last graph launch's last kernels and the launches after it)."""
-    from torch.profiler import ProfilerActivity, profile, record_function, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        x = torch.zeros(1024, device="cuda")
-        for _ in range(16):
-            x.add_(1)
-        torch.cuda.synchronize()
-        prof.step()
-        yield prof
-        with record_function(PAD):
-            for _ in range(16):
-                torch.cuda._sleep(500_000)
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-
-
 def profiled_launches(fn, calls=10):
     """``(launches, device ms)`` per call of ``fn`` under torch.profiler:
     every kernel and memset or copy on the card, and their summed device
     time (the card's busy time, gaps excluded); and the names seen."""
     fn()
     torch.cuda.synchronize()
-    with settled_profile() as prof:
+    with trace() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -3627,6 +3556,54 @@ def mesh_resident(seed, mesh):
     return out
 
 
+MESH_PROFILED_STEPS = 4
+COLLECTIVES = ("mesh.all_reduce_", "mesh.all_gather_rows", "mesh.broadcast_")
+
+
+def mesh_collectives(seed, mesh):
+    """This rank's time in its collectives apart from its step: MMOE's
+    sorted f32 steps at Ali-CCP width on ``mesh``, an epoch of
+    MESH_PROFILED_STEPS steps of BATCH after a like epoch unprofiled, under
+    ``profiling.trace`` on the host only (no device tracing in four
+    processes on one card), each step timed by ``StepTimer`` with a sync in
+    its block. The collectives' ranges of ``parallel/mesh.py`` hold each
+    call whole (the exchange and its wait); the profiler's own ``c10d::``
+    op records hold the call without its wait. No gate."""
+    from scenario_wise_rec_tpu_torch.data import BatchIterable, ColumnarDataset
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+
+    x, y = synthetic_eval_set(seed + 7, MESH_PROFILED_STEPS * BATCH)
+    t = CTRTrainer(build_ali_model(seed + 1), sparse_embedding_updates=True,
+                   sparse_update_impl="sorted", seed=seed, mesh=mesh)
+    timer, step = StepTimer(BATCH), t._train_step
+
+    def timed(*a, **kw):
+        with timer:
+            loss = step(*a, **kw)
+            torch.cuda.synchronize()
+        return loss
+
+    t._train_step = timed
+    loader = BatchIterable(ColumnarDataset(x, y), BATCH, shuffle=True, seed=seed)
+    t.train_one_epoch(loader, log_interval=10**9)
+    t.barrier()
+    timer.times.clear()
+    with trace(cuda=False) as prof:
+        t0 = time.perf_counter()
+        t.train_one_epoch(loader, log_interval=10**9)
+        t.barrier()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    raw = prof.profiler.kineto_results.events()
+    steps = len(timer.times)
+    per_step = lambda events: {"ms": sum(e.duration_ns() for e in events) / 1e6 / steps,
+                               "calls": len(events) / steps}
+    ranges = {name: per_step([e for e in raw if e.name() == name]) for name in COLLECTIVES}
+    c10d = per_step([e for e in raw if e.name().startswith("c10d::")])
+    return {"steps": steps, "step": timer.summary(), "epoch_wall_ms": wall_ms,
+            "ranges": ranges, "in_collectives_ms": sum(r["ms"] for r in ranges.values()),
+            "c10d": c10d}
+
+
 def mesh_rank_main(args):
     """One rank of ``[4] training mmoe mesh``: join the gloo group, run
     :func:`mesh_fit` on the mesh (and, with more than one data rank, its
@@ -3660,6 +3637,8 @@ def mesh_rank_main(args):
                                                   name=job.split()[1], perturb=True)}
         res["eval"] = {name: mesh_eval(args.seed, mesh, name) for name in MESH_EVAL}
     res["resident"] = mesh_resident(args.seed, mesh)
+    if n > 1:
+        res["collectives"] = mesh_collectives(args.seed, mesh)
     with open(os.path.join(args.mesh_dir, f"rank{args.mesh_rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -3916,6 +3895,16 @@ def phase_train_mesh(seed, card):
         f"{[round(m['max_memory_mb'], 1) for m in res]}; fit + evaluation s by rank "
         f"{[round(m['seconds'], 2) for m in res]} (one process {one['seconds']:.2f}); the ranks' "
         f"processes {ranks_s:.1f} s with start-up, the (1, 2) mesh's {ranks12_s:.1f} s")
+    for r, m in enumerate(res):
+        c = m["collectives"]
+        log(f"  mesh (2, 2) rank {r}, gloo on one card (says nothing of NCCL or NVLink): "
+            f"{c['steps']} sorted steps, {c['step']['mean_step_ms']:.2f} ms a step "
+            f"(StepTimer, synced), {c['in_collectives_ms']:.2f} ms of it in the collectives ("
+            + ", ".join(f"{k.split('.')[1]} {v['ms']:.2f} ms x {v['calls']:g}"
+                        for k, v in c["ranges"].items())
+            + f" a step; their ranges, the exchange and its wait); the profiler's c10d op "
+            f"records {c['c10d']['ms']:.2f} ms x {c['c10d']['calls']:g} a step (the calls "
+            f"without their wait) ({card})")
     check(not failed, "; ".join(failed))
     return {"modes": modes, "eval": evals, "resident": resident,
             "launches": sum(m["counts"]["sorted_dense_adam_apply_sharded"] for m in res),
@@ -4779,45 +4768,6 @@ def kernel_runs(kernels):
 PROFILE_ATTEMPTS = 3  # profiles of one epoch, at most, where the profiler loses records
 
 
-def profile_records(prof):
-    """The raw device records of a profile, the ``cudaGraphLaunch`` calls'
-    record counts, and what the profile lost by its own bookkeeping: every
-    replay of the one captured step runs the same nodes and every kernel
-    launch one kernel, so a graph launch with fewer device records than the
-    most any launch had, a kernel launch with none, or a device record whose
-    launching call is missing, is a record the profiler dropped (no capture
-    may run under the profile: a launch inside one has no record; our
-    counters do not come into this test). The pad of
-    :func:`settled_profile`, its kernels and the calls in its range, is
-    left out. Returns ``(device records, graph launches' record counts, losses)``,
-    ``losses`` an empty string for a whole profile."""
-    from torch.autograd import DeviceType
-
-    raw = prof.profiler.kineto_results.events()
-    pads = [(e.start_ns(), e.end_ns()) for e in raw if e.name() == PAD]
-    dev = [e for e in raw if e.device_type() != DeviceType.CPU and not e.is_user_annotation()
-           and PAD_KERNEL not in e.name()]
-    host = [e for e in raw if e.device_type() == DeviceType.CPU and e.correlation_id()
-            and not any(a <= e.start_ns() <= b for a, b in pads)]
-    per_call = {}
-    for e in dev:
-        per_call[e.correlation_id()] = per_call.get(e.correlation_id(), 0) + 1
-    calls = {e.correlation_id() for e in host}
-    graph = [per_call.get(e.correlation_id(), 0) for e in host if e.name() == "cudaGraphLaunch"]
-    launches = [per_call.get(e.correlation_id(), 0)
-                for e in sorted(host, key=lambda e: e.start_ns())
-                if re.match(r"cu(da)?LaunchKernel|cudaGraphLaunch", e.name())]
-    short = sum(max(graph) - n for n in graph) if graph else 0
-    bare = [i for i, n in enumerate(launches) if n == 0]  # places in launch order
-    orphans = sum(1 for e in dev if e.correlation_id() not in calls)
-    losses = [f"{short} records short in graph launches (counts {sorted(set(graph))})"] * bool(
-        short) + [f"{len(bare)} launches without a record, at " + (
-            f"{bare}" if len(bare) <= 8 else f"{bare[:4]}...{bare[-4:]}")
-        + f" of {len(launches)}"] * bool(bare) + [
-        f"{orphans} device records without their launching call"] * bool(orphans)
-    return dev, graph, "; ".join(losses)
-
-
 def phase_train_graphed(seed, card, step0):
     """MMOE's training path at ``scan_steps=64`` (CUDA graphs) at Ali-CCP
     width, for the sorted update with each store (f32, bf16) and for the
@@ -4936,7 +4886,7 @@ def phase_train_graphed(seed, card, step0):
             for attempt in range(1, PROFILE_ATTEMPTS + 1):
                 runs0, replays0, captures0 = kernel_runs(kernels), t.graph_replays, t.graph_captures
                 torch.cuda.synchronize()
-                with settled_profile() as pr:
+                with trace() as pr:
                     t0 = time.perf_counter()
                     t.train_one_epoch(loader, log_interval=10**9)
                     t.barrier()
@@ -5801,7 +5751,7 @@ def profile_device(fn, what):
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
-    with settled_profile() as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5981,6 +5931,196 @@ def phase_cli(seed, card):
     return out
 
 
+# [7] profiling: the graphed step of these graphed_cases attributed by group
+PROFILED_CASES = ("float32", "bf16")
+EAGER_PROFILED_STEPS = 3
+ATTRIBUTION_TOL = 0.01  # the groups' sum against key_averages' busy time, relative
+TOP_KERNELS = 12
+
+
+def top_kernels(prof, scopes, steps):
+    """The TOP_KERNELS record names of ``prof`` with the most device time:
+    ``(name, group of profiling.attribute, ms a step, records)``."""
+    by = {}
+    for r in timed_records(prof)[0]:
+        g = group_of(r, scopes=scopes)
+        ms, n = by.get((r.name, g), (0.0, 0))
+        by[(r.name, g)] = (ms + r.ns / 1e6 / steps, n + 1)
+    return sorted(((k[0], k[1], ms, n) for k, (ms, n) in by.items()), key=lambda t: -t[2])[
+        :TOP_KERNELS]
+
+
+def attributed_line(att):
+    """The groups of ``profiling.attribute`` as ms a step, largest first."""
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(att["ms_per_step"].items(),
+                                                      key=lambda kv: -kv[1]))
+
+
+def phase_profiling(seed, card):
+    """MMOE sorted at ``scan_steps=64`` with each store of PROFILED_CASES
+    over a resident epoch of N_FINDINGS rows at Ali-CCP width, read through
+    ``train/profiling.py``: (a) EAGER_PROFILED_STEPS eager steps profiled,
+    split by group with each kernel's scope from the op tree, which names a
+    forward and a backward GEMM; (b) the graphed epoch that captures, the
+    update kernel's warm-up launches, capture and replays from its
+    counters; (c) two epochs timed by ``StepTimer`` (synced in its block)
+    beside the host clock to each epoch's return; (d) an epoch under
+    ``trace`` split by ``attribute`` (a replay's kernels take the eager
+    step's scopes by name), the groups within ATTRIBUTION_TOL of the busy
+    time that ``key_averages`` reads, a profile that lost records taken
+    again (at most PROFILE_ATTEMPTS); the f32 trace written, loaded as JSON
+    and its size printed; (e) ``auc_score_device`` and ``log_loss_device``
+    over the epoch's rows scored on the card, all rows and each domain,
+    timed by ``device_and_host``, beside the host metrics' time and within
+    1e-4 / 1e-5 of them."""
+    from scenario_wise_rec_tpu_torch.data import (BatchIterable, ColumnarDataset,
+                                                  DeviceResidentLoader)
+    from scenario_wise_rec_tpu_torch.train import CTRTrainer
+    from scenario_wise_rec_tpu_torch.train import trainer as ptrainer
+
+    fx, fy = synthetic_eval_set(seed + 4, N_FINDINGS)
+    big = ColumnarDataset(fx, fy)
+    n_steps = -(-N_FINDINGS // BATCH)
+    head = ({k: v[:BATCH] for k, v in fx.items()}, fy[:BATCH], np.ones(BATCH, np.float32))
+    out = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        for case in PROFILED_CASES:
+            kw, kernels, _, _ = graphed_cases()[case]
+            t = CTRTrainer(build_ali_model(seed + 1), scan_steps=GRAPH_STEPS, **kw, seed=seed)
+            check(t.graphed, f"{case}: the trainer is not graphed")
+            # (a) eager steps, before any capture: each kernel's scope
+            batch = t._device_batch(*head)
+            for _ in range(ptrainer.WARMUP_STEPS):
+                t._train_step(*batch)
+            torch.cuda.synchronize()
+            with trace() as pr:
+                for _ in range(EAGER_PROFILED_STEPS):
+                    t._train_step(*batch)
+                torch.cuda.synchronize()
+            scopes = record_scopes(pr)
+            eager = attribute(pr, EAGER_PROFILED_STEPS)
+            log(f"  (a) {case} eager step ({EAGER_PROFILED_STEPS} steps profiled), ms a step: "
+                f"{attributed_line(eager)}; busy {eager['busy_ms'] / EAGER_PROFILED_STEPS:.4f} "
+                f"ms a step, {100 * eager['busy_share']:.1f} % of the profile's span; records "
+                f"lost: {eager['lost'] or 'none'} ({card})")
+            # (b) the graphed epoch that captures
+            loader = DeviceResidentLoader(big, BATCH, seed=seed)
+            runs0, replays0 = kernel_runs(kernels), t.graph_replays
+            t.train_one_epoch(loader, log_interval=10**9)
+            t.barrier()
+            runs = {k: (a - runs0[k][0], c - runs0[k][1]) for k, (a, c) in kernel_runs(kernels).items()}
+            replays = t.graph_replays - replays0
+            per_step = {k: STEP_LAUNCHES[graph_mode(case)][k] for k in kernels}
+            check(t.graph_captures == 1 and all(
+                r == (ptrainer.WARMUP_STEPS * per_step[k], per_step[k]) for k, r in runs.items())
+                and ptrainer.WARMUP_STEPS + replays == n_steps,
+                f"{case}: (eager launches, captured) {runs}, {replays} replays for {n_steps} "
+                "steps")
+            log(f"  (b) {case}: the update's kernels (launches, captured) {runs} and {replays} "
+                f"replays in the epoch of {n_steps} steps that captured (wrappers' and "
+                "trainer's counters)")
+            # (c) StepTimer, synced in its block, beside the host clock
+            timer, host_s = StepTimer(N_FINDINGS), []
+            for _ in range(2):
+                with timer:
+                    t0 = time.perf_counter()
+                    t.train_one_epoch(loader, log_interval=10**9)
+                    host_s.append(time.perf_counter() - t0)
+                    t.barrier()
+            log(f"  (c) {case} graphed epochs: StepTimer {timer.summary()} (an epoch a block, "
+                f"synced): {timer.examples_per_s:,.0f} examples/s, "
+                f"{1e3 * timer.mean_step_s / n_steps:.3f} ms a step; the host clock to each "
+                f"epoch's return {[round(N_FINDINGS / h) for h in host_s]} examples/s ({card})")
+            # (d) the traced epoch
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                captures0, replays0, runs0 = t.graph_captures, t.graph_replays, kernel_runs(kernels)
+                torch.cuda.synchronize()
+                with trace(logdir if case == "float32" else None) as pr:
+                    t0 = time.perf_counter()
+                    t.train_one_epoch(loader, log_interval=10**9)
+                    t.barrier()
+                    wall = (time.perf_counter() - t0) * 1e3
+                check(t.graph_captures == captures0, f"{case}: a capture ran under the profiler")
+                att = attribute(pr, n_steps, scopes=scopes)
+                found = device_events(pr.key_averages())
+                if not att["lost"] or not found:
+                    break
+                log(f"  (d) {case} attempt {attempt}: the profile lost records ({att['lost']}); "
+                    "profiled again")
+            check(found, f"{case}: the profiler saw no device time")
+            replays = t.graph_replays - replays0
+            seen = {k: sum(1 for r in profile_records(pr)[0]
+                           if any(n in r.name() for n in kernels[k][3])) for k in kernels}
+            busy = sum(device_ms(e) for e in found)
+            summed = sum(att["ms_per_step"].values()) * n_steps
+            log(f"  (d) {case} graphed step, {n_steps} steps profiled, ms a step: "
+                f"{attributed_line(att)}; groups {summed / n_steps:.4f} ms a step against "
+                f"the busy time {busy / n_steps:.4f} (key_averages), {100 * att['busy_share']:.1f} "
+                f"% of the profile's span ({att['wall_ms']:.1f} ms; the host clock "
+                f"{wall:.1f} ms); update kernel runs seen {seen}, {replays} replays; records "
+                f"lost: {att['lost'] or 'none'} ({card})")
+            check(abs(summed - busy) <= ATTRIBUTION_TOL * busy,
+                  f"{case}: the groups sum to {summed:.3f} ms, the busy time is {busy:.3f} ms")
+            log(f"  (d) {case} graphed step, the {TOP_KERNELS} kernels with the most time, ms a "
+                "step [group]: " + "; ".join(f"{ms:.4f} x{n / n_steps:g} {name[:70]} [{group}]"
+                                             for name, group, ms, n in top_kernels(pr, scopes,
+                                                                                   n_steps)))
+            out[case] = {"eager": eager, "graphed": att, "step_timer": timer.summary(),
+                         "host_clock_examples_per_s": [N_FINDINGS / h for h in host_s],
+                         "busy_ms_key_averages": busy, "profile_attempts": attempt}
+            if case == "float32":
+                path = trace_files(logdir)[-1]
+                with open(path) as f:
+                    events = len(json.load(f)["traceEvents"])
+                out["trace"] = {"bytes": os.path.getsize(path), "events": events}
+                log(f"  (d) the f32 trace: {os.path.basename(path)}, "
+                    f"{os.path.getsize(path) / 1e6:.1f} MB, {events} events, loads as JSON")
+                out["metrics"] = device_metrics_cost(t, BatchIterable(big, BATCH), card)
+            del t, batch, loader
+            torch.cuda.empty_cache()
+    return out
+
+
+def device_metrics_cost(t, loader, card):
+    """(e) of :func:`phase_profiling`: the on-device AUC and logloss over
+    ``loader``'s rows scored by ``t`` on the card, all rows and each domain
+    (the work of ``evaluate_multi_domain_loss(..., on_device=True)``), timed
+    by ``device_and_host`` and held to the host metrics."""
+    from scenario_wise_rec_tpu_torch.train import (auc_score, auc_score_device,
+                                                   log_loss_device, log_loss_score)
+
+    y, p, d, w = t._predict_loader_device(loader)
+    keep = w > 0
+    masks = [keep] + [(d == dom) & keep for dom in range(DOMAINS)]
+    yh, ph, dh, kh = (v.cpu().numpy() for v in (y, p, d, keep))
+    subsets = [kh] + [(dh == dom) & kh for dom in range(DOMAINS)]
+    t0 = time.perf_counter()
+    host_auc = [auc_score(yh[m], ph[m]) for m in subsets]
+    t1 = time.perf_counter()
+    host_ll = [log_loss_score(yh[m], ph[m]) for m in subsets]
+    t2 = time.perf_counter()
+    dev_auc = [float(auc_score_device(y, p, m)) for m in masks]
+    dev_ll = [float(log_loss_device(y, p, m)) for m in masks]
+    auc_gap = max(abs(a - b) for a, b in zip(dev_auc, host_auc))
+    ll_gap = max(abs(a - b) for a, b in zip(dev_ll, host_ll))
+    costs = {"auc_all_rows": device_and_host(lambda: auc_score_device(y, p, keep), inner=10),
+             "logloss_all_rows": device_and_host(lambda: log_loss_device(y, p, keep), inner=20),
+             "auc_all_and_domains": device_and_host(
+                 lambda: [auc_score_device(y, p, m) for m in masks], inner=2),
+             "logloss_all_and_domains": device_and_host(
+                 lambda: [log_loss_device(y, p, m) for m in masks], inner=10)}
+    shown = lambda ms: "not measurable (the call syncs)" if ms is None else f"{ms:.4f} ms"
+    log(f"  (e) on-device metrics over {int(kh.sum())} rows scored on the card, {DOMAINS} domains: "
+        + "; ".join(f"{k} device {shown(ms)}, host {us:.1f} us" for k, (ms, us) in costs.items())
+        + f"; the host metrics (numpy) over the same rows: AUC all and domains "
+        f"{1e3 * (t1 - t0):.2f} ms, logloss {1e3 * (t2 - t1):.2f} ms; gaps to them auc "
+        f"{auc_gap:.3e} (gate 1e-4), logloss {ll_gap:.3e} (gate 1e-5) ({card})")
+    check(auc_gap <= 1e-4 and ll_gap <= 1e-5, "on-device and host metrics disagree")
+    return {k: {"device_ms": ms, "host_us": us} for k, (ms, us) in costs.items()} | {
+        "host_auc_ms": 1e3 * (t1 - t0), "host_logloss_ms": 1e3 * (t2 - t1),
+        "auc_gap": auc_gap, "logloss_gap": ll_gap, "rows": int(kh.sum())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6127,6 +6267,11 @@ def main(argv=None):
         "checkpoint fixture")
     with phase("[6] cli"):
         cli = phase_cli(args.seed, card)
+    log(f"[7] profiling: MMOE at scan_steps={GRAPH_STEPS} (CUDA graphs) at Ali-CCP width, "
+        "sorted with the f32 and the bf16 store, its graphed step split by group "
+        "(train/profiling.py); the on-device AUC and logloss; 467k ids per feature")
+    with phase("[7] profiling"):
+        phase_profiling(args.seed, card)
     sorted_adam["cli_path_runs"] = cli["sorted_runs"]
     infer["cli_path_launches"] = cli["launches"]["mmoe_fused_infer"]
     sorted_adam["graphed_path"] = graphed["float32"]

@@ -29,7 +29,10 @@ process per mesh position, joined by ``torch.distributed``:
   step does.
 
 The collectives here take a group that may be None (a group of one rank:
-nothing to exchange).
+nothing to exchange). Each exchange runs inside a named profiler range
+(``mesh.all_reduce_``, ``mesh.all_gather_rows``, ``mesh.broadcast_``), so a
+trace (``train/profiling.py``) shows a rank's time in its collectives; a
+range records on the host only.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 BACKENDS = ("nccl", "gloo")
 
@@ -124,7 +128,8 @@ def make_mesh(n_data: Optional[int] = None, n_embed: int = 1) -> Mesh:
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place."""
     if group is not None:
-        dist.all_reduce(t, group=group)
+        with record_function("mesh.all_reduce_"):
+            dist.all_reduce(t, group=group)
     return t
 
 
@@ -153,7 +158,8 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return t
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    with record_function("mesh.all_gather_rows"):
+        dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 
@@ -195,7 +201,8 @@ def same_on_every_rank(mesh: Mesh, value, what: str) -> None:
 def broadcast_(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """``t`` of global rank ``src``, in place on every rank of ``group``."""
     if group is not None:
-        dist.broadcast(t, src=src, group=group)
+        with record_function("mesh.broadcast_"):
+            dist.broadcast(t, src=src, group=group)
     return t
 
 

@@ -212,6 +212,21 @@ def unpadded_dropout(pad):
         pnn.dropout = kept
 
 
+def pad_steps(t, pad):
+    """With ``pad`` > 0, every train step of ``t`` takes its batch with
+    ``pad`` weight-0 copies of its first row appended."""
+    if not pad:
+        return
+    step = t._train_step
+
+    def padded(x, y, w, **kw):
+        more = lambda v: torch.cat([v, v[:1].expand(pad, *v.shape[1:])])
+        return step({k: more(v) for k, v in x.items()}, more(y),
+                    torch.cat([w, w.new_zeros(pad)]), **kw)
+
+    t._train_step = padded
+
+
 def run_fit(mesh, job):
     """``fit`` over a shuffled loader with a padded last batch, then the
     per-domain metrics; the loss lines it printed, its state and the path
@@ -223,15 +238,7 @@ def run_fit(mesh, job):
     t = trainer(port_model(job["seed"], job["dropout"]), mesh, _device(job),
                 scan_steps=job["scan_steps"], n_epoch=job["n_epoch"], model_path=job["dir"])
     pad = job.get("pad_rows", 0)
-    if pad:
-        step = t._train_step
-
-        def padded(x, y, w, **kw):
-            more = lambda v: torch.cat([v, v[:1].expand(pad, *v.shape[1:])])
-            return step({k: more(v) for k, v in x.items()}, more(y),
-                        torch.cat([w, w.new_zeros(pad)]), **kw)
-
-        t._train_step = padded
+    pad_steps(t, pad)
     from scenario_wise_rec_tpu_torch.ops.kernels import sorted_adam as sa
     before = (sa.sorted_dense_adam_apply.launches, sa.sorted_dense_adam_apply.launches_sharded)
     out = io.StringIO()
@@ -435,12 +442,15 @@ def run_mode_fit(mesh, job):
     job's, over a shuffled loader with a padded last batch, validation, a
     checkpoint into ``job["dir"]``; on the job's device), then the
     per-domain metrics: the loss lines, the state, the checkpoint's path,
-    the update's step count and launches."""
+    the update's step count and launches. ``job["pad_rows"]`` and
+    ``job["fault"]`` as in :func:`run_fit`."""
     t = mode_trainer(spec_model(job["spec"], job["seed"]), job["mode"], mesh, _device(job),
                      scan_steps=job.get("scan_steps", 2), n_epoch=2, model_path=job["dir"])
+    pad = job.get("pad_rows", 0)
+    pad_steps(t, pad)
     before = mode_launches()
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), planted(job.get("fault")), unpadded_dropout(pad):
         path = t.fit(loader(job["n"], job["seed"], True), loader(3 * B, job["seed"] + 1, False))
     metrics = t.evaluate_multi_domain_loss(t.model, loader(3 * B, job["seed"] + 2, False),
                                            DOMAINS)

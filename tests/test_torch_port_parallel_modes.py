@@ -85,6 +85,9 @@ def _jax_after_step(jt, spec, mode, b):
 # tail step: the global batch's last 8 rows, all of data rank 1's, weight 0
 STEP_BATCHES = [W.batch(50), W.batch(51, ragged=W.B // 2)]
 FIT = dict(kind="mode_fit", seed=11, n=7 * W.B + 5)
+# the (2, 2) fits that run again with the dense gradients left unsummed over
+# ``data`` (a planted fault the free-running fits' control rule must see)
+FAULT_FITS = ["plain-adasparse", "dense-mmoe"]
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +111,9 @@ def runs(tmp_path_factory):
         for shape, jobs in (("22", jobs22), ("12", jobs12)):
             jobs[f"fit {name}"] = dict(FIT, mode=mode, spec=fit_spec,
                                        dir=os.path.join(tmp, f"fit{shape}-{name}"))
+        if name in FAULT_FITS:
+            jobs22[f"fit fault {name}"] = dict(jobs22[f"fit {name}"], fault="unsummed_grads",
+                                               dir=os.path.join(tmp, f"fault22-{name}"))
         # a single-device JAX trainer's checkpoint after one step
         jt1, spec1 = _jax_trainer(mode, model, seed=9)
         x, y, w = (jax.tree_util.tree_map(jnp.asarray, a) for a in W.batch(40))
@@ -132,6 +138,11 @@ def runs(tmp_path_factory):
             one[f"steps {name}"] = W.run_mode_steps(None, jobs22[f"steps {name}"])
             one[f"fit {name}"] = W.run_mode_fit(None, dict(jobs22[f"fit {name}"],
                                                            dir=os.path.join(tmp, f"fit1-{name}")))
+            # the control of the free-running (2, 2) fit: one process, each
+            # batch padded by MESH_PAD weight-0 rows
+            one[f"control {name}"] = W.run_mode_fit(None, dict(
+                jobs22[f"fit {name}"], dir=os.path.join(tmp, f"control-{name}"),
+                pad_rows=P.MESH_PAD))
     return SimpleNamespace(res22=res22, res12=res12, one=one, jax=jax_ref, jobs22=jobs22,
                            tmp=tmp)
 
@@ -298,8 +309,10 @@ def test_adasparse_steps_under_the_one_state_gate(runs):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_mesh_fit_matches_one_process(runs, case):
     """``fit`` on the (1, 2) mesh equals one process bit for bit (losses,
-    metrics, state); on the (2, 2) mesh within the training gate, every
-    rank's metrics alike. The MMOE fits hold a frozen table straddling the
+    metrics, state); on the (2, 2) mesh the state within the training gate,
+    the loss lines and metrics within the control rule of
+    ``test_torch_port_parallel.py`` (``_free_run_gaps`` against the padded
+    one-process control), every rank's metrics alike. The MMOE fits hold a frozen table straddling the
     second shard's first row: its rows keep their pretrained values and,
     in the plain step, zero moments."""
     mode, model = case
@@ -317,7 +330,9 @@ def test_mesh_fit_matches_one_process(runs, case):
         assert fit["metrics"] == runs.res22[0][f"fit {name}"]["metrics"]
         assert len(fit["log"]) == len(one["log"]) and fit["log"]
         for a, b in zip(fit["log"], one["log"]):
-            assert abs(float(a.split()[-1]) - float(b.split()[-1])) <= 2e-5, (a, b)
+            assert a.split("loss")[0] == b.split("loss")[0]
+        outside = P._free_run_gaps(fit, one, runs.one[f"control {name}"])
+        assert not outside, f"(2, 2) {name} rank {rank}: {outside}"
         P._assert_close_state(fit["state"], one["state"], 16, f"(2, 2) {name} rank {rank}")
     if model == "mmoe":
         v = W.V
@@ -330,6 +345,16 @@ def test_mesh_fit_matches_one_process(runs, case):
         # and the other tables moved
         assert not torch.equal(table[:v], W.spec_model(_spec("mmoe", frozen=True), 11)
                                .embedding.packed.detach()[:v])
+
+
+@pytest.mark.parametrize("name", FAULT_FITS)
+def test_planted_data_axis_fault_fails_the_mesh_fit_gate(runs, name):
+    """The (2, 2) fit with the dense gradients left unsummed over ``data``:
+    the control rule of ``test_mesh_fit_matches_one_process`` sees it on
+    every rank."""
+    one, control = runs.one[f"fit {name}"], runs.one[f"control {name}"]
+    for rank, res in enumerate(runs.res22):
+        assert P._free_run_gaps(res[f"fit fault {name}"], one, control), rank
 
 
 # -- (d) checkpoints ------------------------------------------------------------
